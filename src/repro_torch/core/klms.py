@@ -1,0 +1,81 @@
+"""RFF-KLMS — the paper's algorithm (§4): linear LMS on RFF-mapped data.
+
+Counterpart of ``repro/core/klms.py`` (init, step, run). The solution is a
+fixed-size ``theta in R^D``:
+
+    y_hat_n = theta . z(x_n),   e_n = y_n - y_hat_n,
+    theta  <- theta + mu e_n z(x_n).
+
+``jax.lax.scan`` becomes a Python loop over the stream; the bank tier
+(``core/bank.py``) runs many filters through the CUDA kernels.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.features.base import FeatureLike, feature_dtype, featurize
+
+__all__ = [
+    "LMSState",
+    "StepOut",
+    "rff_klms_init",
+    "lms_step",
+    "rff_klms_step",
+    "rff_klms_run",
+]
+
+
+class LMSState(NamedTuple):
+    theta: torch.Tensor  # (D,) fixed-size solution, or (B, D) for a bank
+    step: torch.Tensor  # () int32 iteration counter, or (B,)
+
+
+class StepOut(NamedTuple):
+    prediction: torch.Tensor  # y_hat_n
+    error: torch.Tensor  # prior error e_n (the learning-curve quantity)
+
+
+def rff_klms_init(num_features: int, dtype=torch.float32,
+                  device="cuda") -> LMSState:
+    """theta = 0 (paper: 'Set theta = 0')."""
+    dev = resolve_device(device)
+    return LMSState(
+        theta=torch.zeros(num_features, dtype=dtype, device=dev),
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def lms_step(theta, z, y, mu):
+    """One linear-LMS update in feature space."""
+    y_hat = theta @ z
+    err = y - y_hat
+    return theta + mu * err * z, StepOut(prediction=y_hat, error=err)
+
+
+def rff_klms_step(state: LMSState, sample, rff: FeatureLike, mu: float):
+    """Paper §4 steps 1-3 on one ``(x_n, y_n)`` pair."""
+    x, y = sample
+    theta, out = lms_step(state.theta, featurize(rff, x), y, mu)
+    return LMSState(theta=theta, step=state.step + 1), out
+
+
+def rff_klms_run(rff: FeatureLike, xs: torch.Tensor, ys: torch.Tensor,
+                 mu: float, state: Optional[LMSState] = None):
+    """Drive the filter over ``xs (n, d)``, ``ys (n,)``; returns the final
+    state and per-step ``StepOut`` tensors ``(n,)``."""
+    if state is None:
+        state = rff_klms_init(rff.num_features, feature_dtype(rff),
+                              device=xs.device)
+    preds, errs = [], []
+    for x, y in zip(xs, ys):
+        state, out = rff_klms_step(state, (x, y), rff, mu)
+        preds.append(out.prediction)
+        errs.append(out.error)
+    if not preds:
+        empty = ys.new_zeros((0,))
+        return state, StepOut(prediction=empty, error=empty)
+    return state, StepOut(prediction=torch.stack(preds),
+                          error=torch.stack(errs))

@@ -1,0 +1,3 @@
+"""Kernels of the port: plain PyTorch oracles (``ref``), the CUDA kernels'
+wrappers (``rff_klms_step``, ``rff_predict``, built by ``_build``) and the
+``mode=`` dispatch (``ops``)."""

@@ -1,0 +1,104 @@
+"""Time-axis chunking utilities, and the shared-memory sizing of the KLMS
+kernels.
+
+Counterpart of ``repro/kernels/chunking.py``: the pad / block / masked
+remainder bookkeeping of the chunked run-loops, in one place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "SMEM_BUDGET",
+    "KLMS_THREADS",
+    "num_chunks",
+    "time_blocks",
+    "valid_time_mask",
+    "unblock_time",
+    "klms_smem_bytes",
+    "klms_block_b",
+    "default_chunk_t",
+]
+
+# Shared memory one thread block may use on an H100 (227 KB of the SM's
+# 256 KB; NVIDIA's Hopper tuning guide). The KLMS kernels must fit their
+# resident tiles in it: unlike a TPU core's ~16 MiB of VMEM it cannot hold
+# the (d, D) W tile, which is streamed from L2 instead.
+SMEM_BUDGET = 232_448
+
+# Threads per block of csrc/klms_bank.cu (kThreads there).
+KLMS_THREADS = 256
+_WARPS = KLMS_THREADS // 32
+_BLOCK_BS = (8, 4, 2, 1)
+
+
+def klms_smem_bytes(block_b: int, dfeat: int, input_dim: int) -> int:
+    """Dynamic shared memory of one KLMS block (the layout in
+    csrc/klms_bank.cu): theta and z tiles ``(block_b, D)``, one ``(block_b,
+    d)`` x tile, the per-warp reduction slots and four per-tenant scalars
+    (y, mu, mask, prediction), all f32."""
+    floats = block_b * (2 * dfeat + input_dim + _WARPS + 4)
+    return 4 * floats
+
+
+def klms_block_b(dfeat: int, input_dim: int) -> int:
+    """Tenants per KLMS block: the largest of 8, 4, 2, 1 whose resident
+    tiles fit :data:`SMEM_BUDGET`, or 0 when even one tenant does not (D
+    above about 29k features at d = 128)."""
+    for bb in _BLOCK_BS:
+        if klms_smem_bytes(bb, dfeat, input_dim) <= SMEM_BUDGET:
+            return bb
+    return 0
+
+
+def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128) -> int:
+    """Default tick count T for one chunked launch.
+
+    The CUDA chunk kernel keeps theta and z for its ``block_b`` tenants in
+    shared memory for the whole launch and streams one ``(block_b, d)`` x
+    tile per tick through the same buffer, so T costs no shared memory:
+    when the resident tiles fit :data:`SMEM_BUDGET` the default is the cap
+    of 512 ticks that ``repro`` also clamps to. When they do not fit, the
+    kernel cannot run at all (its wrapper raises) and the floor of 8 is
+    returned for the plain path. ``bank`` is accepted for signature parity
+    with ``repro`` and does not change the answer: a block's tiles do not
+    grow with B.
+    """
+    del bank
+    return 512 if klms_block_b(dfeat, input_dim) else 8
+
+
+def num_chunks(n: int, chunk: int) -> int:
+    """ceil(n / chunk) — the loop length after chunking."""
+    return -(-n // chunk)
+
+
+def time_blocks(a: torch.Tensor, chunk: int, axis: int = 0) -> torch.Tensor:
+    """Zero-pad ``axis`` to a multiple of ``chunk`` and split it into a
+    leading axis: ``(..., n, ...) -> (nc, ..., chunk, ...)``."""
+    n = a.shape[axis]
+    nc = num_chunks(n, chunk)
+    pad = [0, 0] * a.ndim
+    # F.pad lists (left, right) pairs from the last axis backwards.
+    pad[2 * (a.ndim - 1 - axis) + 1] = nc * chunk - n
+    ap = F.pad(a, pad)
+    ap = ap.reshape(a.shape[:axis] + (nc, chunk) + a.shape[axis + 1:])
+    return torch.movedim(ap, axis, 0)
+
+
+def valid_time_mask(n: int, chunk: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """``(nc, chunk)`` gate: 1 for real ticks, 0 for the padded tail."""
+    nc = num_chunks(n, chunk)
+    m = torch.zeros(nc * chunk, dtype=dtype, device=device)
+    m[:n] = 1
+    return m.reshape(nc, chunk)
+
+
+def unblock_time(a: torch.Tensor, n: int, axis: int = 0) -> torch.Tensor:
+    """Inverse of :func:`time_blocks` on stacked outputs:
+    ``(nc, ..., chunk, ...) -> (..., n, ...)`` with the padding sliced off."""
+    a = torch.movedim(a, 0, axis)
+    a = a.reshape(a.shape[:axis] + (-1,) + a.shape[axis + 2:])
+    return a.narrow(axis, 0, n)

@@ -1,0 +1,113 @@
+"""Public KLMS-slice ops with the ``mode=`` dispatch of ``repro``'s ops.
+
+``mode``:
+
+* ``"auto"`` — the CUDA kernel for CUDA tensors, the plain PyTorch
+  version (``kernels/ref.py``) for CPU tensors;
+* ``"cuda"`` — force the kernel; a CPU tensor raises;
+* ``"ref"`` — force the plain version, on whatever device the tensors are.
+
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.chunking import (
+    default_chunk_t,
+    time_blocks,
+    unblock_time,
+)
+from repro_torch.kernels.rff_klms_step import (
+    rff_klms_bank_chunk_cuda,
+    rff_klms_bank_step_cuda,
+)
+from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
+
+__all__ = [
+    "MODES",
+    "use_kernel",
+    "rff_bank_predict",
+    "rff_klms_bank_step",
+    "rff_klms_bank_chunk",
+]
+
+MODES = ("auto", "cuda", "ref")
+
+
+def use_kernel(mode: str, lead: torch.Tensor) -> bool:
+    """Resolve ``mode`` for the op whose leading tensor is ``lead``."""
+    if mode == "auto":
+        return lead.device.type == "cuda"
+    if mode == "cuda":
+        return True
+    if mode == "ref":
+        return False
+    raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES}")
+
+
+def rff_bank_predict(theta, xq, w, b, s=None, *, mode: str = "auto",
+                     block_q: int = 64, precision=None):
+    """Fused predict-only read path: a ``(B, Q, d)`` query block per
+    tenant against read-only ``theta (B, D)`` -> ``(B, Q)``.
+    ``precision="bf16"`` follows the contract in ``kernels/ref.py``."""
+    precision = ref.canon_precision(precision)
+    if use_kernel(mode, theta):
+        return rff_bank_predict_cuda(
+            theta, xq, w, b, s, block_q=block_q, precision=precision
+        )
+    return ref.rff_bank_predict_ref(theta, xq, w, b, s, precision)
+
+
+def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto"):
+    """Fused featurize + predict + update KLMS tick for a bank of B
+    filters: theta (B, D), x (B, d), y (B,), mu scalar or (B,).
+    Returns (theta', predictions, prior errors)."""
+    if use_kernel(mode, theta):
+        return rff_klms_bank_step_cuda(theta, x, y, w, b, mu, s)
+    return ref.rff_klms_bank_step_ref(theta, x, y, w, b, mu, s)
+
+
+def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
+                        mode: str = "auto", chunk=None):
+    """T-chunked fused KLMS: advance B filters by T ticks.
+
+    theta (B, D), xs (B, T, d), ys (B, T), mu scalar or (B,), mask
+    optional (B, T) validity gate (1 = apply the update). ``chunk`` bounds
+    the ticks per launch: ``chunk=k`` runs ceil(T/k) launches with a
+    zero-masked final remainder; ``None`` takes
+    ``kernels.chunking.default_chunk_t``. Returns (theta', preds (B, T),
+    errs (B, T)).
+    """
+    bsz, tlen, d = xs.shape
+    kernel = use_kernel(mode, theta)
+
+    def launch(th, xc, yc, mc):
+        if kernel:
+            return rff_klms_bank_chunk_cuda(th, xc, yc, w, b, mu, mc, s)
+        return ref.rff_klms_bank_chunk_ref(th, xc, yc, w, b, mu, mc, s)
+
+    if chunk is None:
+        chunk = default_chunk_t(bsz, theta.shape[-1], d)
+    if tlen <= chunk:
+        return launch(theta, xs, ys, mask)
+    if mask is None:
+        mask = torch.ones_like(ys)
+    blocks = zip(
+        time_blocks(xs, chunk, axis=1),
+        time_blocks(ys, chunk, axis=1),
+        time_blocks(mask.to(theta.dtype), chunk, axis=1),
+    )
+    preds, errs = [], []
+    for xc, yc, mc in blocks:
+        theta, p, e = launch(
+            theta, xc.contiguous(), yc.contiguous(), mc.contiguous()
+        )
+        preds.append(p)
+        errs.append(e)
+    return (
+        theta,
+        unblock_time(torch.stack(preds), tlen, axis=1),
+        unblock_time(torch.stack(errs), tlen, axis=1),
+    )

@@ -1,0 +1,152 @@
+"""Plain PyTorch versions of the KLMS-slice kernels (the oracles).
+
+Counterparts of ``repro/kernels/ref.py``: deliberately naive, clarity over
+speed. The CPU tests hold these against ``repro``; on the card the CUDA
+kernels are held against these.
+
+Read-path precision contract (one definition, shared by the oracles and
+the CUDA kernels):
+
+* ``precision=None`` / ``"f32"``: the featurize GEMM runs in f32.
+* ``precision="bf16"``: the GEMM operands are rounded to bf16 and the
+  products accumulate in f32; bias, cos and scale run in f32 on the f32
+  accumulator; the feature block is then rounded to bf16. Every reduction
+  against theta accumulates in f32. State (theta) stays f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = [
+    "canon_precision",
+    "mc_scale",
+    "default_scale",
+    "mp_project",
+    "mp_trig",
+    "rff_features_ref",
+    "klms_tick_math",
+    "mu_column",
+    "rff_klms_bank_step_ref",
+    "rff_klms_bank_chunk_ref",
+    "rff_bank_predict_ref",
+]
+
+_BF16 = ("bf16", "bfloat16")
+_F32 = (None, "f32", "float32")
+
+
+def canon_precision(precision):
+    """Validate + canonicalize the knob: ``"bf16"`` or ``None`` (f32)."""
+    if precision in _BF16:
+        return "bf16"
+    if precision in _F32:
+        return None
+    raise ValueError(f"unknown precision {precision!r}; use None/'f32'/'bf16'")
+
+
+def mc_scale(num_features: int) -> float:
+    """The Monte-Carlo scale ``sqrt(2/D)`` as ``repro`` computes it: ``2/D``
+    rounded to f32, then the correctly rounded f32 square root.
+
+    For about 13% of D this is 1 ulp away from rounding the f64 root, so
+    the order matters. The root is taken in f64 and rounded once to f32
+    (exact for a square root): PyTorch's CPU ``sqrt`` on f32 is not
+    correctly rounded for some D (33, 132, 218, ...).
+    """
+    x = torch.tensor(2.0 / num_features, dtype=torch.float32).item()
+    return torch.tensor(math.sqrt(x), dtype=torch.float32).item()
+
+
+def default_scale(num_features: int, dtype=torch.float32, device=None):
+    """:func:`mc_scale` as a ``(D,)`` tensor."""
+    return torch.full((num_features,), mc_scale(num_features), dtype=dtype,
+                      device=device)
+
+
+def mp_project(x, w, precision=None):
+    """``x @ w`` under the precision contract (f32 accumulation).
+
+    bf16 operands are widened back to f32 before the product: a product of
+    two bf16 values is exact in f32, so this is "bf16 in, f32 accumulate".
+    """
+    if canon_precision(precision) == "bf16":
+        return x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    return x @ w
+
+
+def mp_trig(proj, b, s, precision=None):
+    """bias-add + cos + per-feature scale; bf16 storage when asked."""
+    z = s * torch.cos(proj + b)
+    if canon_precision(precision) == "bf16":
+        return z.to(torch.bfloat16)
+    return z
+
+
+def rff_features_ref(x, w, b, s=None, precision=None):
+    """``s * cos(x @ w + b)``; ``s=None`` is the Monte-Carlo ``sqrt(2/D)``."""
+    if s is None:
+        s = default_scale(w.shape[1], x.dtype, x.device)
+    else:
+        s = s.to(x.dtype)
+    return mp_trig(mp_project(x, w, precision), b, s, precision)
+
+
+def klms_tick_math(theta, z, y, mu_b, gate=None):
+    """ONE KLMS bank tick given the feature block ``z (B, D)``.
+
+    ``gate`` masks the state update (masked ticks still emit their prior
+    prediction and error). With gate == 1 the update multiplies by exactly
+    1.0, so a chunk equals T per-tick steps bit for bit.
+    """
+    pred = torch.sum(theta * z, dim=-1)
+    err = y - pred
+    upd = err if gate is None else gate * err
+    return theta + (mu_b * upd)[:, None] * z, pred, err
+
+
+def mu_column(mu, like, n):
+    """Step size ``mu`` (scalar or ``(B,)``) broadcast to ``(n,)`` in the
+    dtype and on the device of ``like``."""
+    return torch.as_tensor(mu, dtype=like.dtype, device=like.device).expand(n)
+
+
+def rff_klms_bank_step_ref(theta, x, y, w, b, mu, s=None):
+    """Two-pass KLMS step: theta (B, D), x (B, d), y (B,), mu scalar or
+    (B,). Materializes the feature block z."""
+    z = rff_features_ref(x, w, b, s)
+    return klms_tick_math(theta, z, y, mu_column(mu, theta, y.shape[0]))
+
+
+def rff_klms_bank_chunk_ref(theta, xs, ys, w, b, mu, mask=None, s=None):
+    """T masked KLMS ticks: theta (B, D), xs (B, T, d), ys (B, T), mask
+    (B, T) validity gate. Returns (theta', preds (B, T), errs (B, T))."""
+    bsz, tlen = ys.shape
+    if mask is None:
+        mask = torch.ones_like(ys)
+    mask = mask.to(theta.dtype)
+    mu_b = mu_column(mu, theta, bsz)
+    preds, errs = [], []
+    for t in range(tlen):
+        z = rff_features_ref(xs[:, t], w, b, s)
+        theta, pred, err = klms_tick_math(
+            theta, z, ys[:, t], mu_b, gate=mask[:, t]
+        )
+        preds.append(pred)
+        errs.append(err)
+    if not preds:
+        empty = ys.new_zeros((bsz, 0))
+        return theta, empty, empty
+    return theta, torch.stack(preds, 1), torch.stack(errs, 1)
+
+
+def rff_bank_predict_ref(theta, xq, w, b, s=None, precision=None):
+    """Read-only bank predict: theta (B, D), xq (B, Q, d) -> (B, Q).
+
+    One featurize GEMM plus one f32 reduction against each tenant's theta.
+    """
+    z = rff_features_ref(xq, w, b, s, precision)
+    pred = torch.sum(theta[:, None, :].float() * z.float(), dim=-1)
+    return pred.to(theta.dtype)
+

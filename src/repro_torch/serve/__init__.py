@@ -1,0 +1,14 @@
+"""Serving stack, KLMS tier: micro-batch queue, snapshot server and the
+``make_server`` facade."""
+from repro_torch.serve.api import (
+    LEARNER_FAMILIES,
+    Server,
+    make_chunk_step,
+    make_queue,
+    make_server,
+    make_tick,
+    run_stream,
+)
+from repro_torch.serve.metrics import MetricsRegistry
+from repro_torch.serve.queue import MicroBatchQueue
+from repro_torch.serve.snapshot import SnapshotServer, StateSnapshot

@@ -1,0 +1,301 @@
+"""Serving facade: ``make_server`` and its building blocks, KLMS tier.
+
+Counterpart of ``repro/serve/api.py`` for ``learner="klms"``: a
+:class:`Server` wraps the write path (micro-batch queue -> the CUDA chunk
+kernel), the read path (snapshot-decoupled fused predict) and a metrics
+registry. :func:`make_tick`, :func:`make_chunk_step`, :func:`make_queue`
+and :func:`run_stream` are the pieces it composes.
+
+Other learners, and the knobs of later slices, raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.bank import (
+    klms_bank_chunk_step,
+    klms_bank_init,
+    klms_bank_run,
+    klms_bank_step,
+)
+from repro_torch.features.base import FeatureLike, as_trig
+from repro_torch.serve.metrics import MetricsRegistry
+from repro_torch.serve.queue import MicroBatchQueue
+from repro_torch.serve.snapshot import SnapshotServer
+
+__all__ = [
+    "LEARNER_FAMILIES",
+    "Server",
+    "make_server",
+    "make_tick",
+    "make_chunk_step",
+    "make_queue",
+    "run_stream",
+]
+
+LEARNER_FAMILIES = ("klms", "nklms", "qklms", "krls", "ald")
+
+# Where each unported family lands (ROADMAP.md, "Open items").
+_UNPORTED_LEARNERS = {
+    "krls": "ROADMAP §1 items 3-5 and §2 kernels 4-5 (slice 2)",
+    "nklms": "ROADMAP §1 item 6",
+    "qklms": "ROADMAP §1 item 6",
+    "ald": "ROADMAP §1 item 6",
+}
+
+# Knobs of make_server that belong to later slices, with their items.
+_UNPORTED_KNOBS = {
+    "policy": "ROADMAP §1 item 5 (serve/policy.py)",
+    "auto_resize": "ROADMAP §1 item 5 (serve/policy.py)",
+    "log_capacity": "ROADMAP §1 item 8 (replay engine)",
+    "rebuild_mode": "ROADMAP §1 item 8 (replay engine)",
+    "trace": "ROADMAP §1 item 9 (obs/trace.py)",
+    "probe": "ROADMAP §1 item 9 (obs/probes.py)",
+    "recovery": "ROADMAP §1 item 9 (serve/recovery.py)",
+    "wal": "ROADMAP §1 item 9 (serve/recovery.py)",
+}
+
+# One defaults table for every family, as in repro; klms reads only mu.
+_HP_DEFAULTS = dict(
+    mu=0.5, eps=1e-6, lam=1e-4, beta=0.9995, sigma=1.0, quant_eps=0.1,
+    nu=5e-4, capacity=256,
+)
+
+
+def _check_learner(learner: str) -> None:
+    if learner not in LEARNER_FAMILIES:
+        raise ValueError(
+            f"unknown learner {learner!r}; pick from {LEARNER_FAMILIES}"
+        )
+    if learner in _UNPORTED_LEARNERS:
+        raise NotImplementedError(
+            f"learner {learner!r} is not ported to repro_torch yet: "
+            f"{_UNPORTED_LEARNERS[learner]}"
+        )
+
+
+def _resolve_hp(hp: dict) -> dict:
+    unknown = set(hp) - set(_HP_DEFAULTS)
+    if unknown:
+        raise TypeError(
+            f"unknown hyperparameters {sorted(unknown)}; "
+            f"known: {sorted(_HP_DEFAULTS)}"
+        )
+    return {**_HP_DEFAULTS, **hp}
+
+
+def make_tick(learner: str, feature_map: FeatureLike, *, mode: str = "auto",
+              **hp) -> Callable:
+    """Lockstep tick ``(state, xs (B, d), ys (B,)) -> (state, StepOut)``
+    through the fused step kernel."""
+    _check_learner(learner)
+    mu = _resolve_hp(hp)["mu"]
+    tf = as_trig(feature_map)
+
+    def tick(state, xs, ys):
+        return klms_bank_step(state, xs, ys, tf, mu, mode=mode)
+
+    return tick
+
+
+def make_chunk_step(learner: str, feature_map: FeatureLike, *,
+                    mode: str = "auto", **hp) -> Callable:
+    """Chunked step ``(state, xs (B, T, d), ys (B, T), mask (B, T)) ->
+    (state, StepOut)``: one chunk-kernel launch (the queue's step)."""
+    _check_learner(learner)
+    mu = _resolve_hp(hp)["mu"]
+    tf = as_trig(feature_map)
+
+    def step(state, xs, ys, mask):
+        return klms_bank_chunk_step(state, xs, ys, tf, mu, mask, mode=mode)
+
+    return step
+
+
+def run_stream(learner: str, feature_map: FeatureLike, xs, ys, *,
+               state=None, mode: str = "auto", chunk: Optional[int] = None,
+               **hp):
+    """Serve B lockstep tenant streams ``xs (B, n, d)``, ``ys (B, n)``;
+    ``chunk=T`` picks the chunk-kernel schedule."""
+    _check_learner(learner)
+    mu = _resolve_hp(hp)["mu"]
+    return klms_bank_run(feature_map, xs, ys, mu, state=state, mode=mode,
+                         chunk=chunk)
+
+
+def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
+               bank: int = 8, *, chunk: int = 16, mode: str = "auto",
+               adaptive: bool = False, state=None,
+               device="cuda", **hp) -> MicroBatchQueue:
+    """Ready-to-serve micro-batch queue: a fresh bank state on ``device``
+    plus the chunk step, coalescing ragged arrivals into masked
+    ``(B, T)`` launches."""
+    _check_learner(learner)
+    if feature_map is None:
+        raise ValueError(f"learner {learner!r} requires feature_map=")
+    tf = as_trig(feature_map).to(resolve_device(device))
+    if state is None:
+        state = klms_bank_init(tf, bank)
+    return MicroBatchQueue(
+        make_chunk_step(learner, tf, mode=mode, **hp), state,
+        tf.input_dim, chunk=chunk, adaptive=adaptive,
+    )
+
+
+class Server:
+    """One serving object per bank: write path, read path and metrics.
+
+    Built by :func:`make_server`. ``tenant`` arguments are bank-slot
+    indices in ``[0, slots)``. Metrics (``self.metrics``): counters
+    ``requests.write`` / ``requests.read``, gauge ``queue.backlog``,
+    histograms ``latency.write_us`` / ``latency.read_us`` (host clock).
+    """
+
+    def __init__(self, inner: SnapshotServer, *, learner: str,
+                 feature_map: FeatureLike, hp: dict,
+                 metrics: Optional[MetricsRegistry] = None,
+                 latency_clock: Callable[[], float] = time.perf_counter):
+        self._inner = inner
+        self.learner = learner
+        self.feature_map = feature_map
+        self._hp = hp
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._lat = latency_clock
+
+    @property
+    def queue(self) -> MicroBatchQueue:
+        return self._inner.queue
+
+    @property
+    def snapshot(self):
+        return self._inner.snapshot
+
+    @property
+    def staleness(self) -> int:
+        return self._inner.staleness
+
+    @property
+    def slots(self) -> int:
+        return self._inner.queue.num_tenants
+
+    @property
+    def snapshot_server(self) -> SnapshotServer:
+        return self._inner
+
+    def submit(self, tenant: int, x, y) -> None:
+        """Enqueue one observation for ``tenant`` (a watermark may flush)."""
+        t0 = self._lat()
+        self.metrics.counter("requests.write").inc()
+        self._inner.submit(tenant, x, y)
+        self.metrics.set_gauge(
+            "queue.backlog", float(sum(self._inner.queue.backlog()))
+        )
+        self.metrics.histogram("latency.write_us").observe(
+            (self._lat() - t0) * 1e6
+        )
+
+    def flush(self) -> dict:
+        return self._inner.flush()
+
+    def maybe_flush(self) -> dict:
+        return self._inner.maybe_flush()
+
+    def drain(self) -> dict:
+        return self._inner.drain()
+
+    def predict(self, tenant: int, xs) -> torch.Tensor:
+        """Serve queries for one tenant from the frozen read replica:
+        ``xs (d,)`` -> scalar, ``(Q, d)`` -> ``(Q,)``."""
+        t0 = self._lat()
+        self.metrics.counter("requests.read").inc()
+        pred = self._inner.predict(tenant, xs)
+        self.metrics.histogram("latency.read_us").observe(
+            (self._lat() - t0) * 1e6
+        )
+        return pred
+
+    def predict_block(self, xq) -> torch.Tensor:
+        """Serve a ``(B, Q, d)`` query block over the whole bank in one
+        launch from the frozen replica -> ``(B, Q)``."""
+        t0 = self._lat()
+        self.metrics.counter("requests.read").inc()
+        pred = self._inner.predict_block(xq)
+        self.metrics.histogram("latency.read_us").observe(
+            (self._lat() - t0) * 1e6
+        )
+        return pred
+
+    def evict(self, tenant: int) -> int:
+        raise NotImplementedError(
+            "evict is not ported yet: ROADMAP §1 item 8 (replay engine)"
+        )
+
+    def readmit(self, tenant: int) -> int:
+        raise NotImplementedError(
+            "readmit is not ported yet: ROADMAP §1 item 8 (replay engine)"
+        )
+
+
+def make_server(
+    learner: str = "klms",
+    *,
+    feature_map: FeatureLike = None,
+    bank: int = 8,
+    chunk: int = 16,
+    mode: str = "auto",
+    adaptive: bool = False,
+    precision: Optional[str] = None,
+    publish_every: int = 1,
+    age_watermark: Optional[float] = None,
+    size_watermark: Optional[int] = None,
+    clock: Callable[[], float] = time.monotonic,
+    metrics: Optional[MetricsRegistry] = None,
+    state=None,
+    device="cuda",
+    **kw,
+) -> Server:
+    """The serving facade for ``learner="klms"``.
+
+    Args:
+      feature_map: a trig feature map (moved to ``device``).
+      bank: number of bank slots B.
+      chunk / mode / adaptive: micro-batch queue knobs (serve/queue.py);
+        ``mode`` also drives the read path ("auto", "cuda" or "ref").
+      precision / publish_every / age_watermark / size_watermark / clock:
+        snapshot-tier knobs (serve/snapshot.py).
+      metrics: a shared :class:`MetricsRegistry` (fresh one by default).
+      state: initial bank state (fresh zeros by default).
+      device: where the state and the map live; ``"cuda"`` by default,
+        which raises when there is no CUDA device.
+      **kw: family hyperparameters (``mu``; the other names of ``repro``'s
+        table are accepted and unused by klms). The knobs of later slices
+        (``policy``, ``trace``, ``probe``, ``recovery``, ``wal``,
+        ``log_capacity``, ...) raise ``NotImplementedError``.
+    """
+    _check_learner(learner)
+    for knob in _UNPORTED_KNOBS:
+        if kw.get(knob) not in (None, False):
+            raise NotImplementedError(
+                f"make_server({knob}=...) is not ported yet: "
+                f"{_UNPORTED_KNOBS[knob]}"
+            )
+        kw.pop(knob, None)
+    h = _resolve_hp(kw)
+    if feature_map is None:
+        raise ValueError(f"learner {learner!r} requires feature_map=")
+    tf = as_trig(feature_map).to(resolve_device(device))
+    queue = make_queue(learner, tf, bank, chunk=chunk, mode=mode,
+                       adaptive=adaptive, state=state, device=tf.device,
+                       **kw)
+    inner = SnapshotServer(
+        queue, tf, publish_every, mode=mode, precision=precision,
+        age_watermark=age_watermark, size_watermark=size_watermark,
+        clock=clock,
+    )
+    return Server(inner, learner=learner, feature_map=tf, hp=h,
+                  metrics=metrics)

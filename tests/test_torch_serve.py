@@ -1,0 +1,279 @@
+"""The port's KLMS serving slice held against ``repro`` on the CPU.
+
+Both packages get the same feature map (sampled by ``repro``, carried over
+with ``repro_torch.convert``) and the same ragged stream of submits,
+flushes and reads, made with ``np.random.default_rng``. ``repro`` runs its
+oracle path (``mode="xla"``); the port runs on ``device="cpu"``, where
+every kernel is its plain PyTorch version.
+
+Tolerances:
+* 1e-4 for the whole slice over several flushes: XLA and PyTorch sum the
+  projection and the theta . z reduction in different orders and their
+  cos differ by an ulp, and the LMS recursion carries each tick's
+  difference into every later tick (one step or chunk holds at 1e-5 in
+  tests/test_torch_kernels.py).
+* bf16 reads: 2e-2 (tests/test_read_path.py), each against its own f32
+  read, and port-bf16 against repro-bf16.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.features.base import as_trig as jax_as_trig
+from repro.features.random import rff_map as jax_rff_map
+from repro.serve import api as japi
+from repro.serve.metrics import Histogram as JaxHistogram
+from repro_torch import convert
+from repro_torch.serve import api
+from repro_torch.serve.metrics import Histogram
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+SLICE_TOL = 1e-4
+BF16_TOL = 2e-2
+B, D_IN, D_FEAT = 12, 5, 96
+
+
+def _maps(seed=0, d=D_IN, dfeat=D_FEAT):
+    jtf = jax_as_trig(jax_rff_map(jax.random.PRNGKey(seed), d, dfeat, 2.0))
+    ttf = convert.trig_features(
+        np.asarray(jtf.omega), np.asarray(jtf.bias), np.asarray(jtf.scale),
+        device="cpu",
+    )
+    return jtf, ttf
+
+
+def _servers(**kw):
+    jtf, ttf = _maps()
+    jsrv = japi.make_server("klms", feature_map=jtf, bank=B, mode="xla", **kw)
+    tsrv = api.make_server("klms", feature_map=ttf, bank=B, device="cpu",
+                           **kw)
+    return jsrv, tsrv
+
+
+def _stream(seed, n):
+    """Ragged arrivals: skewed tenant choice, tenants 10 and 11 idle."""
+    rng = np.random.default_rng(seed)
+    p = np.array([8, 6, 5, 4, 3, 3, 2, 2, 1, 1, 0, 0], float)
+    tenants = rng.choice(B, size=n, p=p / p.sum())
+    xs = rng.normal(size=(n, D_IN)).astype(np.float32)
+    ys = np.sin(0.5 * xs[:, 0]) + 0.3 * xs[:, 1] + 0.05 * rng.normal(size=n)
+    return tenants, xs, ys.astype(np.float32)
+
+
+def _close(got, want, tol=SLICE_TOL):
+    np.testing.assert_allclose(
+        np.asarray(got, np.float32), np.asarray(want, np.float32),
+        atol=tol, rtol=tol,
+    )
+
+
+def _flush_results_close(jres, tres):
+    assert sorted(jres) == sorted(tres)
+    for tenant in jres:
+        _close(np.asarray(tres[tenant]), np.asarray(jres[tenant]))
+
+
+def test_klms_server_matches_repro():
+    """The slice end to end: submits, flushes, drain, every read."""
+    jsrv, tsrv = _servers(chunk=4)
+    tenants, xs, ys = _stream(0, 240)
+    errs = []
+    for start in range(0, 240, 40):
+        for i in range(start, start + 40):
+            jsrv.submit(int(tenants[i]), xs[i], ys[i])
+            tsrv.submit(int(tenants[i]), xs[i], ys[i])
+        jres, tres = jsrv.flush(), tsrv.flush()
+        _flush_results_close(jres, tres)
+        errs.append(np.mean([e**2 for r in tres.values() for _, e in r]))
+    _flush_results_close(jsrv.drain(), tsrv.drain())
+    assert errs[-1] < errs[0]  # the filter learns
+    assert tsrv.staleness == jsrv.staleness == 0
+    assert tsrv.snapshot.version == jsrv.snapshot.version
+    _close(tsrv.snapshot.state.theta, jsrv.snapshot.state.theta)
+    np.testing.assert_array_equal(
+        convert.to_numpy(tsrv.snapshot.state.step),
+        np.asarray(jsrv.snapshot.state.step),
+    )
+
+    rng = np.random.default_rng(1)
+    xq = rng.normal(size=(B, 7, D_IN)).astype(np.float32)
+    for tenant in (0, 3, 11):
+        _close(tsrv.predict(tenant, xq[tenant, 0]),
+               jsrv.predict(tenant, xq[tenant, 0]))
+        _close(tsrv.predict(tenant, xq[tenant]),
+               jsrv.predict(tenant, xq[tenant]))
+    t32, j32 = tsrv.predict_block(xq), jsrv.predict_block(xq)
+    _close(t32, j32)
+    for srv in (jsrv, tsrv):
+        srv.snapshot_server.precision = "bf16"
+    t16, j16 = tsrv.predict_block(xq), jsrv.predict_block(xq)
+    _close(t16, j16, BF16_TOL)
+    assert 0 < float((t16 - t32).abs().max()) < BF16_TOL
+    assert float(np.abs(np.asarray(j16) - np.asarray(j32)).max()) < BF16_TOL
+    assert tsrv.metrics.count("requests.write") == 240
+    assert tsrv.metrics.count("requests.read") == 8
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_run_stream_matches_repro(chunk):
+    """Lockstep streams through the step kernel (chunk=None) or the
+    chunk kernel with a masked remainder (chunk=4 over 10 ticks)."""
+    jtf, ttf = _maps(1)
+    rng = np.random.default_rng(2)
+    xs = rng.normal(size=(6, 10, D_IN)).astype(np.float32)
+    ys = np.cos(xs.sum(-1)).astype(np.float32)
+    jstate, jout = japi.run_stream("klms", jtf, xs, ys, mode="xla",
+                                   chunk=chunk, mu=0.3)
+    tstate, tout = api.run_stream(
+        "klms", ttf, convert.tensor(xs, device="cpu"),
+        convert.tensor(ys, device="cpu"), chunk=chunk, mu=0.3,
+    )
+    _close(tstate.theta, jstate.theta)
+    _close(tout.prediction, jout.prediction)
+    _close(tout.error, jout.error)
+    np.testing.assert_array_equal(convert.to_numpy(tstate.step),
+                                  np.asarray(jstate.step))
+
+
+def test_adaptive_queue_power_of_two_chunks():
+    jsrv, tsrv = _servers(chunk=16, adaptive=True)
+    rng = np.random.default_rng(3)
+    for depth, want_t in ((3, 4), (1, 1), (5, 8), (16, 16), (20, 16)):
+        for _ in range(depth):
+            x = rng.normal(size=D_IN).astype(np.float32)
+            for srv in (jsrv, tsrv):
+                srv.submit(2, x, 0.5)
+        assert tsrv.queue._flush_chunk() == want_t
+        _flush_results_close(jsrv.flush(), tsrv.flush())
+        jsrv.drain()
+        tsrv.drain()
+    _close(tsrv.snapshot.state.theta, jsrv.snapshot.state.theta)
+
+
+def test_publish_every_two_staleness():
+    """A non-publishing flush leaves the replica's theta unchanged; the
+    second tick publishes."""
+    jsrv, tsrv = _servers(chunk=4, publish_every=2)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=D_IN).astype(np.float32)
+    for srv in (jsrv, tsrv):
+        srv.submit(0, x, 1.0)
+    before = tsrv.snapshot.state.theta.clone()
+    jsrv.flush()
+    tsrv.flush()
+    assert tsrv.staleness == jsrv.staleness == 1
+    assert tsrv.snapshot.version == jsrv.snapshot.version == 0
+    assert torch.equal(tsrv.snapshot.state.theta, before)
+    assert not torch.equal(tsrv.queue.state.theta, before)
+    x = rng.normal(size=D_IN).astype(np.float32)
+    for srv in (jsrv, tsrv):
+        srv.submit(0, x, -1.0)
+        srv.flush()
+    assert tsrv.staleness == jsrv.staleness == 0
+    assert tsrv.snapshot.version == jsrv.snapshot.version == 1
+    assert torch.equal(tsrv.snapshot.state.theta, tsrv.queue.state.theta)
+    _close(tsrv.snapshot.state.theta, jsrv.snapshot.state.theta)
+
+
+def test_watermarks_and_stale_watchdog():
+    now = [0.0]
+    jtf, ttf = _maps()
+    srv = api.make_server("klms", feature_map=ttf, bank=B, device="cpu",
+                          size_watermark=3, age_watermark=5.0,
+                          clock=lambda: now[0])
+    x = np.ones(D_IN, np.float32)
+    srv.submit(1, x, 1.0)
+    srv.submit(1, x, 1.0)
+    assert srv.queue.flushes == 0
+    srv.submit(1, x, 1.0)  # backlog 3 trips the size watermark
+    assert srv.queue.flushes == 1 and sum(srv.queue.backlog()) == 0
+    srv.submit(4, x, 1.0)
+    now[0] = 4.9
+    assert srv.maybe_flush() == {}
+    now[0] = 5.0
+    assert list(srv.maybe_flush()) == [4]
+    queue = api.make_queue("klms", ttf, B, device="cpu")
+    queue.stale_after, queue._clock = 1.0, lambda: now[0]
+    queue.submit(7, x, 1.0)
+    assert not queue.has_stale()
+    now[0] = 6.5
+    assert list(queue.maybe_flush()) == [7] and queue.stale_flushes == 1
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, ttf = _maps()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        api.make_server("klms", feature_map=ttf, bank=2)
+
+
+@pytest.mark.parametrize("learner", ["krls", "nklms", "qklms", "ald"])
+def test_unported_learner_raises(learner):
+    _, ttf = _maps()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.make_server(learner, feature_map=ttf, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    dict(policy="lru"), dict(trace=True), dict(probe=True),
+    dict(recovery=True), dict(wal="wal.jsonl"), dict(log_capacity=8),
+])
+def test_unported_knob_raises(knob):
+    _, ttf = _maps()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.make_server("klms", feature_map=ttf, device="cpu", **knob)
+
+
+def test_unported_lifecycle_and_unknown_names():
+    _, ttf = _maps()
+    srv = api.make_server("klms", feature_map=ttf, device="cpu")
+    for op in (srv.evict, srv.readmit):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            op(0)
+    with pytest.raises(ValueError, match="unknown learner"):
+        api.make_server("svm", feature_map=ttf, device="cpu")
+    with pytest.raises(TypeError, match="unknown hyperparameters"):
+        api.make_server("klms", feature_map=ttf, device="cpu",
+                        learning_rate=0.1)
+
+
+def test_histogram_matches_repro():
+    rng = np.random.default_rng(5)
+    obs = np.concatenate([rng.exponential(3e-3, 500), [0.0, 7.5e5]])
+    ours, theirs = Histogram(), JaxHistogram()
+    for v in obs:
+        ours.observe(v)
+        theirs.observe(v)
+    assert ours.summary() == theirs.summary()
+
+
+def test_import_hygiene():
+    """repro_torch and chip_smoke.py import neither jax nor repro."""
+    code = (
+        "import importlib, pkgutil, sys, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    text = (ROOT / "chip_smoke.py").read_text()
+    imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)", text, re.M)
+    assert imports, "chip_smoke.py has no imports?"
+    assert not [m for m in imports if m.split(".")[0] in ("jax", "repro")]
+    assert not re.search(r"\bjax\b", text)
