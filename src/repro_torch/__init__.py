@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of ``repro`` (RFF-KLMS serving) for NVIDIA Hopper.
+"""PyTorch/CUDA port of ``repro`` (RFF-KLMS and RFF-KRLS serving) for
+NVIDIA Hopper.
 
 The package mirrors ``repro``'s layout and public names so a reader can
 find each counterpart: ``kernels/`` (plain PyTorch oracles, the CUDA
 kernels' wrappers and the ``mode=`` dispatch), ``core/`` (feature maps,
-the KLMS filter and the bank), ``features/`` (the affine-trig contract)
-and ``serve/`` (micro-batch queue, snapshot server, ``make_server``).
+the KLMS and KRLS filters and their bank), ``features/`` (the
+affine-trig contract) and ``serve/`` (micro-batch queue, snapshot server,
+``make_server``).
 
 Entry points take ``device=`` and default to ``"cuda"``; without a CUDA
 device they raise. The CPU is used only when the caller passes

@@ -14,9 +14,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.klms import LMSState
+from repro_torch.core.krls import RLSState
 from repro_torch.features.base import TrigFeatures, uniform_trig_scale
 
-__all__ = ["tensor", "trig_features", "lms_state", "to_numpy"]
+__all__ = ["tensor", "trig_features", "lms_state", "rls_state", "to_numpy"]
 
 
 def tensor(a, *, device="cuda", dtype=None) -> torch.Tensor:
@@ -45,6 +46,13 @@ def trig_features(omega, bias, scale: Optional[np.ndarray] = None, *,
 def lms_state(theta, step, *, device="cuda") -> LMSState:
     """``repro``'s ``LMSState`` (a single filter or a bank) as the port's."""
     return LMSState(theta=tensor(theta, device=device),
+                    step=tensor(step, device=device, dtype=torch.int32))
+
+
+def rls_state(theta, pmat, step, *, device="cuda") -> RLSState:
+    """``repro``'s ``RLSState`` (a single filter or a bank) as the port's."""
+    return RLSState(theta=tensor(theta, device=device),
+                    pmat=tensor(pmat, device=device),
                     step=tensor(step, device=device, dtype=torch.int32))
 
 

@@ -1,2 +1,2 @@
-"""Core learners: RFF feature maps (``rff``), the KLMS filter (``klms``)
-and its bank tier (``bank``)."""
+"""Core learners: RFF feature maps (``rff``), the KLMS filter (``klms``),
+the dense KRLS filter (``krls``) and their bank tiers (``bank``)."""

@@ -1,3 +1,4 @@
 """Kernels of the port: plain PyTorch oracles (``ref``), the CUDA kernels'
-wrappers (``rff_klms_step``, ``rff_predict``, built by ``_build``) and the
+wrappers (``rff_klms_step``, ``rff_krls_step``, ``rff_predict``, built by
+``_build``) and the
 ``mode=`` dispatch (``ops``)."""

@@ -1,5 +1,5 @@
 """Time-axis chunking utilities, and the shared-memory sizing of the KLMS
-kernels.
+and KRLS kernels.
 
 Counterpart of ``repro/kernels/chunking.py``: the pad / block / masked
 remainder bookkeeping of the chunked run-loops, in one place.
@@ -18,6 +18,9 @@ __all__ = [
     "unblock_time",
     "klms_smem_bytes",
     "klms_block_b",
+    "KRLS_THREADS",
+    "krls_smem_bytes",
+    "krls_fits",
     "default_chunk_t",
 ]
 
@@ -52,21 +55,48 @@ def klms_block_b(dfeat: int, input_dim: int) -> int:
     return 0
 
 
-def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128) -> int:
+# Threads per block of csrc/krls_bank.cu (kThreads there): one block per
+# tenant, and each warp owns one pair of 32 x 33 transpose tiles.
+KRLS_THREADS = 256
+_KRLS_TILE_FLOATS = 2 * 32 * 33
+
+
+def krls_smem_bytes(dfeat: int, input_dim: int) -> int:
+    """Dynamic shared memory of one KRLS block (the layout in
+    csrc/krls_bank.cu): the tenant's theta, z, pz and gain rows ``(D,)``,
+    its x row ``(d,)``, the per-warp reduction slots, three scalars and
+    each warp's pair of transpose tiles, all f32. The ``(D, D)`` P stays in
+    device memory: one tenant's P (360 KB at D = 300) exceeds a block's
+    shared memory."""
+    warps = KRLS_THREADS // 32
+    floats = 4 * dfeat + input_dim + warps + 3 + warps * _KRLS_TILE_FLOATS
+    return 4 * floats
+
+
+def krls_fits(dfeat: int, input_dim: int) -> bool:
+    """Whether the KRLS kernels' shared tiles fit :data:`SMEM_BUDGET` (D up
+    to about 10k features at d = 5)."""
+    return krls_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
+
+
+def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
+                    pmat: bool = False) -> int:
     """Default tick count T for one chunked launch.
 
-    The CUDA chunk kernel keeps theta and z for its ``block_b`` tenants in
-    shared memory for the whole launch and streams one ``(block_b, d)`` x
-    tile per tick through the same buffer, so T costs no shared memory:
-    when the resident tiles fit :data:`SMEM_BUDGET` the default is the cap
-    of 512 ticks that ``repro`` also clamps to. When they do not fit, the
-    kernel cannot run at all (its wrapper raises) and the floor of 8 is
-    returned for the plain path. ``bank`` is accepted for signature parity
-    with ``repro`` and does not change the answer: a block's tiles do not
-    grow with B.
+    The CUDA chunk kernels keep their resident tiles (theta and z for the
+    KLMS kernel's ``block_b`` tenants; theta, z, pz and gain for the KRLS
+    kernel's one tenant, ``pmat=True``) in shared memory for the whole
+    launch and stream one x row per tick through the same buffer, so T
+    costs no shared memory: when the tiles fit :data:`SMEM_BUDGET` the
+    default is the cap of 512 ticks that ``repro`` also clamps to. When
+    they do not fit, the kernel cannot run at all (its wrapper raises) and
+    the floor of 8 is returned for the plain path. ``bank`` is accepted for
+    signature parity with ``repro`` and does not change the answer: a
+    block's tiles do not grow with B.
     """
     del bank
-    return 512 if klms_block_b(dfeat, input_dim) else 8
+    fits = krls_fits(dfeat, input_dim) if pmat else klms_block_b(dfeat, input_dim)
+    return 512 if fits else 8
 
 
 def num_chunks(n: int, chunk: int) -> int:

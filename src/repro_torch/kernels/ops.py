@@ -1,4 +1,4 @@
-"""Public KLMS-slice ops with the ``mode=`` dispatch of ``repro``'s ops.
+"""Public serving-slice ops with the ``mode=`` dispatch of ``repro``'s ops.
 
 ``mode``:
 
@@ -23,6 +23,10 @@ from repro_torch.kernels.rff_klms_step import (
     rff_klms_bank_chunk_cuda,
     rff_klms_bank_step_cuda,
 )
+from repro_torch.kernels.rff_krls_step import (
+    rff_krls_bank_chunk_cuda,
+    rff_krls_bank_step_cuda,
+)
 from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
 
 __all__ = [
@@ -31,6 +35,8 @@ __all__ = [
     "rff_bank_predict",
     "rff_klms_bank_step",
     "rff_klms_bank_chunk",
+    "rff_krls_bank_step",
+    "rff_krls_bank_chunk",
 ]
 
 MODES = ("auto", "cuda", "ref")
@@ -80,34 +86,74 @@ def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
     ``kernels.chunking.default_chunk_t``. Returns (theta', preds (B, T),
     errs (B, T)).
     """
-    bsz, tlen, d = xs.shape
-    kernel = use_kernel(mode, theta)
-
-    def launch(th, xc, yc, mc):
-        if kernel:
-            return rff_klms_bank_chunk_cuda(th, xc, yc, w, b, mu, mc, s)
-        return ref.rff_klms_bank_chunk_ref(th, xc, yc, w, b, mu, mc, s)
-
+    if use_kernel(mode, theta):
+        launch = rff_klms_bank_chunk_cuda
+    else:
+        launch = ref.rff_klms_bank_chunk_ref
     if chunk is None:
-        chunk = default_chunk_t(bsz, theta.shape[-1], d)
+        chunk = default_chunk_t(xs.shape[0], theta.shape[-1], xs.shape[-1])
+    return _time_blocked(
+        lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, mu, mc, s),
+        (theta,), xs, ys, mask, chunk,
+    )
+
+
+def _time_blocked(launch, state, xs, ys, mask, chunk):
+    """Run ``launch(state, xs, ys, mask) -> (*state', preds, errs)`` over
+    ``xs (B, T, d)`` in launches of at most ``chunk`` ticks, the last one
+    zero-masked past T, as ``repro``'s ops do. Returns (*state', preds
+    (B, T), errs (B, T))."""
+    tlen = xs.shape[1]
     if tlen <= chunk:
-        return launch(theta, xs, ys, mask)
+        return launch(state, xs, ys, mask)
     if mask is None:
         mask = torch.ones_like(ys)
     blocks = zip(
         time_blocks(xs, chunk, axis=1),
         time_blocks(ys, chunk, axis=1),
-        time_blocks(mask.to(theta.dtype), chunk, axis=1),
+        time_blocks(mask.to(ys.dtype), chunk, axis=1),
     )
     preds, errs = [], []
     for xc, yc, mc in blocks:
-        theta, p, e = launch(
-            theta, xc.contiguous(), yc.contiguous(), mc.contiguous()
+        *state, p, e = launch(
+            state, xc.contiguous(), yc.contiguous(), mc.contiguous()
         )
         preds.append(p)
         errs.append(e)
     return (
-        theta,
+        *state,
         unblock_time(torch.stack(preds), tlen, axis=1),
         unblock_time(torch.stack(errs), tlen, axis=1),
+    )
+
+
+def rff_krls_bank_step(theta, pmat, x, y, w, b, beta, s=None, *,
+                       mode: str = "auto"):
+    """Fused featurize + predict + EW-RLS update for a bank of B tenants:
+    theta (B, D), pmat (B, D, D), x (B, d), y (B,), beta scalar or (B,).
+    Returns (theta', P', predictions, prior errors)."""
+    if use_kernel(mode, theta):
+        return rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s)
+    return ref.rff_krls_bank_step_ref(theta, pmat, x, y, w, b, beta, s)
+
+
+def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
+                        *, mode: str = "auto", chunk=None):
+    """T-chunked fused EW-RLS: advance B tenants by T ticks.
+
+    theta (B, D), pmat (B, D, D), xs (B, T, d), ys (B, T), beta scalar or
+    (B,), mask optional (B, T) validity gate. ``chunk`` bounds the ticks
+    per launch as in :func:`rff_klms_bank_chunk`. Returns (theta', P',
+    preds (B, T), errs (B, T)).
+    """
+    if use_kernel(mode, theta):
+        launch = rff_krls_bank_chunk_cuda
+    else:
+        launch = ref.rff_krls_bank_chunk_ref
+    if chunk is None:
+        chunk = default_chunk_t(xs.shape[0], theta.shape[-1], xs.shape[-1],
+                                pmat=True)
+    return _time_blocked(
+        lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, beta, mc, s),
+        (theta, pmat), xs, ys, mask, chunk,
     )

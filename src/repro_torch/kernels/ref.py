@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the KLMS-slice kernels (the oracles).
+"""Plain PyTorch versions of the serving-slice kernels (the oracles).
 
 Counterparts of ``repro/kernels/ref.py``: deliberately naive, clarity over
 speed. The CPU tests hold these against ``repro``; on the card the CUDA
@@ -27,10 +27,14 @@ __all__ = [
     "mp_trig",
     "rff_features_ref",
     "klms_tick_math",
+    "krls_tick_math",
     "mu_column",
+    "beta_column",
     "rff_klms_bank_step_ref",
     "rff_klms_bank_chunk_ref",
     "rff_bank_predict_ref",
+    "rff_krls_bank_step_ref",
+    "rff_krls_bank_chunk_ref",
 ]
 
 _BF16 = ("bf16", "bfloat16")
@@ -106,10 +110,36 @@ def klms_tick_math(theta, z, y, mu_b, gate=None):
     return theta + (mu_b * upd)[:, None] * z, pred, err
 
 
+def krls_tick_math(theta, pmat, z, y, beta_b):
+    """ONE EW-RLS bank tick (with the symmetrization pass) given the
+    feature block ``z (B, D)``: theta (B, D), pmat (B, D, D), y (B,),
+    beta_b (B,). Returns (theta', P', predictions, prior errors).
+
+    The arithmetic order is the reference's and the CUDA kernel's: the
+    gain and the downdate divide (no reciprocal multiply), and
+    ``P' = 0.5 (P'' + P''^T)`` with ``P'' = (P - gain pz^T) / beta``.
+    """
+    pred = torch.sum(theta * z, dim=-1)
+    err = y - pred
+    pz = torch.einsum("bij,bj->bi", pmat, z)
+    denom = beta_b + torch.sum(z * pz, dim=-1)
+    gain = pz / denom[:, None]
+    theta_new = theta + gain * err[:, None]
+    pmat_new = (pmat - gain[:, :, None] * pz[:, None, :]) / beta_b[:, None, None]
+    pmat_new = 0.5 * (pmat_new + pmat_new.transpose(-1, -2))
+    return theta_new, pmat_new, pred, err
+
+
 def mu_column(mu, like, n):
     """Step size ``mu`` (scalar or ``(B,)``) broadcast to ``(n,)`` in the
     dtype and on the device of ``like``."""
     return torch.as_tensor(mu, dtype=like.dtype, device=like.device).expand(n)
+
+
+def beta_column(beta, like, n):
+    """Forgetting factor ``beta`` (scalar or ``(B,)``) as a ``(n,)``
+    column, like :func:`mu_column`."""
+    return mu_column(beta, like, n)
 
 
 def rff_klms_bank_step_ref(theta, x, y, w, b, mu, s=None):
@@ -150,3 +180,37 @@ def rff_bank_predict_ref(theta, xq, w, b, s=None, precision=None):
     pred = torch.sum(theta[:, None, :].float() * z.float(), dim=-1)
     return pred.to(theta.dtype)
 
+
+
+def rff_krls_bank_step_ref(theta, pmat, x, y, w, b, beta, s=None):
+    """Two-pass EW-RLS step: theta (B, D), pmat (B, D, D), x (B, d), y (B,),
+    beta scalar or (B,). Materializes z and pz. Returns (theta', P',
+    predictions (B,), prior errors (B,))."""
+    z = rff_features_ref(x, w, b, s)
+    return krls_tick_math(theta, pmat, z, y, beta_column(beta, theta, y.shape[0]))
+
+
+def rff_krls_bank_chunk_ref(theta, pmat, xs, ys, w, b, beta, mask=None,
+                            s=None):
+    """T masked EW-RLS ticks: xs (B, T, d), ys (B, T), mask (B, T) validity
+    gate. A masked tick still emits its prior prediction and error but
+    keeps the old theta and P (a select, so they stay bit for bit).
+    Returns (theta', P', preds (B, T), errs (B, T))."""
+    bsz, tlen = ys.shape
+    if mask is None:
+        mask = torch.ones_like(ys)
+    live = mask.to(theta.dtype) > 0
+    beta_b = beta_column(beta, theta, bsz)
+    preds, errs = [], []
+    for t in range(tlen):
+        z = rff_features_ref(xs[:, t], w, b, s)
+        th2, pm2, pred, err = krls_tick_math(theta, pmat, z, ys[:, t], beta_b)
+        keep = live[:, t]
+        theta = torch.where(keep[:, None], th2, theta)
+        pmat = torch.where(keep[:, None, None], pm2, pmat)
+        preds.append(pred)
+        errs.append(err)
+    if not preds:
+        empty = ys.new_zeros((bsz, 0))
+        return theta, pmat, empty, empty
+    return theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1)

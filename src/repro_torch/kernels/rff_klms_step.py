@@ -58,7 +58,7 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 def _cuda_device(theta: torch.Tensor) -> torch.device:
     if theta.device.type != "cuda":
         raise ValueError(
-            "the CUDA KLMS kernels take CUDA tensors; use mode='ref' (or "
+            "the CUDA bank kernels take CUDA tensors; use mode='ref' (or "
             f"'auto') for tensors on {theta.device}"
         )
     return theta.device

@@ -1,5 +1,5 @@
-"""Serving stack, KLMS tier: micro-batch queue, snapshot server and the
-``make_server`` facade."""
+"""Serving stack, KLMS and KRLS tiers: micro-batch queue, snapshot server
+and the ``make_server`` facade."""
 from repro_torch.serve.api import (
     LEARNER_FAMILIES,
     Server,

@@ -1,10 +1,12 @@
-"""Serving facade: ``make_server`` and its building blocks, KLMS tier.
+"""Serving facade: ``make_server`` and its building blocks, KLMS and KRLS
+tiers.
 
-Counterpart of ``repro/serve/api.py`` for ``learner="klms"``: a
-:class:`Server` wraps the write path (micro-batch queue -> the CUDA chunk
-kernel), the read path (snapshot-decoupled fused predict) and a metrics
-registry. :func:`make_tick`, :func:`make_chunk_step`, :func:`make_queue`
-and :func:`run_stream` are the pieces it composes.
+Counterpart of ``repro/serve/api.py`` for ``learner="klms"`` and
+``"krls"``: a :class:`Server` wraps the write path (micro-batch queue ->
+the family's CUDA chunk kernel), the read path (snapshot-decoupled fused
+predict, shared by both families) and a metrics registry.
+:func:`make_tick`, :func:`make_chunk_step`, :func:`make_queue` and
+:func:`run_stream` are the pieces it composes.
 
 Other learners, and the knobs of later slices, raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -22,6 +24,10 @@ from repro_torch.core.bank import (
     klms_bank_init,
     klms_bank_run,
     klms_bank_step,
+    krls_bank_chunk_step,
+    krls_bank_init,
+    krls_bank_run,
+    krls_bank_step,
 )
 from repro_torch.features.base import FeatureLike, as_trig
 from repro_torch.serve.metrics import MetricsRegistry
@@ -42,7 +48,6 @@ LEARNER_FAMILIES = ("klms", "nklms", "qklms", "krls", "ald")
 
 # Where each unported family lands (ROADMAP.md, "Open items").
 _UNPORTED_LEARNERS = {
-    "krls": "ROADMAP §1 items 3-5 and §2 kernels 4-5 (slice 2)",
     "nklms": "ROADMAP §1 item 6",
     "qklms": "ROADMAP §1 item 6",
     "ald": "ROADMAP §1 item 6",
@@ -60,7 +65,8 @@ _UNPORTED_KNOBS = {
     "wal": "ROADMAP §1 item 9 (serve/recovery.py)",
 }
 
-# One defaults table for every family, as in repro; klms reads only mu.
+# One defaults table for every family, as in repro; klms reads mu, krls
+# reads beta (and lam for a fresh bank).
 _HP_DEFAULTS = dict(
     mu=0.5, eps=1e-6, lam=1e-4, beta=0.9995, sigma=1.0, quant_eps=0.1,
     nu=5e-4, capacity=256,
@@ -89,16 +95,22 @@ def _resolve_hp(hp: dict) -> dict:
     return {**_HP_DEFAULTS, **hp}
 
 
+def _rate(learner: str, h: dict):
+    """The family's per-tick hyperparameter: KLMS's mu, KRLS's beta."""
+    return h["beta"] if learner == "krls" else h["mu"]
+
+
 def make_tick(learner: str, feature_map: FeatureLike, *, mode: str = "auto",
               **hp) -> Callable:
     """Lockstep tick ``(state, xs (B, d), ys (B,)) -> (state, StepOut)``
-    through the fused step kernel."""
+    through the family's fused step kernel."""
     _check_learner(learner)
-    mu = _resolve_hp(hp)["mu"]
+    rate = _rate(learner, _resolve_hp(hp))
     tf = as_trig(feature_map)
+    bank_step = krls_bank_step if learner == "krls" else klms_bank_step
 
     def tick(state, xs, ys):
-        return klms_bank_step(state, xs, ys, tf, mu, mode=mode)
+        return bank_step(state, xs, ys, tf, rate, mode=mode)
 
     return tick
 
@@ -108,11 +120,13 @@ def make_chunk_step(learner: str, feature_map: FeatureLike, *,
     """Chunked step ``(state, xs (B, T, d), ys (B, T), mask (B, T)) ->
     (state, StepOut)``: one chunk-kernel launch (the queue's step)."""
     _check_learner(learner)
-    mu = _resolve_hp(hp)["mu"]
+    rate = _rate(learner, _resolve_hp(hp))
     tf = as_trig(feature_map)
+    chunk_step = (krls_bank_chunk_step if learner == "krls"
+                  else klms_bank_chunk_step)
 
     def step(state, xs, ys, mask):
-        return klms_bank_chunk_step(state, xs, ys, tf, mu, mask, mode=mode)
+        return chunk_step(state, xs, ys, tf, rate, mask, mode=mode)
 
     return step
 
@@ -123,9 +137,12 @@ def run_stream(learner: str, feature_map: FeatureLike, xs, ys, *,
     """Serve B lockstep tenant streams ``xs (B, n, d)``, ``ys (B, n)``;
     ``chunk=T`` picks the chunk-kernel schedule."""
     _check_learner(learner)
-    mu = _resolve_hp(hp)["mu"]
-    return klms_bank_run(feature_map, xs, ys, mu, state=state, mode=mode,
-                         chunk=chunk)
+    h = _resolve_hp(hp)
+    if learner == "krls":
+        return krls_bank_run(feature_map, xs, ys, h["lam"], h["beta"],
+                             state=state, mode=mode, chunk=chunk)
+    return klms_bank_run(feature_map, xs, ys, h["mu"], state=state,
+                         mode=mode, chunk=chunk)
 
 
 def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
@@ -139,7 +156,9 @@ def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
     if feature_map is None:
         raise ValueError(f"learner {learner!r} requires feature_map=")
     tf = as_trig(feature_map).to(resolve_device(device))
-    if state is None:
+    if state is None and learner == "krls":
+        state = krls_bank_init(tf, bank, _resolve_hp(hp)["lam"])
+    elif state is None:
         state = klms_bank_init(tf, bank)
     return MicroBatchQueue(
         make_chunk_step(learner, tf, mode=mode, **hp), state,
@@ -259,7 +278,7 @@ def make_server(
     device="cuda",
     **kw,
 ) -> Server:
-    """The serving facade for ``learner="klms"``.
+    """The serving facade for ``learner="klms"`` and ``"krls"``.
 
     Args:
       feature_map: a trig feature map (moved to ``device``).
@@ -272,8 +291,9 @@ def make_server(
       state: initial bank state (fresh zeros by default).
       device: where the state and the map live; ``"cuda"`` by default,
         which raises when there is no CUDA device.
-      **kw: family hyperparameters (``mu``; the other names of ``repro``'s
-        table are accepted and unused by klms). The knobs of later slices
+      **kw: family hyperparameters (``mu`` for klms; ``beta`` and ``lam``
+        for krls; the other names of ``repro``'s table are accepted and
+        unused). The knobs of later slices
         (``policy``, ``trace``, ``probe``, ``recovery``, ``wal``,
         ``log_capacity``, ...) raise ``NotImplementedError``.
     """

@@ -7,9 +7,10 @@ item 8). The queue keeps advancing its live state; a
 reads (the fused predict kernel) only ever see a published replica:
 
 * **no torn reads** — a replica is one state reference captured at a flush
-  boundary. The bank tier never updates theta in place (every kernel
-  writes theta' into a fresh tensor), so a published replica cannot change
-  under its readers, and CPython reference assignment is atomic;
+  boundary. The bank tier never updates its state in place (every kernel
+  writes theta' and, for KRLS, P' into fresh tensors), so a published
+  replica cannot change under its readers, and CPython reference
+  assignment is atomic;
 * **bounded staleness** — a replica is published at the first flush
   boundary where ``publish_every`` ticks have accumulated;
 * **deferred write-flush** — flushes may wait for the age / size
@@ -24,11 +25,17 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.bank import bank_predict_block
-from repro_torch.core.klms import LMSState
 from repro_torch.features.base import FeatureLike
 from repro_torch.serve.queue import MicroBatchQueue
 
 __all__ = ["StateSnapshot", "SnapshotServer"]
+
+
+class _Row(NamedTuple):
+    """A one-tenant read view: the predict path reads theta alone, so the
+    same row serves a KLMS and a KRLS replica."""
+
+    theta: torch.Tensor
 
 
 class StateSnapshot(NamedTuple):
@@ -99,7 +106,7 @@ class SnapshotServer:
         single = xq.ndim == 1
         if single:
             xq = xq[None]
-        row = LMSState(theta=snap.state.theta[tenant][None], step=None)
+        row = _Row(theta=snap.state.theta[tenant][None])
         pred = bank_predict_block(row, xq[None], self.rff, mode=self.mode,
                                   precision=self.precision)[0]
         return pred[0] if single else pred

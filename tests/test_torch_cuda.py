@@ -10,8 +10,11 @@ Tolerances: 1e-4 at f32 (FMA contraction, another summation order in the
 projection and the theta . z reduction, and ``cosf`` against PyTorch's
 cos move results by a few ulp of ``|x W + b|``); 1e-3 for bf16 reads (an
 f32 difference that moves z across a bf16 rounding boundary changes that
-feature by one bf16 ulp, 2^-8 relative). The contracts between the two
-KLMS kernels are bitwise.
+feature by one bf16 ulp, 2^-8 relative). KRLS's P is compared normwise,
+1e-4 of each tenant's max |P|: its entries span 1e4 (P_0 = I / lam) down
+to O(1) remainders of cancellation, whose own rounding an elementwise
+bound would measure. The contracts between the two kernels of a family
+are bitwise.
 """
 import numpy as np
 import pytest
@@ -22,7 +25,11 @@ from repro_torch.features import rff_map
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import default_scale
 from repro_torch.kernels.rff_klms_step import rff_klms_bank_chunk_cuda
-from repro_torch.serve import make_server
+from repro_torch.kernels.rff_krls_step import (
+    rff_krls_bank_chunk_cuda,
+    rff_krls_bank_step_cuda,
+)
+from repro_torch.serve import make_server, make_tick
 
 F32_TOL, BF16_TOL = 1e-4, 1e-3
 
@@ -145,3 +152,139 @@ def test_server_runs_through_the_kernels(cuda_device):
     xq = rng.normal(size=(16, 9, 6)).astype(np.float32)
     torch.testing.assert_close(srv.predict_block(xq), ref.predict_block(xq),
                                atol=F32_TOL, rtol=F32_TOL)
+
+
+def _krls_inputs(device, bank, tlen, d, dfeat, seed=0, symmetric=True):
+    """KLMS inputs plus P = 10 I + A A^T (non-symmetric on request) and
+    per-tenant beta in [0.99, 1)."""
+    a = _inputs(device, bank, tlen, d, dfeat, seed)
+    rng = np.random.default_rng(seed + 1)
+    m = 0.1 * rng.normal(size=(bank, dfeat, dfeat))
+    pmat = 10.0 * np.eye(dfeat) + np.einsum("bij,bkj->bik", m, m)
+    if not symmetric:
+        pmat = pmat + 0.5 * rng.normal(size=pmat.shape)
+    a["pmat"] = convert.tensor(pmat.astype(np.float32), device=device)
+    a["beta"] = convert.tensor(
+        rng.uniform(0.99, 1.0, size=bank).astype(np.float32), device=device)
+    return a
+
+
+def _hold_p(got, want):
+    scale = want.abs().flatten(1).amax(1)
+    dp = (got - want).abs().flatten(1).amax(1)
+    assert bool((dp <= F32_TOL * scale).all()), float((dp / scale).max())
+
+
+def _hold_krls(got, want):
+    """(theta', P', preds, errs) of a kernel against its plain version."""
+    for k in (0, 2, 3):
+        torch.testing.assert_close(got[k], want[k], atol=F32_TOL,
+                                   rtol=F32_TOL)
+    _hold_p(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank,d,dfeat,tlen,symmetric", [
+    (3, 4, 17, 5, True), (5, 128, 129, 3, True), (2, 5, 1024, 4, True),
+    (64, 5, 300, 16, True), (4, 5, 70, 6, False),
+])
+def test_krls_kernels_match_plain(cuda_device, bank, d, dfeat, tlen,
+                                  symmetric):
+    a = _krls_inputs(cuda_device, bank, tlen, d, dfeat, symmetric=symmetric)
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], a["w"], a["b"],
+            a["beta"], a["mask"], a["s"])
+    _hold_krls(ops.rff_krls_bank_chunk(*args, mode="cuda"),
+               ops.rff_krls_bank_chunk(*args, mode="ref"))
+    sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
+             a["ys"][:, 0].contiguous(), a["w"], a["b"], a["beta"], a["s"])
+    _hold_krls(ops.rff_krls_bank_step(*sargs, mode="cuda"),
+               ops.rff_krls_bank_step(*sargs, mode="ref"))
+
+
+@pytest.mark.cuda
+def test_krls_bitwise_contracts(cuda_device):
+    """A chunk of T equals T step launches; T=1 equals one step; masked
+    ticks leave theta and P bit for bit in fresh tensors; P' is exactly
+    symmetric."""
+    a = _krls_inputs(cuda_device, 9, 6, 5, 200, seed=3)
+    common = (a["w"], a["b"], a["beta"])
+    chunk = ops.rff_krls_bank_chunk(a["theta"], a["pmat"], a["xs"], a["ys"],
+                                    *common, None, a["s"], mode="cuda")
+    theta, pmat = a["theta"], a["pmat"]
+    for t in range(6):
+        theta, pmat, pred, err = ops.rff_krls_bank_step(
+            theta, pmat, a["xs"][:, t].contiguous(),
+            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+        assert torch.equal(pred, chunk[2][:, t])
+        assert torch.equal(err, chunk[3][:, t])
+        if t == 0:
+            one = ops.rff_krls_bank_chunk(
+                a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
+                a["ys"][:, :1].contiguous(), *common, None, a["s"],
+                mode="cuda")
+            assert torch.equal(one[0], theta) and torch.equal(one[1], pmat)
+    assert torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1])
+    assert torch.equal(chunk[1], chunk[1].transpose(1, 2))
+    masked = ops.rff_krls_bank_chunk(
+        a["theta"], a["pmat"], a["xs"], a["ys"], *common,
+        torch.zeros_like(a["ys"]), a["s"], mode="cuda")
+    assert torch.equal(masked[0], a["theta"])
+    assert torch.equal(masked[1], a["pmat"])
+    assert masked[1].data_ptr() != a["pmat"].data_ptr()
+
+
+@pytest.mark.cuda
+def test_krls_wrappers_refuse_bad_inputs(cuda_device):
+    a = _krls_inputs(cuda_device, 3, 2, 4, 16)
+    args = (a["xs"], a["ys"], a["w"], a["b"], 0.99)
+    with pytest.raises(ValueError, match="contiguous"):
+        rff_krls_bank_chunk_cuda(a["theta"], a["pmat"].transpose(1, 2),
+                                 *args)
+    with pytest.raises(TypeError, match="float32"):
+        rff_krls_bank_chunk_cuda(a["theta"], a["pmat"].double(), *args)
+    with pytest.raises(ValueError, match="shape"):
+        rff_krls_bank_step_cuda(a["theta"], a["pmat"][:, :8], a["xs"][:, 0],
+                                a["ys"][:, 0], a["w"], a["b"], 0.99)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = 12_000
+        rff_krls_bank_step_cuda(
+            torch.zeros(1, big, device=cuda_device),
+            torch.zeros(1, 1, 1, device=cuda_device), a["xs"][:1, 0],
+            a["ys"][:1, 0], torch.zeros(4, big, device=cuda_device),
+            torch.zeros(big, device=cuda_device), 0.99)
+
+
+@pytest.mark.cuda
+def test_krls_server_runs_through_the_kernels(cuda_device):
+    """make_server("krls") on the card: every flush launches the chunk
+    kernel, make_tick the step kernel, and both agree with mode="ref"."""
+    fm = rff_map(torch.Generator().manual_seed(0), 5, 120, 2.0,
+                 device=cuda_device)
+    hp = dict(lam=1e-2, beta=0.999, chunk=4)
+    srv = make_server("krls", feature_map=fm, bank=16, **hp)
+    ref = make_server("krls", feature_map=fm, bank=16, mode="ref", **hp)
+    chunks = rff_krls_bank_chunk_cuda.launches
+    rng = np.random.default_rng(2)
+    for _ in range(160):
+        tenant, x = int(rng.integers(0, 14)), rng.normal(size=5)
+        y = 1.0 + np.sin(x[0])
+        srv.submit(tenant, x, y)
+        ref.submit(tenant, x, y)
+    srv.drain()
+    ref.drain()
+    assert rff_krls_bank_chunk_cuda.launches > chunks
+    got, want = srv.snapshot.state, ref.snapshot.state
+    torch.testing.assert_close(got.theta, want.theta, atol=F32_TOL,
+                               rtol=F32_TOL)
+    _hold_p(got.pmat, want.pmat)
+    xq = rng.normal(size=(16, 9, 5)).astype(np.float32)
+    torch.testing.assert_close(srv.predict_block(xq), ref.predict_block(xq),
+                               atol=F32_TOL, rtol=F32_TOL)
+    steps = rff_krls_bank_step_cuda.launches
+    x = torch.randn(16, 5, device=cuda_device)
+    y = x[:, 0].contiguous()
+    got = make_tick("krls", fm, beta=0.999)(got, x, y)
+    want = make_tick("krls", fm, beta=0.999, mode="ref")(want, x, y)
+    assert rff_krls_bank_step_cuda.launches == steps + 1
+    torch.testing.assert_close(got[0].theta, want[0].theta, atol=F32_TOL,
+                               rtol=F32_TOL)

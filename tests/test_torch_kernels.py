@@ -241,6 +241,11 @@ def test_convert_round_trips():
     np.testing.assert_array_equal(convert.to_numpy(st.theta), a["theta"])
     np.testing.assert_array_equal(convert.to_numpy(st.step), step)
     assert st.step.dtype == torch.int32
+    pmat = np.stack([np.eye(20, dtype=np.float32) * (k + 1) for k in range(4)])
+    rs = convert.rls_state(a["theta"], pmat, step, device="cpu")
+    for got, want in zip(rs, (a["theta"], pmat, step)):
+        np.testing.assert_array_equal(convert.to_numpy(got), want)
+    assert rs.step.dtype == torch.int32
 
 
 def test_mode_dispatch():

@@ -217,7 +217,7 @@ def test_default_device_is_cuda_and_raises_without_it():
         api.make_server("klms", feature_map=ttf, bank=2)
 
 
-@pytest.mark.parametrize("learner", ["krls", "nklms", "qklms", "ald"])
+@pytest.mark.parametrize("learner", ["nklms", "qklms", "ald"])
 def test_unported_learner_raises(learner):
     _, ttf = _maps()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
