@@ -24,7 +24,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    chunk=16, its reads and a ``make_tick("krls")`` tier, against the same
    server with ``mode="ref"`` and within the f32 error budget that a
    float64 run of the same stream measures;
-6. times each kernel, its plain version and its bound.
+6. times each kernel, its plain version and its bound;
+7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
+   against their plain versions at the replay shape (T=256, d=128,
+   D=2048), the read-block shape of the feature map (65536 rows), the
+   paper's d=5, D=300 and ragged shapes, with their exact contracts (a
+   fully masked chunk is the identity element, a remainder chunk equals
+   its live ticks alone);
+8. drives the KLMS lifecycle: ``make_server("klms", log_capacity=256)``
+   at the KLMS serving configuration evicts four tenants (a history that
+   overflows the ring, one of 201 ticks, one of a single tick, one with
+   none), takes more arrivals while they are evicted and readmits them
+   under rebuild_mode "blocked", "scan" and "sequential"; held against a
+   never-evicted control server, ``rff_klms_run`` over each log, the same
+   server with ``mode="ref"``, and bit for bit on untouched tenants; then
+   reads and trains again;
+9. drives the KRLS lifecycle the same way at the paper's section 6
+   settings under "blocked" and "scan", held within the f32 error budget
+   that the same server run in float64 measures, and bit for bit on
+   untouched tenants;
+10. times the replay kernels and readmission (wall time per mode and
+    family, at D=2048 and D=300).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
@@ -68,12 +88,23 @@ BUDGET, BUDGET_FLOOR = 2.0, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
+# Replay (evict -> log -> readmit): the ring size, and the features held
+# relative to max|s| (z is at most s in size): 1e-5 at f32, the 2e-2 read
+# contract for bf16. Readmitted KLMS tenants are held to a never-evicted
+# control at 5e-5 relative in norm (tests/test_eviction.py).
+LOG_CAP = 256
+FEAT_TOL, FEAT_BF16_TOL = 1e-5, 2e-2
+REPLAY_REL = 5e-5
+
 REPLACES = {
     "klms_bank_chunk": "src/repro/kernels/rff_klms_step.py:211",
     "klms_bank_step": "src/repro/kernels/rff_klms_step.py:80",
     "bank_predict": "src/repro/kernels/rff_predict.py:84",
     "krls_bank_chunk": "src/repro/kernels/rff_krls_step.py:262",
     "krls_bank_step": "src/repro/kernels/rff_krls_step.py:104",
+    "rff_features": "src/repro/kernels/rff_features.py:76",
+    "klms_chunk_elements": "src/repro/kernels/rff_scan.py:115",
+    "krls_chunk_elements": "src/repro/kernels/rff_scan.py:241",
 }
 SOURCES = {
     "klms_bank_chunk": "src/repro_torch/csrc/klms_bank.cu",
@@ -81,10 +112,14 @@ SOURCES = {
     "bank_predict": "src/repro_torch/csrc/bank_predict.cu",
     "krls_bank_chunk": "src/repro_torch/csrc/krls_bank.cu",
     "krls_bank_step": "src/repro_torch/csrc/krls_bank.cu",
+    "rff_features": "src/repro_torch/csrc/rff_features.cu",
+    "klms_chunk_elements": "src/repro_torch/csrc/rff_scan.cu",
+    "krls_chunk_elements": "src/repro_torch/csrc/rff_scan.cu",
 }
 TOLERANCE = {"klms_bank_chunk": F32_TOL, "klms_bank_step": F32_TOL,
              "bank_predict": BF16_TOL, "krls_bank_chunk": F32_TOL,
-             "krls_bank_step": F32_TOL}
+             "krls_bank_step": F32_TOL, "rff_features": FEAT_TOL,
+             "klms_chunk_elements": F32_TOL, "krls_chunk_elements": F32_TOL}
 
 
 def emit(obj) -> None:
@@ -558,6 +593,18 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def timed_case(fn, nbytes, nops, plain_reps: int = 20) -> dict:
+    """``fn(mode)`` timed as plain, kernel, kernel, plain (two readings
+    each, within one call), with its bound."""
+    plain = [time_ms(lambda: fn("ref"), plain_reps)]
+    kern = [time_ms(lambda: fn("cuda")), time_ms(lambda: fn("cuda"))]
+    plain.append(time_ms(lambda: fn("ref"), plain_reps))
+    bound, bound_by = bound_ms(nbytes, nops)
+    return dict(ms=min(kern), plain_ms=min(plain), bound_ms=bound,
+                bound_by=bound_by, bytes=nbytes, ops=nops, ms_runs=kern,
+                plain_ms_runs=plain)
+
+
 def phase_times(rng, device) -> dict:
     """Kernel, plain version and bound at the serving shapes.
 
@@ -618,16 +665,7 @@ def phase_times(rng, device) -> dict:
         k_shared + k_state + 4 * (BANK * (K_D_IN + 3) + BANK),
         BANK * k_tick,
     )
-    out = {}
-    for name, (fn, nbytes, nops) in cases.items():
-        # Plain, kernel, kernel, plain: two readings each, within one call.
-        plain = [time_ms(lambda: fn("ref"))]
-        kern = [time_ms(lambda: fn("cuda")), time_ms(lambda: fn("cuda"))]
-        plain.append(time_ms(lambda: fn("ref")))
-        bound, bound_by = bound_ms(nbytes, nops)
-        out[name] = dict(ms=min(kern), plain_ms=min(plain), bound_ms=bound,
-                         bound_by=bound_by, bytes=nbytes, ops=nops,
-                         ms_runs=kern, plain_ms_runs=plain)
+    out = {name: timed_case(*case) for name, case in cases.items()}
     bf16 = [time_ms(lambda: ops.rff_bank_predict(
         a["theta"], xq, a["w"], a["b"], a["s"], mode=m, precision="bf16"))
         for m in ("ref", "cuda")]
@@ -638,6 +676,454 @@ def phase_times(rng, device) -> dict:
           "bank_predict_bf16": {"plain_ms": bf16[0], "ms": bf16[1]},
           "library_ms": "null: no single PyTorch call computes any of the "
                         "five functions"})
+    return out
+
+
+def f32_tensor(rng, *shape, scale=1.0, device=None):
+    return torch.from_numpy(
+        (scale * rng.normal(size=shape)).astype(np.float32)).to(device)
+
+
+def feature_inputs(rng, m, d, dfeat, device):
+    """x (M, d), W (d, D) ~ N(0, 1/d), b ~ U[0, 2 pi], s = sqrt(2/D)."""
+    from repro_torch.kernels.ref import default_scale
+
+    return dict(
+        x=f32_tensor(rng, m, d, device=device),
+        w=f32_tensor(rng, d, dfeat, scale=1 / np.sqrt(d), device=device),
+        b=torch.from_numpy(rng.uniform(0, 2 * np.pi, size=dfeat)
+                           .astype(np.float32)).to(device),
+        s=default_scale(dfeat, device=device),
+    )
+
+
+def rel_norm(got, want) -> float:
+    """Frobenius norm of the difference over that of ``want``."""
+    g, w = got.double(), want.double()
+    den = float(torch.linalg.vector_norm(w))
+    return float(torch.linalg.vector_norm(g - w)) / (den or 1.0)
+
+
+FEATURE_SHAPES = [(256, D_IN, D_FEAT), (65536, D_IN, D_FEAT), (1, 1, 17),
+                  (33, 5, 300)]  # (M, d, D)
+# (T, d, D, chunk, normalized): the replay shape and the paper's (one
+# chunk each at the default Tc), remainders at both widths, and Tc = 1.
+ELEMENT_CASES = [(256, D_IN, D_FEAT, None, False),
+                 (256, D_IN, D_FEAT, 100, True),
+                 (256, K_D_IN, K_D_FEAT, None, False),
+                 (256, K_D_IN, K_D_FEAT, 48, True),
+                 (40, K_D_IN, K_D_FEAT, 1, False)]
+
+
+def phase_replay_kernels(rng, device) -> dict:
+    """The replay kernels against their plain versions, and their exact
+    contracts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_scan import (
+        rff_klms_chunk_elements_cuda,
+        rff_krls_chunk_elements_cuda,
+    )
+
+    errs = dict.fromkeys(("rff_features", "klms_chunk_elements",
+                          "krls_chunk_elements"), 0.0)
+    rel = dict(errs)
+    feat = {}
+    for m, d, dfeat in FEATURE_SHAPES:
+        a = feature_inputs(rng, m, d, dfeat, device)
+        smax = float(a["s"].abs().max())
+        for prec, tol in ((None, FEAT_TOL), ("bf16", FEAT_BF16_TOL)):
+            got = ops.rff_features(a["x"], a["w"], a["b"], a["s"],
+                                   mode="cuda", precision=prec)
+            want = ops.rff_features(a["x"], a["w"], a["b"], a["s"],
+                                    mode="ref", precision=prec)
+            check(got.dtype == want.dtype and got.shape == (m, dfeat),
+                  f"rff_features {m, d, dfeat} {prec}: dtype or shape")
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"rff_features {m, d, dfeat}: non-finite output")
+            e = max_err(got, want)
+            check(e <= tol * smax, f"rff_features {m, d, dfeat} {prec}: off "
+                  f"by {e:.3g} = {e / smax:.3g} of max|s| (tol {tol})")
+            feat[f"{m}x{d}->{dfeat} {prec or 'f32'}"] = e / smax
+            if prec is None:
+                errs["rff_features"] = max(errs["rff_features"], e)
+                rel["rff_features"] = max(rel["rff_features"], rel_norm(got, want))
+        del a, got, want
+
+    for tlen, d, dfeat, chunk, norm in ELEMENT_CASES:
+        a = feature_inputs(rng, tlen, d, dfeat, device)
+        ys = f32_tensor(rng, tlen, device=device)
+        common = (a["x"], ys, a["w"], a["b"])
+        for name, op, hp, kw in (
+            ("klms_chunk_elements", ops.rff_klms_chunk_elements, MU,
+             dict(normalized=norm)),
+            ("krls_chunk_elements", ops.rff_krls_chunk_elements, K_BETA, {}),
+        ):
+            got = op(*common, hp, a["s"], mode="cuda", chunk=chunk, **kw)
+            want = op(*common, hp, a["s"], mode="ref", chunk=chunk, **kw)
+            label = f"{name} T={tlen} d={d} D={dfeat} Tc={chunk} norm={norm}"
+            errs[name] = max(errs[name], hold(label, got, want, F32_TOL))
+            r = max(rel_norm(g, w) for g, w in zip(got, want))
+            check(r <= F32_TOL, f"{label}: normwise {r:.3g} (tol {F32_TOL})")
+            rel[name] = max(rel[name], r)
+            del got, want
+
+    # Exact contracts at the paper's width: chunk 1 of 3 fully masked.
+    a = feature_inputs(rng, 24, K_D_IN, K_D_FEAT, device)
+    ys = f32_tensor(rng, 24, device=device)
+    xs_c, ys_c = a["x"].reshape(3, 8, K_D_IN), ys.reshape(3, 8)
+    mask = torch.ones_like(ys_c)
+    mask[1] = 0
+    args = (xs_c, ys_c, a["w"], a["b"])
+    av, vv = rff_klms_chunk_elements_cuda(*args, MU, mask, a["s"])
+    check(torch.equal(av[1], torch.eye(K_D_FEAT, device=device))
+          and not bool(vv[1].any()), "masked KLMS chunk is not (I, 0)")
+    g, phi, r = rff_krls_chunk_elements_cuda(*args, K_BETA, mask, a["s"])
+    check(float(g[1]) == 1.0 and not bool(phi[1].any())
+          and not bool(r[1].any()), "masked KRLS chunk is not (1, 0, 0)")
+    # A remainder chunk (4 live + 12 masked ticks) equals its live ticks.
+    x20, y20 = a["x"][:20], ys[:20]
+    for op, hp in ((ops.rff_klms_chunk_elements, MU),
+                   (ops.rff_krls_chunk_elements, K_BETA)):
+        padded = op(x20, y20, a["w"], a["b"], hp, a["s"], mode="cuda",
+                    chunk=16)
+        alone = op(x20[16:], y20[16:], a["w"], a["b"], hp, a["s"],
+                   mode="cuda", chunk=4)
+        check(all(torch.equal(p[1], q[0]) for p, q in zip(padded, alone)),
+              f"{op.__name__}: the remainder chunk differs from its live ticks")
+    torch.cuda.synchronize()
+    emit({"phase": "replay_kernels", "feature_shapes": FEATURE_SHAPES,
+          "feature_err_of_max_s": feat,
+          "element_cases": [list(c) for c in ELEMENT_CASES],
+          "max_abs_err": errs, "max_normwise_err": rel,
+          "tolerance": {"features_of_max_s": FEAT_TOL,
+                        "features_bf16_of_max_s": FEAT_BF16_TOL,
+                        "elements_elementwise": F32_TOL,
+                        "elements_normwise": F32_TOL},
+          "exact": {"masked_chunk_is_identity": True,
+                    "remainder_chunk_eq_live_ticks": True}})
+    return errs
+
+
+def lifecycle_history(rng, d, bank):
+    """Observations before and during eviction. Tenant 0 overflows the
+    ring (300 + 40 arrivals), tenant 1 has 181 + 20 (not a multiple of the
+    flush chunk), tenant 2 a single tick, tenant 3 none; tenants 4 .. 63
+    get 12 + 4 each and are never evicted."""
+    dirs = rng.normal(size=(bank, d)) / np.sqrt(d)
+
+    def obs(counts):
+        tenants = np.repeat(np.arange(len(counts)), counts)
+        rng.shuffle(tenants)
+        xs = rng.normal(size=(len(tenants), d)).astype(np.float32)
+        proj = np.einsum("nd,nd->n", xs, dirs[tenants])
+        ys = 1.0 + 0.5 * np.sin(proj) + 0.05 * rng.normal(size=len(tenants))
+        return list(zip(tenants.tolist(), xs, ys.astype(np.float32).tolist()))
+
+    before = obs([300, 181, 1, 0] + [12] * 60)
+    during = obs([40, 20, 0, 0] + [4] * 60)
+    after = obs([8, 8, 8, 8] + [4] * 60)
+    return before, during, after
+
+
+EVICTED = (0, 1, 2, 3)
+
+
+def drive(servers, observations):
+    for srv in servers:
+        for t, x, y in observations:
+            srv.submit(t, x, y)
+        srv.drain()
+
+
+def readmit_all(srv) -> dict:
+    """Readmit every evicted tenant; wall milliseconds per tenant."""
+    ms = {}
+    for t in EVICTED:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.readmit(t)
+        torch.cuda.synchronize()
+        ms[t] = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def untouched_equal(srv, ctl) -> bool:
+    got, want = srv.queue.state, ctl.queue.state
+    return all(torch.equal(g[len(EVICTED):], w[len(EVICTED):])
+               for g, w in zip(got, want))
+
+
+def phase_replay_server(seed, device, kernels) -> dict:
+    """The KLMS lifecycle: evict -> log -> readmit under every rebuild mode,
+    at the KLMS serving configuration with log_capacity=256."""
+    from repro_torch.core.klms import rff_klms_run
+    from repro_torch.features import rff_map
+    from repro_torch.serve import make_server
+
+    fm = rff_map(torch.Generator().manual_seed(seed), D_IN, D_FEAT, SIGMA,
+                 device=device)
+    hp = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU, device=device)
+    modes = ("blocked", "scan", "sequential")
+    ctl = make_server("klms", **hp)
+    srv = {m: make_server("klms", log_capacity=LOG_CAP, rebuild_mode=m, **hp)
+           for m in modes}
+    ref = {m: make_server("klms", log_capacity=LOG_CAP, rebuild_mode=m,
+                          mode="ref", **hp) for m in modes}
+    rng = np.random.default_rng(seed + 3)
+    before, during, after = lifecycle_history(rng, D_IN, BANK)
+    xq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, D_IN)).astype(np.float32)).to(device)
+    lifecycle = [*srv.values(), *ref.values()]
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    drive([ctl, *lifecycle], before)
+    for s in lifecycle:
+        for t in EVICTED:
+            s.evict(t)
+    drive([ctl, *lifecycle], during)
+    readmit_ms = {m: readmit_all(srv[m]) for m in modes}
+    for m in modes:
+        readmit_all(ref[m])
+    torch.cuda.synchronize()
+    readmit_s = time.perf_counter() - t0
+
+    report = {}
+    ctl_theta = ctl.queue.state.theta
+    for m in modes:
+        s, r = srv[m], ref[m]
+        log = s.snapshot_server.log
+        check(not log.complete(0) and all(log.complete(t) for t in (1, 2, 3)),
+              f"{m}: log completeness")
+        check(log.size(0) == LOG_CAP and log.size(1) == 201
+              and log.size(2) == 1 and log.size(3) == 0, f"{m}: log sizes")
+        theta = s.queue.state.theta
+        dist = {}
+        for t in (1, 2):  # complete logs: the never-evicted control
+            dist[f"vs_control_{t}"] = rel_norm(theta[t], ctl_theta[t])
+            check(dist[f"vs_control_{t}"] <= REPLAY_REL,
+                  f"{m}: tenant {t} is {dist[f'vs_control_{t}']:.3g} from "
+                  f"the never-evicted control (tol {REPLAY_REL})")
+        check(not bool(theta[3].any()), f"{m}: cold tenant 3 is not fresh")
+        for t in (0, 1, 2):  # every log: rff_klms_run over the log itself
+            xs, ys = (torch.from_numpy(a).to(device) for a in log.arrays(t))
+            run, _ = rff_klms_run(fm, xs, ys, MU)
+            dist[f"vs_run_{t}"] = rel_norm(theta[t], run.theta)
+            if m == "sequential":
+                check(torch.equal(theta[t], run.theta),
+                      f"sequential readmit of tenant {t} is not rff_klms_run")
+            check(dist[f"vs_run_{t}"] <= REPLAY_REL,
+                  f"{m}: tenant {t} is {dist[f'vs_run_{t}']:.3g} from "
+                  f"rff_klms_run over its log (tol {REPLAY_REL})")
+            check(int(s.queue.state.step[t]) == log.size(t), f"{m}: step {t}")
+        hold(f"{m} readmitted theta vs mode=ref",
+             [theta[:len(EVICTED)]], [r.queue.state.theta[:len(EVICTED)]],
+             SERVER_TOL)
+        check(untouched_equal(s, ctl), f"{m}: an untouched tenant differs "
+              "from the never-evicted control")
+        dist["readmit_ms"] = readmit_ms[m]
+        report[m] = dist
+
+    drive([ctl, *lifecycle], after)  # training after readmission
+    for m in modes:
+        s, r = srv[m], ref[m]
+        check(untouched_equal(s, ctl), f"{m}: untouched tenants drifted")
+        hold(f"{m} predict_block after readmit", [s.predict_block(xq)],
+             [r.predict_block(xq)], SERVER_TOL)
+        for t in EVICTED:
+            hold(f"{m} predict tenant {t} after readmit",
+                 [s.predict(t, xq[t])], [r.predict(t, xq[t])], SERVER_TOL)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(kernels, ("rff_features", "klms_chunk_elements",
+                                       "klms_bank_chunk", "bank_predict"))
+    emit({"phase": "replay_server", "learner": "klms", "bank": BANK,
+          "d": D_IN, "D": D_FEAT, "chunk": CHUNK, "mu": MU,
+          "log_capacity": LOG_CAP, "submits_per_server":
+          len(before) + len(during) + len(after), "modes": report,
+          "tolerance": {"vs_control_and_run_rel": REPLAY_REL,
+                        "vs_ref_server": SERVER_TOL},
+          "bitwise": {"sequential_eq_rff_klms_run": True,
+                      "untouched_eq_control": True},
+          "launches": launches, "seconds_to_readmit": readmit_s,
+          "seconds": seconds})
+    return launches
+
+
+def phase_krls_replay_server(seed, device, kernels) -> dict:
+    """The KRLS lifecycle at the paper's section 6 settings under "blocked"
+    and "scan". At lam = 1e-4 f32 itself is the limit (PR 12's finding),
+    so readmitted state, and reads and state after more training, are held
+    within BUDGET times the plain path's own distance from the same server
+    run in float64; untouched tenants' state and reads equal the
+    never-evicted control's bit for bit."""
+    from repro_torch.features import rff_map
+    from repro_torch.serve import make_server
+
+    fm = rff_map(torch.Generator().manual_seed(seed), K_D_IN, K_D_FEAT,
+                 K_SIGMA, device=device)
+    fm64 = type(fm)(*(t.double() for t in fm))
+    hp = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
+    modes = ("blocked", "scan")
+    ctl = make_server("krls", feature_map=fm, **hp)
+    trio = {m: [make_server("krls", feature_map=f, log_capacity=LOG_CAP,
+                            rebuild_mode=m, mode=k, **hp)
+                for f, k in ((fm, "auto"), (fm, "ref"), (fm64, "ref"))]
+            for m in modes}  # kernel, plain f32, plain float64
+    rng = np.random.default_rng(seed + 4)
+    before, during, after = lifecycle_history(rng, K_D_IN, BANK)
+    xq = rng.normal(size=(BANK, Q, K_D_IN)).astype(np.float32)
+    lifecycle = [s for servers in trio.values() for s in servers]
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    drive([ctl, *lifecycle], before)
+    for s in lifecycle:
+        for t in EVICTED:
+            s.evict(t)
+    drive([ctl, *lifecycle], during)
+    readmit_ms = {m: readmit_all(trio[m][0]) for m in modes}
+    for m in modes:
+        for s in trio[m][1:]:
+            readmit_all(s)
+    torch.cuda.synchronize()
+
+    report, live = {}, [0, 1, 2]
+    for m in modes:
+        got, plain, exact = (s.queue.state for s in trio[m])
+        log = trio[m][0].snapshot_server.log
+        budget = {
+            "theta": within_budget(f"{m} readmit theta", got.theta[live],
+                                   plain.theta[live], exact.theta[live],
+                                   normwise),
+            "P": within_budget(f"{m} readmit P", got.pmat[live],
+                               plain.pmat[live], exact.pmat[live], p_rel),
+        }
+        fresh = torch.eye(K_D_FEAT, device=device) / K_LAM
+        check(not bool(got.theta[3].any()) and torch.equal(got.pmat[3], fresh),
+              f"krls {m}: cold tenant 3 is not the fresh row")
+        check(all(int(got.step[t]) == log.size(t) for t in live),
+              f"krls {m}: steps")
+        check(untouched_equal(trio[m][0], ctl), f"krls {m}: an untouched "
+              "tenant differs from the never-evicted control")
+        budget["vs_control_theta"] = normwise(got.theta[[1, 2]],
+                                              ctl.queue.state.theta[[1, 2]])
+        budget["readmit_ms"] = readmit_ms[m]
+        report[m] = budget
+
+    drive([ctl, *lifecycle], after)  # training after readmission
+    ctl_blk = ctl.predict_block(xq)
+    for m in modes:
+        srv = trio[m][0]
+        check(untouched_equal(srv, ctl), f"krls {m}: untouched tenants drifted")
+        blocks = [s.predict_block(xq) for s in trio[m]]
+        check(bool(torch.isfinite(blocks[0]).all())
+              and blocks[0].shape == (BANK, Q),
+              f"krls {m}: reads after readmit not finite or misshapen")
+        check(torch.equal(blocks[0][len(EVICTED):], ctl_blk[len(EVICTED):]),
+              f"krls {m}: untouched tenants' reads differ from the control's")
+        states = [s.queue.state for s in trio[m]]
+        report[m]["after_training"] = {
+            "predict_block": within_budget(f"{m} reads after readmit",
+                                           *blocks, normwise),
+            "theta": within_budget(f"{m} theta after readmit",
+                                   *[st.theta for st in states], normwise),
+            "P": within_budget(f"{m} P after readmit",
+                               *[st.pmat for st in states], p_rel),
+        }
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(kernels, ("rff_features", "krls_chunk_elements",
+                                       "krls_bank_chunk", "bank_predict"))
+    emit({"phase": "krls_replay_server", "learner": "krls", "bank": BANK,
+          "d": K_D_IN, "D": K_D_FEAT, "sigma": K_SIGMA, "lam": K_LAM,
+          "beta": K_BETA, "chunk": CHUNK, "log_capacity": LOG_CAP,
+          "modes": report,
+          "budget": {"factor": BUDGET, "floor": BUDGET_FLOOR},
+          "bitwise": {"untouched_state_and_reads_eq_control": True},
+          "launches": launches, "seconds": seconds})
+    return launches
+
+
+def phase_replay_times(rng, device) -> dict:
+    """The replay kernels, their plain versions and their bounds at the
+    replay shapes, and readmission wall time per family, mode and width.
+
+    Operations, counting a multiply-add as two: the feature map's 2 d D
+    plus bias, cos (as one operation) and scale per output; a live KLMS
+    element tick 4 D^2 (z A, one multiply-add per element, and the rank-1
+    update, one multiply-add per element once mu_eff z_i is formed per
+    row) plus 5 D (z . v, v's update and mu_eff z); a live KRLS tick 3 D^2
+    (beta Phi + z_i z_j: a multiply and a multiply-add; a masked tick is
+    skipped, so no mask multiply) plus 3 D for r. Every tick of these
+    inputs is live. Bytes: each input read once and each output written
+    once (the (D, D) element per chunk).
+    """
+    from repro_torch.core.scan import replay_klms, replay_krls
+    from repro_torch.features import rff_map
+    from repro_torch.kernels import ops
+
+    out = {}
+
+    def measure(name, fn, nbytes, nops, shape):
+        # The plain element folds take tens of ms: fewer readings.
+        out[name] = dict(timed_case(fn, nbytes, nops, plain_reps=5),
+                         shape=shape)
+
+    shared = lambda d, dfeat: 4 * (d * dfeat + 2 * dfeat)  # W, b, s
+    for label, m in (("rff_features", LOG_CAP), ("rff_features_read_block",
+                                                 BANK * Q)):
+        a = feature_inputs(rng, m, D_IN, D_FEAT, device)
+        measure(label, lambda mode: ops.rff_features(
+            a["x"], a["w"], a["b"], a["s"], mode=mode),
+            shared(D_IN, D_FEAT) + 4 * m * (D_IN + D_FEAT),
+            m * (2 * D_IN * D_FEAT + 3 * D_FEAT), shape=[m, D_IN, D_FEAT])
+        del a
+    a = feature_inputs(rng, LOG_CAP, D_IN, D_FEAT, device)
+    ys = f32_tensor(rng, LOG_CAP, device=device)
+    measure("klms_chunk_elements", lambda mode: ops.rff_klms_chunk_elements(
+        a["x"], ys, a["w"], a["b"], MU, a["s"], mode=mode),
+        shared(D_IN, D_FEAT) + 4 * (LOG_CAP * (D_IN + 1)
+                                    + D_FEAT * D_FEAT + D_FEAT),
+        LOG_CAP * (2 * D_IN * D_FEAT + 3 * D_FEAT + 4 * D_FEAT ** 2
+                   + 5 * D_FEAT),
+        shape=[LOG_CAP, D_IN, D_FEAT])
+    k = feature_inputs(rng, LOG_CAP, K_D_IN, K_D_FEAT, device)
+    kys = f32_tensor(rng, LOG_CAP, device=device)
+    measure("krls_chunk_elements", lambda mode: ops.rff_krls_chunk_elements(
+        k["x"], kys, k["w"], k["b"], K_BETA, k["s"], mode=mode),
+        shared(K_D_IN, K_D_FEAT) + 4 * (LOG_CAP * (K_D_IN + 1) + 1
+                                        + K_D_FEAT * K_D_FEAT + K_D_FEAT),
+        LOG_CAP * (2 * K_D_IN * K_D_FEAT + 3 * K_D_FEAT + 3 * K_D_FEAT ** 2
+                   + 3 * K_D_FEAT),
+        shape=[LOG_CAP, K_D_IN, K_D_FEAT])
+
+    def wall_ms(fn, reps=3) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    readmit = {}
+    for d, dfeat in ((D_IN, D_FEAT), (K_D_IN, K_D_FEAT)):
+        fm = rff_map(torch.Generator().manual_seed(7), d, dfeat, SIGMA,
+                     device=device)
+        xs = f32_tensor(rng, LOG_CAP, d, device=device)
+        ys = f32_tensor(rng, LOG_CAP, device=device)
+        for mode in ("sequential", "scan", "blocked"):
+            readmit[f"klms D={dfeat} {mode}"] = wall_ms(
+                lambda: replay_klms(fm, xs, ys, MU, mode=mode))
+            readmit[f"krls D={dfeat} {mode}"] = wall_ms(
+                lambda: replay_krls(fm, xs, ys, K_LAM, K_BETA, mode=mode))
+    emit({"phase": "replay_times", "T": LOG_CAP, "kernels": out,
+          "replay_wall_ms_T256": readmit,
+          "library_ms": "null: no single PyTorch call computes any of the "
+                        "three functions"})
     return out
 
 
@@ -663,7 +1149,12 @@ def main() -> int:
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
     )
+    from repro_torch.kernels.rff_features import rff_features_cuda
     from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
+    from repro_torch.kernels.rff_scan import (
+        rff_klms_chunk_elements_cuda,
+        rff_krls_chunk_elements_cuda,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -690,7 +1181,8 @@ def main() -> int:
     kernels = dict(zip(REPLACES, (
         rff_klms_bank_chunk_cuda, rff_klms_bank_step_cuda,
         rff_bank_predict_cuda, rff_krls_bank_chunk_cuda,
-        rff_krls_bank_step_cuda)))
+        rff_krls_bank_step_cuda, rff_features_cuda,
+        rff_klms_chunk_elements_cuda, rff_krls_chunk_elements_cuda)))
     errs = phase_kernels(rng, device)
     launches = phase_server(args.seed, device, kernels)
     krls_errs, p_rels = phase_krls_kernels(rng, device)
@@ -699,6 +1191,14 @@ def main() -> int:
     launches["bank_predict"] += krls_launches.pop("bank_predict")
     launches.update(krls_launches)
     times = phase_times(rng, device)
+    # The replay slice, after every earlier phase, on its own generator.
+    rrng = np.random.default_rng(args.seed + 3)
+    errs.update(phase_replay_kernels(rrng, device))
+    for paths in (phase_replay_server(args.seed, device, kernels),
+                  phase_krls_replay_server(args.seed, device, kernels)):
+        for name, n in paths.items():
+            launches[name] = launches.get(name, 0) + n
+    times.update(phase_replay_times(rrng, device))
     torch.cuda.synchronize()
     print(smi)
     emit({"kernels": [
@@ -709,7 +1209,12 @@ def main() -> int:
             if name in p_rels else {}),
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None}
+         "bound_by": times[name]["bound_by"], "library_ms": None,
+         **({"tolerance_of": "max|s|",
+             "read_block": {k: times["rff_features_read_block"][k]
+                            for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "shape")}}
+            if name == "rff_features" else {})}
         for name in REPLACES
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

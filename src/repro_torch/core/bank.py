@@ -1,7 +1,8 @@
 """Filter-bank engine, KLMS and KRLS tiers: B independent RFF filters
 sharing one feature map, stepped as one program.
 
-Counterpart of the fused KLMS and KRLS tiers of ``repro/core/bank.py``.
+Counterpart of the fused KLMS and KRLS tiers of ``repro/core/bank.py``,
+with the slot lifecycle (``evict_tenant``, ``rebuild_tenant``).
 The bank axis that ``repro`` gets from ``jax.vmap`` is written out: theta
 is ``(B, D)`` (and P ``(B, D, D)``) and every tick goes through the fused
 kernels of ``kernels/ops.py`` (the CUDA kernels on the card, the plain
@@ -16,7 +17,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.core.klms import LMSState, StepOut
-from repro_torch.core.krls import RLSState
+from repro_torch.core.krls import RLSState, rff_krls_init
+from repro_torch.core.scan import replay_klms, replay_krls
 from repro_torch.features.base import FeatureLike, as_trig, feature_dtype
 from repro_torch.kernels import ops, ref
 
@@ -32,6 +34,9 @@ __all__ = [
     "krls_bank_run",
     "tenant_row",
     "set_tenant_row",
+    "evict_tenant",
+    "bank_size",
+    "rebuild_tenant",
 ]
 
 
@@ -216,3 +221,71 @@ def set_tenant_row(state, tenant: int, row):
         a[tenant] = torch.as_tensor(r, dtype=a.dtype, device=a.device)
         out.append(a)
     return type(state)(*out)
+
+
+def _hp_row(v, tenant: int):
+    """A scalar hyperparameter, or one tenant's entry of a per-tenant
+    ``(B,)`` tensor. Python scalars pass through unwrapped, so a replay
+    runs the same arithmetic as the training path."""
+    if isinstance(v, (int, float)):
+        return v
+    t = torch.as_tensor(v)
+    return t[tenant] if t.ndim else t
+
+
+def _fresh_row(state, lam: Union[float, torch.Tensor] = 1e-4,
+               tenant: int = 0):
+    """A fresh single-learner row shaped like one slot of ``state``: zero
+    theta (and step), and for an RLS bank ``P_0 = I / lam`` with the
+    tenant's own ``lam`` when it is a ``(B,)`` tensor."""
+    if isinstance(state, RLSState):
+        fresh = rff_krls_init(state.pmat.shape[-1], _hp_row(lam, tenant),
+                              state.pmat.dtype, device=state.pmat.device)
+        return RLSState(theta=fresh.theta.to(state.theta.dtype),
+                        pmat=fresh.pmat, step=fresh.step)
+    return type(state)(*(torch.zeros_like(a) for a in tenant_row(state, tenant)))
+
+
+def evict_tenant(state, tenant: int, init_row=None,
+                 lam: Union[float, torch.Tensor] = 1e-4):
+    """Release bank slot ``tenant``: one row write (out of place), nothing
+    else moves. ``init_row`` is the row to park there, a fresh
+    single-learner row by default (zero theta; ``P_0 = I / lam`` for an RLS
+    bank, per tenant when ``lam`` is ``(B,)``)."""
+    if init_row is None:
+        init_row = _fresh_row(state, lam, tenant)
+    return set_tenant_row(state, tenant, init_row)
+
+
+def bank_size(state) -> int:
+    """Number of slots B (the leading axis of every state tensor)."""
+    return int(state[0].shape[0])
+
+
+def rebuild_tenant(state, tenant: int, rff: FeatureLike, xs, ys, *,
+                   mu: Union[float, torch.Tensor] = 0.5,
+                   lam: Union[float, torch.Tensor] = 1e-4,
+                   beta: Union[float, torch.Tensor] = 0.9995,
+                   mode: str = "scan", chunk: Optional[int] = None,
+                   normalized: bool = False, kernel_mode: str = "auto"):
+    """Reconstruct slot ``tenant`` from its replay log ``xs (T, d)``, ``ys
+    (T,)`` (tensors or host arrays) and write it into a copy of the bank.
+
+    The family follows the state (``RLSState`` = KRLS); hyperparameters
+    are scalars or per-tenant ``(B,)`` (the tenant's entry is used). The
+    replay starts from a fresh row. ``mode`` / ``chunk`` pick the schedule
+    of ``core/scan.py`` (``"sequential"`` is bit for bit the training
+    path); ``kernel_mode`` is the ops dispatch. Returns the new bank state.
+    """
+    like = state.theta
+    xs = torch.as_tensor(xs, dtype=like.dtype, device=like.device)
+    ys = torch.as_tensor(ys, dtype=like.dtype, device=like.device)
+    if isinstance(state, RLSState):
+        row = replay_krls(rff, xs, ys, lam=_hp_row(lam, tenant),
+                          beta=_hp_row(beta, tenant), mode=mode, chunk=chunk,
+                          kernel_mode=kernel_mode)
+    else:
+        row = replay_klms(rff, xs, ys, _hp_row(mu, tenant), mode=mode,
+                          chunk=chunk, normalized=normalized,
+                          kernel_mode=kernel_mode)
+    return set_tenant_row(state, tenant, row)

@@ -1,7 +1,7 @@
 """RFF-KLMS — the paper's algorithm (§4): linear LMS on RFF-mapped data.
 
-Counterpart of ``repro/core/klms.py`` (init, step, run). The solution is a
-fixed-size ``theta in R^D``:
+Counterpart of ``repro/core/klms.py`` (init, step, the normalized step
+and run). The solution is a fixed-size ``theta in R^D``:
 
     y_hat_n = theta . z(x_n),   e_n = y_n - y_hat_n,
     theta  <- theta + mu e_n z(x_n).
@@ -24,6 +24,7 @@ __all__ = [
     "rff_klms_init",
     "lms_step",
     "rff_klms_step",
+    "rff_nklms_step",
     "rff_klms_run",
 ]
 
@@ -62,16 +63,33 @@ def rff_klms_step(state: LMSState, sample, rff: FeatureLike, mu: float):
     return LMSState(theta=theta, step=state.step + 1), out
 
 
+def rff_nklms_step(state: LMSState, sample, rff: FeatureLike, mu: float,
+                   eps: float = 1e-6):
+    """Normalized variant: ``mu_eff = mu / (eps + ||z||^2)`` (beyond the
+    paper)."""
+    x, y = sample
+    z = featurize(rff, x)
+    y_hat = state.theta @ z
+    err = y - y_hat
+    theta = state.theta + (mu / (eps + z @ z)) * err * z
+    return LMSState(theta=theta, step=state.step + 1), StepOut(y_hat, err)
+
+
 def rff_klms_run(rff: FeatureLike, xs: torch.Tensor, ys: torch.Tensor,
-                 mu: float, state: Optional[LMSState] = None):
+                 mu: float, state: Optional[LMSState] = None,
+                 normalized: bool = False, eps: float = 1e-6):
     """Drive the filter over ``xs (n, d)``, ``ys (n,)``; returns the final
-    state and per-step ``StepOut`` tensors ``(n,)``."""
+    state and per-step ``StepOut`` tensors ``(n,)``. ``normalized=True``
+    runs :func:`rff_nklms_step`."""
     if state is None:
         state = rff_klms_init(rff.num_features, feature_dtype(rff),
                               device=xs.device)
     preds, errs = [], []
     for x, y in zip(xs, ys):
-        state, out = rff_klms_step(state, (x, y), rff, mu)
+        if normalized:
+            state, out = rff_nklms_step(state, (x, y), rff, mu, eps)
+        else:
+            state, out = rff_klms_step(state, (x, y), rff, mu)
         preds.append(out.prediction)
         errs.append(out.error)
     if not preds:

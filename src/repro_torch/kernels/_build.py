@@ -22,7 +22,9 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build", "load"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNEL_SOURCES = ("klms_bank", "bank_predict", "krls_bank")
+KERNEL_SOURCES = (
+    "klms_bank", "bank_predict", "krls_bank", "rff_features", "rff_scan",
+)
 
 # No -use_fast_math: |x W + b| runs far outside [-pi, pi], where the fast
 # __cosf loses accuracy; the kernels call the IEEE cosf.

@@ -1,4 +1,4 @@
-"""Public serving-slice ops with the ``mode=`` dispatch of ``repro``'s ops.
+"""Public ops of the port with the ``mode=`` dispatch of ``repro``'s ops.
 
 ``mode``:
 
@@ -18,7 +18,9 @@ from repro_torch.kernels.chunking import (
     default_chunk_t,
     time_blocks,
     unblock_time,
+    valid_time_mask,
 )
+from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import (
     rff_klms_bank_chunk_cuda,
     rff_klms_bank_step_cuda,
@@ -28,15 +30,22 @@ from repro_torch.kernels.rff_krls_step import (
     rff_krls_bank_step_cuda,
 )
 from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
+from repro_torch.kernels.rff_scan import (
+    rff_klms_chunk_elements_cuda,
+    rff_krls_chunk_elements_cuda,
+)
 
 __all__ = [
     "MODES",
     "use_kernel",
+    "rff_features",
     "rff_bank_predict",
     "rff_klms_bank_step",
     "rff_klms_bank_chunk",
     "rff_krls_bank_step",
     "rff_krls_bank_chunk",
+    "rff_klms_chunk_elements",
+    "rff_krls_chunk_elements",
 ]
 
 MODES = ("auto", "cuda", "ref")
@@ -51,6 +60,20 @@ def use_kernel(mode: str, lead: torch.Tensor) -> bool:
     if mode == "ref":
         return False
     raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES}")
+
+
+def rff_features(x, w, b, s=None, *, mode: str = "auto", precision=None):
+    """Affine-trig feature map ``s * cos(x @ w + b)`` over arbitrary leading
+    dims of ``x (..., d)`` -> ``(..., D)``; ``s=None`` is the Monte-Carlo
+    ``sqrt(2/D)``. ``precision="bf16"`` follows the contract in
+    ``kernels/ref.py`` (bf16 operands, f32 accumulation, bf16 features)."""
+    precision = ref.canon_precision(precision)
+    if not use_kernel(mode, x):
+        return ref.rff_features_ref(x, w, b, s, precision)
+    lead = x.shape[:-1]
+    out = rff_features_cuda(x.reshape(-1, x.shape[-1]).contiguous(), w, b, s,
+                            precision)
+    return out.reshape(*lead, w.shape[-1])
 
 
 def rff_bank_predict(theta, xq, w, b, s=None, *, mode: str = "auto",
@@ -157,3 +180,51 @@ def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
         lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, beta, mc, s),
         (theta, pmat), xs, ys, mask, chunk,
     )
+
+
+def _element_blocks(xs, ys, dfeat, chunk):
+    """Time-block one stream ``xs (T, d)``, ``ys (T,)`` into ``(nc, Tc, d)``,
+    ``(nc, Tc)`` and the ``(nc, Tc)`` validity mask (the padded remainder
+    masked); ``chunk=None`` takes ``default_chunk_t(..., elements=True)``."""
+    tlen, d = xs.shape
+    if chunk is None:
+        chunk = default_chunk_t(1, dfeat, d, elements=True)
+    chunk = min(chunk, tlen)
+    return (
+        time_blocks(xs, chunk).contiguous(),
+        time_blocks(ys, chunk).contiguous(),
+        valid_time_mask(tlen, chunk, xs.dtype, xs.device),
+    )
+
+
+def rff_klms_chunk_elements(xs, ys, w, b, mu, s=None, *, mode: str = "auto",
+                            chunk=None, normalized: bool = False,
+                            eps: float = 1e-6):
+    """Per-chunk composed KLMS affine elements for the replay scan.
+
+    xs (T, d), ys (T,): ONE replayed stream (a tenant's log); shared w
+    (d, D), b (D,), s optional (D,); mu a scalar. The stream is cut into
+    ceil(T / chunk) chunks, the last one zero-masked past T (its padding
+    composes the identity), and each chunk folds into one ``theta -> a
+    theta + v`` element. Returns ``(a (nc, D, D), v (nc, D))``.
+    """
+    xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
+    if use_kernel(mode, xs):
+        return rff_klms_chunk_elements_cuda(
+            xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized, eps=eps
+        )
+    return ref.klms_chunk_elements_ref(
+        xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized, eps=eps
+    )
+
+
+def rff_krls_chunk_elements(xs, ys, w, b, beta, s=None, *,
+                            mode: str = "auto", chunk=None):
+    """Per-chunk composed KRLS decay elements for the replay scan: layout
+    as :func:`rff_klms_chunk_elements`, ``beta`` the scalar forgetting
+    factor; masked remainder ticks compose ``(1, 0, 0)``. Returns ``(g
+    (nc,), phi (nc, D, D), r (nc, D))``."""
+    xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
+    if use_kernel(mode, xs):
+        return rff_krls_chunk_elements_cuda(xs_c, ys_c, w, b, beta, mask_c, s)
+    return ref.krls_chunk_elements_ref(xs_c, ys_c, w, b, beta, mask_c, s)

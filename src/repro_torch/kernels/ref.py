@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serving-slice kernels (the oracles).
+"""Plain PyTorch versions of the port's kernels (the oracles).
 
 Counterparts of ``repro/kernels/ref.py``: deliberately naive, clarity over
 speed. The CPU tests hold these against ``repro``; on the card the CUDA
@@ -35,6 +35,8 @@ __all__ = [
     "rff_bank_predict_ref",
     "rff_krls_bank_step_ref",
     "rff_krls_bank_chunk_ref",
+    "klms_chunk_elements_ref",
+    "krls_chunk_elements_ref",
 ]
 
 _BF16 = ("bf16", "bfloat16")
@@ -214,3 +216,73 @@ def rff_krls_bank_chunk_ref(theta, pmat, xs, ys, w, b, beta, mask=None,
         empty = ys.new_zeros((bsz, 0))
         return theta, pmat, empty, empty
     return theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1)
+
+
+def klms_chunk_elements_ref(xs, ys, w, b, mu, mask=None, s=None,
+                            normalized=False, eps=1e-6):
+    """Per-chunk composed KLMS affine elements: xs (nc, Tc, d), ys (nc, Tc),
+    mask optional (nc, Tc), mu scalar. Each chunk's Tc ticks fold into ONE
+    ``theta -> a theta + v`` map by the rank-1 recursion, tick by tick:
+
+        row = z A;  A <- A - mu_eff outer(z, row);
+        v <- v - mu_eff ((z . v) - y) z,
+
+    with ``mu_eff = m mu`` (NKLMS: ``m mu / (eps + z . z)``), so a masked
+    tick (m = 0) composes the identity. Returns ``(a (nc, D, D), v (nc,
+    D))``."""
+    nc, tc, _ = xs.shape
+    dfeat = w.shape[-1]
+    if mask is None:
+        mask = torch.ones_like(ys)
+    mask = mask.to(xs.dtype)
+    a_out, v_out = [], []
+    for c in range(nc):
+        zc = rff_features_ref(xs[c], w, b, s)  # (Tc, D)
+        a = torch.eye(dfeat, dtype=xs.dtype, device=xs.device)
+        v = torch.zeros(dfeat, dtype=xs.dtype, device=xs.device)
+        for t in range(tc):
+            z, y, m = zc[t], ys[c, t], mask[c, t]
+            mu_t = mu / (eps + z @ z) if normalized else mu
+            mu_eff = m * mu_t
+            row = z @ a
+            a = a - mu_eff * torch.outer(z, row)
+            v = v - mu_eff * ((z @ v) - y) * z
+        a_out.append(a)
+        v_out.append(v)
+    return torch.stack(a_out), torch.stack(v_out)
+
+
+def krls_chunk_elements_ref(xs, ys, w, b, beta, mask=None, s=None):
+    """Per-chunk composed KRLS decay elements: xs (nc, Tc, d), ys (nc, Tc),
+    mask optional (nc, Tc), beta scalar. Each chunk folds its ticks into
+    the information-form accumulator, tick by tick:
+
+        g <- beta_eff g;  Phi <- beta_eff Phi + m outer(z, z);
+        r <- beta_eff r + (m y) z,
+
+    with ``beta_eff = beta`` on a live tick and 1 on a masked one, which
+    then composes the identity ``(1, 0, 0)``. Returns ``(g (nc,), phi (nc,
+    D, D), r (nc, D))``."""
+    nc, tc, _ = xs.shape
+    dfeat = w.shape[-1]
+    if mask is None:
+        mask = torch.ones_like(ys)
+    mask = mask.to(xs.dtype)
+    one = torch.ones((), dtype=xs.dtype, device=xs.device)
+    beta_t = torch.as_tensor(beta, dtype=xs.dtype, device=xs.device)
+    g_out, phi_out, r_out = [], [], []
+    for c in range(nc):
+        zc = rff_features_ref(xs[c], w, b, s)  # (Tc, D)
+        g = one
+        phi = torch.zeros(dfeat, dfeat, dtype=xs.dtype, device=xs.device)
+        r = torch.zeros(dfeat, dtype=xs.dtype, device=xs.device)
+        for t in range(tc):
+            z, y, m = zc[t], ys[c, t], mask[c, t]
+            beta_eff = torch.where(m > 0, beta_t, one)
+            g = g * beta_eff
+            phi = beta_eff * phi + m * torch.outer(z, z)
+            r = beta_eff * r + (m * y) * z
+        g_out.append(g)
+        phi_out.append(phi)
+        r_out.append(r)
+    return torch.stack(g_out), torch.stack(phi_out), torch.stack(r_out)

@@ -1,0 +1,144 @@
+"""Wrappers of the replay element kernels (``csrc/rff_scan.cu``).
+
+* ``klms_chunk_elements`` replaces
+  ``repro/kernels/rff_scan.py::rff_klms_chunk_elements_pallas``: per
+  chunk of Tc ticks, the composed KLMS (or NKLMS) affine element ``(A, v)``;
+* ``krls_chunk_elements`` replaces ``rff_krls_chunk_elements_pallas``: per
+  chunk, the information-form element ``(g, Phi, r)``.
+
+Each wrapper takes the time-blocked layout of ``repro`` (xs ``(nc, Tc,
+d)``, ys and mask ``(nc, Tc)``), featurizes every tick with the feature
+kernel (``kernels/rff_features.py``) into a ``(nc Tc, D)`` buffer and then
+launches the element kernel over it, so the pair computes what the TPU
+kernel computes. It checks device, dtype, shape and contiguity, allocates
+its outputs with ``torch.empty``, launches on the current stream, raises
+on a non-zero ``cudaError_t`` and counts its element launches in
+``.launches``. CPU tensors are refused: the plain versions live in
+``kernels/ref.py`` and ``kernels/ops.py`` picks between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.chunking import klms_element_strip
+from repro_torch.kernels.ref import default_scale
+from repro_torch.kernels.rff_features import rff_features_cuda
+from repro_torch.kernels.rff_klms_step import _check
+
+__all__ = ["rff_klms_chunk_elements_cuda", "rff_krls_chunk_elements_cuda"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # z, ys, mask, a_out, v_out, nc, tc, D, strip, mu, normalized, eps,
+    # stream
+    "klms_chunk_elements": (_P,) * 5 + (_I,) * 4 + (_F, _I, _F, _P),
+    # z, ys, mask, beta, g_out, phi_out, r_out, nc, tc, D, stream
+    "krls_chunk_elements": (_P,) * 3 + (_F,) + (_P,) * 3 + (_I,) * 3 + (_P,),
+    "rff_scan_error_string": (_I,),
+}
+# Rows of the launch grid (one per chunk) that CUDA allows.
+_MAX_CHUNKS = 65535
+
+
+def _lib():
+    lib = _build.load("rff_scan", _SIGNATURES)
+    lib.rff_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _features(xs, ys, w, b, mask, s):
+    """Check the time-blocked inputs and featurize every tick on the card.
+    Returns (device, z (nc Tc, D))."""
+    if xs.device.type != "cuda":
+        raise ValueError(
+            "the CUDA element kernels take CUDA tensors; use mode='ref' (or "
+            f"'auto') for tensors on {xs.device}"
+        )
+    device = xs.device
+    if xs.ndim != 3:
+        raise ValueError(f"xs must be (nc, Tc, d), got shape {tuple(xs.shape)}")
+    nc, tc, d = xs.shape
+    dfeat = w.shape[-1]
+    if s is None:
+        s = default_scale(dfeat, device=device)
+    rows = [("xs", xs, (nc, tc, d)), ("ys", ys, (nc, tc)), ("w", w, (d, dfeat)),
+            ("b", b, (dfeat,)), ("s", s, (dfeat,))]
+    if mask is not None:
+        rows.append(("mask", mask, (nc, tc)))
+    for name, t, shape in rows:
+        _check(name, t, shape, device)
+    if tc < 1:
+        raise ValueError("chunks must hold at least one tick")
+    if nc > _MAX_CHUNKS:
+        raise ValueError(f"{nc} chunks exceed the grid's {_MAX_CHUNKS} rows")
+    return device, rff_features_cuda(xs.reshape(nc * tc, d), w, b, s)
+
+
+def _raise_on(lib, code: int, kernel: str) -> None:
+    if code:
+        msg = lib.rff_scan_error_string(code).decode()
+        raise RuntimeError(f"{kernel} failed: cudaError {code} ({msg})")
+
+
+def rff_klms_chunk_elements_cuda(xs, ys, w, b, mu, mask=None, s=None,
+                                 normalized=False, eps=1e-6):
+    """Per-chunk composed KLMS elements on the card: xs (nc, Tc, d), ys
+    (nc, Tc), shared w (d, D), b (D,), s (D,) (None = sqrt(2/D)), mu a
+    scalar, mask optional (nc, Tc) gate (0 = the tick composes the
+    identity). ``normalized`` sizes each tick's step as ``mu / (eps +
+    ||z||^2)``. Returns ``(a (nc, D, D), v (nc, D))``."""
+    dfeat = w.shape[-1]
+    strip = klms_element_strip(dfeat)
+    if not strip:
+        raise ValueError(
+            f"D={dfeat}: one column of a KLMS element exceeds the shared "
+            "memory of a block"
+        )
+    device, z = _features(xs, ys, w, b, mask, s)
+    nc, tc, _ = xs.shape
+    a = torch.empty((nc, dfeat, dfeat), dtype=torch.float32, device=device)
+    v = torch.empty((nc, dfeat), dtype=torch.float32, device=device)
+    if nc == 0:
+        return a, v
+    lib = _lib()
+    code = lib.klms_chunk_elements(
+        z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),
+        a.data_ptr(), v.data_ptr(), nc, tc, dfeat, strip, float(mu),
+        int(bool(normalized)), float(eps),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(lib, code, "klms_chunk_elements")
+    rff_klms_chunk_elements_cuda.launches += 1
+    return a, v
+
+
+def rff_krls_chunk_elements_cuda(xs, ys, w, b, beta, mask=None, s=None):
+    """Per-chunk composed KRLS decay elements on the card: layout as
+    :func:`rff_klms_chunk_elements_cuda`, ``beta`` the scalar forgetting
+    factor. Returns ``(g (nc,), phi (nc, D, D), r (nc, D))``."""
+    device, z = _features(xs, ys, w, b, mask, s)
+    nc, tc, _ = xs.shape
+    dfeat = w.shape[-1]
+    g = torch.empty((nc,), dtype=torch.float32, device=device)
+    phi = torch.empty((nc, dfeat, dfeat), dtype=torch.float32, device=device)
+    r = torch.empty((nc, dfeat), dtype=torch.float32, device=device)
+    if nc == 0:
+        return g, phi, r
+    lib = _lib()
+    code = lib.krls_chunk_elements(
+        z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),
+        float(beta), g.data_ptr(), phi.data_ptr(), r.data_ptr(), nc, tc,
+        dfeat, torch.cuda.current_stream(device).cuda_stream,
+    )
+    _raise_on(lib, code, "krls_chunk_elements")
+    rff_krls_chunk_elements_cuda.launches += 1
+    return g, phi, r
+
+
+rff_klms_chunk_elements_cuda.launches = 0
+rff_krls_chunk_elements_cuda.launches = 0

@@ -4,7 +4,8 @@ tiers.
 Counterpart of ``repro/serve/api.py`` for ``learner="klms"`` and
 ``"krls"``: a :class:`Server` wraps the write path (micro-batch queue ->
 the family's CUDA chunk kernel), the read path (snapshot-decoupled fused
-predict, shared by both families) and a metrics registry.
+predict, shared by both families), the tenant lifecycle (evict, then
+readmit by replaying the tenant's log) and a metrics registry.
 :func:`make_tick`, :func:`make_chunk_step`, :func:`make_queue` and
 :func:`run_stream` are the pieces it composes.
 
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.bank import (
+    evict_tenant,
     klms_bank_chunk_step,
     klms_bank_init,
     klms_bank_run,
@@ -28,6 +30,7 @@ from repro_torch.core.bank import (
     krls_bank_init,
     krls_bank_run,
     krls_bank_step,
+    rebuild_tenant,
 )
 from repro_torch.features.base import FeatureLike, as_trig
 from repro_torch.serve.metrics import MetricsRegistry
@@ -57,13 +60,13 @@ _UNPORTED_LEARNERS = {
 _UNPORTED_KNOBS = {
     "policy": "ROADMAP §1 item 5 (serve/policy.py)",
     "auto_resize": "ROADMAP §1 item 5 (serve/policy.py)",
-    "log_capacity": "ROADMAP §1 item 8 (replay engine)",
-    "rebuild_mode": "ROADMAP §1 item 8 (replay engine)",
     "trace": "ROADMAP §1 item 9 (obs/trace.py)",
     "probe": "ROADMAP §1 item 9 (obs/probes.py)",
     "recovery": "ROADMAP §1 item 9 (serve/recovery.py)",
     "wal": "ROADMAP §1 item 9 (serve/recovery.py)",
 }
+
+_REBUILD_MODES = ("scan", "blocked", "sequential")
 
 # One defaults table for every family, as in repro; klms reads mu, krls
 # reads beta (and lam for a fresh bank).
@@ -172,7 +175,8 @@ class Server:
     Built by :func:`make_server`. ``tenant`` arguments are bank-slot
     indices in ``[0, slots)``. Metrics (``self.metrics``): counters
     ``requests.write`` / ``requests.read``, gauge ``queue.backlog``,
-    histograms ``latency.write_us`` / ``latency.read_us`` (host clock).
+    histograms ``latency.write_us`` / ``latency.read_us`` (host clock),
+    lifecycle counters ``evictions`` / ``readmissions`` / ``resets``.
     """
 
     def __init__(self, inner: SnapshotServer, *, learner: str,
@@ -249,15 +253,29 @@ class Server:
         )
         return pred
 
+    @property
+    def evicted(self) -> frozenset[int]:
+        """Tenants whose slots are released."""
+        return self._inner.evicted
+
     def evict(self, tenant: int) -> int:
-        raise NotImplementedError(
-            "evict is not ported yet: ROADMAP §1 item 8 (replay engine)"
-        )
+        """Release ``tenant``'s slot (a fresh row is parked there; its later
+        arrivals are only logged). Returns the dropped pending count."""
+        self.metrics.counter("evictions").inc()
+        return self._inner.evict(tenant)
 
     def readmit(self, tenant: int) -> int:
-        raise NotImplementedError(
-            "readmit is not ported yet: ROADMAP §1 item 8 (replay engine)"
-        )
+        """Re-admit ``tenant``, rebuilding its slot from the replay log with
+        the server's ``rebuild_mode``. Returns the ticks replayed."""
+        n = self._inner.readmit(tenant)
+        self.metrics.counter("readmissions").inc()
+        return n
+
+    def reset_tenant(self, tenant: int) -> int:
+        """Reset one tenant to a fresh row and forget its replay history.
+        Returns the dropped pending count."""
+        self.metrics.counter("resets").inc()
+        return self._inner.reset_tenant(tenant)
 
 
 def make_server(
@@ -276,6 +294,8 @@ def make_server(
     metrics: Optional[MetricsRegistry] = None,
     state=None,
     device="cuda",
+    log_capacity: Optional[int] = None,
+    rebuild_mode: str = "scan",
     **kw,
 ) -> Server:
     """The serving facade for ``learner="klms"`` and ``"krls"``.
@@ -291,11 +311,16 @@ def make_server(
       state: initial bank state (fresh zeros by default).
       device: where the state and the map live; ``"cuda"`` by default,
         which raises when there is no CUDA device.
+      log_capacity: per-tenant replay-log ring size (serve/snapshot.py);
+        None keeps no log, and a readmitted tenant restarts cold.
+      rebuild_mode: replay schedule of ``readmit`` (core/scan.py):
+        ``"scan"``, ``"blocked"`` or ``"sequential"`` (bit for bit the
+        training path); its kernels follow ``mode``.
       **kw: family hyperparameters (``mu`` for klms; ``beta`` and ``lam``
         for krls; the other names of ``repro``'s table are accepted and
         unused). The knobs of later slices
-        (``policy``, ``trace``, ``probe``, ``recovery``, ``wal``,
-        ``log_capacity``, ...) raise ``NotImplementedError``.
+        (``policy``, ``trace``, ``probe``, ``recovery``, ``wal``, ...)
+        raise ``NotImplementedError``.
     """
     _check_learner(learner)
     for knob in _UNPORTED_KNOBS:
@@ -309,13 +334,27 @@ def make_server(
     if feature_map is None:
         raise ValueError(f"learner {learner!r} requires feature_map=")
     tf = as_trig(feature_map).to(resolve_device(device))
+    if rebuild_mode not in _REBUILD_MODES:
+        raise ValueError(
+            f"unknown rebuild_mode {rebuild_mode!r}; pick from {_REBUILD_MODES}"
+        )
     queue = make_queue(learner, tf, bank, chunk=chunk, mode=mode,
                        adaptive=adaptive, state=state, device=tf.device,
                        **kw)
+
+    def rebuild_fn(bank_state, slot, xs, ys):
+        return rebuild_tenant(bank_state, slot, tf, xs, ys, mu=h["mu"],
+                              lam=h["lam"], beta=h["beta"],
+                              mode=rebuild_mode, kernel_mode=mode)
+
+    def evict_fn(bank_state, slot):
+        return evict_tenant(bank_state, slot, lam=h["lam"])
+
     inner = SnapshotServer(
         queue, tf, publish_every, mode=mode, precision=precision,
         age_watermark=age_watermark, size_watermark=size_watermark,
-        clock=clock,
+        clock=clock, log_capacity=log_capacity, evict_fn=evict_fn,
+        rebuild_fn=rebuild_fn,
     )
     return Server(inner, learner=learner, feature_map=tf, hp=h,
                   metrics=metrics)

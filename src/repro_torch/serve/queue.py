@@ -21,6 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.bank import set_tenant_row
+
 __all__ = ["MicroBatchQueue"]
 
 
@@ -71,13 +73,22 @@ class MicroBatchQueue:
         self.flushes = 0
         self.stale_flushes = 0
 
-    def submit(self, tenant: int, x, y) -> None:
-        """Enqueue one ``(x, y)`` observation for ``tenant``."""
+    def check_arrival(self, tenant: int, x) -> np.ndarray:
+        """``x`` as this queue's dtype; raises for a tenant outside the bank
+        or an ``x`` of the wrong shape."""
         if not 0 <= tenant < self.num_tenants:
             raise IndexError(f"tenant {tenant} outside [0, {self.num_tenants})")
         x = np.asarray(x, self._dtype)
         if x.shape != (self.input_dim,):
             raise ValueError(f"x has shape {x.shape}, expected ({self.input_dim},)")
+        return x
+
+    def submit(self, tenant: int, x, y) -> None:
+        """Enqueue one ``(x, y)`` observation for ``tenant``."""
+        self._enqueue(tenant, self.check_arrival(tenant, x), y)
+
+    def _enqueue(self, tenant: int, x: np.ndarray, y) -> None:
+        """Enqueue an ``x`` that :meth:`check_arrival` already returned."""
         self.arrivals[tenant] += 1
         if not self._pending[tenant] and self.stale_after is not None:
             self._first_pending_at[tenant] = self._clock()
@@ -86,6 +97,21 @@ class MicroBatchQueue:
     def backlog(self) -> list[int]:
         """Pending observation count per tenant."""
         return [len(q) for q in self._pending]
+
+    def drop_pending(self, tenant: int) -> int:
+        """Discard ``tenant``'s queued observations (the eviction hook).
+        Returns the number dropped; other backlogs, the state and the
+        counters are untouched (a dropped observation was never trained)."""
+        dropped = len(self._pending[tenant])
+        self._pending[tenant].clear()
+        self._first_pending_at[tenant] = None
+        return dropped
+
+    def replace_tenant(self, tenant: int, row) -> None:
+        """Overwrite one tenant's slot of the live state with a
+        single-tenant ``row`` (out of place: a published replica keeps the
+        old state)."""
+        self.state = set_tenant_row(self.state, tenant, row)
 
     def _flush_chunk(self) -> int:
         """T for the next flush: ``chunk``, or in adaptive mode the deepest

@@ -1,8 +1,7 @@
 """Snapshot-decoupled serving: train on the live state, read a frozen replica.
 
-Counterpart of ``repro/serve/snapshot.py`` (without the replay log and the
-evict / readmit lifecycle, which arrive with the replay engine, ROADMAP §1
-item 8). The queue keeps advancing its live state; a
+Counterpart of ``repro/serve/snapshot.py``. The queue keeps advancing its
+live state; a
 :class:`SnapshotServer` publishes a read replica at flush boundaries, and
 reads (the fused predict kernel) only ever see a published replica:
 
@@ -15,6 +14,13 @@ reads (the fused predict kernel) only ever see a published replica:
   boundary where ``publish_every`` ticks have accumulated;
 * **deferred write-flush** — flushes may wait for the age / size
   watermarks without blocking or corrupting reads.
+
+Tenant lifecycle: with a ``log_capacity``, every arrival is also appended
+to a per-tenant :class:`ReplayLog` ring, so ``evict(tenant)`` releases the
+slot as one row write (``core.bank.evict_tenant``) and ``readmit(tenant)``
+rebuilds it by replaying the log (``core.bank.rebuild_tenant`` over
+``core/scan.py``). While evicted, a tenant's arrivals are logged but not
+trained; readmission folds them in.
 """
 from __future__ import annotations
 
@@ -22,13 +28,77 @@ import time
 from collections import deque
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.core.bank import bank_predict_block
+from repro_torch.core.bank import bank_predict_block, evict_tenant
 from repro_torch.features.base import FeatureLike
 from repro_torch.serve.queue import MicroBatchQueue
 
-__all__ = ["StateSnapshot", "SnapshotServer"]
+__all__ = ["ReplayLog", "StateSnapshot", "SnapshotServer"]
+
+
+class ReplayLog:
+    """Per-tenant ring buffer of raw ``(x, y)`` arrivals for slot rebuilds.
+
+    Host-side numpy, like the queue's backlogs. A tenant whose history
+    outgrows ``capacity`` loses its oldest ticks, and a rebuild from the
+    log then gives the *windowed* state (fresh init + the last
+    ``capacity`` ticks); :meth:`complete` says which contract holds. Keys
+    are slot indices, created on first append.
+    """
+
+    def __init__(self, capacity: int = 256, dtype=np.float32):
+        if capacity < 1:
+            raise ValueError("log capacity must be >= 1")
+        self.capacity = capacity
+        self._dtype = np.dtype(dtype)
+        self._buf: dict[int, deque] = {}
+        self._appended: dict[int, int] = {}
+
+    def append(self, tenant: int, x, y) -> None:
+        """Record one arrival (the oldest entry goes when the ring is
+        full)."""
+        buf = self._buf.get(tenant)
+        if buf is None:
+            buf = self._buf[tenant] = deque(maxlen=self.capacity)
+        self._appended[tenant] = self._appended.get(tenant, 0) + 1
+        buf.append((np.asarray(x, self._dtype), self._dtype.type(y)))
+
+    def size(self, tenant: int) -> int:
+        """Entries held for ``tenant`` (at most ``capacity``)."""
+        buf = self._buf.get(tenant)
+        return len(buf) if buf is not None else 0
+
+    def dropped(self, tenant: int) -> int:
+        """Arrivals lost to ring overflow since the last :meth:`clear`."""
+        return self._appended.get(tenant, 0) - self.size(tenant)
+
+    def complete(self, tenant: int) -> bool:
+        """True iff the log still holds the tenant's whole history, so a
+        rebuild from it matches the never-evicted state."""
+        return self.dropped(tenant) == 0
+
+    def arrays(self, tenant: int) -> tuple[np.ndarray, np.ndarray]:
+        """The log as ``xs (n, d)``, ``ys (n,)`` in arrival order (an empty
+        log gives ``(0, 0)`` and ``(0,)``)."""
+        buf = self._buf.get(tenant)
+        if not buf:
+            return (np.zeros((0, 0), self._dtype),
+                    np.zeros((0,), self._dtype))
+        xs = np.stack([x for x, _ in buf])
+        ys = np.asarray([y for _, y in buf], self._dtype)
+        return xs, ys
+
+    def clear(self, tenant: Optional[int] = None) -> None:
+        """Forget one tenant's history, overflow counter included (so it
+        reads :meth:`complete` again), or every tenant's when None."""
+        if tenant is None:
+            self._buf.clear()
+            self._appended.clear()
+        else:
+            self._buf.pop(tenant, None)
+            self._appended.pop(tenant, None)
 
 
 class _Row(NamedTuple):
@@ -61,6 +131,14 @@ class SnapshotServer:
         waited this long (checked on ``submit`` / ``maybe_flush``).
       size_watermark: flush when any tenant's backlog reaches this depth.
       clock: injectable monotonic clock.
+      log_capacity: entries per tenant in the :class:`ReplayLog` ring. None
+        disables logging: ``evict`` still parks a fresh row, and
+        ``readmit`` then restarts the tenant cold.
+      evict_fn: ``(state, tenant) -> state`` releasing one slot;
+        ``core.bank.evict_tenant`` by default.
+      rebuild_fn: ``(state, tenant, xs, ys) -> state`` replaying a log into
+        one slot (``make_server`` wires ``core.bank.rebuild_tenant`` with
+        the family's hyperparameters and replay mode).
     """
 
     def __init__(self, queue: MicroBatchQueue, rff: FeatureLike,
@@ -68,7 +146,10 @@ class SnapshotServer:
                  precision: Optional[str] = None,
                  age_watermark: Optional[float] = None,
                  size_watermark: Optional[int] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 log_capacity: Optional[int] = None,
+                 evict_fn: Optional[Callable] = None,
+                 rebuild_fn: Optional[Callable] = None):
         if publish_every < 1:
             raise ValueError("publish_every must be >= 1")
         self.queue = queue
@@ -81,6 +162,11 @@ class SnapshotServer:
         self._clock = clock
         self._arrival_times = [deque() for _ in range(queue.num_tenants)]
         self._snapshot = StateSnapshot(state=queue.state, version=0, tick=0)
+        self.log = (ReplayLog(log_capacity, queue._dtype)
+                    if log_capacity is not None else None)
+        self._evict_fn = evict_fn if evict_fn is not None else evict_tenant
+        self._rebuild_fn = rebuild_fn
+        self._evicted: set[int] = set()
 
     # -- read path ---------------------------------------------------------
 
@@ -121,11 +207,21 @@ class SnapshotServer:
     # -- write path --------------------------------------------------------
 
     def submit(self, tenant: int, x, y) -> None:
-        """Enqueue one observation; flush if a watermark trips."""
+        """Enqueue one observation; flush if a watermark trips.
+
+        Every arrival is also appended to the replay log (when there is
+        one). An evicted tenant's arrivals stop there: logged, never
+        queued, until :meth:`readmit` folds the whole log back in.
+        """
+        x = self.queue.check_arrival(tenant, x)
+        if self.log is not None:
+            self.log.append(tenant, x, y)
+        if tenant in self._evicted:
+            return
         # Tag the arrival with its backlog position: a flush consumes
         # exactly the timestamps of the positions it served.
         pos = len(self.queue._pending[tenant])
-        self.queue.submit(tenant, x, y)
+        self.queue._enqueue(tenant, x, y)
         self._arrival_times[tenant].append((pos, self._clock()))
         self.maybe_flush()
 
@@ -173,6 +269,63 @@ class SnapshotServer:
             for tenant, served in self.flush().items():
                 merged.setdefault(tenant, []).extend(served)
         return merged
+
+    # -- tenant lifecycle --------------------------------------------------
+
+    @property
+    def evicted(self) -> frozenset[int]:
+        """Tenants whose slots are released."""
+        return frozenset(self._evicted)
+
+    def evict(self, tenant: int) -> int:
+        """Release one slot: drop the tenant's pending observations, park a
+        fresh row in the slot and publish, so readers stop seeing the old
+        weights at once. The replay log is kept: it is what
+        :meth:`readmit` rebuilds from. Returns the number of pending
+        observations dropped (logged on submit, so still replayed)."""
+        dropped = self.queue.drop_pending(tenant)
+        self._arrival_times[tenant].clear()
+        self.queue.state = self._evict_fn(self.queue.state, tenant)
+        self._evicted.add(tenant)
+        self.publish()
+        return dropped
+
+    def readmit(self, tenant: int) -> int:
+        """Re-admit an evicted tenant by replaying its log into the slot
+        through ``rebuild_fn``, then publish. With no log, or an empty one,
+        the tenant restarts cold on the parked fresh row. Returns the ticks
+        replayed; when the ring overflowed (``log.complete(tenant)`` is
+        False) the rebuilt state is the windowed one."""
+        if tenant not in self._evicted:
+            raise ValueError(f"tenant {tenant} is not evicted")
+        replayed = 0
+        if self.log is not None and self.log.size(tenant):
+            if self._rebuild_fn is None:
+                raise ValueError(
+                    "readmit with a non-empty log needs a rebuild_fn "
+                    "(make_server wires one)"
+                )
+            xs, ys = self.log.arrays(tenant)
+            self.queue.state = self._rebuild_fn(self.queue.state, tenant, xs,
+                                                ys)
+            replayed = len(ys)
+        self._evicted.discard(tenant)
+        self.publish()
+        return replayed
+
+    def reset_tenant(self, tenant: int) -> int:
+        """Reset one tenant to a fresh slot: drop its pending observations,
+        its arrival times and its log history (overflow flag included),
+        park a fresh row, leave the evicted set and publish. Returns the
+        dropped pending count."""
+        dropped = self.queue.drop_pending(tenant)
+        self._arrival_times[tenant].clear()
+        if self.log is not None:
+            self.log.clear(tenant)
+        self.queue.state = self._evict_fn(self.queue.state, tenant)
+        self._evicted.discard(tenant)
+        self.publish()
+        return dropped
 
     def publish(self) -> StateSnapshot:
         """Swap the read replica to the live state (one reference

@@ -14,7 +14,10 @@ feature by one bf16 ulp, 2^-8 relative). KRLS's P is compared normwise,
 1e-4 of each tenant's max |P|: its entries span 1e4 (P_0 = I / lam) down
 to O(1) remainders of cancellation, whose own rounding an elementwise
 bound would measure. The contracts between the two kernels of a family
-are bitwise.
+are bitwise. The feature kernel is held relative to max|s| (z is at most
+s in size): 1e-5 at f32, 2e-2 for bf16 features (the read contract). The
+replay elements A, v, g, Phi and r are held at 1e-4 (abs + rel); a fully
+masked chunk gives the identity element bit for bit.
 """
 import numpy as np
 import pytest
@@ -24,10 +27,15 @@ from repro_torch import convert
 from repro_torch.features import rff_map
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import default_scale
+from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import rff_klms_bank_chunk_cuda
 from repro_torch.kernels.rff_krls_step import (
     rff_krls_bank_chunk_cuda,
     rff_krls_bank_step_cuda,
+)
+from repro_torch.kernels.rff_scan import (
+    rff_klms_chunk_elements_cuda,
+    rff_krls_chunk_elements_cuda,
 )
 from repro_torch.serve import make_server, make_tick
 
@@ -288,3 +296,136 @@ def test_krls_server_runs_through_the_kernels(cuda_device):
     assert rff_krls_bank_step_cuda.launches == steps + 1
     torch.testing.assert_close(got[0].theta, want[0].theta, atol=F32_TOL,
                                rtol=F32_TOL)
+
+
+FEAT_TOL, FEAT_BF16_TOL = 1e-5, 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,dfeat", [(1, 1, 17), (33, 5, 300),
+                                       (256, 128, 2048), (1000, 70, 129)])
+def test_features_kernel_matches_plain(cuda_device, m, d, dfeat):
+    a = _inputs(cuda_device, 1, m, d, dfeat, seed=3)
+    x = a["xs"][0]
+    smax = float(a["s"].abs().max())
+    launches = rff_features_cuda.launches
+    for precision, tol in ((None, FEAT_TOL), ("bf16", FEAT_BF16_TOL)):
+        got = ops.rff_features(x, a["w"], a["b"], a["s"], mode="cuda",
+                               precision=precision)
+        want = ops.rff_features(x, a["w"], a["b"], a["s"], mode="ref",
+                                precision=precision)
+        assert got.dtype == want.dtype and got.shape == (m, dfeat)
+        assert float((got.float() - want.float()).abs().max()) <= tol * smax
+    assert rff_features_cuda.launches == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tlen,d,dfeat,chunk,normalized", [
+    (64, 8, 256, None, False), (37, 5, 300, 16, True), (9, 3, 17, 1, False),
+    (100, 128, 513, 48, False),
+])
+def test_element_kernels_match_plain(cuda_device, tlen, d, dfeat, chunk,
+                                     normalized):
+    a = _inputs(cuda_device, 1, tlen, d, dfeat, seed=4)
+    xs, ys = a["xs"][0], a["ys"][0]
+    common = (xs, ys, a["w"], a["b"])
+    got = ops.rff_klms_chunk_elements(*common, 0.5, a["s"], mode="cuda",
+                                      chunk=chunk, normalized=normalized)
+    want = ops.rff_klms_chunk_elements(*common, 0.5, a["s"], mode="ref",
+                                       chunk=chunk, normalized=normalized)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+    got = ops.rff_krls_chunk_elements(*common, 0.99, a["s"], mode="cuda",
+                                      chunk=chunk)
+    want = ops.rff_krls_chunk_elements(*common, 0.99, a["s"], mode="ref",
+                                       chunk=chunk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_element_kernels_exact_contracts(cuda_device):
+    """A fully masked chunk is the identity element bit for bit; a
+    remainder chunk composes like the whole chunk."""
+    a = _inputs(cuda_device, 1, 24, 6, 300, seed=5)
+    xs = a["xs"][0].reshape(3, 8, 6)
+    ys = a["ys"][0].reshape(3, 8)
+    mask = torch.ones_like(ys)
+    mask[1] = 0
+    args = (xs, ys, a["w"], a["b"])
+    av, vv = rff_klms_chunk_elements_cuda(*args, 0.5, mask, a["s"])
+    assert torch.equal(av[1], torch.eye(300, device=cuda_device))
+    assert torch.equal(vv[1], torch.zeros(300, device=cuda_device))
+    g, phi, r = rff_krls_chunk_elements_cuda(*args, 0.99, mask, a["s"])
+    assert float(g[1]) == 1.0
+    assert not bool(phi[1].any()) and not bool(r[1].any())
+    assert torch.equal(phi[0], phi[0].T)
+    whole = ops.rff_klms_chunk_elements(a["xs"][0][:20], a["ys"][0][:20],
+                                        a["w"], a["b"], 0.5, a["s"],
+                                        mode="cuda", chunk=20)
+    parts = ops.rff_klms_chunk_elements(a["xs"][0][:20], a["ys"][0][:20],
+                                        a["w"], a["b"], 0.5, a["s"],
+                                        mode="cuda", chunk=16)
+    a2 = parts[0][1] @ parts[0][0]
+    torch.testing.assert_close(a2, whole[0][0], atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_replay_wrappers_refuse_bad_inputs(cuda_device):
+    a = _inputs(cuda_device, 2, 4, 3, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rff_features_cuda(a["xs"][0].cpu(), a["w"], a["b"])
+    with pytest.raises(ValueError, match=r"\(M, d\)"):
+        rff_features_cuda(a["xs"], a["w"], a["b"])
+    with pytest.raises(TypeError, match="float32"):
+        rff_features_cuda(a["xs"][0].double(), a["w"], a["b"])
+    with pytest.raises(ValueError, match="contiguous"):
+        rff_klms_chunk_elements_cuda(a["xs"].transpose(0, 1), a["ys"].T,
+                                     a["w"], a["b"], 0.5)
+    with pytest.raises(ValueError, match="shape"):
+        rff_krls_chunk_elements_cuda(a["xs"], a["ys"][:, :2], a["w"],
+                                     a["b"], 0.99)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = 40_000
+        rff_klms_chunk_elements_cuda(
+            a["xs"], a["ys"], torch.zeros(3, big, device=cuda_device),
+            torch.zeros(big, device=cuda_device), 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rebuild_mode", ["blocked", "scan"])
+def test_klms_evict_readmit_runs_through_the_kernels(cuda_device,
+                                                     rebuild_mode):
+    """make_server("klms", log_capacity=...) on the card: readmit replays
+    the log through the feature kernel (and the element kernel when
+    blocked) and agrees with the same server in mode="ref"."""
+    fm = rff_map(torch.Generator().manual_seed(1), 6, 256, 2.0,
+                 device=cuda_device)
+    kw = dict(bank=8, chunk=8, mu=0.4, log_capacity=64,
+              rebuild_mode=rebuild_mode)
+    srv = make_server("klms", feature_map=fm, **kw)
+    ref = make_server("klms", feature_map=fm, mode="ref", **kw)
+    rng = np.random.default_rng(6)
+    obs = [(int(rng.integers(0, 8)), rng.normal(size=6), float(rng.normal()))
+           for _ in range(200)]
+    for s in (srv, ref):
+        for t, x, y in obs[:120]:
+            s.submit(t, x, y)
+        s.drain()
+        s.evict(3)
+        for t, x, y in obs[120:]:
+            s.submit(t, x, y)
+        s.drain()
+    feats = rff_features_cuda.launches
+    elems = rff_klms_chunk_elements_cuda.launches
+    n3 = sum(1 for t, _, _ in obs if t == 3)
+    assert srv.readmit(3) == n3 and ref.readmit(3) == n3
+    assert rff_features_cuda.launches > feats
+    assert (rff_klms_chunk_elements_cuda.launches > elems) == (
+        rebuild_mode == "blocked")
+    torch.testing.assert_close(srv.snapshot.state.theta,
+                               ref.snapshot.state.theta, atol=F32_TOL,
+                               rtol=F32_TOL)
+    xq = rng.normal(size=(8, 5, 6)).astype(np.float32)
+    torch.testing.assert_close(srv.predict_block(xq), ref.predict_block(xq),
+                               atol=F32_TOL, rtol=F32_TOL)

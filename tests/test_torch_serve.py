@@ -226,7 +226,7 @@ def test_unported_learner_raises(learner):
 
 @pytest.mark.parametrize("knob", [
     dict(policy="lru"), dict(trace=True), dict(probe=True),
-    dict(recovery=True), dict(wal="wal.jsonl"), dict(log_capacity=8),
+    dict(recovery=True), dict(wal="wal.jsonl"),
 ])
 def test_unported_knob_raises(knob):
     _, ttf = _maps()
@@ -235,11 +235,20 @@ def test_unported_knob_raises(knob):
 
 
 def test_unported_lifecycle_and_unknown_names():
+    """Without a replay log, evict parks a fresh row and readmit restarts
+    the tenant cold on it (repro/serve/snapshot.py:372-420)."""
     _, ttf = _maps()
     srv = api.make_server("klms", feature_map=ttf, device="cpu")
-    for op in (srv.evict, srv.readmit):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            op(0)
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        srv.submit(0, rng.normal(size=D_IN), 1.0)
+    srv.drain()
+    assert float(srv.snapshot.state.theta[0].abs().max()) > 0.0
+    assert srv.evict(0) == 0 and srv.evicted == frozenset({0})
+    assert srv.snapshot_server.log is None
+    assert float(srv.snapshot.state.theta[0].abs().max()) == 0.0
+    assert srv.readmit(0) == 0 and srv.evicted == frozenset()
+    assert float(srv.snapshot.state.theta[0].abs().max()) == 0.0
     with pytest.raises(ValueError, match="unknown learner"):
         api.make_server("svm", feature_map=ttf, device="cpu")
     with pytest.raises(TypeError, match="unknown hyperparameters"):
