@@ -44,7 +44,28 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    that the same server run in float64 measures, and bit for bit on
    untouched tenants;
 10. times the replay kernels and readmission (wall time per mode and
-    family, at D=2048 and D=300).
+    family, at D=2048 and D=300);
+11. holds the LM slice's kernels (RFF decode block, chunked linear
+    attention, flash attention) against their plain versions at
+    qwen2-0.5b's shapes (56 heads at B=4, dh=64, D=256, S=2048), at
+    llama3-8b's head width (dh=dv=128) and at padded shapes; the decode
+    block for prf and trig, f32 and bf16, T = 1, the default block_t and
+    block_t + 3 (a remainder launch), and bit for bit a block of T against
+    T one-token launches; flash attention at f32 and bf16;
+12. serves qwen2-0.5b at full width with RFF attention, bf16, random
+    weights from --seed: ``make_prefill_step`` at B=4, S=2048 (the linear
+    attention kernel, once a layer) and ``generate`` of 32 greedy tokens
+    after a 16-token prompt (the decode kernel, once a layer a token),
+    held against ``kernel_mode="ref"`` and an f32 copy of the model;
+13. prefills qwen2-0.5b as published (GQA) at B=4, S=2048 through the
+    flash kernel, against ``kernel_mode="ref"`` (the dense path) and the
+    f32 copy, then generates a few tokens (no kernel on that path);
+14. times kernels 9-11, their plain versions, their bounds and SDPA
+    (kernel 9 and its plain version by torch.profiler device time, since a
+    one-token call's event time is the host's), the prefill and decode
+    tokens per second of both models, and the decode
+    state's bytes (the RFF state against the KV cache at 2048 and 32768
+    tokens).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
@@ -1127,6 +1148,485 @@ def phase_replay_times(rng, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The LM slice: qwen2-0.5b at its published width, RFF attention and GQA
+# ---------------------------------------------------------------------------
+
+# qwen2-0.5b (src/repro/configs/qwen2_0_5b.py): 24 layers, d_model 896, 14
+# heads of 64, 2 KV heads, d_ff 4864, vocab 151936 (padded to 152064), tied
+# embeddings, bf16; with_rff_attention keeps D = 256, rff_chunk 256. Served
+# at B = 4: a prefill step of 2048 tokens, and 32 greedy tokens after a
+# 16-token prompt.
+LM_ARCH, LM_B, LM_S, LM_PROMPT, LM_NEW, LM_GQA_NEW = "qwen2-0.5b", 4, 2048, 16, 32, 8
+# Attention kernels against their plain versions, relative to max|plain|:
+# 1e-4 at f32 (other summation orders in every product and in the online
+# softmax), 2e-2 under bf16 (a feature or an output that crosses a bf16
+# rounding boundary moves by one bf16 ulp, 2^-8 relative).
+ATTN_TOL, ATTN_BF16_TOL = 1e-4, 2e-2
+# The model's logits. The f32 copy: kernels against kernel_mode="ref" at
+# 1e-4 of max|logit| (f32 differences of ~1e-6 per layer, over 24 layers
+# and the 896-wide head). In bf16 the residual stream is rounded to bf16
+# after every layer, which turns f32-level kernel differences into
+# one-ulp flips (2^-8) that the later layers carry: the bf16 kernel path
+# must be no farther from the f32 model than LM_BUDGET times the bf16
+# plain path is, plus LM_BUDGET_FLOOR of max|logit|.
+LM_F32_TOL, LM_BUDGET, LM_BUDGET_FLOOR = 1e-4, 2.0, 1e-3
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+LM_REPLACES = {
+    "rff_decode_block": "src/repro/kernels/rff_attention.py:235",
+    "rff_linear_attention": "src/repro/kernels/rff_attention.py:87",
+    "flash_attention": "src/repro/kernels/flash_attention.py:80",
+}
+LM_SOURCES = {
+    "rff_decode_block": "src/repro_torch/csrc/rff_attention.cu",
+    "rff_linear_attention": "src/repro_torch/csrc/rff_attention.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+}
+# (BH, dh, D, dv): qwen2-0.5b's decode at B = 4, llama3-8b's head width,
+# padded shapes.
+DECODE_SHAPES = [(56, 64, 256, 64), (32, 128, 256, 128), (3, 16, 40, 24)]
+# (BH, S, D, dv, chunk) and (BH, S, dh).
+LINEAR_SHAPES = [(56, LM_S, 256, 64, 256), (8, 512, 256, 128, 256),
+                 (3, 192, 40, 24, 64)]
+FLASH_SHAPES = [(56, LM_S, 64), (32, 1024, 128), (3, 100, 24)]
+DECODE_CALLS = 20  # one-token decode calls per profiled timing
+
+
+def hold_rel(name: str, got, want, rel: float) -> tuple[float, float, float]:
+    """Fail unless max|got - want| <= rel * max|want| for each pair.
+    Returns the largest absolute difference, the absolute tolerance
+    (rel * max|want|) of the pair it came from, and the largest share of
+    max|want| any difference was."""
+    worst = worst_tol = share = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape, f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+        err, scale = max_err(g, w), float(w.float().abs().max())
+        check(err <= rel * scale, f"{name}: off by {err:.3g}, tolerance "
+              f"{rel} of max|want| {scale:.3g}")
+        if err >= worst:
+            worst, worst_tol = err, rel * scale
+        share = max(share, err / scale if scale else 0.0)
+    return worst, worst_tol, share
+
+
+def decode_inputs(rng, bh, tlen, dh, dfeat, dv, kind, device):
+    """The decode kernel's inputs: a warm state, pre-projected tokens at
+    the attention layer's dh^-1/4 scale, W ~ N(0, 1), the kind's scale."""
+    from repro_torch.kernels.ref import default_decode_scale
+
+    return (f32_tensor(rng, bh, dfeat, dv, scale=0.1, device=device).abs(),
+            f32_tensor(rng, bh, dfeat, scale=0.1, device=device).abs() + 0.1,
+            f32_tensor(rng, bh, tlen, dh, scale=dh ** -0.25, device=device),
+            f32_tensor(rng, bh, tlen, dh, scale=dh ** -0.25, device=device),
+            f32_tensor(rng, bh, tlen, dv, device=device),
+            f32_tensor(rng, dh, dfeat, device=device),
+            f32_tensor(rng, dfeat, device=device),
+            default_decode_scale(dfeat, kind, device))
+
+
+def positive(rng, *shape, device=None):
+    """softplus(N(0, 1)) + 0.01: positive features, as PRF gives."""
+    return torch.nn.functional.softplus(
+        f32_tensor(rng, *shape, device=device)) + 0.01
+
+
+def phase_lm_kernels(rng, device) -> dict:
+    """Kernels 9-11 against their plain versions at qwen2-0.5b's shapes,
+    llama3-8b's head width and padded shapes; the decode block of T equals
+    T one-token launches bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import default_decode_block_t
+
+    errs = dict.fromkeys(LM_REPLACES, 0.0)
+    tols = dict.fromkeys(LM_REPLACES, 0.0)
+    rels = dict.fromkeys(LM_REPLACES, 0.0)
+    bitwise = {}
+
+    def note(name, err):
+        if err[0] >= errs[name]:
+            errs[name], tols[name] = err[0], err[1]
+        rels[name] = max(rels[name], err[2])
+
+    for bh, dh, dfeat, dv in DECODE_SHAPES:
+        block_t = default_decode_block_t(dfeat, dv, dh)
+        for kind in ("prf", "trig"):
+            for tlen in (1, block_t, block_t + 3):
+                args = decode_inputs(rng, bh, tlen, dh, dfeat, dv, kind, device)
+                for prec in (None, "bf16"):
+                    kw = dict(feature_kind=kind, normalize=kind == "prf",
+                              precision=prec)
+                    e = hold_rel(f"decode {kind} {prec} {bh, tlen, dh, dfeat, dv}",
+                                 ops.rff_attention_decode_block(*args, mode="cuda", **kw),
+                                 ops.rff_attention_decode_block(*args, mode="ref", **kw),
+                                 ATTN_BF16_TOL if prec else ATTN_TOL)
+                    if not prec:
+                        note("rff_decode_block", e)
+                    if bh == DECODE_SHAPES[0][0] and tlen == block_t + 3:
+                        blk = ops.rff_attention_decode_block(*args, mode="cuda", **kw)
+                        sm, zv, q, k, v, w, b, s = args
+                        outs = []
+                        for i in range(tlen):
+                            o, sm, zv = ops.rff_attention_decode_block(
+                                sm, zv, q[:, i:i + 1].contiguous(),
+                                k[:, i:i + 1].contiguous(),
+                                v[:, i:i + 1].contiguous(), w, b, s,
+                                mode="cuda", **kw)
+                            outs.append(o)
+                        same = (torch.equal(blk[0], torch.cat(outs, 1))
+                                and torch.equal(blk[1], sm)
+                                and torch.equal(blk[2], zv))
+                        check(same, f"decode block of {tlen} ({kind}, {prec}) "
+                              "differs from one-token launches")
+                        bitwise[f"{kind}_{prec or 'f32'}_T{tlen}"] = True
+                del args
+    for bh, slen, dfeat, dv, chunk in LINEAR_SHAPES:
+        q, k = (positive(rng, bh, slen, dfeat, device=device) for _ in range(2))
+        v = f32_tensor(rng, bh, slen, dv, device=device)
+        for normalize in (True, False):
+            e = hold_rel(f"linear attention {bh, slen, dfeat, dv} {normalize}",
+                         [ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
+                                            normalize=normalize)],
+                         [ops.rff_attention(q, k, v, mode="ref", chunk=chunk,
+                                            normalize=normalize)], ATTN_TOL)
+            note("rff_linear_attention", e)
+        del q, k, v
+    for bh, slen, dh in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (f32_tensor(rng, bh, slen, dh, device=device).to(dtype)
+                       for _ in range(3))
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
+                check(got.dtype == dtype, "flash output type")
+                e = hold_rel(f"flash {dtype} {bh, slen, dh} causal={causal}",
+                             [got], [ops.flash_attention(q, k, v, mode="ref",
+                                                         causal=causal)],
+                             ATTN_BF16_TOL if dtype == torch.bfloat16 else ATTN_TOL)
+                if dtype == torch.float32:
+                    note("flash_attention", e)
+            del q, k, v
+    torch.cuda.synchronize()
+    emit({"phase": "lm_kernels_vs_plain", "decode_shapes": DECODE_SHAPES,
+          "linear_shapes": LINEAR_SHAPES, "flash_shapes": FLASH_SHAPES,
+          "max_abs_err_f32": errs, "abs_tolerance_at_max_err_f32": tols,
+          "max_err_of_max_plain_f32": rels,
+          "tolerance_of_max_plain": {"f32": ATTN_TOL, "bf16": ATTN_BF16_TOL},
+          "bitwise_block_eq_one_token_launches": bitwise})
+    return errs, tols, rels
+
+
+def lm_model(cfg, seed, device):
+    from repro_torch.models import init_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params(gen, cfg, device=device), gen
+
+
+def as_f32(params):
+    """The same weights in f32 (the f32 copy of the model)."""
+    if isinstance(params, dict):
+        return {k: as_f32(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [as_f32(v) for v in params]
+    return params.float()
+
+
+def lm_budget(name, kernel, plain, exact) -> dict:
+    """The bf16 kernel path's logits against the bf16 plain path's, both
+    measured from the f32 model's (see LM_BUDGET)."""
+    scale = float(exact.float().abs().max())
+    d_kernel, d_plain = max_err(kernel, exact), max_err(plain, exact)
+    check(bool(torch.isfinite(kernel).all()), f"{name}: non-finite logits")
+    check(d_kernel <= LM_BUDGET * d_plain + LM_BUDGET_FLOOR * scale,
+          f"{name}: kernel path {d_kernel:.3g} from the f32 model, plain "
+          f"path {d_plain:.3g} (budget {LM_BUDGET}x + {LM_BUDGET_FLOOR} of "
+          f"{scale:.3g})")
+    return {"kernel_from_f32": d_kernel, "plain_from_f32": d_plain,
+            "kernel_from_plain": max_err(kernel, plain), "max_abs_logit": scale}
+
+
+def phase_lm_server(seed, device, kernels) -> dict:
+    """qwen2-0.5b with RFF attention at full width, bf16: make_prefill_step
+    at B = 4, S = 2048 (kernel 10) and generate 32 greedy tokens after a
+    16-token prompt (kernel 9, one launch per layer per token), held
+    against kernel_mode="ref" and the f32 copy of the model."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import with_rff_attention
+    from repro_torch.serve.serve_loop import generate, path_logits
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = with_rff_attention(get_config(LM_ARCH))
+    params, gen = lm_model(cfg, seed, device)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
+                           device=device)
+    prompt = tokens[:, :LM_PROMPT].contiguous()
+    names = ("rff_decode_block", "rff_linear_attention")
+    with torch.inference_mode():
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+        toks = generate(params, cfg, prompt, steps=LM_NEW)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = path_launches(kernels, names)
+        seen = path_logits(params, cfg, prompt, toks)
+        steps = LM_PROMPT + LM_NEW - 1
+        check(launches["rff_linear_attention"] == cfg.num_layers,
+              f"prefill launches {launches}")
+        check(launches["rff_decode_block"] == steps * cfg.num_layers,
+              f"decode launches {launches}: {cfg.num_layers} a token expected")
+        check(tuple(toks.shape) == (LM_B, LM_NEW)
+              and bool((toks < cfg.vocab_size).all()), "generated tokens")
+        check(torch.equal(toks, seen.argmax(-1)), "greedy tokens vs logits")
+
+        plain = make_prefill_step(cfg, kernel_mode="ref")(params, {"tokens": tokens})
+        plain_seen = path_logits(params, cfg, prompt, toks, kernel_mode="ref")
+        cfg32, p32 = replace(cfg, dtype="float32"), as_f32(params)
+        del params
+        exact = make_prefill_step(cfg32, kernel_mode="ref")(p32, {"tokens": tokens})
+        exact_seen = path_logits(p32, cfg32, prompt, toks, kernel_mode="ref")
+        v = cfg.vocab_size
+        report = {
+            "prefill_bf16": lm_budget("prefill", logits[:, :v], plain[:, :v],
+                                      exact[:, :v]),
+            "decode_bf16": lm_budget("generate", seen[..., :v],
+                                     plain_seen[..., :v], exact_seen[..., :v]),
+        }
+        k32 = make_prefill_step(cfg32)(p32, {"tokens": tokens})
+        k32_seen = path_logits(p32, cfg32, prompt, toks)
+        report["prefill_f32_kernel_vs_plain"] = hold_rel(
+            "f32 prefill", [k32[:, :v]], [exact[:, :v]], LM_F32_TOL)[0]
+        report["decode_f32_kernel_vs_plain"] = hold_rel(
+            "f32 generate path", [k32_seen[..., :v]], [exact_seen[..., :v]],
+            LM_F32_TOL)[0]
+    emit({"phase": "lm_server", "arch": cfg.name, "attention": cfg.attention,
+          "dtype": cfg.dtype, "B": LM_B, "prefill_S": LM_S,
+          "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+          "D": cfg.rff_num_features, "params": cfg.param_count(),
+          "sample": toks[0, :16].tolist(), "logits": report,
+          "tolerance": {"f32_of_max_logit": LM_F32_TOL,
+                        "bf16_budget": {"factor": LM_BUDGET,
+                                        "floor_of_max_logit": LM_BUDGET_FLOOR}},
+          "launches": launches, "seconds": seconds})
+    return launches
+
+
+def phase_lm_gqa_server(seed, device, kernels) -> dict:
+    """qwen2-0.5b as published (GQA), bf16: make_prefill_step at B = 4,
+    S = 2048 through the flash kernel, against kernel_mode="ref" (the dense
+    path) and the f32 copy; then a short generate, which runs no kernel
+    (GQA decode is dense attention over the KV cache, as in repro)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve.serve_loop import generate
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config(LM_ARCH)
+    params, gen = lm_model(cfg, seed + 1, device)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
+                           device=device)
+    with torch.inference_mode():
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg)(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = path_launches(kernels, ("flash_attention",))
+        check(launches["flash_attention"] == cfg.num_layers,
+              f"prefill launches {launches}")
+        before = {name: k.launches for name, k in kernels.items()}
+        toks = generate(params, cfg, tokens[:, :LM_PROMPT].contiguous(),
+                        steps=LM_GQA_NEW, max_len=LM_PROMPT + LM_GQA_NEW)
+        torch.cuda.synchronize()
+        check(before == {name: k.launches for name, k in kernels.items()},
+              "GQA decode launched a kernel")
+        check(tuple(toks.shape) == (LM_B, LM_GQA_NEW)
+              and bool((toks < cfg.vocab_size).all()), "generated tokens")
+        plain = make_prefill_step(cfg, kernel_mode="ref")(params, {"tokens": tokens})
+        cfg32, p32 = replace(cfg, dtype="float32"), as_f32(params)
+        del params
+        exact = make_prefill_step(cfg32, kernel_mode="ref")(p32, {"tokens": tokens})
+        v = cfg.vocab_size
+        report = {"prefill_bf16": lm_budget("gqa prefill", logits[:, :v],
+                                            plain[:, :v], exact[:, :v])}
+        report["prefill_f32_kernel_vs_plain"] = hold_rel(
+            "f32 gqa prefill",
+            [make_prefill_step(cfg32)(p32, {"tokens": tokens})[:, :v]],
+            [exact[:, :v]], LM_F32_TOL)[0]
+    emit({"phase": "lm_gqa_server", "arch": cfg.name,
+          "attention": cfg.attention, "dtype": cfg.dtype, "B": LM_B,
+          "prefill_S": LM_S, "generate_new_tokens": LM_GQA_NEW,
+          "sample": toks[0].tolist(), "logits": report, "launches": launches,
+          "seconds": seconds})
+    return launches
+
+
+def device_busy(fn, top: int = 6) -> dict:
+    """One run of ``fn()`` under torch.profiler: the device's kernel time
+    (the sum of CUDA kernel self times), the kernels launched and those
+    that took most. The profiled wall time is inflated by the profiler's
+    own host cost; the callers set device time against an unprofiled
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(bool(kern), "torch.profiler recorded no CUDA kernel")
+    dev = [e.self_device_time_total / 1e3 for e in kern]
+    order = sorted(range(len(kern)), key=lambda i: -dev[i])[:top]
+    return {"device_ms": sum(dev), "kernel_launches": sum(e.count for e in kern),
+            "top": [[kern[i].key[:72], dev[i], kern[i].count] for i in order]}
+
+
+def phase_lm_times(rng, device) -> dict:
+    """Kernels 9-11 at the LM path's shapes: the kernel, its plain version,
+    its bound and (flash) SDPA; prefill and decode tokens per second for
+    both models; the decode state's bytes.
+
+    Bounds, counting a multiply-add as two operations. Decode block per
+    token and head: two projections (4 dh D), per feature the PRF epilogue
+    of both rows (10 D: subtract, exp, divide, add, scale), z's update and
+    the normalizer (3 D), S's update and the numerator (4 D dv), dv
+    divides; f32 CUDA-core rate. Bytes: S and z in and out, q, k, v and
+    the output, W and s. Linear attention: the recurrent form's 4 D dv +
+    3 D + dv per token and head (the least work of the function), f32;
+    bytes: phi_q, phi_k, v in and the output. Flash: 4 dh per kept
+    (query, key) pair (Q K^T and P V) and 3 more (subtract, exp, add), at
+    the bf16 tensor-core rate for bf16 inputs; bytes: q, k, v and the
+    output.
+    """
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_state_init, decode_step
+    from repro_torch.models import with_rff_attention
+    from repro_torch.serve.serve_loop import prefill_tokens
+    from repro_torch.train.steps import make_prefill_step
+
+    out = {}
+    bh, dh, dfeat, dv = DECODE_SHAPES[0]
+    args = decode_inputs(rng, bh, 1, dh, dfeat, dv, "prf", device)
+    out["rff_decode_block"] = timed_case(
+        lambda m: ops.rff_attention_decode_block(*args, mode=m),
+        4 * (2 * bh * (dfeat * dv + dfeat) + bh * (2 * dh + 2 * dv)
+             + dh * dfeat + dfeat),
+        bh * (4 * dh * dfeat + 13 * dfeat + 4 * dfeat * dv + dv))
+    # At T = 1 events around one call read the host (the op and its
+    # wrapper take longer to issue than the kernel runs), so ms and
+    # plain_ms are device times: the profiler's kernel time over
+    # DECODE_CALLS calls, per call. The events' times stay as call_ms.
+    row = out["rff_decode_block"]
+    row["call_ms"], row["plain_call_ms"] = row.pop("ms"), row.pop("plain_ms")
+    row["call_ms_runs"] = row.pop("ms_runs")
+    row["plain_call_ms_runs"] = row.pop("plain_ms_runs")
+    for key, mode in (("ms", "cuda"), ("plain_ms", "ref")):
+        runs = []
+        for _ in range(2):
+            prof = device_busy(lambda: [ops.rff_attention_decode_block(
+                *args, mode=mode) for _ in range(DECODE_CALLS)])
+            runs.append(prof["device_ms"] / DECODE_CALLS)
+        row[key], row[f"{key}_runs"] = min(runs), runs
+        row[f"{key}_top"] = prof["top"]
+    big = decode_inputs(rng, bh, 512, dh, dfeat, dv, "prf", device)
+    out["rff_decode_block"]["T512"] = {
+        "ms": time_ms(lambda: ops.rff_attention_decode_block(*big, mode="cuda"), 5),
+        "plain_ms": time_ms(lambda: ops.rff_attention_decode_block(*big, mode="ref"), 3)}
+    del big
+    bh, slen, dfeat, dv, chunk = LINEAR_SHAPES[0]
+    q, k = (positive(rng, bh, slen, dfeat, device=device) for _ in range(2))
+    v = f32_tensor(rng, bh, slen, dv, device=device)
+    out["rff_linear_attention"] = timed_case(
+        lambda m: ops.rff_attention(q, k, v, mode=m, chunk=chunk),
+        4 * bh * slen * (2 * dfeat + 2 * dv),
+        bh * slen * (4 * dfeat * dv + 3 * dfeat + dv), plain_reps=5)
+    del q, k, v
+    bh, slen, dh = FLASH_SHAPES[0]
+    q, k, v = (f32_tensor(rng, bh, slen, dh, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    pairs = bh * slen * (slen + 1) // 2
+    case = timed_case(lambda m: ops.flash_attention(q, k, v, mode=m),
+                      2 * 4 * bh * slen * dh, 0.0, plain_reps=5)
+    t_bytes, t_ops = case["bytes"] / HBM_BYTES_PER_S, pairs * (4 * dh + 3) / BF16_OPS_PER_S
+    case.update(bound_ms=max(t_bytes, t_ops) * 1e3, ops=pairs * (4 * dh + 3),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    q4, k4, v4 = (x.view(LM_B, bh // LM_B, slen, dh) for x in (q, k, v))
+    case["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    out["flash_attention"] = case
+    del q, k, v, q4, k4, v4
+
+    def wall_ms(fn, reps=3) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    e2e, state_bytes = {}, {}
+    for label, cfg in (("rff", with_rff_attention(get_config(LM_ARCH))),
+                       ("gqa", get_config(LM_ARCH))):
+        params, gen = lm_model(cfg, 5, device)
+        tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_S), generator=gen,
+                               device=device)
+        with torch.inference_mode():
+            step = make_prefill_step(cfg)
+            prefill = wall_ms(lambda: step(params, {"tokens": tokens}))
+            state = decode_state_init(cfg, LM_B, LM_S, device=device)
+            state, _ = prefill_tokens(params, cfg, state, tokens[:, :LM_PROMPT])
+            nbytes = sum(t.numel() * t.element_size()
+                         for s in state["stack"] for t in s[:2])
+            tok = tokens[:, LM_PROMPT]
+            for _ in range(2):  # warm-up
+                decode_step(params, cfg, state, tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LM_NEW):
+                logits, state = decode_step(params, cfg, state, tok)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
+            busy = {"prefill": device_busy(
+                        lambda: step(params, {"tokens": tokens})),
+                    "decode_step": device_busy(
+                        lambda: decode_step(params, cfg, state, tok))}
+        busy["prefill"]["busy_share"] = busy["prefill"]["device_ms"] / prefill
+        busy["decode_step"]["busy_share"] = (busy["decode_step"]["device_ms"]
+                                             / decode_ms)
+        e2e[label] = {"prefill_ms": prefill,
+                      "prefill_tokens_per_s": LM_B * LM_S / prefill * 1e3,
+                      "decode_ms_per_step": decode_ms,
+                      "decode_tokens_per_s": LM_B / decode_ms * 1e3,
+                      "profile": busy}
+        state_bytes[f"{label}_B{LM_B}_ctx{LM_S}"] = nbytes
+        del params, state
+    cfg = get_config(LM_ARCH)
+    kv = decode_state_init(cfg, LM_B, 32768, device=device)
+    state_bytes[f"gqa_B{LM_B}_ctx32768"] = sum(
+        t.numel() * t.element_size() for s in kv["stack"] for t in s[:2])
+    del kv
+    emit({"phase": "lm_times", "arch": LM_ARCH, "B": LM_B,
+          "kernels": out, "end_to_end": e2e, "decode_state_bytes": state_bytes,
+          "shapes": {"decode": DECODE_SHAPES[0], "linear": LINEAR_SHAPES[0],
+                     "flash_bf16": FLASH_SHAPES[0]},
+          "library_ms": "flash: F.scaled_dot_product_attention(is_causal=True) "
+                        "on (B, H, S, dh) bf16; none for kernels 9-10"})
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1148,6 +1648,11 @@ def main() -> int:
     from repro_torch.kernels.rff_krls_step import (
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rff_attention import (
+        rff_attention_cuda,
+        rff_attention_decode_block_cuda,
     )
     from repro_torch.kernels.rff_features import rff_features_cuda
     from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
@@ -1183,6 +1688,9 @@ def main() -> int:
         rff_bank_predict_cuda, rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda, rff_features_cuda,
         rff_klms_chunk_elements_cuda, rff_krls_chunk_elements_cuda)))
+    kernels.update(rff_decode_block=rff_attention_decode_block_cuda,
+                   rff_linear_attention=rff_attention_cuda,
+                   flash_attention=flash_attention_cuda)
     errs = phase_kernels(rng, device)
     launches = phase_server(args.seed, device, kernels)
     krls_errs, p_rels = phase_krls_kernels(rng, device)
@@ -1199,23 +1707,36 @@ def main() -> int:
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
     times.update(phase_replay_times(rrng, device))
+    # The LM slice, after every earlier phase, on its own generator.
+    lrng = np.random.default_rng(args.seed + 4)
+    lm_errs, lm_tols, lm_rels = phase_lm_kernels(lrng, device)
+    errs.update(lm_errs)
+    launches.update(phase_lm_server(args.seed, device, kernels))
+    launches.update(phase_lm_gqa_server(args.seed, device, kernels))
+    times.update(phase_lm_times(lrng, device))
     torch.cuda.synchronize()
+    replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
+    tolerance = {**TOLERANCE, **lm_tols}
     print(smi)
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errs[name], "tolerance": TOLERANCE[name],
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": errs[name], "tolerance": tolerance[name],
          **({"p_rel_err": p_rels[name], "p_tolerance": P_TOL}
             if name in p_rels else {}),
+         **({"tolerance_of_max_plain": ATTN_TOL,
+             "err_of_max_plain": lm_rels[name]}
+            if name in lm_rels else {}),
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None,
+         "bound_by": times[name]["bound_by"],
+         "library_ms": times[name].get("library_ms"),
          **({"tolerance_of": "max|s|",
              "read_block": {k: times["rff_features_read_block"][k]
                             for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "shape")}}
             if name == "rff_features" else {})}
-        for name in REPLACES
+        for name in replaces
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

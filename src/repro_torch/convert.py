@@ -17,7 +17,16 @@ from repro_torch.core.klms import LMSState
 from repro_torch.core.krls import RLSState
 from repro_torch.features.base import TrigFeatures, uniform_trig_scale
 
-__all__ = ["tensor", "trig_features", "lms_state", "rls_state", "to_numpy"]
+__all__ = [
+    "tensor",
+    "trig_features",
+    "lms_state",
+    "rls_state",
+    "lm_params",
+    "rff_state",
+    "kv_cache",
+    "to_numpy",
+]
 
 
 def tensor(a, *, device="cuda", dtype=None) -> torch.Tensor:
@@ -54,6 +63,56 @@ def rls_state(theta, pmat, step, *, device="cuda") -> RLSState:
     return RLSState(theta=tensor(theta, device=device),
                     pmat=tensor(pmat, device=device),
                     step=tensor(step, device=device, dtype=torch.int32))
+
+
+def _tree(node, dev, layer=None):
+    """A nested dict (or list) of numpy leaves as tensors on ``dev``; with
+    ``layer``, every leaf is sliced at that index of its leading axis."""
+    if isinstance(node, dict):
+        return {k: _tree(v, dev, layer) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, dev, layer) for v in node]
+    a = np.asarray(node)
+    return tensor(a if layer is None else a[layer], device=dev)
+
+
+def lm_params(params_np: dict, cfg, *, device="cuda") -> dict:
+    """``repro``'s LM parameter tree (numpy leaves, ``jax.tree.map(np.asarray,
+    params)``) as the port's: the same nested dicts, with the layers as a
+    list under ``"blocks"``. Takes either of ``repro``'s layouts: the
+    stacked ``"blocks"`` (``scan_layers=True``, a leading layer axis on
+    every leaf) or ``"blocks_list"``. Leaf dtypes are kept."""
+    dev = resolve_device(device)
+    if "blocks" in params_np:
+        layers = [_tree(params_np["blocks"], dev, i)
+                  for i in range(cfg.num_layers)]
+    else:
+        layers = _tree(params_np["blocks_list"], dev)
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers for a {cfg.num_layers}-layer "
+                         "config")
+    out = {k: _tree(v, dev) for k, v in params_np.items()
+           if k not in ("blocks", "blocks_list")}
+    out["blocks"] = layers
+    return out
+
+
+def rff_state(s, z, pos, *, device="cuda"):
+    """``repro``'s ``RFFState`` (one layer: s (B, H, D, dv), z (B, H, D))
+    as the port's."""
+    from repro_torch.models.rff_attention import RFFState
+
+    return RFFState(s=tensor(s, device=device), z=tensor(z, device=device),
+                    pos=int(pos))
+
+
+def kv_cache(k, v, pos, *, device="cuda"):
+    """``repro``'s ``KVCache`` (one layer: k, v (B, S_max, Hkv, dh)) as the
+    port's."""
+    from repro_torch.models.attention import KVCache
+
+    return KVCache(k=tensor(k, device=device), v=tensor(v, device=device),
+                   pos=int(pos))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

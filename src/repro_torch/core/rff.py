@@ -1,10 +1,14 @@
 """Random Fourier feature maps (Rahimi & Recht), the paper's core device.
 
-Counterpart of ``repro/core/rff.py`` for the trig features: for the
+Counterpart of ``repro/core/rff.py``. Trig features: for the
 Gaussian kernel ``exp(-||u - v||^2 / (2 sigma^2))``,
 ``omega ~ N(0, I_d / sigma^2)``, ``b ~ U[0, 2 pi]`` and
 
     z(x) = sqrt(2/D) cos(x @ omega + b),   z(x) . z(y) ~= kappa(x - y).
+
+Positive random features (:func:`sample_prf`,
+:func:`positive_random_features`) estimate the softmax kernel
+``exp(q . k)``; the RFF linear-attention layer uses them.
 
 Sampling draws from an explicit CPU ``torch.Generator`` and then moves the
 parameters to ``device``, so a seed gives the same map on every device.
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.ref import mc_scale
+from repro_torch.kernels.ref import mc_scale, prf_root
 
 __all__ = [
     "RFF",
@@ -27,6 +31,9 @@ __all__ = [
     "rff_features",
     "kernel_estimate",
     "gaussian_kernel",
+    "sample_prf",
+    "positive_random_features",
+    "softmax_kernel_estimate",
 ]
 
 
@@ -69,19 +76,8 @@ def sample_rff(
             input_dim, num_features, generator=generator, dtype=dtype
         ) / sigma
         return RFF(omega=omega.to(dev), bias=bias.to(dev))
-    n_blocks = -(-num_features // input_dim)
-    blocks = []
-    for _ in range(n_blocks):
-        g = torch.randn(input_dim, input_dim, generator=generator, dtype=dtype)
-        q, _ = torch.linalg.qr(g)
-        blocks.append(q)
-    omega = torch.cat(blocks, dim=1)[:, :num_features]
-    norms = torch.linalg.vector_norm(
-        torch.randn(num_features, input_dim, generator=generator, dtype=dtype),
-        dim=1,
-    )
-    omega = omega * norms[None, :] / sigma
-    return RFF(omega=omega.to(dev), bias=bias.to(dev))
+    omega = _orthogonal_omega(generator, input_dim, num_features, dtype)
+    return RFF(omega=(omega / sigma).to(dev), bias=bias.to(dev))
 
 
 def rff_features(rff: RFF, x: torch.Tensor) -> torch.Tensor:
@@ -101,3 +97,70 @@ def gaussian_kernel(x: torch.Tensor, y: torch.Tensor, sigma: float):
     """Exact Gaussian kernel ``exp(-||x - y||^2 / (2 sigma^2))``."""
     sq = torch.sum(torch.square(x - y), dim=-1)
     return torch.exp(-sq / (2.0 * sigma**2))
+
+
+def _orthogonal_omega(generator, input_dim, num_features, dtype):
+    """Blocks of up to ``input_dim`` orthogonalized (QR) Gaussian columns,
+    rescaled to chi(d) norms (the norm of a d-dim standard normal), drawn
+    on the generator's device."""
+    n_blocks = -(-num_features // input_dim)
+    blocks = []
+    for _ in range(n_blocks):
+        g = torch.randn(input_dim, input_dim, generator=generator, dtype=dtype,
+                        device=generator.device)
+        q, _ = torch.linalg.qr(g)
+        blocks.append(q)
+    omega = torch.cat(blocks, dim=1)[:, :num_features]
+    norms = torch.linalg.vector_norm(
+        torch.randn(num_features, input_dim, generator=generator, dtype=dtype,
+                    device=generator.device),
+        dim=1,
+    )
+    return omega * norms[None, :]
+
+
+def sample_prf(
+    generator: torch.Generator,
+    input_dim: int,
+    num_features: int,
+    dtype: torch.dtype = torch.float32,
+    orthogonal: bool = True,
+    device="cuda",
+) -> RFF:
+    """Projections for positive random features of ``exp(q . k)``.
+
+    Columns are standard Gaussian; ``orthogonal=True`` orthogonalizes
+    blocks of up to ``input_dim`` columns and rescales them to chi(d)
+    norms, which lowers the estimator's variance. The bias is zero (PRF has
+    no phase). The draws are made on ``generator``'s device.
+    """
+    dev = resolve_device(device)
+    if orthogonal:
+        omega = _orthogonal_omega(generator, input_dim, num_features, dtype)
+    else:
+        omega = torch.randn(input_dim, num_features, generator=generator,
+                            dtype=dtype, device=generator.device)
+    return RFF(omega=omega.to(dev),
+               bias=torch.zeros(num_features, dtype=dtype, device=dev))
+
+
+def positive_random_features(rff: RFF, x: torch.Tensor,
+                             eps: float = 1e-6) -> torch.Tensor:
+    """``phi(x) = exp(x @ omega - ||x||^2 / 2) / sqrt(D) + eps``, so that
+    ``phi(q) . phi(k) ~= exp(q . k)`` in expectation.
+
+    No per-vector max shift: a shift that differs between two keys would
+    bias their attention-weight ratio and break the prefill/decode state
+    contract. The attention layer pre-scales inputs by ``dh ** -0.25``.
+    """
+    proj = x @ rff.omega
+    stab = proj - torch.sum(torch.square(x), dim=-1, keepdim=True) / 2.0
+    return torch.exp(stab) / prf_root(rff.num_features, proj.device) + eps
+
+
+def softmax_kernel_estimate(rff: RFF, q: torch.Tensor,
+                            k: torch.Tensor) -> torch.Tensor:
+    """Estimate of ``exp(q . k)`` (relative weights)."""
+    pq = positive_random_features(rff, q)
+    pk = positive_random_features(rff, k)
+    return torch.sum(pq * pk, dim=-1)

@@ -1,5 +1,5 @@
 """Time-axis chunking utilities, and the shared-memory sizing of the KLMS,
-KRLS and replay element kernels.
+KRLS, replay element and attention kernels.
 
 Counterpart of ``repro/kernels/chunking.py``: the pad / block / masked
 remainder bookkeeping of the chunked run-loops, in one place.
@@ -25,6 +25,11 @@ __all__ = [
     "klms_element_smem_bytes",
     "klms_element_strip",
     "default_chunk_t",
+    "ATTENTION_THREADS",
+    "decode_smem_bytes",
+    "decode_fits",
+    "default_decode_block_t",
+    "linear_attention_smem_bytes",
 ]
 
 # Shared memory one thread block may use on an H100 (227 KB of the SM's
@@ -139,6 +144,57 @@ def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
         return int(min(512, max(8, 1 << (half - 1).bit_length())))
     fits = krls_fits(dfeat, input_dim) if pmat else klms_block_b(dfeat, input_dim)
     return 512 if fits else 8
+
+
+# Threads per block of csrc/rff_attention.cu and csrc/flash_attention.cu
+# (kThreads there).
+ATTENTION_THREADS = 256
+
+
+def decode_smem_bytes(dfeat: int, dv: int, head_dim: int) -> int:
+    """Dynamic shared memory of one decode-block head (the layout in
+    csrc/rff_attention.cu): the head's ``(D, dv)`` S and ``(D,)`` z, the
+    tick's two feature rows, its q, k and v rows, the numerator's partial
+    sums (``max(1, 256 // dv)`` parts per column), the per-warp normalizer
+    partials and three scalars, all f32. W ``(dh, D)`` is streamed from L2
+    and is not charged."""
+    parts = 1 if dv >= ATTENTION_THREADS else ATTENTION_THREADS // dv
+    floats = (dfeat * dv + 3 * dfeat + 2 * head_dim + dv + parts * dv
+              + ATTENTION_THREADS // 32 + 4)
+    return 4 * floats
+
+
+def decode_fits(dfeat: int, dv: int, head_dim: int) -> bool:
+    """Whether a head's decode state fits :data:`SMEM_BUDGET` (D dv up to
+    about 56k f32: D = 256 at dv <= 128 fits, as at qwen2-0.5b and
+    llama3-8b)."""
+    return decode_smem_bytes(dfeat, dv, head_dim) <= SMEM_BUDGET
+
+
+def default_decode_block_t(dfeat: int, dv: int, head_dim: int) -> int:
+    """Default tokens T per fused decode-block launch.
+
+    ``repro`` budgets T against VMEM, charging the resident S and W tiles
+    and two feature rows per streamed token. The CUDA kernel keeps S and z
+    in shared memory for the whole launch, streams W from L2 and featurizes
+    one token per tick into the same two rows, so T costs no shared
+    memory: when the head's state fits :data:`SMEM_BUDGET` the default is
+    the cap of 512 tokens that ``repro`` also clamps to (and reaches at
+    D = 256, dv = dh = 64). When it does not fit, the kernel cannot run
+    (its wrapper raises) and the floor of 8 is returned for the plain
+    path. ``repro``'s stream ``dtype`` argument is not taken: it does not
+    change the answer here.
+    """
+    return 512 if decode_fits(dfeat, dv, head_dim) else 8
+
+
+def linear_attention_smem_bytes(dfeat: int) -> int:
+    """Dynamic shared memory of one chunked linear-attention block (the
+    layout in csrc/rff_attention.cu): the block's ``(D, 64)`` tile of S
+    and z (D rounded up to 64), two transposed ``(32, 65)`` Q and K slabs,
+    the ``(64, 65)`` score tile and the ``(64, 64)`` V tile, all f32."""
+    dp = -(-dfeat // 64) * 64
+    return 4 * (dp * 64 + dp + 2 * 32 * 65 + 64 * 65 + 64 * 64)
 
 
 def num_chunks(n: int, chunk: int) -> int:

@@ -16,9 +16,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunking import (
     default_chunk_t,
+    default_decode_block_t,
     time_blocks,
     unblock_time,
     valid_time_mask,
+)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rff_attention import (
+    rff_attention_cuda,
+    rff_attention_decode_block_cuda,
 )
 from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import (
@@ -46,6 +52,10 @@ __all__ = [
     "rff_krls_bank_chunk",
     "rff_klms_chunk_elements",
     "rff_krls_chunk_elements",
+    "rff_attention",
+    "rff_attention_decode",
+    "rff_attention_decode_block",
+    "flash_attention",
 ]
 
 MODES = ("auto", "cuda", "ref")
@@ -228,3 +238,80 @@ def rff_krls_chunk_elements(xs, ys, w, b, beta, s=None, *,
     if use_kernel(mode, xs):
         return rff_krls_chunk_elements_cuda(xs_c, ys_c, w, b, beta, mask_c, s)
     return ref.krls_chunk_elements_ref(xs_c, ys_c, w, b, beta, mask_c, s)
+
+
+def rff_attention(phi_q, phi_k, v, *, mode: str = "auto", chunk: int = 256,
+                  normalize: bool = True, eps: float = 1e-6):
+    """Causal linear attention over feature-mapped q/k: phi_q, phi_k (BH, S,
+    D), v (BH, S, dv) -> (BH, S, dv). ``S`` must be a multiple of
+    ``min(chunk, S)``. The plain version is the chunked form
+    (``ref.chunked_linear_attention_ref``, O(S C D)), as ``repro``'s XLA
+    path."""
+    if use_kernel(mode, phi_q):
+        return rff_attention_cuda(phi_q, phi_k, v, chunk=chunk,
+                                  normalize=normalize, eps=eps)
+    return ref.chunked_linear_attention_ref(phi_q, phi_k, v, chunk=chunk,
+                                            normalize=normalize, eps=eps)
+
+
+def rff_attention_decode(s_state, z_state, phi_q, phi_k, v, *,
+                         eps: float = 1e-6):
+    """One decode step from the fixed-size state over given features:
+    s_state (BH, D, dv), z_state (BH, D), phi_q, phi_k (BH, D), v (BH, dv).
+    Returns (output (BH, dv), S', z'). Plain PyTorch only: ``repro``'s op
+    is an XLA function with no kernel."""
+    s_new = s_state + torch.einsum("bd,bv->bdv", phi_k, v)
+    z_new = z_state + phi_k
+    num = torch.einsum("bd,bdv->bv", phi_q, s_new)
+    den = torch.einsum("bd,bd->b", phi_q, z_new) + eps
+    return num / den[:, None], s_new, z_new
+
+
+def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
+                               feature_kind: str = "prf", mode: str = "auto",
+                               block_t=None, normalize: bool = True,
+                               eps: float = 1e-6, precision=None):
+    """Advance the fixed-size attention state by T pre-projected tokens in
+    ceil(T / block_t) launches: q, k (BH, T, dh), v (BH, T, dv), w (dh, D),
+    b (D,), s (D,) or None (``ref.default_decode_scale``); the feature map
+    (``feature_kind`` "prf" or "trig") runs in the kernel under the
+    precision contract of ``kernels/ref.py``.
+
+    ``block_t=None`` takes ``kernels.chunking.default_decode_block_t``.
+    Full blocks run in turn, then one unpadded launch for the remainder: a
+    PRF feature of a zero token is not 0, so padded ticks would corrupt
+    the state. Returns (outputs (BH, T, dv) f32, S', z')."""
+    bh, tlen, dh = q.shape
+    dv = v.shape[-1]
+    dfeat = w.shape[-1]
+    if block_t is None:
+        block_t = default_decode_block_t(dfeat, dv, dh)
+    if use_kernel(mode, q):
+        launch = rff_attention_decode_block_cuda
+    else:
+        launch = ref.rff_attention_decode_block_ref
+
+    def run(sm, zv, lo, hi):
+        return launch(sm, zv, q[:, lo:hi].contiguous(),
+                      k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(),
+                      w, b, s, feature_kind=feature_kind,
+                      normalize=normalize, eps=eps, precision=precision)
+
+    s_state, z_state = s_state.float(), z_state.float()
+    if tlen <= block_t:
+        return run(s_state, z_state, 0, tlen)
+    outs = []
+    for lo in range(0, tlen, block_t):
+        out, s_state, z_state = run(s_state, z_state, lo,
+                                    min(lo + block_t, tlen))
+        outs.append(out)
+    return torch.cat(outs, dim=1), s_state, z_state
+
+
+def flash_attention(q, k, v, *, mode: str = "auto", causal: bool = True):
+    """Exact softmax attention, (BH, S, dh) layout, f32 or bf16 -> q's
+    type. ``repro``'s ``block_q``/``block_k`` are not taken: the CUDA
+    kernel tiles by 64, and tiles only order the online softmax's sums."""
+    if use_kernel(mode, q):
+        return flash_attention_cuda(q, k, v, causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -37,6 +37,15 @@ __all__ = [
     "rff_krls_bank_chunk_ref",
     "klms_chunk_elements_ref",
     "krls_chunk_elements_ref",
+    "prf_root",
+    "default_decode_scale",
+    "decode_features_ref",
+    "rff_attention_ref",
+    "rff_attention_state_ref",
+    "chunked_linear_attention_ref",
+    "rff_attention_decode_block_ref",
+    "flash_attention_ref",
+    "NEG_INF",
 ]
 
 _BF16 = ("bf16", "bfloat16")
@@ -286,3 +295,161 @@ def krls_chunk_elements_ref(xs, ys, w, b, beta, mask=None, s=None):
         phi_out.append(phi)
         r_out.append(r)
     return torch.stack(g_out), torch.stack(phi_out), torch.stack(r_out)
+
+
+# ---------------------------------------------------------------------------
+# Attention (the LM path): decode features, linear attention, softmax.
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30  # the mask value of repro's attention kernels
+
+
+def prf_root(num_features: int, device=None) -> torch.Tensor:
+    """``sqrt(D)`` as the correctly rounded f32 (the f64 root rounded once,
+    as :func:`mc_scale` takes it), a 0-dim tensor."""
+    return torch.tensor(math.sqrt(num_features), dtype=torch.float32,
+                        device=device)
+
+
+def default_decode_scale(dfeat: int, feature_kind: str = "trig",
+                         device=None) -> torch.Tensor:
+    """Default per-feature scale row of the decode path: trig takes the
+    Monte-Carlo ``sqrt(2/D)``; prf an all-ones column mask (PRF carries its
+    ``1/sqrt(D)`` inside)."""
+    if feature_kind == "prf":
+        return torch.ones(dfeat, dtype=torch.float32, device=device)
+    return default_scale(dfeat, device=device)
+
+
+def decode_features_ref(x, w, b, s, feature_kind="trig", precision=None,
+                        prf_eps=1e-6):
+    """The decode kernel's feature map of pre-projected tokens ``x (...,
+    dh)`` against ``w (dh, D)``, under the precision contract above.
+
+    * ``"trig"``: ``s * cos(x @ w + b)``.
+    * ``"prf"``: ``s * (exp(x @ w - ||x||^2 / 2) / sqrt(D) + prf_eps)``,
+      ``b`` unused; ``s`` is a 0/1 column mask. ``||x||^2`` is taken on the
+      f32 ``x`` also under bf16 (only the GEMM operands are rounded).
+    """
+    x32 = x.float()
+    proj = mp_project(x32, w.float(), precision)
+    if feature_kind == "trig":
+        return mp_trig(proj, b.float(), s.float(), precision)
+    if feature_kind != "prf":
+        raise ValueError(f"unknown feature_kind {feature_kind!r}")
+    stab = proj - torch.sum(torch.square(x32), dim=-1, keepdim=True) / 2.0
+    phi = s.float() * (torch.exp(stab) / prf_root(w.shape[-1], x.device)
+                       + prf_eps)
+    if canon_precision(precision) == "bf16":
+        return phi.to(torch.bfloat16)
+    return phi
+
+
+def rff_attention_ref(phi_q, phi_k, v, normalize=True, eps=1e-6):
+    """Quadratic-form causal kernel attention: ``o_t = sum_{s<=t} (phi_q_t .
+    phi_k_s) v_s`` [/ its row sum + eps]. (BH, S, D), (BH, S, D), (BH, S,
+    dv) -> (BH, S, dv). O(S^2): for tests at small S."""
+    a = torch.einsum("btd,bsd->bts", phi_q, phi_k)
+    a = torch.tril(a)
+    out = torch.einsum("bts,bsv->btv", a, v)
+    if normalize:
+        out = out / (torch.sum(a, dim=-1, keepdim=True) + eps)
+    return out
+
+
+def rff_attention_state_ref(phi_q, phi_k, v, normalize=True, eps=1e-6):
+    """The same through the fixed-size running state, one token at a time:
+    returns (outputs, final S (BH, D, dv), final z (BH, D)), f32 state."""
+    q, k, vv = phi_q.float(), phi_k.float(), v.float()
+    bh, slen, dfeat = q.shape
+    s_state = q.new_zeros(bh, dfeat, vv.shape[-1])
+    z_state = q.new_zeros(bh, dfeat)
+    outs = []
+    for t in range(slen):
+        s_state = s_state + k[:, t, :, None] * vv[:, t, None, :]
+        z_state = z_state + k[:, t]
+        num = torch.einsum("bd,bdv->bv", q[:, t], s_state)
+        if normalize:
+            num = num / (torch.sum(q[:, t] * z_state, dim=-1) + eps)[:, None]
+        outs.append(num)
+    return torch.stack(outs, dim=1).to(phi_q.dtype), s_state, z_state
+
+
+def chunked_linear_attention_ref(phi_q, phi_k, v, *, chunk=256,
+                                 normalize=True, eps=1e-6):
+    """Causal linear attention in chunks of ``C = min(chunk, S)`` (``S %
+    C == 0``): per chunk ``(Q K^T * tril) V + Q S_prev``, normalized by the
+    row sum plus ``Q z_prev``; S and z are updated after the chunk. The
+    plain form ``ops.rff_attention`` runs (O(S C D), where the quadratic
+    form is O(S^2))."""
+    bh, slen, dfeat = phi_q.shape
+    dv = v.shape[-1]
+    c = min(chunk, slen)
+    if slen % c:
+        raise ValueError(f"sequence length {slen} is not a multiple of the "
+                         f"chunk {c}")
+    q, k, vv = phi_q.float(), phi_k.float(), v.float()
+    s_state = q.new_zeros(bh, dfeat, dv)
+    z_state = q.new_zeros(bh, dfeat)
+    mask = torch.tril(q.new_ones(c, c))
+    outs = []
+    for c0 in range(0, slen, c):
+        qc, kc, vc = q[:, c0:c0 + c], k[:, c0:c0 + c], vv[:, c0:c0 + c]
+        a = torch.einsum("btd,bsd->bts", qc, kc) * mask
+        out = (torch.einsum("bts,bsv->btv", a, vc)
+               + torch.einsum("btd,bdv->btv", qc, s_state))
+        if normalize:
+            denom = torch.sum(a, -1) + torch.einsum("btd,bd->bt", qc, z_state)
+            out = out / (denom + eps)[..., None]
+        s_state = s_state + torch.einsum("bsd,bsv->bdv", kc, vc)
+        z_state = z_state + torch.sum(kc, dim=1)
+        outs.append(out)
+    return torch.cat(outs, dim=1).to(phi_q.dtype)
+
+
+def rff_attention_decode_block_ref(s_state, z_state, q, k, v, w, b, s=None, *,
+                                   feature_kind="prf", normalize=True,
+                                   eps=1e-6, precision=None):
+    """T decode ticks from the fixed-size state: the block featurizes in
+    one GEMM (:func:`decode_features_ref`), then each token applies the
+    update-then-emit tick
+
+        S += phi_k v^T;  z += phi_k;  o = phi_q S [/ (phi_q . z + eps)]
+
+    in f32 whatever the feature storage. s_state (BH, D, dv), z_state (BH,
+    D), q, k (BH, T, dh), v (BH, T, dv), w (dh, D), b (D,), s (D,) or None
+    (:func:`default_decode_scale`). Returns (outputs (BH, T, dv) f32, S',
+    z')."""
+    if s is None:
+        s = default_decode_scale(w.shape[-1], feature_kind, q.device)
+    phi_q = decode_features_ref(q, w, b, s, feature_kind, precision).float()
+    phi_k = decode_features_ref(k, w, b, s, feature_kind, precision).float()
+    v32 = v.float()
+    s_st, z_st = s_state.float(), z_state.float()
+    outs = []
+    for t in range(q.shape[1]):
+        qt, kt = phi_q[:, t], phi_k[:, t]
+        s_st = s_st + kt[:, :, None] * v32[:, t, None, :]
+        z_st = z_st + kt
+        num = torch.einsum("bd,bdv->bv", qt, s_st)
+        if normalize:
+            num = num / (torch.sum(qt * z_st, dim=-1) + eps)[:, None]
+        outs.append(num)
+    if outs:
+        out = torch.stack(outs, dim=1)
+    else:
+        out = v32.new_zeros(v.shape)
+    return out, s_st, z_st
+
+
+def flash_attention_ref(q, k, v, causal=True):
+    """Exact softmax attention, scores in f32 with ``dh ** -0.5``, masked
+    scores ``NEG_INF``; q, k (BH, S, dh), v (BH, S, dv) -> q's dtype."""
+    dh = q.shape[-1]
+    sc = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * dh ** -0.5
+    if causal:
+        n = q.shape[1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    return torch.einsum("bqk,bkv->bqv", p, v.float()).to(q.dtype)

@@ -1,0 +1,252 @@
+"""Attention blocks: GQA with the softmax-attention dispatcher and
+cache-based decode.
+
+Counterpart of ``repro/models/attention.py`` for GQA (MLA waits, ROADMAP
+§1 item 11). Projections are head-structured, ``(d, H, dh)`` and ``(H, dh,
+d)``, as in ``repro``. The dispatcher's CUDA branch takes the place of
+``repro``'s TPU branch under the same conditions and runs the flash kernel
+(``kernels/ops.flash_attention``); every other case takes the dense path,
+or the blocked online-softmax loop above 8192 keys.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.layers import apply_rope, normal, rope_freqs
+
+__all__ = [
+    "KVCache",
+    "head_proj_init",
+    "head_proj",
+    "head_out_init",
+    "head_out",
+    "repeat_kv",
+    "head_mask",
+    "apply_head_mask",
+    "dense_attention",
+    "flash_attention",
+    "gqa_init",
+    "gqa_apply",
+    "gqa_decode",
+]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, Hkv, dh)
+    v: torch.Tensor  # (B, S_max, Hkv, dh)
+    pos: int  # next write position
+
+
+def head_proj_init(gen, d: int, heads: int, head_dim: int, *,
+                   bias: bool = False, dtype=torch.float32,
+                   device="cpu") -> dict:
+    p = {"w": normal(gen, (d, heads, head_dim), d ** -0.5, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros(heads, head_dim, dtype=dtype, device=device)
+    return p
+
+
+def head_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """(..., d) -> (..., H, dh)."""
+    y = torch.einsum("...d,dhe->...he", x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def head_out_init(gen, heads: int, head_dim: int, d: int,
+                  dtype=torch.float32, device="cpu") -> dict:
+    scale = (heads * head_dim) ** -0.5
+    return {"w": normal(gen, (heads, head_dim, d), scale, dtype, device)}
+
+
+def head_out(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """(..., H, dh) -> (..., d)."""
+    return torch.einsum("...he,hed->...d", x, p["w"])
+
+
+def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, dh) -> (B, S, H, dh) by group repetition (GQA)."""
+    hkv = k.shape[2]
+    if hkv == num_heads:
+        return k
+    return torch.repeat_interleave(k, num_heads // hkv, dim=2)
+
+
+def head_mask(cfg: ModelConfig, dtype=torch.float32,
+              device=None) -> Optional[torch.Tensor]:
+    """(Hp, 1) constant mask zeroing inert padding heads (``pad_heads_to``),
+    or None when no head is padded."""
+    hp = cfg.padded_heads
+    if hp == cfg.num_heads:
+        return None
+    m = torch.zeros(hp, 1, dtype=dtype, device=device)
+    m[:cfg.num_heads] = 1
+    return m
+
+
+def apply_head_mask(x: torch.Tensor, mask: Optional[torch.Tensor]):
+    """x: (..., H, dh) * mask (H, 1)."""
+    if mask is None:
+        return x
+    return x * mask.to(device=x.device, dtype=x.dtype)
+
+
+def dense_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, kv_len: Optional[int] = None):
+    """Masked softmax attention with the scores materialized once, in f32.
+    q (B, Sq, H, dh); k, v (B, Sk, Hkv, dh) -> (B, Sq, H, dv) in q's
+    type."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = h // hkv
+    qg = (q.float() * dh ** -0.5).reshape(b, sq, hkv, group, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    keep = _keep_mask(sq, torch.arange(sk, device=q.device), causal=causal,
+                      window=window, q_offset=q_offset, kv_len=kv_len)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhv->bqhgv", p, v.float())
+    return out.reshape(b, sq, hkv * group, dv).to(q.dtype)
+
+
+def _keep_mask(sq, kpos, *, causal, window, q_offset, kv_len):
+    qpos = q_offset + torch.arange(sq, device=kpos.device)
+    keep = torch.ones(sq, kpos.shape[0], dtype=torch.bool, device=kpos.device)
+    if causal:
+        keep &= qpos[:, None] >= kpos[None, :]
+    if window:
+        keep &= qpos[:, None] - kpos[None, :] < window
+    if kv_len is not None:
+        keep &= kpos[None, :] < kv_len
+    return keep
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    block_k: int = 1024, q_offset: int = 0,
+                    kv_len: Optional[int] = None,
+                    dense_threshold: int = 8192, kernel_mode: str = "auto"):
+    """Attention dispatcher. q (B, Sq, H, dh); k, v (B, Sk, Hkv, dh).
+
+    The flash kernel takes the plain full-sequence causal case (kv already
+    repeated to H heads, no window, no ``kv_len``, ``q_offset == 0``, equal
+    q and k shapes, ``S % min(512, S) == 0``) when ``kernel_mode`` selects
+    the kernel for ``q`` (``"auto"`` on a CUDA tensor, or ``"cuda"``);
+    ``repro`` takes the same case on a TPU. Otherwise: the dense path up to
+    ``dense_threshold`` keys, the blocked online-softmax loop above.
+    Returns (B, Sq, H, dv) in q's type.
+    """
+    if (causal and not window and kv_len is None and q_offset == 0
+            and q.shape == k.shape and ops.use_kernel(kernel_mode, q)):
+        b, s, h, _ = q.shape
+        bq = min(512, s)
+        if s % bq == 0:
+            def bh(x):
+                return x.transpose(1, 2).reshape(b * h, s, x.shape[-1])
+
+            out = ops.flash_attention(bh(q).contiguous(), bh(k).contiguous(),
+                                      bh(v).contiguous(), mode=kernel_mode)
+            return out.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
+
+    if k.shape[1] <= dense_threshold:
+        return dense_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len)
+    return _blocked_attention(q, k, v, causal=causal, window=window,
+                              block_k=block_k, q_offset=q_offset,
+                              kv_len=kv_len)
+
+
+def _blocked_attention(q, k, v, *, causal, window, block_k, q_offset, kv_len):
+    """Online-softmax attention over key blocks of ``block_k`` (long
+    forward-only contexts): O(Sq * block_k) scores at a time."""
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    group = h // hkv
+    bk = min(block_k, sk)
+    qg = (q.float() * dh ** -0.5).reshape(b, sq, hkv, group, dh)
+    m = q.new_full((b, hkv, group, sq), NEG_INF, dtype=torch.float32)
+    l = torch.zeros_like(m)
+    acc = q.new_zeros((b, hkv, group, sq, dv), dtype=torch.float32)
+    limit = sk if kv_len is None else kv_len
+    for k0 in range(0, sk, bk):
+        kb = k[:, k0:k0 + bk].float()
+        vb = v[:, k0:k0 + bk].float()
+        kpos = torch.arange(k0, k0 + kb.shape[1], device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb)
+        keep = _keep_mask(sq, kpos, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=limit)
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen, cfg: ModelConfig, dtype=torch.float32,
+             device="cpu") -> dict:
+    d, hp, hkv = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads
+    dh = cfg.resolved_head_dim
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "wq": head_proj_init(gen, d, hp, dh, bias=cfg.qkv_bias, **kw),
+        "wk": head_proj_init(gen, d, hkv, dh, bias=cfg.qkv_bias, **kw),
+        "wv": head_proj_init(gen, d, hkv, dh, bias=cfg.qkv_bias, **kw),
+        "wo": head_out_init(gen, hp, dh, d, **kw),
+    }
+
+
+def _project_qkv(p, cfg: ModelConfig, x, positions):
+    dh = cfg.resolved_head_dim
+    q = head_proj(p["wq"], x)  # (B, S, Hp, dh)
+    k = head_proj(p["wk"], x)  # (B, S, Hkv, dh)
+    v = head_proj(p["wv"], x)
+    cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              kernel_mode: str = "auto"):
+    """Full-sequence causal GQA. x: (B, S, d). (``repro``'s ``window`` and
+    ``block_k`` serve only its rglru hybrid, which is not ported.)"""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    k = repeat_kv(k, cfg.padded_heads)
+    v = repeat_kv(v, cfg.padded_heads)
+    out = flash_attention(q, k, v, causal=True, kernel_mode=kernel_mode)
+    return head_out(p["wo"], apply_head_mask(out, head_mask(cfg)))
+
+
+def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: KVCache):
+    """One-token decode against a KV cache stored unrepeated. x: (B, 1, d).
+
+    The new key and value are written into ``cache.k``/``cache.v`` in
+    place (``repro`` returns new arrays): a copy per token would move the
+    whole (B, S_max, Hkv, dh) cache of every layer. Returns (out, the
+    cache advanced by one position)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), cache.pos, dtype=torch.long,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    cache.k[:, cache.pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, cache.pos] = v_new[:, 0].to(cache.v.dtype)
+    out = dense_attention(q, cache.k, cache.v, causal=False,
+                          kv_len=cache.pos + 1)
+    new_cache = KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
+    return head_out(p["wo"], apply_head_mask(out, head_mask(cfg))), new_cache

@@ -1,5 +1,6 @@
-"""Serving stack, KLMS and KRLS tiers: micro-batch queue, snapshot server
-and the ``make_server`` facade."""
+"""Serving stack: the KLMS and KRLS tiers (micro-batch queue, snapshot
+server, the ``make_server`` facade) and the LM serving loop
+(``serve_loop``)."""
 from repro_torch.serve.api import (
     LEARNER_FAMILIES,
     Server,
@@ -11,4 +12,5 @@ from repro_torch.serve.api import (
 )
 from repro_torch.serve.metrics import MetricsRegistry
 from repro_torch.serve.queue import MicroBatchQueue
+from repro_torch.serve.serve_loop import generate, path_logits, prefill_tokens
 from repro_torch.serve.snapshot import SnapshotServer, StateSnapshot

@@ -17,7 +17,12 @@ bound would measure. The contracts between the two kernels of a family
 are bitwise. The feature kernel is held relative to max|s| (z is at most
 s in size): 1e-5 at f32, 2e-2 for bf16 features (the read contract). The
 replay elements A, v, g, Phi and r are held at 1e-4 (abs + rel); a fully
-masked chunk gives the identity element bit for bit.
+masked chunk gives the identity element bit for bit. The attention kernels
+(decode block, chunked linear attention, flash attention) are held at 1e-4
+of max|want| at f32 (another summation order in every product and in the
+online softmax) and 2e-2 of max|want| under bf16 (a feature or an output
+that crosses a bf16 rounding boundary moves by one bf16 ulp); a decode
+block of T tokens equals T one-token launches bit for bit.
 """
 import numpy as np
 import pytest
@@ -429,3 +434,193 @@ def test_klms_evict_readmit_runs_through_the_kernels(cuda_device,
     xq = rng.normal(size=(8, 5, 6)).astype(np.float32)
     torch.testing.assert_close(srv.predict_block(xq), ref.predict_block(xq),
                                atol=F32_TOL, rtol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# The LM slice: decode block, chunked linear attention, flash attention
+# ---------------------------------------------------------------------------
+
+
+def _hold_rel(got, want, rel, what=""):
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), what
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= rel * scale, f"{what}: {err:.3g} > {rel} * {scale:.3g}"
+
+
+def _decode_args(device, bh, tlen, dh, dfeat, dv, kind, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, positive=False):
+        a = scale * rng.normal(size=shape)
+        return convert.tensor(np.abs(a) if positive else a, device=device,
+                              dtype=torch.float32)
+
+    from repro_torch.kernels.ref import default_decode_scale
+
+    return (t(bh, dfeat, dv, scale=0.1, positive=True),
+            t(bh, dfeat, scale=0.1, positive=True) + 0.1,
+            t(bh, tlen, dh, scale=dh ** -0.25),
+            t(bh, tlen, dh, scale=dh ** -0.25), t(bh, tlen, dv),
+            t(dh, dfeat), t(dfeat), default_decode_scale(dfeat, kind, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("kind", ["prf", "trig"])
+@pytest.mark.parametrize("bh,tlen,dh,dfeat,dv,block_t", [
+    (3, 5, 16, 40, 24, None),    # padded shapes
+    (8, 1, 64, 256, 64, None),   # qwen2-0.5b's head, one token
+    (4, 3, 128, 256, 128, None),  # llama3-8b's head width
+    (5, 7, 16, 32, 16, 4),       # a full block and an unpadded remainder
+])
+def test_decode_block_kernel_matches_plain(cuda_device, kind, precision, bh,
+                                           tlen, dh, dfeat, dv, block_t):
+    args = _decode_args(cuda_device, bh, tlen, dh, dfeat, dv, kind)
+    kw = dict(feature_kind=kind, normalize=kind == "prf",
+              precision=precision, block_t=block_t)
+    got = ops.rff_attention_decode_block(*args, mode="cuda", **kw)
+    want = ops.rff_attention_decode_block(*args, mode="ref", **kw)
+    rel = 2e-2 if precision else F32_TOL
+    for g, w, what in zip(got, want, ("out", "S", "z")):
+        _hold_rel(g, w, rel, f"{kind} {precision} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prf", "trig"])
+def test_decode_block_equals_one_token_launches(cuda_device, kind):
+    """A block of T tokens equals T launches of one, bit for bit."""
+    from repro_torch.kernels.rff_attention import (
+        rff_attention_decode_block_cuda,
+    )
+
+    sm, zv, q, k, v, w, b, s = _decode_args(cuda_device, 6, 9, 64, 256, 64,
+                                            kind, seed=1)
+    kw = dict(feature_kind=kind, normalize=kind == "prf")
+    n = rff_attention_decode_block_cuda.launches
+    blk = ops.rff_attention_decode_block(sm, zv, q, k, v, w, b, s,
+                                         mode="cuda", **kw)
+    assert rff_attention_decode_block_cuda.launches == n + 1
+    outs = []
+    for i in range(9):
+        o, sm, zv = ops.rff_attention_decode_block(
+            sm, zv, q[:, i:i + 1].contiguous(), k[:, i:i + 1].contiguous(),
+            v[:, i:i + 1].contiguous(), w, b, s, mode="cuda", **kw)
+        outs.append(o)
+    assert torch.equal(blk[0], torch.cat(outs, 1))
+    assert torch.equal(blk[1], sm) and torch.equal(blk[2], zv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("bh,slen,dfeat,dv,chunk", [
+    (3, 64, 32, 16, 16), (2, 192, 40, 24, 64), (2, 512, 256, 64, 256),
+    (1, 256, 256, 128, 256),
+])
+def test_linear_attention_kernel_matches_plain(cuda_device, normalize, bh,
+                                               slen, dfeat, dv, chunk):
+    rng = np.random.default_rng(slen)
+
+    def t(*shape, positive=False):
+        a = rng.normal(size=shape)
+        if positive:
+            a = np.log1p(np.exp(a)) + 0.01
+        return convert.tensor(a, device=cuda_device, dtype=torch.float32)
+
+    q, k, v = (t(bh, slen, dfeat, positive=True),
+               t(bh, slen, dfeat, positive=True), t(bh, slen, dv))
+    got = ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
+                            normalize=normalize)
+    want = ops.rff_attention(q, k, v, mode="ref", chunk=chunk,
+                             normalize=normalize)
+    _hold_rel(got, want, F32_TOL, "linear attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,slen,dh", [(3, 128, 16), (2, 100, 24),
+                                        (4, 256, 64), (2, 192, 128)])
+def test_flash_kernel_matches_plain(cuda_device, dtype, causal, bh, slen, dh):
+    rng = np.random.default_rng(dh)
+    q, k, v = (convert.tensor(rng.normal(size=(bh, slen, dh)),
+                              device=cuda_device, dtype=dtype)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
+    want = ops.flash_attention(q, k, v, mode="ref", causal=causal)
+    assert got.dtype == dtype
+    _hold_rel(got, want, 2e-2 if dtype == torch.bfloat16 else F32_TOL,
+              f"flash {dtype} causal={causal}")
+
+
+@pytest.mark.cuda
+def test_attention_kernels_smem_and_refusals(cuda_device):
+    from repro_torch.kernels import chunking
+    from repro_torch.kernels import rff_attention as ra
+
+    sizes = ra.smem_bytes()
+    assert sizes["decode_64"] == chunking.decode_smem_bytes(256, 64, 64)
+    assert sizes["decode_128"] == chunking.decode_smem_bytes(256, 128, 128)
+    assert sizes["linear_256"] == chunking.linear_attention_smem_bytes(256)
+    x = torch.ones(2, 64, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.rff_attention(x[:, :40], x[:, :40], x[:, :40], mode="cuda",
+                          chunk=16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(x, x, x.to(torch.bfloat16), mode="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.ones(1, 8, 256, device=cuda_device)
+        ops.flash_attention(big, big, big, mode="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        sm = torch.zeros(1, 1024, 128, device=cuda_device)
+        zv = torch.zeros(1, 1024, device=cuda_device)
+        tok = torch.zeros(1, 1, 128, device=cuda_device)
+        ops.rff_attention_decode_block(
+            sm, zv, tok, tok, tok, torch.zeros(128, 1024, device=cuda_device),
+            torch.zeros(1024, device=cuda_device), mode="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["rff", "gqa"])
+def test_lm_runs_through_the_attention_kernels(cuda_device, attn):
+    """Reduced qwen2-0.5b on the card: decode steps (rff: the decode-block
+    kernel) and a prefill step (rff: the linear-attention kernel; gqa: the
+    flash kernel) against kernel_mode="ref"."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rff_attention import (
+        rff_attention_cuda,
+        rff_attention_decode_block_cuda,
+    )
+    from repro_torch.models import transformer
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    if attn == "rff":
+        cfg = transformer.with_rff_attention(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = transformer.init_params(gen, cfg, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                         device=cuda_device)
+    counts = (rff_attention_decode_block_cuda.launches,
+              rff_attention_cuda.launches, flash_attention_cuda.launches)
+    state = transformer.decode_state_init(cfg, 2, 16, device=cuda_device)
+    ref_state = transformer.decode_state_init(cfg, 2, 16, device=cuda_device)
+    for i in range(6):
+        got, state = transformer.decode_step(params, cfg, state, toks[:, i])
+        want, ref_state = transformer.decode_step(params, cfg, ref_state,
+                                                  toks[:, i],
+                                                  kernel_mode="ref")
+        _hold_rel(got[:, :cfg.vocab_size], want[:, :cfg.vocab_size], 1e-4,
+                  f"decode step {i}")
+    got = make_prefill_step(cfg)(params, {"tokens": toks})
+    want = make_prefill_step(cfg, kernel_mode="ref")(params, {"tokens": toks})
+    _hold_rel(got, want, 1e-4, "prefill")
+    after = (rff_attention_decode_block_cuda.launches,
+             rff_attention_cuda.launches, flash_attention_cuda.launches)
+    if attn == "rff":
+        assert after[0] == counts[0] + 6 * cfg.num_layers
+        assert after[1] == counts[1] + cfg.num_layers
+    else:
+        assert after[2] == counts[2] + cfg.num_layers
