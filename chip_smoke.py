@@ -18,13 +18,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    ``mode="ref"`` on the card, and each kernel's launch count must rise;
 4. holds both KRLS kernels (chunk, step) against their plain versions at
    the serving shape (B=1024, d=5, D=300, T=16) and at ragged ones (D up
-   to 1024, and a P that is not symmetric), with their bitwise contracts;
+   to 1024, and a P that is not symmetric), the chunk on each of its
+   routes (P's triangle resident in shared memory up to D = 335 at d = 5,
+   P streamed each tick at D = 400 and 1024), with the bitwise contracts
+   on each route (a chunk of T equals T steps, T = 1 a step, P' exactly
+   symmetric, masked ticks a no-op);
 5. drives the KRLS main path: ``make_server("krls")`` at the paper's §6
    settings (d=5, D=300, sigma=5, lam=1e-4, beta=0.9995) with B=1024 and
    chunk=16, its reads and a ``make_tick("krls")`` tier, against the same
    server with ``mode="ref"`` and within the f32 error budget that a
    float64 run of the same stream measures;
-6. times each kernel, its plain version and its bound;
+6. times each kernel, its plain version and its bound at the serving
+   shapes, and the KRLS chunk's streaming route where it is picked (the
+   serving bank at D = 400);
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
    against their plain versions at the replay shape (T=256, d=128,
    D=2048), the read-block shape of the feature map (65536 rows), the
@@ -51,23 +57,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     llama3-8b's head width (dh=dv=128) and at padded shapes; the decode
     block for prf and trig, f32 and bf16, T = 1, the default block_t and
     block_t + 3 (a remainder launch), and bit for bit a block of T against
-    T one-token launches; flash attention at f32 and bf16;
+    T one-token launches; flash attention at f32 (the CUDA-core kernel)
+    and bf16 (the tensor-core kernel), each route's error reported;
 12. serves qwen2-0.5b at full width with RFF attention, bf16, random
     weights from --seed: ``make_prefill_step`` at B=4, S=2048 (the linear
     attention kernel, once a layer) and ``generate`` of 32 greedy tokens
     after a 16-token prompt (the decode kernel, once a layer a token),
     held against ``kernel_mode="ref"`` and an f32 copy of the model;
 13. prefills qwen2-0.5b as published (GQA) at B=4, S=2048 through the
-    flash kernel, against ``kernel_mode="ref"`` (the dense path) and the
-    f32 copy, then generates a few tokens (no kernel on that path);
-14. times kernels 9-11, their plain versions, their bounds and SDPA
-    (kernel 9 and its plain version by torch.profiler device time, since a
-    one-token call's event time is the host's), the prefill and decode
-    tokens per second of both models, and the decode
-    state's bytes (the RFF state against the KV cache at 2048 and 32768
-    tokens).
+    tensor-core flash kernel, against ``kernel_mode="ref"`` (the dense
+    path) and the f32 copy, then generates a few tokens (no kernel on that
+    path);
+14. times kernels 9-11, their plain versions, their bounds and SDPA (flash
+    on both routes; kernel 9 and its plain version by torch.profiler
+    device time, since a one-token call's event time is the host's), the
+    prefill and decode tokens per second of both models (the GQA prefill's
+    profile must show the tensor-core flash kernel once a layer), and the
+    decode state's bytes (the RFF state against the KV cache at 2048 and
+    32768 tokens).
 
-The line before the last is ``{"kernels": [...]}``; the last is
+The line before the last is ``{"kernels": [...]}`` (flash_attention and
+krls_bank_chunk with a record per route under "routes"); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
 result.
@@ -98,6 +108,12 @@ RAGGED = [(7, 5, 300), (1, 1, 17), (33, 128, 129)]  # (B, d, D)
 # benchmarks/paper.py:145) over the same bank, chunk and read block.
 K_D_IN, K_D_FEAT, K_SIGMA, K_LAM, K_BETA = 5, 300, 5.0, 1e-4, 0.9995
 K_RAGGED = [(3, 4, 17, 5), (5, 128, 129, 3), (2, 5, 1024, 4)]  # (B, d, D, T)
+# The chunk kernel's two routes: P resident in shared memory (D <= 335 at
+# d = 5, the serving shape among them) or streamed each tick (wider D, as
+# at D = 400 here and D = 1024 above).
+KRLS_ROUTES = ("resident", "streaming")
+K_STREAMING = [(8, 5, 400, 6)]  # (B, d, D, T)
+K_D_WIDE = 400  # the streaming route's timing width (serving B, T and d)
 # P is compared normwise, as a share of each tenant's max |P|: its entries
 # span 1/lam = 1e4 down to O(1) remainders of cancellation.
 P_TOL = 1e-4
@@ -280,16 +296,28 @@ def ragged_stream(rng, rounds: int, d: int):
         yield tenants, xs, ys.astype(np.float32)
 
 
+# Per-route launches of the kernels with two routes (flash_attention,
+# krls_bank_chunk), summed over every main-path run as path_launches reads
+# them.
+ROUTE_LAUNCHES: dict = {}
+
+
 def reset_launches(kernels) -> None:
     for k in kernels.values():
         k.launches = 0
+        for route in getattr(k, "route_launches", {}):
+            k.route_launches[route] = 0
 
 
 def path_launches(kernels, names) -> dict:
-    """The launch counts of a path's kernels; each must have launched."""
+    """The launch counts of a path's kernels; each must have launched.
+    Per-route counts are added to ROUTE_LAUNCHES."""
     launches = {name: kernels[name].launches for name in names}
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+        for route, m in getattr(kernels[name], "route_launches", {}).items():
+            seen = ROUTE_LAUNCHES.setdefault(name, {})
+            seen[route] = seen.get(route, 0) + m
     return launches
 
 
@@ -423,22 +451,81 @@ def krls_inputs(rng, bank, tlen, d, dfeat, device, pmat="spd"):
     return a
 
 
-def phase_krls_kernels(rng, device) -> tuple[dict, dict]:
-    """Both KRLS kernels against their plain versions, and the bitwise
-    contracts at the serving shape."""
+def krls_contracts(a, route) -> None:
+    """The bitwise contracts of the chunk route that a's shape picks
+    (``route``, checked on every launch): a chunk of T equals T step
+    launches and T = 1 one step, P' of a symmetric P is exactly symmetric,
+    masked ticks leave theta and P bit for bit in fresh tensors and emit
+    the prior prediction."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+
+    common = (a["w"], a["b"], a["beta"])
+    tlen = a["xs"].shape[1]
+    tag = f"krls {route} {tuple(a['pmat'].shape)}"
+    counts = rff_krls_bank_chunk_cuda.route_launches
+
+    def chunk_of(*args):
+        before = counts[route]
+        out = rff_krls_bank_chunk_cuda(*args)
+        check(counts[route] == before + 1, f"{tag}: launched another route")
+        return out
+
+    chunk = chunk_of(a["theta"], a["pmat"], a["xs"], a["ys"], *common, None,
+                     a["s"])
+    check(torch.equal(chunk[1], chunk[1].transpose(1, 2)),
+          f"{tag}: P' of a symmetric P is not exactly symmetric")
+    theta, pmat = a["theta"], a["pmat"]
+    for t in range(tlen):
+        theta, pmat, pred, err = ops.rff_krls_bank_step(
+            theta, pmat, a["xs"][:, t].contiguous(),
+            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+        check(torch.equal(pred, chunk[2][:, t]) and torch.equal(err, chunk[3][:, t]),
+              f"{tag}: chunk of {tlen} vs steps: tick {t} outputs differ")
+        if t == 0:
+            one = chunk_of(a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
+                           a["ys"][:, :1].contiguous(), *common, None, a["s"])
+            check(all(torch.equal(u, v) for u, v in
+                      zip(one, (theta, pmat, pred[:, None], err[:, None]))),
+                  f"{tag}: chunk at T=1 vs step differ")
+    check(torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1]),
+          f"{tag}: chunk of {tlen} vs steps: theta or P differs")
+    del chunk, theta, pmat, one
+    masked = chunk_of(a["theta"], a["pmat"], a["xs"], a["ys"], *common,
+                      torch.zeros_like(a["ys"]), a["s"])
+    check(torch.equal(masked[0], a["theta"]) and torch.equal(masked[1], a["pmat"]),
+          f"{tag}: masked ticks changed theta or P")
+    check(masked[0].data_ptr() != a["theta"].data_ptr()
+          and masked[1].data_ptr() != a["pmat"].data_ptr(),
+          f"{tag}: theta' or P' aliases its input")
+    prior = ops.rff_bank_predict(a["theta"], a["xs"], a["w"], a["b"], a["s"],
+                                 mode="ref")
+    hold(f"{tag}: masked ticks emit the prior prediction", [masked[2]],
+         [prior], F32_TOL)
+
+
+def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
+    """Both KRLS kernels against their plain versions, the chunk on each
+    of its routes (P resident in shared memory up to D = 335 at d = 5, P
+    streamed beyond), and the bitwise contracts of both routes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_krls_step import krls_chunk_route
 
     names = ("krls_bank_chunk", "krls_bank_step")
     errs, shares, rels = (dict.fromkeys(names, 0.0) for _ in range(3))
+    by_route = {r: {"max_abs_err": 0.0, "p_rel_err": 0.0, "cases": []}
+                for r in KRLS_ROUTES}
     cases = [(BANK, K_D_IN, K_D_FEAT, CHUNK, "eye"),
              (BANK, K_D_IN, K_D_FEAT, CHUNK, "spd")]
     cases += [(*shape, "spd") for shape in K_RAGGED] + [(4, 5, 70, 6, "asym")]
+    cases += [(*shape, kind) for shape in K_STREAMING for kind in ("spd", "asym")]
     for bank, d, dfeat, tlen, kind in cases:
         a = krls_inputs(rng, bank, tlen, d, dfeat, device, kind)
         args = (a["theta"], a["pmat"], a["xs"], a["ys"], a["w"], a["b"],
                 a["beta"], a["mask"], a["s"])
         sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
                  a["ys"][:, 0].contiguous(), a["w"], a["b"], a["beta"], a["s"])
+        route = krls_chunk_route(dfeat, d)
         for name, op, xargs in (("krls_bank_chunk", ops.rff_krls_bank_chunk, args),
                                 ("krls_bank_step", ops.rff_krls_bank_step, sargs)):
             e, f, r = hold_krls(f"{name} {bank, d, dfeat, tlen} P={kind}",
@@ -447,53 +534,29 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict]:
             errs[name] = max(errs[name], e)
             shares[name] = max(shares[name], f)
             rels[name] = max(rels[name], r)
+            if name == "krls_bank_chunk":
+                rec = by_route[route]
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+                rec["p_rel_err"] = max(rec["p_rel_err"], r)
+                rec["cases"].append([bank, d, dfeat, tlen, kind])
         del a, args, sargs
 
-    a = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device, "spd")
-    common = (a["w"], a["b"], a["beta"])
-    chunk = ops.rff_krls_bank_chunk(a["theta"], a["pmat"], a["xs"], a["ys"],
-                                    *common, None, a["s"], mode="cuda")
-    check(torch.equal(chunk[1], chunk[1].transpose(1, 2)),
-          "P' of a symmetric P is not exactly symmetric")
-    theta, pmat = a["theta"], a["pmat"]
-    for t in range(CHUNK):
-        theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, a["xs"][:, t].contiguous(),
-            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
-        check(torch.equal(pred, chunk[2][:, t]) and torch.equal(err, chunk[3][:, t]),
-              f"krls chunk of {CHUNK} vs steps: tick {t} outputs differ")
-        if t == 0:
-            one = ops.rff_krls_bank_chunk(
-                a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
-                a["ys"][:, :1].contiguous(), *common, None, a["s"],
-                mode="cuda")
-            check(all(torch.equal(u, v) for u, v in
-                      zip(one, (theta, pmat, pred[:, None], err[:, None]))),
-                  "krls chunk at T=1 vs step differ")
-    check(torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1]),
-          f"krls chunk of {CHUNK} vs steps: theta or P differs")
-    del chunk, theta, pmat, one
-    masked = ops.rff_krls_bank_chunk(
-        a["theta"], a["pmat"], a["xs"], a["ys"], *common,
-        torch.zeros_like(a["ys"]), a["s"], mode="cuda")
-    check(torch.equal(masked[0], a["theta"]) and torch.equal(masked[1], a["pmat"]),
-          "masked krls ticks changed theta or P")
-    check(masked[0].data_ptr() != a["theta"].data_ptr()
-          and masked[1].data_ptr() != a["pmat"].data_ptr(),
-          "theta' or P' aliases its input")
-    prior = ops.rff_bank_predict(a["theta"], a["xs"], a["w"], a["b"], a["s"],
-                                 mode="ref")
-    hold("masked krls ticks emit the prior prediction", [masked[2]], [prior],
-         F32_TOL)
+    krls_contracts(krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device,
+                               "spd"), "resident")
+    for bank, d, dfeat, tlen in K_STREAMING:
+        krls_contracts(krls_inputs(rng, bank, tlen, d, dfeat, device, "spd"),
+                       "streaming")
     torch.cuda.synchronize()
     emit({"phase": "krls_kernels_vs_plain",
           "cases": [list(c) for c in cases], "max_abs_err": errs,
           "max_share_of_tolerance": shares, "p_rel_err": rels,
+          "chunk_routes": by_route,
           "tolerance": {"theta_pred_err": F32_TOL, "p_of_max_abs_p": P_TOL},
-          "bitwise": {"chunk16_eq_16_steps": True, "chunk1_eq_step": True,
-                      "masked_tick_noop_fresh_outputs": True,
-                      "p_out_exactly_symmetric": True}})
-    return errs, rels
+          "bitwise_on_each_route": {"chunk_eq_steps": True,
+                                    "chunk1_eq_step": True,
+                                    "masked_tick_noop_fresh_outputs": True,
+                                    "p_out_exactly_symmetric": True}})
+    return errs, rels, by_route
 
 
 def within_budget(name: str, got, plain, exact, dist) -> dict:
@@ -559,6 +622,9 @@ def phase_krls_server(seed, device, kernels) -> dict:
     seconds = time.perf_counter() - t0
     launches = path_launches(
         kernels, ("krls_bank_chunk", "krls_bank_step", "bank_predict"))
+    routes = dict(kernels["krls_bank_chunk"].route_launches)
+    check(routes["resident"] == launches["krls_bank_chunk"],
+          f"krls flushes at D = {K_D_FEAT} did not all keep P resident: {routes}")
 
     srv = servers[0]
     flushes = srv.queue.flushes
@@ -587,7 +653,8 @@ def phase_krls_server(seed, device, kernels) -> dict:
           "sigma": K_SIGMA, "lam": K_LAM, "beta": K_BETA, "chunk": CHUNK,
           "Q": Q, "submits": submits, "flushes": flushes,
           "prior_mse_per_round": mse, "staleness": srv.staleness,
-          "launches": launches, "seconds": seconds,
+          "launches": launches, "chunk_route_launches": routes,
+          "seconds": seconds,
           "p_device_bytes": pmat.numel() * pmat.element_size(),
           "budget": {"factor": BUDGET, "floor": BUDGET_FLOOR, **budget}})
     return launches
@@ -626,6 +693,28 @@ def timed_case(fn, nbytes, nops, plain_reps: int = 20) -> dict:
                 plain_ms_runs=plain)
 
 
+def krls_cost(dfeat: int, rows: int) -> tuple[int, int]:
+    """Bytes and operations of ``rows`` live KRLS ticks a tenant over the
+    serving bank at width ``dfeat`` (d = K_D_IN): theta and P in and out,
+    W, b, s, each tick's x, y and outputs, beta; per tick 2 d D for the
+    features, 7 D^2 for P z and the downdate, 12 D for the rest."""
+    shared = 4 * (K_D_IN * dfeat + 2 * dfeat)
+    state = 4 * 2 * BANK * (dfeat ** 2 + dfeat)
+    tick = 2 * K_D_IN * dfeat + 7 * dfeat ** 2 + 12 * dfeat
+    return (shared + state + 4 * (BANK * rows * (K_D_IN + 3) + BANK),
+            BANK * rows * tick)
+
+
+def krls_chunk_case(k) -> tuple:
+    """``krls_bank_chunk`` over k's bank (every tick live), with its cost."""
+    from repro_torch.kernels import ops
+
+    return (lambda m: ops.rff_krls_bank_chunk(
+                k["theta"], k["pmat"], k["xs"], k["ys"], k["w"], k["b"],
+                k["beta"], None, k["s"], mode=m),
+            *krls_cost(k["pmat"].shape[-1], k["xs"].shape[1]))
+
+
 def phase_times(rng, device) -> dict:
     """Kernel, plain version and bound at the serving shapes.
 
@@ -636,7 +725,9 @@ def phase_times(rng, device) -> dict:
     2 D^2 for P z, 5 D^2 for the downdate and its symmetrization, and 5 D
     for z . pz, the gain and the theta update (every tick of the timed
     chunk is live). Bytes count each input read once and each output
-    written once: for KRLS, P in and P' out dominate.
+    written once: for KRLS, P in and P' out dominate. The KRLS chunk is
+    timed on its resident route at D = 300 and its streaming route at
+    D = K_D_WIDE.
     """
     from repro_torch.kernels import ops
 
@@ -669,24 +760,34 @@ def phase_times(rng, device) -> dict:
     }
     k = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device, "eye")
     kx0, ky0 = k["xs"][:, 0].contiguous(), k["ys"][:, 0].contiguous()
-    k_shared = 4 * (K_D_IN * K_D_FEAT + 2 * K_D_FEAT)
-    k_state = 4 * 2 * BANK * (K_D_FEAT ** 2 + K_D_FEAT)  # theta, P in and out
-    k_tick = 2 * K_D_IN * K_D_FEAT + 7 * K_D_FEAT ** 2 + 12 * K_D_FEAT
-    cases["krls_bank_chunk"] = (
-        lambda m: ops.rff_krls_bank_chunk(
-            k["theta"], k["pmat"], k["xs"], k["ys"], k["w"], k["b"],
-            k["beta"], None, k["s"], mode=m),
-        k_shared + k_state + 4 * (BANK * CHUNK * (K_D_IN + 3) + BANK),
-        BANK * CHUNK * k_tick,
-    )
+    cases["krls_bank_chunk"] = krls_chunk_case(k)
     cases["krls_bank_step"] = (
         lambda m: ops.rff_krls_bank_step(
             k["theta"], k["pmat"], kx0, ky0, k["w"], k["b"], k["beta"],
             k["s"], mode=m),
-        k_shared + k_state + 4 * (BANK * (K_D_IN + 3) + BANK),
-        BANK * k_tick,
+        *krls_cost(K_D_FEAT, 1),
     )
+    from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+
+    counts = rff_krls_bank_chunk_cuda.route_launches
+    before = dict(counts)
     out = {name: timed_case(*case) for name, case in cases.items()}
+    check(counts["resident"] > before["resident"]
+          and counts["streaming"] == before["streaming"],
+          f"krls_bank_chunk at D = {K_D_FEAT} was timed off its resident route")
+    # The chunk's streaming route where it is picked: the serving bank at
+    # D = K_D_WIDE, past the resident triangle's shared memory.
+    wide = timed_case(*krls_chunk_case(krls_inputs(
+        rng, BANK, CHUNK, K_D_IN, K_D_WIDE, device, "eye")), plain_reps=5)
+    check(counts["streaming"] > before["streaming"],
+          f"krls_bank_chunk at D = {K_D_WIDE} was timed off its streaming route")
+    row = out["krls_bank_chunk"]
+    keys = ("ms", "ms_runs", "plain_ms", "bound_ms", "bound_by")
+    row["routes"] = {
+        "resident": {**{k_: row[k_] for k_ in keys}, "library_ms": None,
+                     "shape": [BANK, CHUNK, K_D_IN, K_D_FEAT]},
+        "streaming": {**{k_: wide[k_] for k_ in keys}, "library_ms": None,
+                      "shape": [BANK, CHUNK, K_D_IN, K_D_WIDE]}}
     bf16 = [time_ms(lambda: ops.rff_bank_predict(
         a["theta"], xq, a["w"], a["b"], a["s"], mode=m, precision="bf16"))
         for m in ("ref", "cuda")]
@@ -1180,7 +1281,15 @@ LM_REPLACES = {
 LM_SOURCES = {
     "rff_decode_block": "src/repro_torch/csrc/rff_attention.cu",
     "rff_linear_attention": "src/repro_torch/csrc/rff_attention.cu",
-    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
+}
+# Each route of the two kernels that have two, and its source.
+ROUTE_SOURCES = {
+    "flash_attention": {
+        "tensor_core": "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
+    "krls_bank_chunk": {"resident": "src/repro_torch/csrc/krls_bank.cu",
+                        "streaming": "src/repro_torch/csrc/krls_bank.cu"},
 }
 # (BH, dh, D, dv): qwen2-0.5b's decode at B = 4, llama3-8b's head width,
 # padded shapes.
@@ -1241,6 +1350,10 @@ def phase_lm_kernels(rng, device) -> dict:
     errs = dict.fromkeys(LM_REPLACES, 0.0)
     tols = dict.fromkeys(LM_REPLACES, 0.0)
     rels = dict.fromkeys(LM_REPLACES, 0.0)
+    flash_routes = {route: {"max_abs_err": 0.0, "err_of_max_plain": 0.0,
+                            "tolerance_of_max_plain": tol}
+                    for route, tol in (("tensor_core", ATTN_BF16_TOL),
+                                       ("cuda_core", ATTN_TOL))}
     bitwise = {}
 
     def note(name, err):
@@ -1295,13 +1408,17 @@ def phase_lm_kernels(rng, device) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (f32_tensor(rng, bh, slen, dh, device=device).to(dtype)
                        for _ in range(3))
+            route = flash_routes["tensor_core" if dtype == torch.bfloat16
+                                 else "cuda_core"]
             for causal in (True, False):
                 got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
                 check(got.dtype == dtype, "flash output type")
                 e = hold_rel(f"flash {dtype} {bh, slen, dh} causal={causal}",
                              [got], [ops.flash_attention(q, k, v, mode="ref",
                                                          causal=causal)],
-                             ATTN_BF16_TOL if dtype == torch.bfloat16 else ATTN_TOL)
+                             route["tolerance_of_max_plain"])
+                route["max_abs_err"] = max(route["max_abs_err"], e[0])
+                route["err_of_max_plain"] = max(route["err_of_max_plain"], e[2])
                 if dtype == torch.float32:
                     note("flash_attention", e)
             del q, k, v
@@ -1311,8 +1428,9 @@ def phase_lm_kernels(rng, device) -> dict:
           "max_abs_err_f32": errs, "abs_tolerance_at_max_err_f32": tols,
           "max_err_of_max_plain_f32": rels,
           "tolerance_of_max_plain": {"f32": ATTN_TOL, "bf16": ATTN_BF16_TOL},
+          "flash_routes": flash_routes,
           "bitwise_block_eq_one_token_launches": bitwise})
-    return errs, tols, rels
+    return errs, tols, rels, flash_routes
 
 
 def lm_model(cfg, seed, device):
@@ -1435,8 +1553,10 @@ def phase_lm_gqa_server(seed, device, kernels) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = path_launches(kernels, ("flash_attention",))
-        check(launches["flash_attention"] == cfg.num_layers,
-              f"prefill launches {launches}")
+        routes = dict(kernels["flash_attention"].route_launches)
+        check(launches["flash_attention"] == cfg.num_layers
+              and routes["tensor_core"] == cfg.num_layers,
+              f"prefill launches {launches}, routes {routes}")
         before = {name: k.launches for name, k in kernels.items()}
         toks = generate(params, cfg, tokens[:, :LM_PROMPT].contiguous(),
                         steps=LM_GQA_NEW, max_len=LM_PROMPT + LM_GQA_NEW)
@@ -1460,16 +1580,16 @@ def phase_lm_gqa_server(seed, device, kernels) -> dict:
           "attention": cfg.attention, "dtype": cfg.dtype, "B": LM_B,
           "prefill_S": LM_S, "generate_new_tokens": LM_GQA_NEW,
           "sample": toks[0].tolist(), "logits": report, "launches": launches,
-          "seconds": seconds})
+          "flash_route_launches": routes, "seconds": seconds})
     return launches
 
 
-def device_busy(fn, top: int = 6) -> dict:
+def device_busy(fn, top: int = 6, named: str = "flash") -> dict:
     """One run of ``fn()`` under torch.profiler: the device's kernel time
-    (the sum of CUDA kernel self times), the kernels launched and those
-    that took most. The profiled wall time is inflated by the profiler's
-    own host cost; the callers set device time against an unprofiled
-    wall time."""
+    (the sum of CUDA kernel self times), the kernels launched, those that
+    took most and those whose name holds ``named``. The profiled wall time
+    is inflated by the profiler's own host cost; the callers set device
+    time against an unprofiled wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1484,7 +1604,9 @@ def device_busy(fn, top: int = 6) -> dict:
     dev = [e.self_device_time_total / 1e3 for e in kern]
     order = sorted(range(len(kern)), key=lambda i: -dev[i])[:top]
     return {"device_ms": sum(dev), "kernel_launches": sum(e.count for e in kern),
-            "top": [[kern[i].key[:72], dev[i], kern[i].count] for i in order]}
+            "top": [[kern[i].key[:72], dev[i], kern[i].count] for i in order],
+            "named": [[e.key[:72], d, e.count] for e, d in zip(kern, dev)
+                      if named in e.key]}
 
 
 def phase_lm_times(rng, device) -> dict:
@@ -1563,6 +1685,18 @@ def phase_lm_times(rng, device) -> dict:
     case["library_ms"] = time_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
     out["flash_attention"] = case
+    # The f32 route (CUDA cores, IEEE f32) on the same shape, its bound at
+    # the f32 rate, and SDPA on f32 inputs.
+    q, k, v = (x.float() for x in (q, k, v))
+    f32 = timed_case(lambda m: ops.flash_attention(q, k, v, mode=m),
+                     4 * 4 * bh * slen * dh, pairs * (4 * dh + 3), plain_reps=5)
+    q4, k4, v4 = (x.view(LM_B, bh // LM_B, slen, dh) for x in (q, k, v))
+    f32["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    case["routes"] = {"tensor_core": {k_: case[k_] for k_ in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, "cuda_core": {
+        k_: f32[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")}}
     del q, k, v, q4, k4, v4
 
     def wall_ms(fn, reps=3) -> float:
@@ -1603,6 +1737,11 @@ def phase_lm_times(rng, device) -> dict:
                         lambda: step(params, {"tokens": tokens})),
                     "decode_step": device_busy(
                         lambda: decode_step(params, cfg, state, tok))}
+        if label == "gqa":  # the prefill's flash launches are the bf16 route
+            sm90 = [n for n in busy["prefill"]["named"] if "flash_sm90" in n[0]]
+            check(sum(n[2] for n in sm90) == cfg.num_layers
+                  and len(sm90) == len(busy["prefill"]["named"]),
+                  f"GQA prefill profile: flash kernels {busy['prefill']['named']}")
         busy["prefill"]["busy_share"] = busy["prefill"]["device_ms"] / prefill
         busy["decode_step"]["busy_share"] = (busy["decode_step"]["device_ms"]
                                              / decode_ms)
@@ -1693,7 +1832,7 @@ def main() -> int:
                    flash_attention=flash_attention_cuda)
     errs = phase_kernels(rng, device)
     launches = phase_server(args.seed, device, kernels)
-    krls_errs, p_rels = phase_krls_kernels(rng, device)
+    krls_errs, p_rels, krls_routes = phase_krls_kernels(rng, device)
     errs.update(krls_errs)
     krls_launches = phase_krls_server(args.seed, device, kernels)
     launches["bank_predict"] += krls_launches.pop("bank_predict")
@@ -1709,7 +1848,7 @@ def main() -> int:
     times.update(phase_replay_times(rrng, device))
     # The LM slice, after every earlier phase, on its own generator.
     lrng = np.random.default_rng(args.seed + 4)
-    lm_errs, lm_tols, lm_rels = phase_lm_kernels(lrng, device)
+    lm_errs, lm_tols, lm_rels, flash_routes = phase_lm_kernels(lrng, device)
     errs.update(lm_errs)
     launches.update(phase_lm_server(args.seed, device, kernels))
     launches.update(phase_lm_gqa_server(args.seed, device, kernels))
@@ -1717,6 +1856,20 @@ def main() -> int:
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}
+    # flash_attention's headline is its main-path route (bf16, tensor
+    # cores); both kernels with two routes list each one under "routes".
+    fl = flash_routes["tensor_core"]
+    errs["flash_attention"], lm_rels["flash_attention"] = (
+        fl["max_abs_err"], fl["err_of_max_plain"])
+    tolerance["flash_attention"] = None
+    timed = {"flash_attention": times["flash_attention"]["routes"],
+             "krls_bank_chunk": times["krls_bank_chunk"]["routes"]}
+    measured = {"flash_attention": flash_routes, "krls_bank_chunk": krls_routes}
+    routes = {name: {route: {
+        "source": src, "launches": ROUTE_LAUNCHES.get(name, {}).get(route, 0),
+        **{k: v for k, v in measured[name][route].items() if k != "cases"},
+        **timed[name][route]} for route, src in per.items()}
+        for name, per in ROUTE_SOURCES.items()}
     print(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
@@ -1724,7 +1877,9 @@ def main() -> int:
          "max_abs_err": errs[name], "tolerance": tolerance[name],
          **({"p_rel_err": p_rels[name], "p_tolerance": P_TOL}
             if name in p_rels else {}),
-         **({"tolerance_of_max_plain": ATTN_TOL,
+         **({"tolerance_of_max_plain": (ATTN_BF16_TOL
+                                        if name == "flash_attention"
+                                        else ATTN_TOL),
              "err_of_max_plain": lm_rels[name]}
             if name in lm_rels else {}),
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
@@ -1735,7 +1890,8 @@ def main() -> int:
              "read_block": {k: times["rff_features_read_block"][k]
                             for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "shape")}}
-            if name == "rff_features" else {})}
+            if name == "rff_features" else {}),
+         **({"routes": routes[name]} if name in routes else {})}
         for name in replaces
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

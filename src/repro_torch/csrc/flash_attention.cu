@@ -1,25 +1,23 @@
-// Blocked softmax attention with the online (m, l) statistics, for Hopper
-// (sm_90a).
+// Blocked softmax attention with the online (m, l) statistics, in IEEE f32
+// on the CUDA cores of Hopper (sm_90a).
 //
-// Replaces repro/kernels/flash_attention.py::flash_attention_pallas:
-// q, k (BH, S, dh), v (BH, S, dh), f32 or bf16; q scaled by dh^-1/2;
-// causal or not; masked scores -1e30; the running max m, the running
-// denominator l and the output accumulator in f32 whatever the input type;
-// the output divided by max(l, 1e-30) and stored in q's type.
+// Replaces repro/kernels/flash_attention.py::flash_attention_pallas for
+// f32 inputs: q, k, v (BH, S, dh) f32; q scaled by dh^-1/2; causal or
+// not; masked scores -1e30; the running max m, the running denominator l
+// and the output accumulator in f32; the output divided by max(l, 1e-30).
+// bf16 inputs go to the tensor-core kernel (csrc/flash_attention_sm90.cu);
+// f32 stays here because f32 means IEEE f32 in this port, never TF32.
 //
 // What bounds it on this card: operations. Causal attention at B = 4,
-// 14 heads, S = 2048, dh = 64 does 30 GFLOP of products against 59 MB
-// (bf16) of inputs and outputs; on the bf16 tensor cores that is 0.03 ms.
-// This first version runs the products on the f32 CUDA cores (0.45 ms at
-// their peak), so it is far from that bound; a tensor-core version
-// (wgmma on bf16 tiles) is later work.
+// 14 heads, S = 2048, dh = 64 does 30 GFLOP of products: 0.45 ms at the
+// 67 TFLOP/s of f32 outside the tensor cores.
 //
 // Design: one block of 256 threads per (head, 64-row query tile), looping
 // over 64-key tiles up to the diagonal: tiles wholly above it are skipped
 // (the TPU computed them, and they added exactly 0). The grid starts with
 // the last query tiles, which have the most key tiles. The scaled Q tile,
 // the transposed K tile, the V tile and the probabilities live in shared
-// memory as f32 (bf16 inputs widen exactly on load); each thread owns a
+// memory; each thread owns a
 // 4 x 4 block of scores (rows ty + 16 i, keys tx + 16 j) and a 4 x NJ
 // block of the output accumulator (columns tx + 16 j, dh <= 16 NJ). A
 // row's max and sum go across the 16 lanes that share it with a fixed xor
@@ -28,7 +26,6 @@
 //
 // Plain C interface (loaded with ctypes); each entry returns cudaError_t.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,22 +35,16 @@ constexpr int kTile = 64;  // query rows and keys per tile
 constexpr int kPad = 65;   // padded row of the transposed K tile and of P
 constexpr float kNegInf = -1e30f;
 
-template <bool BF16>
-__device__ __forceinline__ float load(const void* p, size_t i) {
-  if (BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
 inline size_t flash_smem_bytes(int dh) {
   const size_t floats = 2 * (size_t)kTile * dh + (size_t)dh * kPad +
                         (size_t)kTile * kPad;
   return 4 * floats;
 }
 
-template <int NJ, bool BF16, bool CAUSAL>
+template <int NJ, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
-             const void* __restrict__ v, void* __restrict__ out, int S,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int S,
              int dh, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // (kTile, dh), scaled
@@ -73,7 +64,7 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
     const int r = e / dh;
     const int d = e % dh;
     const int gr = q0 + r;
-    Qs[e] = gr < S ? __fmul_rn(load<BF16>(q, base + (size_t)gr * dh + d), scale)
+    Qs[e] = gr < S ? __fmul_rn(q[base + (size_t)gr * dh + d], scale)
                    : 0.f;
   }
 
@@ -96,8 +87,8 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
       const int gs = k0 + s;
       float kv = 0.f, vv = 0.f;
       if (gs < S) {
-        kv = load<BF16>(k, base + (size_t)gs * dh + d);
-        vv = load<BF16>(v, base + (size_t)gs * dh + d);
+        kv = k[base + (size_t)gs * dh + d];
+        vv = v[base + (size_t)gs * dh + d];
       }
       KT[d * kPad + s] = kv;
       Vs[e] = vv;
@@ -178,21 +169,16 @@ flash_kernel(const void* __restrict__ q, const void* __restrict__ k,
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
       if (c >= dh) continue;
-      const float o = __fdiv_rn(acc[i][j], denom);
-      const size_t idx = base + (size_t)gr * dh + c;
-      if (BF16)
-        static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(o);
-      else
-        static_cast<float*>(out)[idx] = o;
+      out[base + (size_t)gr * dh + c] = __fdiv_rn(acc[i][j], denom);
     }
   }
 }
 
-template <int NJ, bool BF16, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+template <int NJ, bool CAUSAL>
+cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int BH, int S, int dh, float scale, cudaStream_t st) {
   const size_t smem = flash_smem_bytes(dh);
-  auto kernel = flash_kernel<NJ, BF16, CAUSAL>;
+  auto kernel = flash_kernel<NJ, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -202,34 +188,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int NJ>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int BH, int S, int dh, int bf16, int causal, float scale,
-                     cudaStream_t st) {
-  if (bf16) {
-    if (causal) return launch<NJ, true, true>(q, k, v, out, BH, S, dh, scale, st);
-    return launch<NJ, true, false>(q, k, v, out, BH, S, dh, scale, st);
-  }
-  if (causal) return launch<NJ, false, true>(q, k, v, out, BH, S, dh, scale, st);
-  return launch<NJ, false, false>(q, k, v, out, BH, S, dh, scale, st);
+cudaError_t dispatch(const float* q, const float* k, const float* v,
+                     float* out, int BH, int S, int dh, int causal,
+                     float scale, cudaStream_t st) {
+  if (causal) return launch<NJ, true>(q, k, v, out, BH, S, dh, scale, st);
+  return launch<NJ, false>(q, k, v, out, BH, S, dh, scale, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v (BH, S, dh) f32, or bf16 when bf16 != 0; out (BH, S, dh) in
-// the same type. dh <= 128; scale is dh^-1/2 as f32.
-int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int BH, int S, int dh, int bf16, int causal, float scale,
-                    void* stream) {
+// q, k, v, out (BH, S, dh) f32; dh <= 128; scale is dh^-1/2 as f32.
+int flash_attention(const float* q, const float* k, const float* v,
+                    float* out, int BH, int S, int dh, int causal,
+                    float scale, void* stream) {
   if (BH < 0 || S < 0 || dh < 1 || dh > 128) return cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return cudaSuccess;
   if (BH > 65535) return cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh <= 16) return dispatch<1>(q, k, v, out, BH, S, dh, bf16, causal, scale, st);
-  if (dh <= 32) return dispatch<2>(q, k, v, out, BH, S, dh, bf16, causal, scale, st);
-  if (dh <= 64) return dispatch<4>(q, k, v, out, BH, S, dh, bf16, causal, scale, st);
-  return dispatch<8>(q, k, v, out, BH, S, dh, bf16, causal, scale, st);
+  if (dh <= 16) return dispatch<1>(q, k, v, out, BH, S, dh, causal, scale, st);
+  if (dh <= 32) return dispatch<2>(q, k, v, out, BH, S, dh, causal, scale, st);
+  if (dh <= 64) return dispatch<4>(q, k, v, out, BH, S, dh, causal, scale, st);
+  return dispatch<8>(q, k, v, out, BH, S, dh, causal, scale, st);
 }
 
 const char* flash_attention_error_string(int code) {

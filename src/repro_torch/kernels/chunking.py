@@ -21,6 +21,8 @@ __all__ = [
     "KRLS_THREADS",
     "krls_smem_bytes",
     "krls_fits",
+    "krls_resident_smem_bytes",
+    "krls_resident_fits",
     "ELEMENT_THREADS",
     "klms_element_smem_bytes",
     "klms_element_strip",
@@ -85,6 +87,26 @@ def krls_fits(dfeat: int, input_dim: int) -> bool:
     """Whether the KRLS kernels' shared tiles fit :data:`SMEM_BUDGET` (D up
     to about 10k features at d = 5)."""
     return krls_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
+
+
+def krls_resident_smem_bytes(dfeat: int, input_dim: int) -> int:
+    """Dynamic shared memory of one resident KRLS chunk block (the layout in
+    csrc/krls_bank.cu, ``Resident``), all f32: P's upper triangle packed
+    two rows to a rectangle row of even pitch (``D (D + 2) / 2`` floats at
+    even D, ``D (D + 1) / 2`` at odd), the tenant's (gain, pz) pairs, theta
+    and z rows, two x rows ``(d,)``, two sets of the 256-lane partition's
+    eight warp sums and two (y, mask) pairs (186,120 bytes at D = 300, d =
+    5)."""
+    tri = dfeat * (dfeat + (2 if dfeat % 2 == 0 else 1)) // 2
+    floats = tri + 4 * dfeat + 2 * input_dim + 2 * (KRLS_THREADS // 32) + 4
+    return 4 * floats
+
+
+def krls_resident_fits(dfeat: int, input_dim: int) -> bool:
+    """Whether the resident KRLS chunk kernel's triangle and rows fit
+    :data:`SMEM_BUDGET` (D up to 335 at d = 5). Wider D streams P through
+    device memory every tick (``krls_bank_chunk``)."""
+    return krls_resident_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
 
 
 # Threads per block of csrc/rff_scan.cu (kThreads there).

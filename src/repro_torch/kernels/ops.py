@@ -311,7 +311,8 @@ def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
 def flash_attention(q, k, v, *, mode: str = "auto", causal: bool = True):
     """Exact softmax attention, (BH, S, dh) layout, f32 or bf16 -> q's
     type. ``repro``'s ``block_q``/``block_k`` are not taken: the CUDA
-    kernel tiles by 64, and tiles only order the online softmax's sums."""
+    kernels tile by 64 (f32) and 128 (bf16), and tiles only order the
+    online softmax's sums."""
     if use_kernel(mode, q):
         return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)

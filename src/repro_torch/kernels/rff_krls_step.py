@@ -1,11 +1,19 @@
 """Wrappers of the fused RFF-KRLS bank kernels (``csrc/krls_bank.cu``).
 
-Two CUDA entry points share one ``__device__`` tick:
+Three CUDA entry points, with one tick's arithmetic:
 
-* ``krls_bank_chunk`` — T masked EW-RLS ticks per tenant in one launch,
-  replacing ``repro/kernels/rff_krls_step.py::rff_krls_bank_chunk_pallas``;
+* ``krls_bank_chunk_resident`` and ``krls_bank_chunk`` — T masked EW-RLS
+  ticks per tenant in one launch, replacing
+  ``repro/kernels/rff_krls_step.py::rff_krls_bank_chunk_pallas``. The
+  first keeps P's packed upper triangle in shared memory for the whole
+  launch; it takes D up to 335 at d = 5
+  (``chunking.krls_resident_fits``). The second streams P through device
+  memory every tick and takes the wider D. ``rff_krls_bank_chunk_cuda``
+  picks the route (``krls_chunk_route``) and counts it in
+  ``.route_launches``;
 * ``krls_bank_step`` — one unmasked tick, replacing
-  ``rff_krls_bank_step_pallas``.
+  ``rff_krls_bank_step_pallas``. A chunk of T equals T steps bit for bit on
+  either route.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates fresh
 ``theta_out`` and ``p_out`` with ``torch.empty`` (a published snapshot may
@@ -21,11 +29,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunking import krls_fits
+from repro_torch.kernels.chunking import krls_fits, krls_resident_fits
 from repro_torch.kernels.ref import beta_column, default_scale
 from repro_torch.kernels.rff_klms_step import _check, _cuda_device
 
-__all__ = ["rff_krls_bank_step_cuda", "rff_krls_bank_chunk_cuda"]
+__all__ = ["rff_krls_bank_step_cuda", "rff_krls_bank_chunk_cuda",
+           "krls_chunk_route"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,6 +42,7 @@ _SIGNATURES = {
     # theta, pmat, xs, ys, mask, beta, w, b, s, theta_out, p_out, pred, err,
     # B, T, d, D, stream
     "krls_bank_chunk": (_P,) * 13 + (_I,) * 4 + (_P,),
+    "krls_bank_chunk_resident": (_P,) * 13 + (_I,) * 4 + (_P,),
     # theta, pmat, x, y, beta, w, b, s, theta_out, p_out, pred, err,
     # B, d, D, stream
     "krls_bank_step": (_P,) * 12 + (_I,) * 3 + (_P,),
@@ -44,6 +54,12 @@ def _lib():
     lib = _build.load("krls_bank", _SIGNATURES)
     lib.krls_bank_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def krls_chunk_route(dfeat: int, input_dim: int) -> str:
+    """The chunk kernel a bank of width D = ``dfeat`` goes to: "resident"
+    when P's triangle fits a block's shared memory, else "streaming"."""
+    return "resident" if krls_resident_fits(dfeat, input_dim) else "streaming"
 
 
 def _prepare(theta, pmat, rows, w, b, beta, s):
@@ -85,7 +101,8 @@ def rff_krls_bank_chunk_cuda(theta, pmat, xs, ys, w, b, beta, mask=None,
     """T-chunked fused EW-RLS on the card: theta (B, D), pmat (B, D, D), xs
     (B, T, d), ys (B, T), shared w (d, D), b (D,), s (D,) (None =
     sqrt(2/D)), beta scalar or (B,), mask optional (B, T) gate. Returns
-    (theta' (B, D), P' (B, D, D), preds (B, T), errs (B, T))."""
+    (theta' (B, D), P' (B, D, D), preds (B, T), errs (B, T)), from the
+    kernel :func:`krls_chunk_route` picks."""
     bsz, tlen, d = xs.shape
     rows = [("xs", xs, (bsz, tlen, d)), ("ys", ys, (bsz, tlen))]
     if mask is not None:
@@ -96,8 +113,11 @@ def rff_krls_bank_chunk_cuda(theta, pmat, xs, ys, w, b, beta, mask=None,
         theta_out.copy_(theta)
         p_out.copy_(pmat)
         return theta_out, p_out, pred, err
+    route = krls_chunk_route(theta.shape[1], d)
     lib = _lib()
-    code = lib.krls_bank_chunk(
+    entry = {"resident": "krls_bank_chunk_resident",
+             "streaming": "krls_bank_chunk"}[route]
+    code = getattr(lib, entry)(
         theta.data_ptr(), pmat.data_ptr(), xs.data_ptr(), ys.data_ptr(),
         None if mask is None else mask.data_ptr(), beta.data_ptr(),
         w.data_ptr(), b.data_ptr(), s.data_ptr(),
@@ -105,8 +125,9 @@ def rff_krls_bank_chunk_cuda(theta, pmat, xs, ys, w, b, beta, mask=None,
         err.data_ptr(), bsz, tlen, d, theta.shape[1],
         torch.cuda.current_stream(device).cuda_stream,
     )
-    _raise_on(lib, code, "krls_bank_chunk")
+    _raise_on(lib, code, entry)
     rff_krls_bank_chunk_cuda.launches += 1
+    rff_krls_bank_chunk_cuda.route_launches[route] += 1
     return theta_out, p_out, pred, err
 
 
@@ -134,4 +155,5 @@ def rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s=None):
 
 
 rff_krls_bank_chunk_cuda.launches = 0
+rff_krls_bank_chunk_cuda.route_launches = {"resident": 0, "streaming": 0}
 rff_krls_bank_step_cuda.launches = 0

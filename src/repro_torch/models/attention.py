@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
@@ -44,7 +45,8 @@ class KVCache(NamedTuple):
 
 def head_proj_init(gen, d: int, heads: int, head_dim: int, *,
                    bias: bool = False, dtype=torch.float32,
-                   device="cpu") -> dict:
+                   device="cuda") -> dict:
+    device = resolve_device(device)
     p = {"w": normal(gen, (d, heads, head_dim), d ** -0.5, dtype, device)}
     if bias:
         p["b"] = torch.zeros(heads, head_dim, dtype=dtype, device=device)
@@ -60,9 +62,10 @@ def head_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def head_out_init(gen, heads: int, head_dim: int, d: int,
-                  dtype=torch.float32, device="cpu") -> dict:
+                  dtype=torch.float32, device="cuda") -> dict:
     scale = (heads * head_dim) ** -0.5
-    return {"w": normal(gen, (heads, head_dim, d), scale, dtype, device)}
+    return {"w": normal(gen, (heads, head_dim, d), scale, dtype,
+                        resolve_device(device))}
 
 
 def head_out(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -199,10 +202,10 @@ def _blocked_attention(q, k, v, *, causal, window, block_k, q_offset, kv_len):
 
 
 def gqa_init(gen, cfg: ModelConfig, dtype=torch.float32,
-             device="cpu") -> dict:
+             device="cuda") -> dict:
     d, hp, hkv = cfg.d_model, cfg.padded_heads, cfg.num_kv_heads
     dh = cfg.resolved_head_dim
-    kw = dict(dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=resolve_device(device))
     return {
         "wq": head_proj_init(gen, d, hp, dh, bias=cfg.qkv_bias, **kw),
         "wk": head_proj_init(gen, d, hkv, dh, bias=cfg.qkv_bias, **kw),

@@ -9,6 +9,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resolve_device
+
 __all__ = [
     "normal",
     "dense_init",
@@ -32,7 +34,8 @@ def normal(gen: torch.Generator, shape, scale: float, dtype, device):
 
 
 def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,
-               dtype=torch.float32, scale=None, device="cpu") -> dict:
+               dtype=torch.float32, scale=None, device="cuda") -> dict:
+    device = resolve_device(device)
     scale = scale if scale is not None else d_in ** -0.5
     p = {"w": normal(gen, (d_in, d_out), scale, dtype, device)}
     if bias:
@@ -47,8 +50,8 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> dict:
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+def rmsnorm_init(d: int, dtype=torch.float32, device="cuda") -> dict:
+    return {"scale": torch.ones(d, dtype=dtype, device=resolve_device(device))}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -59,12 +62,14 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def embed_init(gen, vocab: int, d: int, dtype=torch.float32,
-               device="cpu") -> dict:
-    return {"table": normal(gen, (vocab, d), d ** -0.5, dtype, device)}
+               device="cuda") -> dict:
+    return {"table": normal(gen, (vocab, d), d ** -0.5, dtype,
+                            resolve_device(device))}
 
 
 def glu_mlp_init(gen, d: int, d_ff: int, dtype=torch.float32,
-                 device="cpu") -> dict:
+                 device="cuda") -> dict:
+    device = resolve_device(device)
     return {
         "wi": dense_init(gen, d, d_ff, dtype=dtype, device=device),
         "wg": dense_init(gen, d, d_ff, dtype=dtype, device=device),

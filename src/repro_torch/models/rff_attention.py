@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.rff import RFF, positive_random_features, sample_prf
 from repro_torch.features.base import (
@@ -56,7 +57,7 @@ class RFFState(NamedTuple):
 
 def rff_attn_init(gen, cfg: ModelConfig, dtype=torch.float32,
                   feature_map: Optional[TrigFeatures] = None,
-                  device="cpu") -> dict:
+                  device="cuda") -> dict:
     """Projections and the fixed feature buffers (per-layer Omega).
 
     ``feature_map`` (a :class:`TrigFeatures` of shape (head_dim,
@@ -67,6 +68,7 @@ def rff_attn_init(gen, cfg: ModelConfig, dtype=torch.float32,
     d, h = cfg.d_model, cfg.padded_heads
     dh = cfg.resolved_head_dim
     dfeat = cfg.rff_num_features
+    device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     p = {
         "wq": head_proj_init(gen, d, h, dh, **kw),
@@ -141,7 +143,8 @@ def rff_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 def rff_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device="cpu") -> RFFState:
+                   device="cuda") -> RFFState:
+    device = resolve_device(device)
     h, dh, dfeat = (cfg.padded_heads, cfg.resolved_head_dim,
                     cfg.rff_num_features)
     return RFFState(

@@ -21,8 +21,12 @@ masked chunk gives the identity element bit for bit. The attention kernels
 (decode block, chunked linear attention, flash attention) are held at 1e-4
 of max|want| at f32 (another summation order in every product and in the
 online softmax) and 2e-2 of max|want| under bf16 (a feature or an output
-that crosses a bf16 rounding boundary moves by one bf16 ulp); a decode
-block of T tokens equals T one-token launches bit for bit.
+that crosses a bf16 rounding boundary moves by one bf16 ulp; the bf16
+flash kernel also rounds P to bf16 for P V); a decode block of T tokens
+equals T one-token launches bit for bit. Of the two-route kernels, flash
+attention runs bf16 on the tensor cores and f32 on the CUDA cores, and the
+KRLS chunk keeps P resident in shared memory up to D = 335 at d = 5 and
+streams it beyond, both routes equal to T step launches bit for bit.
 """
 import numpy as np
 import pytest
@@ -199,7 +203,8 @@ def _hold_krls(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bank,d,dfeat,tlen,symmetric", [
     (3, 4, 17, 5, True), (5, 128, 129, 3, True), (2, 5, 1024, 4, True),
-    (64, 5, 300, 16, True), (4, 5, 70, 6, False),
+    (64, 5, 300, 16, True), (4, 5, 70, 6, False), (3, 5, 335, 4, True),
+    (2, 5, 400, 3, False),
 ])
 def test_krls_kernels_match_plain(cuda_device, bank, d, dfeat, tlen,
                                   symmetric):
@@ -244,6 +249,64 @@ def test_krls_bitwise_contracts(cuda_device):
     assert torch.equal(masked[0], a["theta"])
     assert torch.equal(masked[1], a["pmat"])
     assert masked[1].data_ptr() != a["pmat"].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dfeat,route", [(200, "resident"), (31, "resident"),
+                                         (400, "streaming")])
+def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route):
+    """Either chunk route: a chunk of T equals T step launches and T=1 one
+    step, bit for bit, from a non-symmetric P; P' is exactly symmetric; a
+    chunk with masked ticks matches the plain version; the launch counts
+    its route."""
+    a = _krls_inputs(cuda_device, 3, 5, 5, dfeat, seed=7, symmetric=False)
+    common = (a["w"], a["b"], a["beta"])
+    before = dict(rff_krls_bank_chunk_cuda.route_launches)
+    chunk = ops.rff_krls_bank_chunk(a["theta"], a["pmat"], a["xs"], a["ys"],
+                                    *common, None, a["s"], mode="cuda")
+    after = rff_krls_bank_chunk_cuda.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    theta, pmat = a["theta"], a["pmat"]
+    for t in range(5):
+        theta, pmat, pred, err = ops.rff_krls_bank_step(
+            theta, pmat, a["xs"][:, t].contiguous(),
+            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+        assert torch.equal(pred, chunk[2][:, t])
+        assert torch.equal(err, chunk[3][:, t])
+        if t == 0:
+            one = ops.rff_krls_bank_chunk(
+                a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
+                a["ys"][:, :1].contiguous(), *common, None, a["s"],
+                mode="cuda")
+            assert torch.equal(one[0], theta) and torch.equal(one[1], pmat)
+    assert torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1])
+    assert torch.equal(chunk[1], chunk[1].transpose(1, 2))
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], *common, a["mask"],
+            a["s"])
+    _hold_krls(ops.rff_krls_bank_chunk(*args, mode="cuda"),
+               ops.rff_krls_bank_chunk(*args, mode="ref"))
+
+
+@pytest.mark.cuda
+def test_krls_resident_smem_matches_c_layout(cuda_device):
+    """The resident C entry carves the layout chunking.krls_resident_fits
+    mirrors: at d = 5 it launches at D = 335 and refuses D = 336 with
+    cudaErrorInvalidValue, where the wrapper streams."""
+    from repro_torch.kernels.rff_krls_step import _lib
+
+    codes = {}
+    for dfeat in (335, 336):
+        a = _krls_inputs(cuda_device, 1, 2, 5, dfeat)
+        outs = (torch.empty_like(a["theta"]), torch.empty_like(a["pmat"]),
+                torch.empty_like(a["ys"]), torch.empty_like(a["ys"]))
+        codes[dfeat] = _lib().krls_bank_chunk_resident(
+            *(t.data_ptr() for t in (a["theta"], a["pmat"], a["xs"], a["ys"])),
+            None, a["beta"].data_ptr(),
+            *(t.data_ptr() for t in (a["w"], a["b"], a["s"], *outs)),
+            1, 2, 5, dfeat, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+    assert codes == {335: 0, 336: 1}  # 1 = cudaErrorInvalidValue
 
 
 @pytest.mark.cuda
@@ -541,7 +604,8 @@ def test_linear_attention_kernel_matches_plain(cuda_device, normalize, bh,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("bh,slen,dh", [(3, 128, 16), (2, 100, 24),
-                                        (4, 256, 64), (2, 192, 128)])
+                                        (4, 256, 64), (2, 192, 128),
+                                        (2, 77, 20), (2, 130, 40)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, causal, bh, slen, dh):
     rng = np.random.default_rng(dh)
     q, k, v = (convert.tensor(rng.normal(size=(bh, slen, dh)),
@@ -552,6 +616,22 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, causal, bh, slen, dh):
     assert got.dtype == dtype
     _hold_rel(got, want, 2e-2 if dtype == torch.bfloat16 else F32_TOL,
               f"flash {dtype} causal={causal}")
+
+
+@pytest.mark.cuda
+def test_flash_routes_count_their_launches(cuda_device):
+    """bf16 runs the tensor-core kernel and f32 the CUDA-core one; each
+    launch counts once in the total and once in its route."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    x = torch.randn(2, 64, 32, device=cuda_device)
+    for dtype, route in ((torch.bfloat16, "tensor_core"),
+                         (torch.float32, "cuda_core")):
+        before = dict(flash_attention_cuda.route_launches)
+        total = flash_attention_cuda.launches
+        ops.flash_attention(*(x.to(dtype),) * 3, mode="cuda")
+        assert flash_attention_cuda.launches == total + 1
+        assert flash_attention_cuda.route_launches[route] == before[route] + 1
 
 
 @pytest.mark.cuda

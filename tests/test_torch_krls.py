@@ -392,6 +392,25 @@ def test_krls_sizing_and_dispatch():
                                0.99, mode="cuda")
 
 
+@pytest.mark.parametrize("dfeat,d,nbytes,fits", [
+    (300, 5, 186_120, True), (335, 5, 230_600, True),
+    (336, 5, 232_632, False), (400, 5, 328_120, False), (17, 4, 996, True),
+    (129, 128, 36_708, True), (1, 1, 108, True), (2, 5, 168, True),
+])
+def test_krls_resident_size_rule(dfeat, d, nbytes, fits):
+    """The resident chunk kernel keeps P's triangle in a block's shared
+    memory: it fits at the paper's D = 300 and to D = 335, not at D = 336
+    or 400 (d = 5); the bytes are those csrc/krls_bank.cu carves; the chunk
+    wrapper picks its route by them."""
+    from repro_torch.kernels.rff_krls_step import krls_chunk_route
+
+    assert chunking.krls_resident_smem_bytes(dfeat, d) == nbytes
+    assert (nbytes <= chunking.SMEM_BUDGET) is fits
+    assert chunking.krls_resident_fits(dfeat, d) is fits
+    assert krls_chunk_route(dfeat, d) == ("resident" if fits else "streaming")
+    assert chunking.krls_fits(dfeat, d)  # the streaming kernel takes any
+
+
 def test_krls_tick_and_queue_factories():
     """make_tick / make_queue("krls") drive the bank tier: a tick advances
     step and P, a queue starts from P_0 = I / lam."""

@@ -53,7 +53,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.rff import positive_random_features, sample_prf
 from repro_torch.core.rff import RFF
 from repro_torch.kernels import chunking, ops, ref
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, layers, transformer
 from repro_torch.models import rff_attention as trff
 from repro_torch.serve.serve_loop import generate, path_logits
 from repro_torch.train.steps import make_decode_step, make_prefill_step
@@ -363,7 +363,7 @@ def test_prefill_then_decode_matches_apply(kind):
     p = tparams["blocks"][0]["attn"]
     x = f32(np.random.default_rng(4), 2, 10, cfg.d_model, scale=0.1)
     want = jrff.rff_attn_apply(jp, jcfg, jnp.asarray(x), feature_kind=kind)
-    st = trff.rff_state_init(cfg, 2)
+    st = trff.rff_state_init(cfg, 2, device="cpu")
     pre, st = trff.rff_attn_decode_block(p, cfg, t(x[:, :6]), st,
                                          feature_kind=kind)
     outs = [pre]
@@ -387,7 +387,7 @@ def test_rff_attn_feature_map_matches_repro():
     fm = rff_map(torch.Generator().manual_seed(2), cfg.resolved_head_dim,
                  cfg.rff_num_features, 1.0, device="cpu")
     p = trff.rff_attn_init(torch.Generator().manual_seed(0), cfg,
-                           feature_map=fm)
+                           feature_map=fm, device="cpu")
     for name, buf in zip(("omega", "bias", "scale"), fm):
         assert torch.equal(p[name], buf)
     jp = dict(params["blocks_list"][0]["attn"])
@@ -398,14 +398,15 @@ def test_rff_attn_feature_map_matches_repro():
              scale=fm.scale)
     x = f32(np.random.default_rng(8), 2, 6, cfg.d_model, scale=0.1)
     want = jrff.rff_attn_apply(jp, jcfg, jnp.asarray(x), feature_kind="trig")
-    got, _ = trff.rff_attn_decode_block(p, cfg, t(x),
-                                        trff.rff_state_init(cfg, 2),
-                                        feature_kind="trig")
+    got, _ = trff.rff_attn_decode_block(
+        p, cfg, t(x), trff.rff_state_init(cfg, 2, device="cpu"),
+        feature_kind="trig")
     close(got, want, F32, "trig map decode vs repro apply")
     bad = rff_map(torch.Generator().manual_seed(2), cfg.resolved_head_dim + 1,
                   cfg.rff_num_features, 1.0, device="cpu")
     with pytest.raises(ValueError, match="feature_map"):
-        trff.rff_attn_init(torch.Generator(), cfg, feature_map=bad)
+        trff.rff_attn_init(torch.Generator(), cfg, feature_map=bad,
+                           device="cpu")
 
 
 def test_lm_params_stacked_and_list_layouts_agree():
@@ -487,6 +488,88 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(ValueError, match="CUDA"):
         attention.flash_attention(x[:, :, None], x[:, :, None],
                                   x[:, :, None], kernel_mode="cuda")
+
+
+_INIT_HELPERS = {
+    "dense_init": lambda cfg, **kw: layers.dense_init(
+        torch.Generator(), 8, 4, **kw),
+    "rmsnorm_init": lambda cfg, **kw: layers.rmsnorm_init(8, **kw),
+    "embed_init": lambda cfg, **kw: layers.embed_init(
+        torch.Generator(), 16, 8, **kw),
+    "glu_mlp_init": lambda cfg, **kw: layers.glu_mlp_init(
+        torch.Generator(), 8, 16, **kw),
+    "head_proj_init": lambda cfg, **kw: attention.head_proj_init(
+        torch.Generator(), 8, 2, 4, **kw),
+    "head_out_init": lambda cfg, **kw: attention.head_out_init(
+        torch.Generator(), 2, 4, 8, **kw),
+    "gqa_init": lambda cfg, **kw: attention.gqa_init(
+        torch.Generator(), cfg, **kw),
+    "rff_attn_init": lambda cfg, **kw: trff.rff_attn_init(
+        torch.Generator(), cfg, **kw),
+    "rff_state_init": lambda cfg, **kw: trff.rff_state_init(cfg, 1, **kw),
+}
+
+
+@pytest.mark.parametrize("helper", sorted(_INIT_HELPERS))
+def test_model_init_helpers_default_to_cuda(helper):
+    """Like init_params, every init helper of the model places its tensors
+    on the card unless the caller asks for the CPU: without a card the
+    default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = transformer.with_rff_attention(get_config("qwen2-0.5b").reduced())
+    make = _INIT_HELPERS[helper]
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make(cfg)
+    out = make(cfg, device="cpu")
+    tensors = out if isinstance(out, tuple) else list(out.values())
+    for x in tensors:
+        for leaf in (x.values() if isinstance(x, dict) else [x]):
+            if isinstance(leaf, torch.Tensor):
+                assert leaf.device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype,dh,route,source,entry,width", [
+    (torch.bfloat16, 64, "tensor_core", "flash_attention_sm90",
+     "flash_attention_bf16", 64),
+    (torch.bfloat16, 24, "tensor_core", "flash_attention_sm90",
+     "flash_attention_bf16", 24),
+    (torch.bfloat16, 20, "tensor_core", "flash_attention_sm90",
+     "flash_attention_bf16", 24),
+    (torch.bfloat16, 1, "tensor_core", "flash_attention_sm90",
+     "flash_attention_bf16", 8),
+    (torch.bfloat16, 128, "tensor_core", "flash_attention_sm90",
+     "flash_attention_bf16", 128),
+    (torch.float32, 20, "cuda_core", "flash_attention", "flash_attention",
+     20),
+    (torch.float32, 128, "cuda_core", "flash_attention", "flash_attention",
+     128),
+])
+def test_flash_route_rule(dtype, dh, route, source, entry, width):
+    """bf16 goes to the tensor-core kernel, its head padded to a multiple
+    of 8 columns (TMA's 16-byte rows); f32 to the CUDA-core kernel as it
+    is."""
+    from repro_torch.kernels.flash_attention import flash_plan
+
+    x = torch.zeros(2, 5, dh, dtype=dtype)
+    assert flash_plan(x, x, x) == (route, source, entry, width)
+
+
+def test_flash_route_refusals():
+    """Both routes take dh <= 128 and f32 or bf16 only; q, k and v must
+    agree."""
+    from repro_torch.kernels.flash_attention import flash_plan
+
+    for dtype in (torch.float32, torch.bfloat16):
+        big = torch.zeros(1, 4, 136, dtype=dtype)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_plan(big, big, big)
+    half = torch.zeros(1, 4, 16, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_plan(half, half, half)
+    x = torch.zeros(1, 4, 16)
+    with pytest.raises(TypeError):
+        flash_plan(x, x, x.to(torch.bfloat16))
 
 
 def test_launch_serve_runs_on_cpu():
