@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    against its plain PyTorch version on the card, at the serving shapes
    and at ragged ones, and checks the bitwise contracts (a chunk of 16
    equals 16 steps, a chunk at T=1 equals a step, a masked tick leaves
-   theta unchanged);
+   theta unchanged, a tenant's chunk at B=1 equals its row of the B=1024
+   launch);
 3. drives the KLMS main path: a ``make_server("klms")`` bank of 1024
    tenants with a d=128, D=2048 random-feature map and chunk=16 takes a
    ragged stream, flushes, drains and serves single-tenant and (1024, 64)
@@ -29,8 +30,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    server with ``mode="ref"`` and within the f32 error budget that a
    float64 run of the same stream measures;
 6. times each kernel, its plain version and its bound at the serving
-   shapes, and the KRLS chunk's streaming route where it is picked (the
-   serving bank at D = 400);
+   shapes, the KRLS chunk's streaming route where it is picked (the
+   serving bank at D = 400), and the read kernel on its bf16 route and at
+   the KRLS read shape (d = 5, D = 300);
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
    against their plain versions at the replay shape (T=256, d=128,
    D=2048), the read-block shape of the feature map (65536 rows), the
@@ -58,7 +60,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     block for prf and trig, f32 and bf16, T = 1, the default block_t and
     block_t + 3 (a remainder launch), and bit for bit a block of T against
     T one-token launches; flash attention at f32 (the CUDA-core kernel)
-    and bf16 (the tensor-core kernel), each route's error reported;
+    and bf16 (the tensor-core kernel), also at the config heads whose q/k
+    and v widths differ or pass 128 ((192, 128), (96, 64), (256, 256)),
+    each route's error reported;
 12. serves qwen2-0.5b at full width with RFF attention, bf16, random
     weights from --seed: ``make_prefill_step`` at B=4, S=2048 (the linear
     attention kernel, once a layer) and ``generate`` of 32 greedy tokens
@@ -77,7 +81,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     32768 tokens).
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention and
-krls_bank_chunk with a record per route under "routes"); the last is
+krls_bank_chunk with a record per route under "routes", bank_predict with
+"bf16" and "krls_read" records beside its f32 serving one); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
 result.
@@ -85,6 +90,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -124,6 +130,7 @@ P_TOL = 1e-4
 BUDGET, BUDGET_FLOOR = 2.0, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 
 # Replay (evict -> log -> readmit): the ring size, and the features held
 # relative to max|s| (z is at most s in size): 1e-5 at f32, the 2e-2 read
@@ -269,11 +276,24 @@ def phase_kernels(rng, device) -> dict:
     prior = ops.rff_bank_predict(a["theta"], a["xs"], a["w"], a["b"], a["s"],
                                  mode="ref")
     hold("masked ticks emit the prior prediction", [masked[1]], [prior], F32_TOL)
+    # A tenant's bits do not depend on the bank it shares a launch with.
+    full = ops.rff_klms_bank_chunk(a["theta"], a["xs"], a["ys"], a["w"], a["b"],
+                                   a["mu"], a["mask"], a["s"], mode="cuda")
+    rows = (0, BANK // 2 + 5, BANK - 1)
+    for row in rows:
+        sl = slice(row, row + 1)
+        one = ops.rff_klms_bank_chunk(
+            a["theta"][sl], a["xs"][sl], a["ys"][sl], a["w"], a["b"],
+            a["mu"][sl], a["mask"][sl], a["s"], mode="cuda")
+        check(all(torch.equal(g[0], w[row]) for g, w in zip(one, full)),
+              f"tenant {row}: a chunk at B = 1 differs from its row of the "
+              f"B = {BANK} launch")
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "shapes": shapes, "max_abs_err": errs,
           "tolerance": {"f32": F32_TOL, "bf16_predict": BF16_TOL},
           "bitwise": {"chunk16_eq_16_steps": True, "chunk1_eq_step": True,
-                      "masked_tick_noop": True}})
+                      "masked_tick_noop": True,
+                      f"b1_eq_row_of_b{BANK}": list(rows)}})
     return errs
 
 
@@ -575,6 +595,14 @@ def within_budget(name: str, got, plain, exact, dist) -> dict:
             "kernel_vs_plain": vs_plain}
 
 
+def f64_map(fm):
+    """The same trig feature map in float64 (for the float64 servers)."""
+    from repro_torch.features import TrigFeatures
+
+    return dataclasses.replace(
+        fm, params=TrigFeatures(*(t.double() for t in fm.trig)))
+
+
 def phase_krls_server(seed, device, kernels) -> dict:
     """The KRLS main path: make_server("krls") writes and reads,
     make_tick("krls"); held against mode="ref" and a float64 run."""
@@ -583,7 +611,7 @@ def phase_krls_server(seed, device, kernels) -> dict:
 
     fm = rff_map(torch.Generator().manual_seed(seed), K_D_IN, K_D_FEAT,
                  K_SIGMA, device=device)
-    fm64 = type(fm)(*(t.double() for t in fm))
+    fm64 = f64_map(fm)
     hp = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
     servers = (make_server("krls", feature_map=fm, **hp),
                make_server("krls", feature_map=fm, mode="ref", **hp),
@@ -721,7 +749,10 @@ def phase_times(rng, device) -> dict:
     Operations count the projection's 2 d D multiply-adds per row and, per
     feature, bias add, cos (as one operation), scale, the theta . z
     multiply-add and, for KLMS, the update's multiply-add: a lower bound,
-    since a cosf takes tens of instructions. A KRLS tick adds, per tenant,
+    since a cosf takes tens of instructions. The read kernel is also timed
+    at the KRLS read shape (d = 5, D = 300) and on its bf16 route, whose
+    bound is the products at the bf16 tensor-core rate plus 5 D operations
+    a row (bias, cos, scale, the theta . z multiply-add) at the f32 rate. A KRLS tick adds, per tenant,
     2 D^2 for P z, 5 D^2 for the downdate and its symmetrization, and 5 D
     for z . pz, the gain and the theta update (every tick of the timed
     chunk is live). Bytes count each input read once and each output
@@ -788,14 +819,34 @@ def phase_times(rng, device) -> dict:
                      "shape": [BANK, CHUNK, K_D_IN, K_D_FEAT]},
         "streaming": {**{k_: wide[k_] for k_ in keys}, "library_ms": None,
                       "shape": [BANK, CHUNK, K_D_IN, K_D_WIDE]}}
-    bf16 = [time_ms(lambda: ops.rff_bank_predict(
-        a["theta"], xq, a["w"], a["b"], a["s"], mode=m, precision="bf16"))
-        for m in ("ref", "cuda")]
+    keys = ("ms", "ms_runs", "plain_ms", "plain_ms_runs", "bound_ms",
+            "bound_by")
+    pred = out["bank_predict"]
+    bf16 = timed_case(lambda m: ops.rff_bank_predict(
+        a["theta"], xq, a["w"], a["b"], a["s"], mode=m, precision="bf16"),
+        shared + 4 * (BANK * D_FEAT + BANK * Q * (D_IN + 1)), 0.0)
+    t_bytes = bf16["bytes"] / HBM_BYTES_PER_S
+    t_ops = (rows_pred * 2 * D_IN * D_FEAT / BF16_OPS_PER_S
+             + rows_pred * 5 * D_FEAT / F32_OPS_PER_S)
+    bf16.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    pred["bf16"] = {**{k_: bf16[k_] for k_ in keys}, "library_ms": None,
+                    "shape": [BANK, Q, D_IN, D_FEAT]}
+    kq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, K_D_IN)).astype(np.float32)).to(device)
+    k_shared = 4 * (K_D_IN * K_D_FEAT + 2 * K_D_FEAT)
+    krls_read = timed_case(
+        lambda m: ops.rff_bank_predict(k["theta"], kq, k["w"], k["b"], k["s"],
+                                       mode=m),
+        k_shared + 4 * (BANK * K_D_FEAT + BANK * Q * (K_D_IN + 1)),
+        rows_pred * (2 * K_D_IN * K_D_FEAT + 5 * K_D_FEAT))
+    pred["krls_read"] = {**{k_: krls_read[k_] for k_ in keys},
+                         "library_ms": None,
+                         "shape": [BANK, Q, K_D_IN, K_D_FEAT]}
     emit({"phase": "times", "shapes": {"B": BANK, "T": CHUNK, "d": D_IN,
                                        "D": D_FEAT, "Q": Q},
           "krls_shapes": {"B": BANK, "T": CHUNK, "d": K_D_IN, "D": K_D_FEAT},
           "kernels": out,
-          "bank_predict_bf16": {"plain_ms": bf16[0], "ms": bf16[1]},
           "library_ms": "null: no single PyTorch call computes any of the "
                         "five functions"})
     return out
@@ -1084,7 +1135,7 @@ def phase_krls_replay_server(seed, device, kernels) -> dict:
 
     fm = rff_map(torch.Generator().manual_seed(seed), K_D_IN, K_D_FEAT,
                  K_SIGMA, device=device)
-    fm64 = type(fm)(*(t.double() for t in fm))
+    fm64 = f64_map(fm)
     hp = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
     modes = ("blocked", "scan")
     ctl = make_server("krls", feature_map=fm, **hp)
@@ -1272,7 +1323,6 @@ ATTN_TOL, ATTN_BF16_TOL = 1e-4, 2e-2
 # must be no farther from the f32 model than LM_BUDGET times the bf16
 # plain path is, plus LM_BUDGET_FLOOR of max|logit|.
 LM_F32_TOL, LM_BUDGET, LM_BUDGET_FLOOR = 1e-4, 2.0, 1e-3
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 LM_REPLACES = {
     "rff_decode_block": "src/repro/kernels/rff_attention.py:235",
     "rff_linear_attention": "src/repro/kernels/rff_attention.py:87",
@@ -1297,7 +1347,12 @@ DECODE_SHAPES = [(56, 64, 256, 64), (32, 128, 256, 128), (3, 16, 40, 24)]
 # (BH, S, D, dv, chunk) and (BH, S, dh).
 LINEAR_SHAPES = [(56, LM_S, 256, 64, 256), (8, 512, 256, 128, 256),
                  (3, 192, 40, 24, 64)]
-FLASH_SHAPES = [(56, LM_S, 64), (32, 1024, 128), (3, 100, 24)]
+# (BH, S, dh, dv): qwen2-0.5b's, llama3-8b's and a padded head, then the
+# heads of src/repro/configs whose q/k and v widths differ or pass 128:
+# deepseek-v2-lite's MLA (192, 128), minicpm3's (96, 64), recurrentgemma's
+# 256 (two V passes on the bf16 route).
+FLASH_SHAPES = [(56, LM_S, 64, 64), (32, 1024, 128, 128), (3, 100, 24, 24),
+                (8, 512, 192, 128), (8, 512, 96, 64), (4, 512, 256, 256)]
 DECODE_CALLS = 20  # one-token decode calls per profiled timing
 
 
@@ -1404,16 +1459,17 @@ def phase_lm_kernels(rng, device) -> dict:
                                             normalize=normalize)], ATTN_TOL)
             note("rff_linear_attention", e)
         del q, k, v
-    for bh, slen, dh in FLASH_SHAPES:
+    for bh, slen, dh, dv in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (f32_tensor(rng, bh, slen, dh, device=device).to(dtype)
-                       for _ in range(3))
+            q, k = (f32_tensor(rng, bh, slen, dh, device=device).to(dtype)
+                    for _ in range(2))
+            v = f32_tensor(rng, bh, slen, dv, device=device).to(dtype)
             route = flash_routes["tensor_core" if dtype == torch.bfloat16
                                  else "cuda_core"]
             for causal in (True, False):
                 got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
                 check(got.dtype == dtype, "flash output type")
-                e = hold_rel(f"flash {dtype} {bh, slen, dh} causal={causal}",
+                e = hold_rel(f"flash {dtype} {bh, slen, dh, dv} causal={causal}",
                              [got], [ops.flash_attention(q, k, v, mode="ref",
                                                          causal=causal)],
                              route["tolerance_of_max_plain"])
@@ -1672,7 +1728,7 @@ def phase_lm_times(rng, device) -> dict:
         4 * bh * slen * (2 * dfeat + 2 * dv),
         bh * slen * (4 * dfeat * dv + 3 * dfeat + dv), plain_reps=5)
     del q, k, v
-    bh, slen, dh = FLASH_SHAPES[0]
+    bh, slen, dh, _ = FLASH_SHAPES[0]
     q, k, v = (f32_tensor(rng, bh, slen, dh, device=device).to(torch.bfloat16)
                for _ in range(3))
     pairs = bh * slen * (slen + 1) // 2
@@ -1891,6 +1947,8 @@ def main() -> int:
                             for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "shape")}}
             if name == "rff_features" else {}),
+         **({k: times[name][k] for k in ("bf16", "krls_read")}
+            if name == "bank_predict" else {}),
          **({"routes": routes[name]} if name in routes else {})}
         for name in replaces
     ]})

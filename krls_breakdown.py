@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the resident KRLS chunk kernel's time goes, on one GPU.
+"""Where the resident KRLS chunk kernel's time goes, and the feature-tile
+kernels' (the KLMS chunk and the read), on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and
 ``nvcc``: ``python3 krls_breakdown.py``.
@@ -11,8 +12,12 @@ and times ``krls_bank_chunk_resident`` at the KRLS serving shape (B = 1024,
 T = 16, d = 5, D = 300, P = I / lam, no mask) and at T = 1 with
 ``chip_smoke.time_ms``, the full kernel first and last. The full kernel's
 time less a variant's is that part's share. A variant whose text no longer
-matches the source stops the run. It prints the card's name and power
-limit and one JSON line.
+matches the source stops the run. It then does the same for variants of
+``csrc/klms_bank.cu`` (``klms_bank_chunk`` at the KLMS serving shape, B =
+1024, T = 16, d = 128, D = 2048) and ``csrc/bank_predict.cu``
+(``bank_predict`` at the read shape, Q = 64, f32 and bf16), called through
+their C entries with workspaces of the wrappers' sizes. It prints the
+card's name and power limit and one JSON line for each.
 
 Variants:
   no_downdate  the downdate of the ticks after the first live one skipped;
@@ -21,6 +26,14 @@ Variants:
   no_divides   the downdate's divides made multiplies;
   unroll_2, unroll_4  the downdate loops unrolled by 2 or 4;
   threads_512, threads_768  a block of 512 or 768 threads (16, 24 warps).
+
+Feature-tile variants:
+  klms no_ticks    the tick loop (one warp a tenant) not launched: packing
+                   and the feature tile alone;
+  klms no_cos      the feature tile's epilogue without ``cosf``;
+  read no_cos      the read's epilogue without ``cosf`` (both routes);
+  read no_epilogue the epilogue's bias, ``cosf``, scale and theta dropped
+                   (z is the product itself): packing and the products.
 """
 from __future__ import annotations
 
@@ -32,8 +45,8 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (BANK, CHUNK, K_D_FEAT, K_D_IN, SRC, krls_inputs,
-                        time_ms)
+from chip_smoke import (BANK, CHUNK, D_FEAT, D_IN, K_D_FEAT, K_D_IN, Q, SRC,
+                        inputs, krls_inputs, time_ms)
 
 DIVIDES = [(f"__fdiv_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)",
             f"__fmul_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)", 1)
@@ -86,6 +99,120 @@ def build_all(build, csrc, out) -> dict:
     return fns
 
 
+KLMS_COS = ("v[c] = __fmul_rn(sj[j], cosf(__fadd_rn(acc[i][j], bj[j])));",
+            "v[c] = __fmul_rn(sj[j], __fadd_rn(acc[i][j], bj[j]));", 1)
+READ_COS = [
+    ("const float z = __fmul_rn(sj, cosf(__fadd_rn(acc[i][j], bj)));",
+     "const float z = __fmul_rn(sj, __fadd_rn(acc[i][j], bj));", 1),
+    ("__fmul_rn(sj, cosf(__fadd_rn(acc[mi][ni][2 * h + c], bj))));",
+     "__fmul_rn(sj, __fadd_rn(acc[mi][ni][2 * h + c], bj)));", 1)]
+READ_EPILOGUE = [
+    ("const float z = __fmul_rn(sj, cosf(__fadd_rn(acc[i][j], bj)));",
+     "const float z = acc[i][j];", 1),
+    ("part[i] = __fmaf_rn(__ldg(theta + toff[i] + col0 + cc), z, part[i]);",
+     "part[i] = __fadd_rn(z, part[i]);", 1),
+    ("const float z = round_bf16(\n                __fmul_rn(sj, cosf("
+     "__fadd_rn(acc[mi][ni][2 * h + c], bj))));",
+     "const float z = acc[mi][ni][2 * h + c];", 1),
+    ("part[mi][h] = __fmaf_rn(__ldg(theta + toff[mi][h] + col0 + cc), z,\n"
+     "                                    part[mi][h]);",
+     "part[mi][h] = __fadd_rn(z, part[mi][h]);", 1)]
+TILE_VARIANTS = {  # name: (source, [(text, replacement, times)])
+    "klms_full": ("klms_bank", []),
+    "klms_no_ticks": ("klms_bank", [(
+        "    rc = ticks(t0 == 0 ? theta : theta_out, z, ys, mask, mu, "
+        "theta_out, pred,\n               err, B, Slab{t0, ts, T}, D, "
+        "reg_cols, st);", "    rc = cudaSuccess;", 1)]),
+    "klms_no_cos": ("klms_bank", [KLMS_COS]),
+    "read_full": ("bank_predict", []),
+    "read_no_cos": ("bank_predict", READ_COS),
+    "read_no_epilogue": ("bank_predict", READ_EPILOGUE),
+}
+
+
+def build_tiles(build, csrc, out) -> dict:
+    """Every feature-tile variant's library, compiled in parallel (the
+    header is copied beside the variants)."""
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "feature_tile.cuh").write_text((csrc / "feature_tile.cuh").read_text())
+    procs = {}
+    for name, (source, edits) in TILE_VARIANTS.items():
+        src = (csrc / f"{source}.cu").read_text()
+        for old, new, count in edits:
+            if src.count(old) != count:
+                raise SystemExit(f"{name}: {source}.cu no longer holds "
+                                 f"{old!r} {count} time(s)")
+            src = src.replace(old, new)
+        (out / f"{name}.cu").write_text(src)
+        lib = out / f"lib{name}.so"
+        procs[name] = lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def tile_breakdown(build, dev) -> dict:
+    """The feature-tile variants at the serving shapes, each timed twice
+    (the full kernels first and last)."""
+    from repro_torch.kernels.chunking import (feature_tile_pack_floats,
+                                              predict_workspace_bytes)
+    from repro_torch.kernels.rff_klms_step import klms_slab_ticks
+
+    libs = build_tiles(build, build.CSRC, build.BUILD_DIR / "breakdown")
+    rng = np.random.default_rng(0)
+    a = inputs(rng, BANK, CHUNK, D_IN, D_FEAT, dev)
+    xq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, D_IN)).astype(np.float32)).to(dev)
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    slab = klms_slab_ticks(BANK, CHUNK, D_FEAT)
+    z = torch.empty(BANK * slab * D_FEAT, device=dev)
+    pk = torch.empty(feature_tile_pack_floats(BANK * slab, D_IN, D_FEAT),
+                     device=dev)
+    theta_out = torch.empty_like(a["theta"])
+    pred, err = torch.empty_like(a["ys"]), torch.empty_like(a["ys"])
+    out = torch.empty(BANK, Q, device=dev)
+    ws = torch.empty(max(predict_workspace_bytes(BANK * Q, D_IN, D_FEAT, bf)
+                         for bf in (False, True)),
+                     dtype=torch.uint8, device=dev)
+
+    def call(name, route):
+        lib = libs[name]
+        if route == "chunk":
+            fn = lib.klms_bank_chunk
+            fn.argtypes = [P] * 10 + [L] + [P] * 3 + [I] * 6 + [P]
+            args = (*(a[k].data_ptr() for k in ("theta", "xs", "ys", "mask",
+                                                 "mu", "w", "b", "s")),
+                    z.data_ptr(), pk.data_ptr(), pk.numel(),
+                    theta_out.data_ptr(), pred.data_ptr(), err.data_ptr(),
+                    BANK, CHUNK, D_IN, D_FEAT, 64, slab, stream)
+        else:
+            fn = lib.bank_predict
+            fn.argtypes = [P] * 7 + [L] + [I] * 5 + [P]
+            args = (a["theta"].data_ptr(), xq.data_ptr(),
+                    *(a[k].data_ptr() for k in ("w", "b", "s")),
+                    out.data_ptr(), ws.data_ptr(), ws.numel(), BANK, Q, D_IN,
+                    D_FEAT, int(route == "bf16"), stream)
+        if fn(*args):
+            raise SystemExit(f"{name} {route}: launch failed")
+
+    cases = [(name, route) for name in TILE_VARIANTS
+             for route in (("chunk",) if name.startswith("klms")
+                           else ("f32", "bf16"))]
+    ms = {f"{n}/{r}": [] for n, r in cases}
+    for name, route in [*cases, *[c for c in cases if "full" in c[0]]]:
+        ms[f"{name}/{route}"].append(time_ms(lambda: call(name, route), 10))
+    return {"shape": {"B": BANK, "T": CHUNK, "Q": Q, "d": D_IN, "D": D_FEAT},
+            "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
@@ -123,6 +250,7 @@ def main() -> int:
         "ms": ms, "ms_T1": ms_t1,
         "share_of_full_ms": {name: full - min(v) for name, v in ms.items()
                              if name != "full"}}))
+    print(json.dumps({"feature_tile": tile_breakdown(_build, dev)}))
     return 0
 
 

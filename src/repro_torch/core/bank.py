@@ -54,7 +54,7 @@ def bank_predict_block(state, xq: torch.Tensor, rff: FeatureLike,
 
 def klms_bank_init(rff: FeatureLike, size: int, dtype=None) -> LMSState:
     """Zero bank state ``theta (B, D)``, ``step (B,)`` on the map's device."""
-    device = rff.omega.device
+    device = as_trig(rff).omega.device
     return LMSState(
         theta=torch.zeros(size, rff.num_features,
                           dtype=dtype or feature_dtype(rff), device=device),
@@ -125,7 +125,7 @@ def krls_bank_init(rff: FeatureLike, size: int,
     """Bank state theta ``(B, D)`` = 0, P ``(B, D, D)`` = I / lam, step
     ``(B,)`` on the map's device. ``lam`` is a scalar or ``(B,)``
     (per-tenant regularizers)."""
-    device = rff.omega.device
+    device = as_trig(rff).omega.device
     dt = dtype or feature_dtype(rff)
     dfeat = rff.num_features
     lam_b = torch.as_tensor(lam, dtype=dt, device=device).expand(size)

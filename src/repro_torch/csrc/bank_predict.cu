@@ -6,130 +6,368 @@
 // against a read-only theta (the published snapshot). No state is written.
 //
 // What bounds it on this card: 2 d D flops and D cosines per query (34
-// GFLOP for B=1024, Q=64, d=128, D=2048) on the f32 CUDA cores, against
-// about 36 MB that must move (xq, theta, W once, the output), so the work
-// is bound by operations.
+// GFLOP for B=1024, Q=64, d=128, D=2048) against about 36 MB that must
+// move (xq, theta, W once, the output), so the work is bound by operations:
+// the f32 CUDA cores' for f32, the bf16 tensor cores' for the products of
+// the bf16 contract (and then the cosines on the CUDA cores).
 //
-// Design:
-//  * Grid (tenant, query block): one block owns one tenant's theta row,
-//    held in shared memory for the whole query loop, and walks its query
-//    block kRows queries at a time.
-//  * W does not fit shared memory; it streams from L2 with coalesced loads
-//    (each thread owns feature columns j, j + kThreads, ...), and each W
-//    element loaded serves kRows queries.
-//  * theta . z is a fixed-order tree (thread column sums, warp butterflies,
-//    warp partials in order): no atomics.
-//  * precision "bf16" reproduces the contract of kernels/ref.py: x and W
-//    are rounded to bf16 (__float2bfloat16_rn), products accumulate in f32,
-//    bias, cos and scale run in f32, z is rounded to bf16 before the f32
-//    dot with theta.
-//  * Ragged B, Q, d and D by bounds checks; cosf, never __cosf.
+// Design: the rows are the B Q (tenant, query) pairs of the row-major
+// (B Q, d) xq. The operands are packed first (zero-padded, so the main
+// loops copy 16-byte chunks with cp.async and check no bounds), then a
+// block owns 128 rows (2 tenants of 64 queries at Q = 64; a block may span
+// tenants) and walks all of D in 128-column tiles, so W crosses L2 once per
+// 128 rows (512 MiB a launch at the serving shape instead of the first
+// design's 4 GiB). Each column tile's epilogue forms z and multiplies it by
+// theta[tenant(row), j]; a row's sum is taken in a fixed order (a thread's
+// columns over all column tiles in order, then the threads that share the
+// row by shuffles, then for bf16 the two warps that share it), so a read
+// gives the same bits every time: no atomics.
+//  * f32: the register-tiled IEEE f32 tile of feature_tile.cuh (x packed
+//    transposed, 8 x 8 a thread); cosf, never __cosf; no TF32.
+//  * bf16 (the contract of kernels/ref.py: mp_project, mp_trig): x and W
+//    rounded with __float2bfloat16_rn as they are packed (x as (Rp, dp)
+//    rows, W transposed as (Dp, dp)), products on the tensor cores with
+//    mma.sync m16n8k16 (bf16 in, f32 accumulate; fragments by ldmatrix),
+//    bias, cos and scale in f32, z rounded to bf16, the dot with theta in
+//    f32. mma.sync rather than wgmma: once the products are on the tensor
+//    cores the cosines on the CUDA cores set the pace, and its per-warp
+//    accumulator layout keeps the row-wise epilogue simple.
+//  * Ragged B, Q, d and D: the packing pads them with zeros, and the
+//    epilogues skip rows past B Q and columns past D.
 //
 // Plain C interface (loaded with ctypes); each entry returns cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "feature_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;  // queries that share one pass over W
+namespace ft = feature_tile;
+
+// --- f32 -----------------------------------------------------------------
+
+__global__ void __launch_bounds__(ft::kThreads, ft::kMinBlocks)
+predict_f32_kernel(const float* __restrict__ theta,
+                   const float* __restrict__ xT, const float* __restrict__ wp,
+                   float* __restrict__ out, int R, int Q, int D, ft::Dims g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  ft::Smem& s = *reinterpret_cast<ft::Smem*>(smem_raw);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int row0 = blockIdx.x * ft::kM;
+  int toff[8];  // theta row of each of the thread's rows
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    toff[i] = min(row0 + ft::row_of(ty, i), R - 1) / Q * D;
+  float part[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) part[i] = 0.f;
+  const ft::Walk wk{xT, wp, g.Rp, g.Dp, g.dp / ft::kK, row0, 0, g.Dp / ft::kN};
+  ft::walk(s, wk, [&](int col0, int buf, float (&acc)[8][8]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cc = ft::col_of(tx, j);
+      if (col0 + cc >= D) continue;
+      const float bj = s.bs[buf][0][cc], sj = s.bs[buf][1][cc];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float z = __fmul_rn(sj, cosf(__fadd_rn(acc[i][j], bj)));
+        part[i] = __fmaf_rn(__ldg(theta + toff[i] + col0 + cc), z, part[i]);
+      }
+    }
+  });
+  // The 16 threads of a row are lanes tx of one half-warp.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v = part[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+    const int row = row0 + ft::row_of(ty, i);
+    if (tx == 0 && row < R) out[row] = v;
+  }
+}
+
+// --- bf16 on the tensor cores --------------------------------------------
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;  // block tile, k a stage
+constexpr int kStages = 3;
+constexpr int kPitch = kBK + 8;  // bf16 a shared row (80 bytes): ldmatrix
+                                 // rows fall in distinct banks
+constexpr int kThreads = 256;    // 8 warps: 4 along rows x 2 along columns
+
+struct Bf16Smem {
+  __nv_bfloat16 a[kStages][kBM][kPitch];  // x rows, k contiguous
+  __nv_bfloat16 w[kStages][kBN][kPitch];  // W columns (W^T), k contiguous
+  float bs[kStages][2][kBN];              // a column tile's bias and scale
+};  // 63 KB: dynamic shared memory
+
+// Packed bf16 extents: dp = d rounded up to kBK, Rp and Dp to 128.
+struct Bf16Dims {
+  int dp, Rp, Dp;
+};
+inline Bf16Dims bf16_dims(int R, int d, int D) {
+  return Bf16Dims{ft::round_up(d, kBK), ft::round_up(R, kBM),
+                  ft::round_up(D, kBN)};
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// xb[r][k] = bf16(x[r][k]) (zero past R or d), two columns a thread.
+__global__ void pack_x_bf16_kernel(const float* __restrict__ x, int R, int d,
+                                   uint32_t* __restrict__ xb, int dp,
+                                   int Rp) {
+  const int np = dp / 2;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < (long long)Rp * np; i += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(i / np), k = 2 * (int)(i % np);
+    const float* xr = x + (size_t)r * d;
+    const float lo = (r < R && k < d) ? __ldg(xr + k) : 0.f;
+    const float hi = (r < R && k + 1 < d) ? __ldg(xr + k + 1) : 0.f;
+    xb[i] = pack_bf16(lo, hi);
+  }
+}
+
+// wb[n][k] = bf16(W[k][n]) (zero past D or d): W transposed; and the f32
+// rows bs[0] = b, bs[1] = s (zero past D).
+__global__ void pack_w_bf16_kernel(const float* __restrict__ w,
+                                   const float* __restrict__ b,
+                                   const float* __restrict__ s, int d, int D,
+                                   uint32_t* __restrict__ wb,
+                                   float* __restrict__ bs, int dp, int Dp) {
+  const int np = dp / 2;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Dp * np;
+       i += gridDim.x * blockDim.x) {
+    const int n = i % Dp, k = 2 * (i / Dp);
+    const float lo = (n < D && k < d) ? __ldg(w + (size_t)k * D + n) : 0.f;
+    const float hi = (n < D && k + 1 < d) ? __ldg(w + (size_t)(k + 1) * D + n) : 0.f;
+    wb[(size_t)n * np + k / 2] = pack_bf16(lo, hi);
+    if (k == 0) {
+      bs[n] = n < D ? __ldg(b + n) : 0.f;
+      bs[Dp + n] = n < D ? __ldg(s + n) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(kThreads)
-bank_predict_kernel(const float* __restrict__ theta,
-                    const float* __restrict__ xq,
-                    const float* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const float* __restrict__ scale,
-                    float* __restrict__ out, int Q, int d, int D,
-                    int block_q) {
-  extern __shared__ float smem[];
-  float* theta_s = smem;             // [D]
-  float* x_s = theta_s + D;          // [kRows][d]
-  float* red = x_s + kRows * d;      // [kRows][kWarps]
-
-  const int tenant = blockIdx.x;
-  const int q_begin = blockIdx.y * block_q;
-  const int q_end = min(Q, q_begin + block_q);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int j = threadIdx.x; j < D; j += kThreads)
-    theta_s[j] = theta[(size_t)tenant * D + j];
-
-  for (int q0 = q_begin; q0 < q_end; q0 += kRows) {
-    for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-      const int r = i / d;
-      const int k = i - r * d;
-      float v = 0.f;
-      if (q0 + r < q_end) v = xq[((size_t)tenant * Q + q0 + r) * d + k];
-      x_s[i] = BF16 ? round_bf16(v) : v;
-    }
-    __syncthreads();
-
-    float part[kRows];
+// Stage `step` (column tile step / nk, k-step step % nk) into ring slot
+// step % kStages: 2 x 16-byte copies of x and 2 of W^T a thread; at a
+// tile's first k-step also its bias and scale (into bs[tile % kStages]).
+__device__ __forceinline__ void bf16_load(Bf16Smem& s,
+                                          const __nv_bfloat16* __restrict__ xb,
+                                          const __nv_bfloat16* __restrict__ wb,
+                                          const float* __restrict__ bs,
+                                          const Bf16Dims& g, int row0, int nk,
+                                          int step) {
+  const int col0 = (step / nk) * kBN;
+  const int k0 = (step % nk) * kBK;
+  const int slot = step % kStages;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) part[r] = 0.f;
-    for (int j = threadIdx.x; j < D; j += kThreads) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      for (int k = 0; k < d; ++k) {
-        float wk = __ldg(w + (size_t)k * D + j);
-        if (BF16) wk = round_bf16(wk);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r] = __fmaf_rn(x_s[r * d + k], wk, acc[r]);
-      }
-      const float bj = __ldg(bias + j);
-      const float sj = __ldg(scale + j);
-      const float th = theta_s[j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float z = __fmul_rn(sj, cosf(__fadd_rn(acc[r], bj)));
-        if (BF16) z = round_bf16(z);
-        part[r] = __fmaf_rn(th, z, part[r]);
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float v = part[r];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) red[r * kWarps + warp] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < kRows && q0 + threadIdx.x < q_end) {
-      float acc = 0.f;
-      for (int k = 0; k < kWarps; ++k)
-        acc = __fadd_rn(acc, red[threadIdx.x * kWarps + k]);
-      out[(size_t)tenant * Q + q0 + threadIdx.x] = acc;
-    }
-    __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int c = threadIdx.x + kThreads * h;  // chunk of 8 bf16
+    const int r = c / 4, k = (c % 4) * 8;
+    ft::cp_async16(&s.a[slot][r][k], xb + (size_t)(row0 + r) * g.dp + k0 + k);
+    ft::cp_async16(&s.w[slot][r][k], wb + (size_t)(col0 + r) * g.dp + k0 + k);
+  }
+  if (k0 != 0) return;
+  const int buf = (step / nk) % kStages;
+  if (threadIdx.x < 64) {
+    const int row = threadIdx.x / 32, off = (threadIdx.x % 32) * 4;
+    ft::cp_async16(&s.bs[buf][row][off], bs + (size_t)row * g.Dp + col0 + off);
   }
 }
 
-template <bool BF16>
-int launch(const float* theta, const float* xq, const float* w,
-           const float* b, const float* s, float* out, int B, int Q, int d,
-           int D, int block_q, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)D + (size_t)kRows * d + kRows * kWarps);
-  cudaError_t rc = cudaFuncSetAttribute(
-      bank_predict_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Warp (wm, wn) owns rows 32 wm + 16 mi + {g, g + 8} and columns 64 wn +
+// 8 ni + 2 t + {0, 1} of the block tile (mi < 2, ni < 8; g = lane / 4,
+// t = lane % 4): acc[mi][ni][2 h + c] is (row 16 mi + g + 8 h, column
+// 8 ni + 2 t + c), the m16n8 accumulator layout.
+__global__ void __launch_bounds__(kThreads, 2)
+predict_bf16_kernel(const float* __restrict__ theta,
+                    const __nv_bfloat16* __restrict__ xb,
+                    const __nv_bfloat16* __restrict__ wb,
+                    const float* __restrict__ bs, float* __restrict__ out,
+                    int R, int Q, int D, Bf16Dims g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Bf16Smem& s = *reinterpret_cast<Bf16Smem*>(smem_raw);
+  __shared__ float red[2][kBM];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int gq = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * kBM;
+  int toff[2][2];  // theta row of each of the thread's rows
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      toff[mi][h] = min(row0 + 32 * wm + 16 * mi + gq + 8 * h, R - 1) / Q * D;
+  float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  const int nk = g.dp / kBK;
+  const int steps = (g.Dp / kBN) * nk;
+  // ldmatrix row addresses: A lanes 0-15 rows 0-15 at k 0, 16-31 at k 8;
+  // B lanes 0-7 / 16-23 columns 0-7 / 8-15 at k 0, 8-15 / 24-31 at k 8.
+  const int a_row = 32 * wm + (lane % 16), a_k = (lane / 16) * 8;
+  const int b_col = 64 * wn + (lane % 8) + (lane / 16) * 8;
+  const int b_k = ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < steps) bf16_load(s, xb, wb, bs, g, row0, nk, p);
+    ft::cp_commit();
+  }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  for (int step = 0; step < steps; ++step) {
+    ft::cp_wait<kStages - 2>();
+    __syncthreads();
+    if (step + kStages - 1 < steps)
+      bf16_load(s, xb, wb, bs, g, row0, nk, step + kStages - 1);
+    ft::cp_commit();
+    const int slot = step % kStages;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(a[mi], &s.a[slot][a_row + 16 * mi][kk + a_k]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, &s.w[slot][b_col + 16 * np][kk + b_k]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * np], a[mi], b[0], b[1]);
+          mma_bf16(acc[mi][2 * np + 1], a[mi], b[2], b[3]);
+        }
+      }
+    }
+    if (step % nk != nk - 1) continue;
+    // Epilogue of a column tile: f32 bias, cos and scale, z rounded to
+    // bf16, f32 dot with theta.
+    const int col0 = (step / nk) * kBN;
+    const int buf = (step / nk) % kStages;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int cc = 64 * wn + 8 * ni + 2 * t + c;  // column in the tile
+        if (col0 + cc >= D) continue;
+        const float bj = s.bs[buf][0][cc], sj = s.bs[buf][1][cc];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float z = round_bf16(
+                __fmul_rn(sj, cosf(__fadd_rn(acc[mi][ni][2 * h + c], bj))));
+            part[mi][h] = __fmaf_rn(__ldg(theta + toff[mi][h] + col0 + cc), z,
+                                    part[mi][h]);
+          }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  }
+  ft::cp_wait<0>();
+  // The four lanes t of a row, then the two warps wn that share it.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = part[mi][h];
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (t == 0) red[wn][32 * wm + 16 * mi + gq + 8 * h] = v;
+    }
+  __syncthreads();
+  if (threadIdx.x < kBM && row0 + threadIdx.x < R)
+    out[row0 + threadIdx.x] =
+        __fadd_rn(red[0][threadIdx.x], red[1][threadIdx.x]);
+}
+
+// Bytes of the packed operands one read needs (kernels/chunking.py's
+// predict_workspace_bytes): f32 Wp (with b and s) then xT; bf16 b and s
+// (f32), W^T, then x.
+size_t workspace_bytes(int R, int d, int D, int bf16) {
+  if (bf16) {
+    const Bf16Dims g = bf16_dims(R, d, D);
+    return 8 * (size_t)g.Dp + 2 * (size_t)g.dp * ((size_t)g.Dp + g.Rp);
+  }
+  return 4 * ft::pack_floats(R, d, D);
+}
+
+int launch_f32(const float* theta, const float* xq, const float* w,
+               const float* b, const float* s, float* out, void* ws, int R,
+               int Q, int d, int D, cudaStream_t st) {
+  const ft::Dims g = ft::tile_dims(R, d, D);
+  float* wp = static_cast<float*>(ws);  // W, b and s: (dp + 2, Dp)
+  float* xT = wp + (size_t)(g.dp + 2) * g.Dp;
+  cudaError_t rc = ft::pack_w(w, b, s, d, D, wp, st);
+  if (rc == cudaSuccess) rc = ft::pack_x(ft::Rows{xq, R, 0, d}, R, D, xT, st);
   if (rc != cudaSuccess) return rc;
-  const dim3 grid(B, (Q + block_q - 1) / block_q);
-  bank_predict_kernel<BF16><<<grid, kThreads, smem, stream>>>(
-      theta, xq, w, b, s, out, Q, d, D, block_q);
+  const int smem = (int)ft::smem_bytes();
+  rc = cudaFuncSetAttribute(predict_f32_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  predict_f32_kernel<<<g.Rp / ft::kM, ft::kThreads, smem, st>>>(
+      theta, xT, wp, out, R, Q, D, g);
+  return cudaGetLastError();
+}
+
+int launch_bf16(const float* theta, const float* xq, const float* w,
+                const float* b, const float* s, float* out, void* ws, int R,
+                int Q, int d, int D, cudaStream_t st) {
+  const Bf16Dims g = bf16_dims(R, d, D);
+  float* bs = static_cast<float*>(ws);  // b and s: (2, Dp) f32
+  uint32_t* wb = reinterpret_cast<uint32_t*>(bs + 2 * (size_t)g.Dp);
+  uint32_t* xb = wb + (size_t)g.Dp * g.dp / 2;
+  const long long nx = (long long)g.Rp * g.dp / 2;
+  pack_x_bf16_kernel<<<(int)((nx + 255) / 256 < 4096 ? (nx + 255) / 256 : 4096),
+                       256, 0, st>>>(xq, R, d, xb, g.dp, g.Rp);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  const int nw = g.Dp * g.dp / 2;
+  pack_w_bf16_kernel<<<(nw + 255) / 256 < 1024 ? (nw + 255) / 256 : 1024,
+                       256, 0, st>>>(w, b, s, d, D, wb, bs, g.dp, g.Dp);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  const int smem = (int)sizeof(Bf16Smem);
+  rc = cudaFuncSetAttribute(predict_bf16_kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  predict_bf16_kernel<<<g.Rp / kBM, kThreads, smem, st>>>(
+      theta, reinterpret_cast<const __nv_bfloat16*>(xb),
+      reinterpret_cast<const __nv_bfloat16*>(wb), bs, out, R, Q, D, g);
   return cudaGetLastError();
 }
 
@@ -137,13 +375,22 @@ int launch(const float* theta, const float* xq, const float* w,
 
 extern "C" {
 
+// theta (B, D), xq (B, Q, d), w (d, D), b / s (D,) -> out (B, Q); ws a
+// workspace of ws_bytes for the packed operands.
 int bank_predict(const float* theta, const float* xq, const float* w,
-                 const float* b, const float* s, float* out, int B, int Q,
-                 int d, int D, int block_q, int bf16, void* stream) {
-  if (block_q < 1) return cudaErrorInvalidValue;
+                 const float* b, const float* s, float* out, void* ws,
+                 long long ws_bytes, int B, int Q, int d, int D, int bf16,
+                 void* stream) {
+  if (B < 1 || Q < 1 || d < 1 || D < 1) return cudaErrorInvalidValue;
+  const long long rows = (long long)B * Q;
+  if (rows > 0x7fffffffLL - 128 || (long long)B * D > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int R = (int)rows;
+  if ((size_t)ws_bytes < workspace_bytes(R, d, D, bf16))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<true>(theta, xq, w, b, s, out, B, Q, d, D, block_q, st);
-  return launch<false>(theta, xq, w, b, s, out, B, Q, d, D, block_q, st);
+  if (bf16) return launch_bf16(theta, xq, w, b, s, out, ws, R, Q, d, D, st);
+  return launch_f32(theta, xq, w, b, s, out, ws, R, Q, d, D, st);
 }
 
 const char* bank_predict_error_string(int code) {

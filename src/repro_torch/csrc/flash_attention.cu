@@ -2,9 +2,11 @@
 // on the CUDA cores of Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas for
-// f32 inputs: q, k, v (BH, S, dh) f32; q scaled by dh^-1/2; causal or
-// not; masked scores -1e30; the running max m, the running denominator l
-// and the output accumulator in f32; the output divided by max(l, 1e-30).
+// f32 inputs: q, k (BH, S, dh), v (BH, S, dv) f32, dh and dv up to 256
+// and independent (deepseek-v2-lite's MLA heads are (192, 128),
+// minicpm3's (96, 64)); q scaled by dh^-1/2; causal or not; masked
+// scores -1e30; the running max m, the running denominator l and the
+// output accumulator in f32; the output divided by max(l, 1e-30).
 // bf16 inputs go to the tensor-core kernel (csrc/flash_attention_sm90.cu);
 // f32 stays here because f32 means IEEE f32 in this port, never TF32.
 //
@@ -17,9 +19,11 @@
 // (the TPU computed them, and they added exactly 0). The grid starts with
 // the last query tiles, which have the most key tiles. The scaled Q tile,
 // the transposed K tile, the V tile and the probabilities live in shared
-// memory; each thread owns a
+// memory (4 (64 dh + 65 dh + 64 dv + 64 * 65) bytes: 214,272 at dh = dv =
+// 256, inside the 232,448 a block may use; chunking.SMEM_BUDGET, checked
+// by kernels/flash_attention.py's flash_plan); each thread owns a
 // 4 x 4 block of scores (rows ty + 16 i, keys tx + 16 j) and a 4 x NJ
-// block of the output accumulator (columns tx + 16 j, dh <= 16 NJ). A
+// block of the output accumulator (columns tx + 16 j, dv <= 16 NJ). A
 // row's max and sum go across the 16 lanes that share it with a fixed xor
 // tree. Keys past S are masked like the causal ones; key 0 is never
 // masked, so a row always has a finite max. expf, never __expf.
@@ -35,22 +39,25 @@ constexpr int kTile = 64;  // query rows and keys per tile
 constexpr int kPad = 65;   // padded row of the transposed K tile and of P
 constexpr float kNegInf = -1e30f;
 
-inline size_t flash_smem_bytes(int dh) {
-  const size_t floats = 2 * (size_t)kTile * dh + (size_t)dh * kPad +
+inline size_t flash_smem_bytes(int dh, int dv) {
+  const size_t floats = (size_t)kTile * (dh + dv) + (size_t)dh * kPad +
                         (size_t)kTile * kPad;
   return 4 * floats;
 }
 
-template <int NJ, bool CAUSAL>
+// SAME: dv == dh, as at every head of the dense configs; K and V then
+// share one load loop and its index divisions.
+template <int NJ, bool CAUSAL, bool SAME>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int S,
-             int dh, float scale) {
+             int dh, int dv_, float scale) {
+  const int dv = SAME ? dh : dv_;
   extern __shared__ float smem[];
   float* Qs = smem;                    // (kTile, dh), scaled
   float* KT = Qs + kTile * dh;         // (dh, kPad)
-  float* Vs = KT + dh * kPad;          // (kTile, dh)
-  float* P = Vs + kTile * dh;          // (kTile, kPad)
+  float* Vs = KT + dh * kPad;          // (kTile, dv)
+  float* P = Vs + kTile * dv;          // (kTile, kPad)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -59,6 +66,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qi = nq - 1 - (int)blockIdx.x;
   const int q0 = qi * kTile;
   const size_t base = (size_t)blockIdx.y * S * dh;
+  const size_t vbase = (size_t)blockIdx.y * S * dv;
 
   for (int e = tid; e < kTile * dh; e += kThreads) {
     const int r = e / dh;
@@ -85,13 +93,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int s = e / dh;
       const int d = e % dh;
       const int gs = k0 + s;
-      float kv = 0.f, vv = 0.f;
-      if (gs < S) {
-        kv = k[base + (size_t)gs * dh + d];
-        vv = v[base + (size_t)gs * dh + d];
+      KT[d * kPad + s] = gs < S ? k[base + (size_t)gs * dh + d] : 0.f;
+      if (SAME) Vs[e] = gs < S ? v[vbase + (size_t)gs * dv + d] : 0.f;
+    }
+    if (!SAME) {
+      for (int e = tid; e < kTile * dv; e += kThreads) {
+        const int gs = k0 + e / dv;
+        Vs[e] = gs < S ? v[vbase + (size_t)gs * dv + e % dv] : 0.f;
       }
-      KT[d * kPad + s] = kv;
-      Vs[e] = vv;
     }
     __syncthreads();
 
@@ -151,7 +160,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = tx + 16 * j;
-        vb[j] = c < dh ? Vs[s * dh + c] : 0.f;
+        vb[j] = c < dv ? Vs[s * dv + c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -168,49 +177,57 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c >= dh) continue;
-      out[base + (size_t)gr * dh + c] = __fdiv_rn(acc[i][j], denom);
+      if (c >= dv) continue;
+      out[vbase + (size_t)gr * dv + c] = __fdiv_rn(acc[i][j], denom);
     }
   }
 }
 
-template <int NJ, bool CAUSAL>
+template <int NJ, bool CAUSAL, bool SAME>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
-                   int BH, int S, int dh, float scale, cudaStream_t st) {
-  const size_t smem = flash_smem_bytes(dh);
-  auto kernel = flash_kernel<NJ, CAUSAL>;
+                   int BH, int S, int dh, int dv, float scale,
+                   cudaStream_t st) {
+  const size_t smem = flash_smem_bytes(dh, dv);
+  auto kernel = flash_kernel<NJ, CAUSAL, SAME>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kTile - 1) / kTile, BH);
-  kernel<<<grid, kThreads, smem, st>>>(q, k, v, out, S, dh, scale);
+  kernel<<<grid, kThreads, smem, st>>>(q, k, v, out, S, dh, dv, scale);
   return cudaGetLastError();
 }
 
 template <int NJ>
 cudaError_t dispatch(const float* q, const float* k, const float* v,
-                     float* out, int BH, int S, int dh, int causal,
+                     float* out, int BH, int S, int dh, int dv, int causal,
                      float scale, cudaStream_t st) {
-  if (causal) return launch<NJ, true>(q, k, v, out, BH, S, dh, scale, st);
-  return launch<NJ, false>(q, k, v, out, BH, S, dh, scale, st);
+  if (dv == dh) {
+    if (causal) return launch<NJ, true, true>(q, k, v, out, BH, S, dh, dv, scale, st);
+    return launch<NJ, false, true>(q, k, v, out, BH, S, dh, dv, scale, st);
+  }
+  if (causal) return launch<NJ, true, false>(q, k, v, out, BH, S, dh, dv, scale, st);
+  return launch<NJ, false, false>(q, k, v, out, BH, S, dh, dv, scale, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out (BH, S, dh) f32; dh <= 128; scale is dh^-1/2 as f32.
+// q, k (BH, S, dh), v, out (BH, S, dv) f32; dh, dv <= 256; scale is
+// dh^-1/2 as f32.
 int flash_attention(const float* q, const float* k, const float* v,
-                    float* out, int BH, int S, int dh, int causal,
+                    float* out, int BH, int S, int dh, int dv, int causal,
                     float scale, void* stream) {
-  if (BH < 0 || S < 0 || dh < 1 || dh > 128) return cudaErrorInvalidValue;
+  if (BH < 0 || S < 0 || dh < 1 || dh > 256 || dv < 1 || dv > 256)
+    return cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return cudaSuccess;
   if (BH > 65535) return cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh <= 16) return dispatch<1>(q, k, v, out, BH, S, dh, causal, scale, st);
-  if (dh <= 32) return dispatch<2>(q, k, v, out, BH, S, dh, causal, scale, st);
-  if (dh <= 64) return dispatch<4>(q, k, v, out, BH, S, dh, causal, scale, st);
-  return dispatch<8>(q, k, v, out, BH, S, dh, causal, scale, st);
+  if (dv <= 16) return dispatch<1>(q, k, v, out, BH, S, dh, dv, causal, scale, st);
+  if (dv <= 32) return dispatch<2>(q, k, v, out, BH, S, dh, dv, causal, scale, st);
+  if (dv <= 64) return dispatch<4>(q, k, v, out, BH, S, dh, dv, causal, scale, st);
+  if (dv <= 128) return dispatch<8>(q, k, v, out, BH, S, dh, dv, causal, scale, st);
+  return dispatch<16>(q, k, v, out, BH, S, dh, dv, causal, scale, st);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -2,8 +2,10 @@
 // wgmma products, TMA loads, a producer warp and two consumer warpgroups.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas for
-// bf16 inputs: q, k, v (BH, S, dh) bf16; causal or not; masked scores
-// -1e30; the running max m, the running denominator l and the output
+// bf16 inputs: q, k (BH, S, dh), v (BH, S, dv) bf16, dh and dv up to 256
+// and independent (deepseek-v2-lite's MLA heads (192, 128), minicpm3's
+// (96, 64), recurrentgemma's 256); causal or not; masked scores -1e30;
+// the running max m, the running denominator l and the output
 // accumulator in f32; the output divided by max(l, 1e-30) and stored in
 // bf16. f32 inputs keep the CUDA-core kernel (csrc/flash_attention.cu):
 // f32 means IEEE f32 in this port, never TF32.
@@ -18,17 +20,29 @@
 //    warpgroups own 64 query rows each, and one producer warp issues the
 //    TMA loads. The grid starts with the last query tiles, which have the
 //    most key tiles. Key tiles wholly above the diagonal are skipped.
-//  * TMA loads the Q tile once, then K and V tiles of 128 keys into a
+//  * TMA loads the Q tile once, then K and V tiles of BN keys into a
 //    two-stage ring in shared memory; mbarriers say when a stage has
 //    arrived (full, one arrival plus the bytes) and when both warpgroups
 //    are done with it (empty, one arrival a consumer thread). The tensor
-//    maps are 3-D over (BH, S, dh) with 128-byte swizzle and boxes of 64
-//    columns (one swizzle atom; two atoms at dh > 64), so TMA's zero fill
-//    covers both the S tail of a head and the columns past dh: every dh
-//    <= 128 that is a multiple of 8 (TMA's 16-byte row stride) runs the
-//    same code, padded to 64 or 128 columns.
-//  * S = Q K^T: wgmma m64n128k16, both operands K-major from shared
-//    memory, f32 accumulator in registers (64 a thread).
+//    maps are 3-D over (BH, S, width) with 128-byte swizzle and boxes of 64
+//    columns (one swizzle atom), so TMA's zero fill covers both the S tail
+//    of a head and the columns past dh or dv: every width that is a
+//    multiple of 8 (TMA's 16-byte row stride) runs the same code, q and k
+//    padded to HD = 64, 128, 192 or 256 columns.
+//  * Shared memory (Layout, at most 232,448 bytes a block; kernels/
+//    flash_attention.py's flash_plan checks chunking.SMEM_BUDGET): Q is
+//    256 HD bytes and each stage BN (2 HD + 2 DV) bytes. BN = 128 keys up
+//    to HD = 192 (214,056 bytes at HD = 192, DV = 128); at HD = 256 a
+//    128-key ring would take 64 KiB of Q and 128 KiB of K before V, so
+//    BN = 64 there (164,904 bytes).
+//  * O is (64 rows, DV) f32 a warpgroup, DV = 64 or 128 (DV / 2 registers
+//    a thread, 168 registers in all at HD = DV = 128). A dv above 128 does
+//    not fit beside the scores, so the wrapper runs the kernel once for
+//    each 128 columns of V (v_col0, v_cols), each pass recomputing Q K^T
+//    and the softmax: at dv = 256 the score work doubles. Each pass is a
+//    launch and counts as one.
+//  * S = Q K^T: wgmma m64nBNk16, both operands K-major from shared
+//    memory, f32 accumulator in registers (BN / 2 a thread).
 //  * Softmax in f32 registers: the scores are scaled by dh^-1/2 after the
 //    product, not q before it as the reference does; at dh = 64 the scale
 //    is 1/8 and the two agree exactly, elsewhere they differ in the last
@@ -42,7 +56,8 @@
 //    through shared memory), V as an MN-major B operand from shared
 //    memory. O stays in f32 registers, rescaled on every tile. l sums the
 //    f32 probabilities; P in bf16 is what SDPA's flash kernels use too.
-//  * Each thread stores its own rows and column pairs of the bf16 output.
+//  * Each thread stores its own rows and column pairs of the pass's
+//    columns of the bf16 output.
 //
 // Plain C interface (loaded with ctypes); each entry returns cudaError_t,
 // or minus the CUresult of a tensor map that could not be encoded.
@@ -55,26 +70,30 @@
 namespace {
 
 constexpr int kBlockM = 128;  // query rows a block: two warpgroups of 64
-constexpr int kBlockN = 128;  // keys a tile
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;  // plus the producer warp
 constexpr int kAtomCols = 64;              // bf16 columns of a 128-byte row
-constexpr int kAtomBytes = kBlockN * 128;  // 128 rows of one atom: 16 KB
+constexpr int kVPass = 128;                // V columns a launch
 constexpr float kNegInf = -1e30f;
 
 // Shared memory of one block, from a 1024-byte aligned base (the swizzle
-// atoms must start on 1024 bytes): the Q tile, kStages K and V tiles, then
-// the mbarriers (q, full[kStages], empty[kStages]).
-template <int HD>
+// atoms must start on 1024 bytes): the Q tile, kStages K and V tiles of BN
+// keys, then the mbarriers (q, full[kStages], empty[kStages]). An atom is
+// 64 columns of all the tile's rows, 128 bytes a row.
+template <int HD, int BN, int DV>
 struct Layout {
-  static constexpr int kAtoms = HD / kAtomCols;
-  static constexpr int kTile = kAtoms * kAtomBytes;  // 128 rows x HD
+  static constexpr int kQAtom = kBlockM * 128;
+  static constexpr int kKAtom = BN * 128;
+  static constexpr int kQTile = (HD / kAtomCols) * kQAtom;
+  static constexpr int kKTile = (HD / kAtomCols) * kKAtom;
+  static constexpr int kVTile = (DV / kAtomCols) * kKAtom;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;
+  static constexpr int kK = kQ + kQTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBar = kV + kStages * kVTile;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory on sm_90");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -195,6 +214,40 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16) B (16 x 64); A and B bf16 in shared
+// memory, both K-major, 128-byte swizzle.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (BN == 64)
+    wgmma_ss_n64(d, da, db, accumulate);
+  else
+    wgmma_ss_n128(d, da, db, accumulate);
+}
+
 // D (64 x 64, f32) += A (64 x 16) B (16 x 64); A bf16 in registers (four
 // packed pairs a thread), B bf16 in shared memory, MN-major, 128-byte swizzle.
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
@@ -259,24 +312,24 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_rs(float (&d)[HD / 2], uint32_t a0,
+template <int DV>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t db) {
-  if constexpr (HD == 64)
+  if constexpr (DV == 64)
     wgmma_rs_n64(d, a0, a1, a2, a3, db);
   else
     wgmma_rs_n128(d, a0, a1, a2, a3, db);
 }
 
-template <int HD, bool CAUSAL>
+template <int HD, int BN, int DV, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  __nv_bfloat16* __restrict__ out, int S, int dh,
-                  float scale) {
-  using L = Layout<HD>;
+                  __nv_bfloat16* __restrict__ out, int S, int v_width,
+                  int v_col0, int v_cols, float scale) {
+  using L = Layout<HD, BN, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBar;
@@ -286,7 +339,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int nq = (S + kBlockM - 1) / kBlockM;
   const int qi = nq - 1 - (int)blockIdx.x;
   const int head = blockIdx.y;
-  const int nk = CAUSAL ? qi + 1 : (S + kBlockN - 1) / kBlockN;
+  const int nk = CAUSAL ? (min(S, (qi + 1) * kBlockM) + BN - 1) / BN
+                        : (S + BN - 1) / BN;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
@@ -302,22 +356,22 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (warp == kConsumers / 32) {  // the producer warp: one lane issues
     if (lane == 0) {
-      mbar_expect_tx(q_full, L::kTile);
-      for (int a = 0; a < L::kAtoms; ++a)
-        tma_load(base + L::kQ + a * kAtomBytes, &tq, q_full, a * kAtomCols,
+      mbar_expect_tx(q_full, L::kQTile);
+      for (int a = 0; a < HD / kAtomCols; ++a)
+        tma_load(base + L::kQ + a * L::kQAtom, &tq, q_full, a * kAtomCols,
                  qi * kBlockM, head);
       for (int kt = 0; kt < nk; ++kt) {
         const int s = kt % kStages;
         // The stage's previous tile must be released by both warpgroups.
         if (kt >= kStages) mbar_wait(empty0 + 8 * s, ((kt / kStages) - 1) & 1);
         const uint32_t full = full0 + 8 * s;
-        mbar_expect_tx(full, 2 * L::kTile);
-        for (int a = 0; a < L::kAtoms; ++a) {
-          tma_load(base + L::kK + s * L::kTile + a * kAtomBytes, &tk, full,
-                   a * kAtomCols, kt * kBlockN, head);
-          tma_load(base + L::kV + s * L::kTile + a * kAtomBytes, &tv, full,
-                   a * kAtomCols, kt * kBlockN, head);
-        }
+        mbar_expect_tx(full, L::kKTile + L::kVTile);
+        for (int a = 0; a < HD / kAtomCols; ++a)
+          tma_load(base + L::kK + s * L::kKTile + a * L::kKAtom, &tk, full,
+                   a * kAtomCols, kt * BN, head);
+        for (int a = 0; a < DV / kAtomCols; ++a)
+          tma_load(base + L::kV + s * L::kVTile + a * L::kKAtom, &tv, full,
+                   v_col0 + a * kAtomCols, kt * BN, head);
       }
     }
     return;
@@ -331,9 +385,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp / 4;
   const int g = lane / 4, t = lane % 4;
   const int row0 = qi * kBlockM + wg * 64 + (warp % 4) * 16 + g;
-  float o[HD / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const uint32_t qa = base + L::kQ + wg * 64 * 128;  // row 64 wg of each atom
 
@@ -341,32 +395,34 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kStages;
     mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
-    const uint32_t kb = base + L::kK + s * L::kTile;
-    const uint32_t vb = base + L::kV + s * L::kTile;
+    const uint32_t kb = base + L::kK + s * L::kKTile;
+    const uint32_t vb = base + L::kV + s * L::kVTile;
 
     // S = Q K^T over HD / 16 steps of 16 columns: a step moves 32 bytes
     // along the swizzled 128-byte rows, 4 steps an atom.
-    float sc[64];
+    float sc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
     pin(sc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kAtomBytes + (kk % 4) * 32;
-      wgmma_ss_n128(sc, smem_desc(qa + off, 16, 1024),
-                    smem_desc(kb + off, 16, 1024), kk > 0);
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss<BN>(sc, smem_desc(qa + (kk / 4) * L::kQAtom + col, 16, 1024),
+                   smem_desc(kb + (kk / 4) * L::kKAtom + col, 16, 1024),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
     pin(sc);
 
-    // Online softmax over this tile, in f32.
-    const int k0 = kt * kBlockN;
-    const bool edge = kt == nk - 1;
+    // Online softmax over this tile, in f32. Masks apply only to a tile
+    // that reaches past S or, causal, past the block's first row.
+    const int k0 = kt * BN;
+    const bool edge = k0 + BN > S || (CAUSAL && k0 + BN > qi * kBlockM);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = __fmul_rn(sc[4 * j + e], scale);
@@ -389,7 +445,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       m[r] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(__fsub_rn(sc[4 * j + e], m[e >> 1]));
@@ -404,38 +460,41 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] = __fmaf_rn(l[r], corr[r], rs[r]);
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = __fmul_rn(o[i], corr[(i >> 1) & 1]);
+    for (int i = 0; i < DV / 2; ++i) o[i] = __fmul_rn(o[i], corr[(i >> 1) & 1]);
 
-    // O += P V: P's accumulator pairs are the A fragments of the 8 steps of
-    // 16 keys; V's step moves 16 rows (2048 bytes); its atoms are LBO apart.
-    uint32_t pa[32];
+    // O += P V: P's accumulator pairs are the A fragments of the BN / 16
+    // steps of 16 keys; V's step moves 16 rows (2048 bytes); its atoms are
+    // LBO = BN rows of 128 bytes apart.
+    uint32_t pa[BN / 4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    for (int i = 0; i < BN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
     pin(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk)
-      wgmma_rs<HD>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                   pa[4 * kk + 3], smem_desc(vb + kk * 2048, kAtomBytes, 1024));
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<DV>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                   pa[4 * kk + 3], smem_desc(vb + kk * 2048, L::kKAtom, 1024));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
     mbar_arrive(empty0 + 8 * s);  // this thread is done with the stage
   }
 
-  const size_t hbase = (size_t)head * S * dh;
+  // This pass's columns v_col0 .. v_col0 + v_cols - 1 of out (BH, S,
+  // v_width).
+  const size_t hbase = (size_t)head * S * v_width + v_col0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      if (col >= dh) continue;  // dh is a multiple of 8: col + 1 < dh too
+      if (col >= v_cols) continue;  // v_cols is a multiple of 8
       const uint32_t v = pack_bf16(__fdiv_rn(o[4 * j + 2 * r], denom),
                                    __fdiv_rn(o[4 * j + 2 * r + 1], denom));
-      *reinterpret_cast<uint32_t*>(out + hbase + (size_t)row * dh + col) = v;
+      *reinterpret_cast<uint32_t*>(out + hbase + (size_t)row * v_width + col) = v;
     }
   }
 }
@@ -467,14 +526,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The 3-D map of a (BH, S, dh) bf16 tensor: boxes of 64 columns x 128
-// rows x 1 head, 128-byte swizzle, zero fill out of bounds.
-CUresult make_map(CUtensorMap* map, const void* ptr, int BH, int S, int dh) {
+// The 3-D map of a (BH, S, width) bf16 tensor: boxes of 64 columns x
+// `rows` rows x 1 head, 128-byte swizzle, zero fill out of bounds.
+CUresult make_map(CUtensorMap* map, const void* ptr, int BH, int S,
+                  int width, int rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)S * dh * 2};
-  const cuuint32_t box[3] = {kAtomCols, kBlockN, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * 2,
+                                 (cuuint64_t)S * width * 2};
+  const cuuint32_t box[3] = {kAtomCols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -482,44 +543,71 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int BH, int S, int dh) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD, bool CAUSAL>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, void* out, int BH, int S, int dh,
-                   float scale, cudaStream_t st) {
-  constexpr int smem = Layout<HD>::kBytes;
-  auto kernel = flash_sm90_kernel<HD, CAUSAL>;
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  int BH, S, dh, dv, v_col0, v_cols;
+  float scale;
+  cudaStream_t st;
+};
+
+template <int HD, int BN, int DV, bool CAUSAL>
+int launch(const Args& a) {
+  CUtensorMap tq, tk, tv;
+  CUresult rc = make_map(&tq, a.q, a.BH, a.S, a.dh, kBlockM);
+  if (rc == CUDA_SUCCESS) rc = make_map(&tk, a.k, a.BH, a.S, a.dh, BN);
+  if (rc == CUDA_SUCCESS) rc = make_map(&tv, a.v, a.BH, a.S, a.dv, BN);
+  if (rc != CUDA_SUCCESS) return -(int)rc;
+  constexpr int smem = Layout<HD, BN, DV>::kBytes;
+  auto kernel = flash_sm90_kernel<HD, BN, DV, CAUSAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, BH);
-  kernel<<<grid, kThreads, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, dh, scale);
+  const dim3 grid((a.S + kBlockM - 1) / kBlockM, a.BH);
+  kernel<<<grid, kThreads, smem, a.st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.S, a.dv, a.v_col0,
+      a.v_cols, a.scale);
   return cudaGetLastError();
+}
+
+// BN = 128 keys a tile up to HD = 192, 64 at HD = 256 (shared memory).
+template <int HD, int DV>
+int by_causal(const Args& a, int causal) {
+  constexpr int BN = HD <= 192 ? 128 : 64;
+  return causal ? launch<HD, BN, DV, true>(a) : launch<HD, BN, DV, false>(a);
+}
+
+template <int HD>
+int by_dv(const Args& a, int causal) {
+  return a.v_cols <= 64 ? by_causal<HD, 64>(a, causal)
+                        : by_causal<HD, 128>(a, causal);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out (BH, S, dh) bf16, contiguous, 16-byte aligned; dh a
-// multiple of 8 in [8, 128]; scale the f32 dh^-1/2 of the unpadded head.
+// q, k (BH, S, dh), v and out (BH, S, dv) bf16, contiguous, 16-byte
+// aligned; dh and dv multiples of 8 in [8, 256]. One pass over V's columns
+// v_col0 .. v_col0 + v_cols - 1 (v_col0 a multiple of 128, v_cols a
+// multiple of 8 up to 128) writes those columns of out; scale is the f32
+// dh^-1/2 of the unpadded head.
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int BH, int S, int dh, int causal,
-                         float scale, void* stream) {
-  if (BH < 0 || S < 0 || dh < 8 || dh > 128 || dh % 8) return cudaErrorInvalidValue;
+                         void* out, int BH, int S, int dh, int dv,
+                         int v_col0, int v_cols, int causal, float scale,
+                         void* stream) {
+  if (BH < 0 || S < 0 || dh < 8 || dh > 256 || dh % 8 || dv < 8 ||
+      dv > 256 || dv % 8 || v_col0 < 0 || v_col0 % kVPass || v_cols < 8 ||
+      v_cols > kVPass || v_cols % 8 || v_col0 + v_cols > dv)
+    return cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return cudaSuccess;
   if (BH > 65535) return cudaErrorInvalidConfiguration;
-  CUtensorMap tq, tk, tv;
-  CUresult rc = make_map(&tq, q, BH, S, dh);
-  if (rc == CUDA_SUCCESS) rc = make_map(&tk, k, BH, S, dh);
-  if (rc == CUDA_SUCCESS) rc = make_map(&tv, v, BH, S, dh);
-  if (rc != CUDA_SUCCESS) return -(int)rc;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh <= 64)
-    return causal ? launch<64, true>(tq, tk, tv, out, BH, S, dh, scale, st)
-                  : launch<64, false>(tq, tk, tv, out, BH, S, dh, scale, st);
-  return causal ? launch<128, true>(tq, tk, tv, out, BH, S, dh, scale, st)
-                : launch<128, false>(tq, tk, tv, out, BH, S, dh, scale, st);
+  const Args a{q, k, v, out, BH, S, dh, dv, v_col0, v_cols, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (dh <= 64) return by_dv<64>(a, causal);
+  if (dh <= 128) return by_dv<128>(a, causal);
+  if (dh <= 192) return by_dv<192>(a, causal);
+  return by_dv<256>(a, causal);
 }
 
 const char* flash_attention_bf16_error_string(int code) {

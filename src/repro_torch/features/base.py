@@ -1,17 +1,19 @@
-"""The affine-trig feature contract the kernels consume.
+"""The feature-map contract and the affine-trig form the kernels consume.
 
 Counterpart of ``repro/features/base.py``. Every trig family reduces to
 
     z(x) = scale * cos(x @ omega + bias),   scale per feature (D,),
 
-held as :class:`TrigFeatures`. This slice ports the Monte-Carlo families
-(``features/random.py``); their maps are plain :class:`TrigFeatures`. The
-generic ``FeatureMap`` wrapper arrives with the deterministic and
-non-trig families (ROADMAP §1 item 2).
+held as :class:`TrigFeatures`. A :class:`FeatureMap` wraps a family's
+params with its pure ``featurize`` and ``weights`` functions, as
+``repro``'s does; the Monte-Carlo families (``features/random.py``) return
+one. The family registry and the qmc, gq and taylor families arrive later
+(ROADMAP §1 item 2).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -20,7 +22,11 @@ from repro_torch.kernels.ref import default_scale
 
 __all__ = [
     "TrigFeatures",
+    "FeatureMap",
     "FeatureLike",
+    "trig_weights",
+    "trig_map",
+    "feature_weights",
     "uniform_trig_scale",
     "trig_from_rff",
     "trig_features",
@@ -65,7 +71,69 @@ class TrigFeatures(NamedTuple):
         )
 
 
-FeatureLike = Union[TrigFeatures, RFF]
+def trig_weights(params: TrigFeatures) -> torch.Tensor:
+    """Per-feature quadrature weights of a trig map: ``scale**2``.
+
+    Module-level (not a closure), as in ``repro``: maps built the same way
+    then carry the same ``weights_fn``."""
+    return torch.square(params.scale)
+
+
+@dataclass(frozen=True)
+class FeatureMap:
+    """A feature family behind one contract: params plus pure featurize.
+
+    Attributes:
+      family: registry name (``rff``, ``orf``; ``qmc``, ``gq`` and
+        ``taylor`` are not ported yet).
+      params: the family's parameters — :class:`TrigFeatures` for trig
+        families; they expose ``num_features`` / ``input_dim`` / ``dtype``.
+      featurize_fn: pure ``(params, x) -> (..., D)``.
+      weights_fn: pure ``(params,) -> (D,)`` per-feature quadrature weights
+        (``scale**2`` for trig families).
+      deterministic: True when construction ignores the random generator
+        (the zero-seed-variance families).
+    """
+
+    family: str
+    params: Any
+    featurize_fn: Callable[[Any, torch.Tensor], torch.Tensor]
+    weights_fn: Callable[[Any], torch.Tensor]
+    deterministic: bool
+
+    @property
+    def num_features(self) -> int:
+        return self.params.num_features
+
+    @property
+    def input_dim(self) -> int:
+        return self.params.input_dim
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.params.dtype
+
+    @property
+    def weights(self) -> torch.Tensor:
+        """Per-feature quadrature weights ``a_i`` (``scale**2`` for trig)."""
+        return self.weights_fn(self.params)
+
+    @property
+    def trig(self) -> Optional[TrigFeatures]:
+        """The canonical affine-trig form, or None for non-trig families."""
+        return self.params if isinstance(self.params, TrigFeatures) else None
+
+    def featurize(self, x: torch.Tensor) -> torch.Tensor:
+        return self.featurize_fn(self.params, x)
+
+    def to(self, device) -> "FeatureMap":
+        """The same map with its params on ``device`` (contiguous)."""
+        return FeatureMap(self.family, self.params.to(device),
+                          self.featurize_fn, self.weights_fn,
+                          self.deterministic)
+
+
+FeatureLike = Union[FeatureMap, TrigFeatures, RFF]
 
 
 def uniform_trig_scale(num_features: int, dtype=torch.float32,
@@ -94,8 +162,18 @@ def trig_features(tf: TrigFeatures, x: torch.Tensor) -> torch.Tensor:
     return tf.scale.to(proj.dtype) * torch.cos(proj)
 
 
+def trig_map(family: str, params: TrigFeatures,
+             deterministic: bool) -> FeatureMap:
+    """Wrap canonical trig params as a :class:`FeatureMap`."""
+    return FeatureMap(family=family, params=params,
+                      featurize_fn=trig_features, weights_fn=trig_weights,
+                      deterministic=deterministic)
+
+
 def featurize(fm: FeatureLike, x: torch.Tensor) -> torch.Tensor:
-    """Feature map ``(..., d) -> (..., D)`` for either parameter struct."""
+    """Family-agnostic feature map: ``(..., d) -> (..., D)``."""
+    if isinstance(fm, FeatureMap):
+        return fm.featurize(x)
     if isinstance(fm, TrigFeatures):
         return trig_features(fm, x)
     if isinstance(fm, RFF):
@@ -110,6 +188,8 @@ def as_trig_or_none(fm: FeatureLike) -> Optional[TrigFeatures]:
         return fm
     if isinstance(fm, RFF):
         return trig_from_rff(fm)
+    if isinstance(fm, FeatureMap):
+        return fm.trig
     raise TypeError(f"not a feature map: {type(fm).__name__}")
 
 
@@ -117,10 +197,18 @@ def as_trig(fm: FeatureLike) -> TrigFeatures:
     """Canonical trig form; raises for a family without one."""
     tf = as_trig_or_none(fm)
     if tf is None:
+        family = fm.family if isinstance(fm, FeatureMap) else type(fm).__name__
         raise TypeError(
-            f"feature family {type(fm).__name__!r} has no affine-trig form"
+            f"feature family {family!r} has no affine-trig canonical form"
         )
     return tf
+
+
+def feature_weights(fm: FeatureLike) -> torch.Tensor:
+    """Per-feature quadrature weights ``a_i`` (``scale**2`` for trig maps)."""
+    if isinstance(fm, FeatureMap):
+        return fm.weights
+    return torch.square(as_trig(fm).scale)
 
 
 def num_features(fm: FeatureLike) -> int:
@@ -133,4 +221,6 @@ def input_dim(fm: FeatureLike) -> int:
 
 def feature_dtype(fm: FeatureLike) -> torch.dtype:
     """Working dtype of a feature map."""
+    if isinstance(fm, FeatureMap):
+        return fm.dtype
     return fm.omega.dtype

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on its
 own for ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the
 root of the checkout (a directory ``.gitignore`` lists), the first time a
-wrapper needs it; the hash covers the source and the flags, so an edited
-source is rebuilt. Libraries are loaded with ``ctypes``: no PyTorch
+wrapper needs it; the hash covers the source, the ``csrc/*.cuh`` headers
+it includes (``#include "name.cuh"``) and the flags, so an edited source
+or header is rebuilt. Libraries are loaded with ``ctypes``: no PyTorch
 headers are compiled, which keeps a build to seconds. Nothing is built
 when this module is imported.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,10 +53,27 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen=None) -> list[Path]:
+    """``path`` and every ``csrc`` header it includes, directly or through
+    another header, each once, in the order first reached."""
+    seen = [] if seen is None else seen
+    seen.append(path)
+    for name in _INCLUDE.findall(path.read_bytes()):
+        header = CSRC / name.decode()
+        if header not in seen:
+            _sources(header, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, float]:

@@ -11,13 +11,20 @@ import torch.nn.functional as F
 
 __all__ = [
     "SMEM_BUDGET",
-    "KLMS_THREADS",
+    "TILE_ROWS",
+    "TILE_COLS",
+    "TILE_K",
+    "TILE_K_BF16",
+    "KLMS_REG_COLUMNS",
     "num_chunks",
     "time_blocks",
     "valid_time_mask",
     "unblock_time",
-    "klms_smem_bytes",
-    "klms_block_b",
+    "feature_tile_grid",
+    "feature_tile_pack_floats",
+    "predict_workspace_bytes",
+    "klms_tick_plan",
+    "klms_fits",
     "KRLS_THREADS",
     "krls_smem_bytes",
     "krls_fits",
@@ -35,34 +42,99 @@ __all__ = [
 ]
 
 # Shared memory one thread block may use on an H100 (227 KB of the SM's
-# 256 KB; NVIDIA's Hopper tuning guide). The KLMS kernels must fit their
-# resident tiles in it: unlike a TPU core's ~16 MiB of VMEM it cannot hold
-# the (d, D) W tile, which is streamed from L2 instead.
+# 256 KB; NVIDIA's Hopper tuning guide). Unlike a TPU core's ~16 MiB of
+# VMEM it cannot hold a (d, D) W tile: the kernels stream W through it.
 SMEM_BUDGET = 232_448
 
-# Threads per block of csrc/klms_bank.cu (kThreads there).
-KLMS_THREADS = 256
-_WARPS = KLMS_THREADS // 32
-_BLOCK_BS = (8, 4, 2, 1)
+# The f32 feature tile of csrc/feature_tile.cuh (phase A of the KLMS
+# kernels, the f32 read kernel): 256 threads form a 128 x 128 tile of x W
+# from packed, zero-padded operands (x transposed to (dp, Rp), W to (dp,
+# Dp)), k-tiles of 16 streaming through a three-stage ring in 49.5 KB of
+# shared memory. The bf16 read kernel packs x to (Rp, dp) and W^T to
+# (Dp, dp) in bf16, with dp a multiple of 32.
+TILE_ROWS = TILE_COLS = 128
+TILE_K, TILE_K_BF16 = 16, 32
+_MAX_GRID_Y = 65_535
+_MAX_ROWS = 2 ** 31 - 1
+
+# Phase B of the KLMS kernels (csrc/klms_bank.cu): one warp per tenant,
+# theta in registers at NPL columns a lane (lane + 32 i) up to D = 32 * 64,
+# in shared memory beyond.
+KLMS_REG_COLUMNS = (4, 16, 64)
 
 
-def klms_smem_bytes(block_b: int, dfeat: int, input_dim: int) -> int:
-    """Dynamic shared memory of one KLMS block (the layout in
-    csrc/klms_bank.cu): theta and z tiles ``(block_b, D)``, one ``(block_b,
-    d)`` x tile, the per-warp reduction slots and four per-tenant scalars
-    (y, mu, mask, prediction), all f32."""
-    floats = block_b * (2 * dfeat + input_dim + _WARPS + 4)
-    return 4 * floats
+def feature_tile_grid(rows: int, dfeat: int) -> tuple[int, int]:
+    """Blocks of the feature tile over ``rows`` rows of x and ``D`` columns
+    of W: ``(row tiles, column tiles)``. Raises where the launch cannot
+    take the shape (rows past 2^31 - 1, or more than 65535 column tiles:
+    D above 8,388,480). Any d works: the k loop streams it."""
+    if rows < 1 or dfeat < 1:
+        raise ValueError(f"rows={rows}, D={dfeat}: both must be >= 1")
+    if rows > _MAX_ROWS:
+        raise ValueError(f"{rows} rows exceed the feature tile's 2^31 - 1")
+    cols = -(-dfeat // TILE_COLS)
+    if cols > _MAX_GRID_Y:
+        raise ValueError(f"D={dfeat}: {cols} column tiles exceed the grid's "
+                         f"{_MAX_GRID_Y}")
+    return -(-rows // TILE_ROWS), cols
 
 
-def klms_block_b(dfeat: int, input_dim: int) -> int:
-    """Tenants per KLMS block: the largest of 8, 4, 2, 1 whose resident
-    tiles fit :data:`SMEM_BUDGET`, or 0 when even one tenant does not (D
-    above about 29k features at d = 128)."""
-    for bb in _BLOCK_BS:
-        if klms_smem_bytes(bb, dfeat, input_dim) <= SMEM_BUDGET:
-            return bb
-    return 0
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def feature_tile_pack_floats(rows: int, input_dim: int, dfeat: int) -> int:
+    """Floats of the f32 feature tile's packed operands for ``rows`` rows
+    (``Wp (dp + 2, Dp)``, W with the bias and scale as its last two rows,
+    then ``xT (dp, Rp)``; the layout in csrc/feature_tile.cuh): 2.36 M at
+    the KLMS flush (16384 rows, d = 128, D = 2048), 8.65 M at the read
+    block (65536 rows)."""
+    dp = _round_up(input_dim, TILE_K)
+    return (dp + 2) * _round_up(dfeat, TILE_COLS) + dp * _round_up(
+        rows, TILE_ROWS)
+
+
+def predict_workspace_bytes(rows: int, input_dim: int, dfeat: int,
+                            bf16: bool = False) -> int:
+    """Bytes of the read kernel's packed operands (csrc/bank_predict.cu):
+    f32 as :func:`feature_tile_pack_floats`; bf16 the bias and scale
+    ``(2, Dp)`` in f32, then ``W^T (Dp, dp)`` and ``x (Rp, dp)`` in bf16,
+    with dp a multiple of 32."""
+    if not bf16:
+        return 4 * feature_tile_pack_floats(rows, input_dim, dfeat)
+    dp = _round_up(input_dim, TILE_K_BF16)
+    dp_cols = _round_up(dfeat, TILE_COLS)
+    return 8 * dp_cols + 2 * dp * (_round_up(rows, TILE_ROWS) + dp_cols)
+
+
+def klms_tick_plan(dfeat: int) -> tuple[int, int]:
+    """How phase B of the KLMS kernels holds a tenant's theta: ``(columns
+    a lane keeps in registers, dynamic shared memory bytes)``. The
+    smallest of :data:`KLMS_REG_COLUMNS` that covers D on 32 lanes, with no
+    shared memory; past D = 2048, ``(0, 4 D)``: theta in shared memory, one
+    warp a block. Raises when theta does not fit :data:`SMEM_BUDGET` (D
+    above 58,112; the first design's limit was about 29k at d = 128)."""
+    if dfeat < 1:
+        raise ValueError(f"D={dfeat} must be >= 1")
+    for npl in KLMS_REG_COLUMNS:
+        if 32 * npl >= dfeat:
+            return npl, 0
+    smem = 4 * dfeat
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"D={dfeat}: one tenant's theta ({smem} bytes) exceeds the "
+            f"shared memory of a block ({SMEM_BUDGET})"
+        )
+    return 0, smem
+
+
+def klms_fits(dfeat: int) -> bool:
+    """Whether the KLMS kernels take width D (:func:`klms_tick_plan`)."""
+    try:
+        klms_tick_plan(dfeat)
+    except ValueError:
+        return False
+    return True
 
 
 # Threads per block of csrc/krls_bank.cu (kThreads there): one block per
@@ -137,16 +209,16 @@ def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
                     pmat: bool = False, elements: bool = False) -> int:
     """Default tick count T for one chunked launch.
 
-    The CUDA chunk kernels keep their resident tiles (theta and z for the
-    KLMS kernel's ``block_b`` tenants; theta, z, pz and gain for the KRLS
-    kernel's one tenant, ``pmat=True``) in shared memory for the whole
-    launch and stream one x row per tick through the same buffer, so T
-    costs no shared memory: when the tiles fit :data:`SMEM_BUDGET` the
-    default is the cap of 512 ticks that ``repro`` also clamps to. When
-    they do not fit, the kernel cannot run at all (its wrapper raises) and
+    The CUDA chunk kernels keep a tenant's state on chip for the whole
+    launch (the KLMS kernel's theta in a warp's registers or shared memory,
+    with the call's features in a ``(B, T, D)`` workspace in device memory;
+    theta, z, pz and gain for the KRLS kernel's one tenant, ``pmat=True``),
+    so T costs no shared memory: when the state fits :data:`SMEM_BUDGET`
+    the default is the cap of 512 ticks that ``repro`` also clamps to. When
+    it does not fit, the kernel cannot run at all (its wrapper raises) and
     the floor of 8 is returned for the plain path. ``bank`` is accepted for
     signature parity with ``repro`` and does not change the answer: a
-    block's tiles do not grow with B.
+    block's state does not grow with B.
 
     ``elements=True`` sizes Tc, the ticks per chunk of the replay element
     kernels (``csrc/rff_scan.cu``). There no tile grows with Tc either:
@@ -164,7 +236,7 @@ def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
     if elements:
         half = max(1, -(-dfeat // 2))
         return int(min(512, max(8, 1 << (half - 1).bit_length())))
-    fits = krls_fits(dfeat, input_dim) if pmat else klms_block_b(dfeat, input_dim)
+    fits = krls_fits(dfeat, input_dim) if pmat else klms_fits(dfeat)
     return 512 if fits else 8
 
 

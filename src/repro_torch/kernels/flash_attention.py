@@ -2,11 +2,15 @@
 
 ``flash_attention_cuda`` replaces
 ``repro/kernels/flash_attention.py::flash_attention_pallas``: exact softmax
-attention on ``(BH, S, dh)`` (GQA kv repeated to full heads upstream), f32
-statistics inside, the output in q's type. It routes by dtype:
+attention on q, k ``(BH, S, dh)`` and v ``(BH, S, dv)`` (GQA kv repeated to
+full heads upstream; dh and dv up to 256 and independent, as in
+deepseek-v2-lite's MLA heads (192, 128), minicpm3's (96, 64) and
+recurrentgemma's 256), f32 statistics inside, the output ``(BH, S, dv)`` in
+q's type. It routes by dtype:
 
 * bf16 -> ``csrc/flash_attention_sm90.cu``, the tensor-core kernel (wgmma
-  products, TMA loads into a two-stage ring, P rounded to bf16 for P V);
+  products, TMA loads into a two-stage ring, P rounded to bf16 for P V),
+  one launch for each 128 columns of V (:func:`flash_plan`'s passes);
 * f32 -> ``csrc/flash_attention.cu``, the CUDA-core kernel in IEEE f32
   (f32 never runs on TF32 in this port).
 
@@ -18,65 +22,114 @@ refused (``kernels/ops.py`` routes them to the plain version).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunking import SMEM_BUDGET
 
-__all__ = ["flash_attention_cuda", "flash_plan", "MAX_HEAD_DIM", "ROUTES"]
+__all__ = ["flash_attention_cuda", "flash_plan", "FlashPlan", "MAX_HEAD_DIM",
+           "ROUTES"]
 
-# Both kernels cover dh <= 128: the CUDA-core kernel's register accumulator
-# is 16 * 8 columns (its f32 tiles take 115 KB of shared memory at 128);
-# the tensor-core kernel pads dh to one or two 64-column swizzle atoms.
-MAX_HEAD_DIM = 128
+# Both kernels take q/k and v heads up to 256 columns: the CUDA-core
+# kernel's register accumulator is 16 * 16 columns, the tensor-core kernel
+# pads q/k to one to four 64-column swizzle atoms and takes V 128 columns a
+# launch.
+MAX_HEAD_DIM = 256
 ROUTES = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+V_PASS = 128  # V columns a tensor-core launch (kVPass in the source)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# q, k, v, out, BH, S, dh, causal, scale, stream
-_ARGS = (_P,) * 4 + (_I,) * 4 + (ctypes.c_float, _P)
 _LIBS = {
     "cuda_core": ("flash_attention", "flash_attention"),
     "tensor_core": ("flash_attention_sm90", "flash_attention_bf16"),
 }
+_ARGS = {
+    # q, k, v, out, BH, S, dh, dv, causal, scale, stream
+    "cuda_core": (_P,) * 4 + (_I,) * 5 + (ctypes.c_float, _P),
+    # q, k, v, out, BH, S, dh, dv, v_col0, v_cols, causal, scale, stream
+    "tensor_core": (_P,) * 4 + (_I,) * 7 + (ctypes.c_float, _P),
+}
 
 
-def _lib(route: str):
-    source, entry = _LIBS[route]
-    lib = _build.load(source, {entry: _ARGS, f"{entry}_error_string": (_I,)})
-    getattr(lib, f"{entry}_error_string").restype = ctypes.c_char_p
-    return lib
+class FlashPlan(NamedTuple):
+    """How the card runs one call (:func:`flash_plan`)."""
+
+    route: str
+    source: str
+    entry: str
+    width: int      # q/k head width the kernel sees (bf16: padded to 8)
+    v_width: int    # v head width the kernel sees (bf16: padded to 8)
+    key_tile: int   # keys a tile
+    passes: tuple   # (first V column, columns) of each launch
+    smem_bytes: int  # dynamic shared memory of one block
 
 
-def flash_plan(q, k, v) -> tuple[str, str, str, int]:
-    """Check q, k, v (the device aside) and say how the card runs them:
-    (route, source, C entry, head width the kernel sees). bf16 goes to the
-    tensor-core kernel with dh padded to a multiple of 8 (TMA reads rows of
-    a multiple of 16 bytes; zero columns change neither the scores nor the
-    kept outputs); f32 to the CUDA-core kernel as it is."""
+def _smem_bytes(route: str, width: int, v_width: int, key_tile: int) -> int:
+    """The block's shared memory, as laid out in the two sources."""
+    if route == "cuda_core":  # Q, K^T (65-float rows), V, P
+        return 4 * (64 * (width + v_width) + 65 * width + 64 * 65)
+    hd = -(-width // 64) * 64
+    dv = 64 if v_width <= 64 else V_PASS
+    return 256 * hd + 2 * key_tile * (2 * hd + 2 * dv) + 40 + 1024
+
+
+def flash_plan(q, k, v) -> FlashPlan:
+    """Check q, k, v (the device aside) and say how the card runs them.
+    bf16 goes to the tensor-core kernel with dh and dv each padded to a
+    multiple of 8 (TMA reads rows of a multiple of 16 bytes; zero columns
+    change neither the scores nor the kept outputs), 128-key tiles up to a
+    padded dh of 192 and 64-key tiles above (the ring's shared memory), one
+    launch per 128 columns of V; f32 to the CUDA-core kernel as it is, in
+    64-key tiles and one launch. Raises where a kernel cannot take the
+    shapes."""
     if q.ndim != 3:
         raise ValueError(f"q must be (BH, S, dh), got shape {tuple(q.shape)}")
     if q.dtype not in ROUTES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     bh, slen, dh = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    dv = v.shape[-1] if v.ndim == 3 else -1
+    for name, t, shape in (("q", q, (bh, slen, dh)), ("k", k, (bh, slen, dh)),
+                           ("v", v, (bh, slen, dv))):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if tuple(t.shape) != (bh, slen, dh):
+        if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(bh, slen, dh)}")
+                             f"{shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} outside [1, {MAX_HEAD_DIM}]")
+    for name, width in (("head dim", dh), ("v head dim", dv)):
+        if not 1 <= width <= MAX_HEAD_DIM:
+            raise ValueError(f"{name} {width} outside [1, {MAX_HEAD_DIM}]")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the grid's 65535 heads")
     route = ROUTES[q.dtype]
-    width = dh + (-dh % 8 if route == "tensor_core" else 0)
-    return (route, *_LIBS[route], width)
+    if route == "tensor_core":
+        width, v_width = dh + -dh % 8, dv + -dv % 8
+        key_tile = 128 if width <= 192 else 64
+        passes = tuple((c0, min(V_PASS, v_width - c0))
+                       for c0 in range(0, v_width, V_PASS))
+    else:
+        width, v_width, key_tile, passes = dh, dv, 64, ((0, dv),)
+    smem = _smem_bytes(route, width, v_width, key_tile)
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"dh={dh}, dv={dv}: {smem} bytes of shared memory "
+                         f"exceed a block's {SMEM_BUDGET}")
+    return FlashPlan(route, *_LIBS[route], width, v_width, key_tile, passes,
+                     smem)
+
+
+def _lib(route: str):
+    source, entry = _LIBS[route]
+    lib = _build.load(source, {entry: _ARGS[route],
+                               f"{entry}_error_string": (_I,)})
+    getattr(lib, f"{entry}_error_string").restype = ctypes.c_char_p
+    return lib
 
 
 def _aligned(t):
@@ -85,38 +138,52 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention_cuda(q, k, v, *, causal=True):
-    """Softmax attention on the card: q, k, v (BH, S, dh), all f32 or all
-    bf16, contiguous, dh <= 128 -> (BH, S, dh) in q's type."""
-    if q.device.type != "cuda":
-        raise ValueError(
-            "the CUDA flash-attention kernel takes CUDA tensors; use "
-            f"mode='ref' (or 'auto') for tensors on {q.device}"
-        )
-    route, _, entry, width = flash_plan(q, k, v)
-    bh, slen, dh = q.shape
-    if bh == 0 or slen == 0:
-        return torch.empty_like(q)
-    if width != dh:
-        q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
-    if route == "tensor_core":
-        q, k, v = (_aligned(t) for t in (q, k, v))
-    out = torch.empty_like(q)
-    lib = _lib(route)
-    code = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, slen,
-        width, int(causal), dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+def _raise_on(lib, entry: str, code: int) -> None:
     if code < 0:
         raise RuntimeError(f"{entry} failed: cuTensorMapEncodeTiled returned "
                            f"CUresult {-code}")
     if code:
         msg = getattr(lib, f"{entry}_error_string")(code).decode()
         raise RuntimeError(f"{entry} failed: cudaError {code} ({msg})")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.route_launches[route] += 1
-    return out[..., :dh].contiguous() if width != dh else out
+
+
+def flash_attention_cuda(q, k, v, *, causal=True):
+    """Softmax attention on the card: q, k (BH, S, dh), v (BH, S, dv), all
+    f32 or all bf16, contiguous, dh and dv <= 256 -> (BH, S, dv) in q's
+    type."""
+    if q.device.type != "cuda":
+        raise ValueError(
+            "the CUDA flash-attention kernel takes CUDA tensors; use "
+            f"mode='ref' (or 'auto') for tensors on {q.device}"
+        )
+    plan = flash_plan(q, k, v)
+    bh, slen, dh = q.shape
+    dv = v.shape[-1]
+    if bh == 0 or slen == 0:
+        return q.new_empty((bh, slen, dv))
+    if plan.width != dh:
+        q, k = (F.pad(t, (0, plan.width - dh)) for t in (q, k))
+    if plan.v_width != dv:
+        v = F.pad(v, (0, plan.v_width - dv))
+    out = q.new_empty((bh, slen, plan.v_width))
+    lib = _lib(plan.route)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = getattr(lib, plan.entry)
+    if plan.route == "cuda_core":
+        _raise_on(lib, plan.entry, fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            slen, dh, dv, int(causal), dh ** -0.5, stream))
+    else:
+        q, k, v = (_aligned(t) for t in (q, k, v))
+        for c0, cols in plan.passes:
+            _raise_on(lib, plan.entry, fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+                slen, plan.width, plan.v_width, c0, cols, int(causal),
+                dh ** -0.5, stream))
+    launches = len(plan.passes)
+    flash_attention_cuda.launches += launches
+    flash_attention_cuda.route_launches[plan.route] += launches
+    return out[..., :dv].contiguous() if plan.v_width != dv else out
 
 
 flash_attention_cuda.launches = 0

@@ -8,6 +8,11 @@
 * ``"ref"`` — force the plain version, on whatever device the tensors are.
 
 There is no fallback: a kernel that fails to build or launch raises.
+
+The ops accept ``repro``'s tiling keywords (``block_m``, ``block_n``,
+``block_k``, ``block_b``, ``block_q``) and ignore them: the CUDA kernels
+tile by their own sizes, and a tile changes no result beyond summation
+order.
 """
 from __future__ import annotations
 
@@ -72,11 +77,15 @@ def use_kernel(mode: str, lead: torch.Tensor) -> bool:
     raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES}")
 
 
-def rff_features(x, w, b, s=None, *, mode: str = "auto", precision=None):
+def rff_features(x, w, b, s=None, *, mode: str = "auto", block_m: int = 128,
+                 block_n: int = 128, block_k: int = 128, precision=None):
     """Affine-trig feature map ``s * cos(x @ w + b)`` over arbitrary leading
     dims of ``x (..., d)`` -> ``(..., D)``; ``s=None`` is the Monte-Carlo
     ``sqrt(2/D)``. ``precision="bf16"`` follows the contract in
-    ``kernels/ref.py`` (bf16 operands, f32 accumulation, bf16 features)."""
+    ``kernels/ref.py`` (bf16 operands, f32 accumulation, bf16 features).
+    ``block_m``, ``block_n`` and ``block_k`` are ``repro``'s tiles, accepted
+    and ignored (the kernel's tiles are its own)."""
+    del block_m, block_n, block_k
     precision = ref.canon_precision(precision)
     if not use_kernel(mode, x):
         return ref.rff_features_ref(x, w, b, s, precision)
@@ -87,38 +96,44 @@ def rff_features(x, w, b, s=None, *, mode: str = "auto", precision=None):
 
 
 def rff_bank_predict(theta, xq, w, b, s=None, *, mode: str = "auto",
-                     block_q: int = 64, precision=None):
+                     block_b: int = 8, block_q: int = 64, precision=None):
     """Fused predict-only read path: a ``(B, Q, d)`` query block per
     tenant against read-only ``theta (B, D)`` -> ``(B, Q)``.
-    ``precision="bf16"`` follows the contract in ``kernels/ref.py``."""
+    ``precision="bf16"`` follows the contract in ``kernels/ref.py``.
+    ``block_b`` and ``block_q`` are ``repro``'s tiles, accepted and ignored:
+    the kernel's blocks own 128 (tenant, query) rows each."""
+    del block_b, block_q
     precision = ref.canon_precision(precision)
     if use_kernel(mode, theta):
-        return rff_bank_predict_cuda(
-            theta, xq, w, b, s, block_q=block_q, precision=precision
-        )
+        return rff_bank_predict_cuda(theta, xq, w, b, s, precision=precision)
     return ref.rff_bank_predict_ref(theta, xq, w, b, s, precision)
 
 
-def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto"):
+def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto",
+                       block_b: int = 8):
     """Fused featurize + predict + update KLMS tick for a bank of B
     filters: theta (B, D), x (B, d), y (B,), mu scalar or (B,).
-    Returns (theta', predictions, prior errors)."""
+    Returns (theta', predictions, prior errors). ``block_b`` is
+    ``repro``'s tile, accepted and ignored (one warp holds a tenant)."""
+    del block_b
     if use_kernel(mode, theta):
         return rff_klms_bank_step_cuda(theta, x, y, w, b, mu, s)
     return ref.rff_klms_bank_step_ref(theta, x, y, w, b, mu, s)
 
 
 def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
-                        mode: str = "auto", chunk=None):
+                        mode: str = "auto", block_b: int = 8, chunk=None):
     """T-chunked fused KLMS: advance B filters by T ticks.
 
     theta (B, D), xs (B, T, d), ys (B, T), mu scalar or (B,), mask
     optional (B, T) validity gate (1 = apply the update). ``chunk`` bounds
     the ticks per launch: ``chunk=k`` runs ceil(T/k) launches with a
     zero-masked final remainder; ``None`` takes
-    ``kernels.chunking.default_chunk_t``. Returns (theta', preds (B, T),
-    errs (B, T)).
+    ``kernels.chunking.default_chunk_t``. ``block_b`` is ``repro``'s tile,
+    accepted and ignored (one warp holds a tenant). Returns (theta', preds
+    (B, T), errs (B, T)).
     """
+    del block_b
     if use_kernel(mode, theta):
         launch = rff_klms_bank_chunk_cuda
     else:
@@ -308,11 +323,14 @@ def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
     return torch.cat(outs, dim=1), s_state, z_state
 
 
-def flash_attention(q, k, v, *, mode: str = "auto", causal: bool = True):
-    """Exact softmax attention, (BH, S, dh) layout, f32 or bf16 -> q's
-    type. ``repro``'s ``block_q``/``block_k`` are not taken: the CUDA
-    kernels tile by 64 (f32) and 128 (bf16), and tiles only order the
-    online softmax's sums."""
+def flash_attention(q, k, v, *, mode: str = "auto", block_q: int = 256,
+                    block_k: int = 256, causal: bool = True):
+    """Exact softmax attention: q, k (BH, S, dh), v (BH, S, dv), f32 or
+    bf16 -> (BH, S, dv) in q's type (dh, dv <= 256). ``block_q`` and
+    ``block_k`` are ``repro``'s tiles, accepted and ignored: the CUDA
+    kernels tile by their own sizes (``kernels.flash_attention.flash_plan``),
+    and tiles only order the online softmax's sums."""
+    del block_q, block_k
     if use_kernel(mode, q):
         return flash_attention_cuda(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)

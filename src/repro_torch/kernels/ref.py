@@ -143,7 +143,11 @@ def krls_tick_math(theta, pmat, z, y, beta_b):
 
 def mu_column(mu, like, n):
     """Step size ``mu`` (scalar or ``(B,)``) broadcast to ``(n,)`` in the
-    dtype and on the device of ``like``."""
+    dtype and on the device of ``like``. A ``(n,)`` tensor of that dtype
+    and device is returned as it is."""
+    if (isinstance(mu, torch.Tensor) and mu.shape == (n,)
+            and mu.dtype == like.dtype and mu.device == like.device):
+        return mu
     return torch.as_tensor(mu, dtype=like.dtype, device=like.device).expand(n)
 
 

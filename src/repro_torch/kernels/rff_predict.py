@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunking import predict_workspace_bytes
 from repro_torch.kernels.ref import canon_precision, default_scale
 from repro_torch.kernels.rff_klms_step import _check
 
@@ -24,8 +25,8 @@ __all__ = ["rff_bank_predict_cuda"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # theta, xq, w, b, s, out, B, Q, d, D, block_q, bf16, stream
-    "bank_predict": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # theta, xq, w, b, s, out, ws, ws_bytes, B, Q, d, D, bf16, stream
+    "bank_predict": (_P,) * 7 + (ctypes.c_longlong,) + (_I,) * 5 + (_P,),
     "bank_predict_error_string": (_I,),
 }
 
@@ -36,12 +37,13 @@ def _lib():
     return lib
 
 
-def rff_bank_predict_cuda(theta, xq, w, b, s=None, *, block_q: int = 64,
-                          precision=None):
+def rff_bank_predict_cuda(theta, xq, w, b, s=None, *, precision=None):
     """Fused read path on the card: theta (B, D), xq (B, Q, d), shared
     w (d, D), b (D,), s (D,) (None = sqrt(2/D)) -> predictions (B, Q).
-    ``block_q`` queries of one tenant share a thread block and its
-    resident theta row."""
+    The operands are packed into a workspace first; then a thread block
+    owns 128 of the B Q (tenant, query) rows and walks all of D (f32 on
+    the CUDA cores; bf16 on the tensor cores). ``.launches`` counts one
+    per call."""
     bf16 = canon_precision(precision) == "bf16"
     if theta.device.type != "cuda":
         raise ValueError(
@@ -58,16 +60,19 @@ def rff_bank_predict_cuda(theta, xq, w, b, s=None, *, block_q: int = 64,
         ("w", w, (d, dfeat)), ("b", b, (dfeat,)), ("s", s, (dfeat,)),
     ):
         _check(name, t, shape, device)
-    if block_q < 1:
-        raise ValueError(f"block_q must be >= 1, got {block_q}")
+    if bsz * qlen > 2 ** 31 - 129 or bsz * dfeat > 2 ** 31 - 1:
+        raise ValueError(f"B={bsz}, Q={qlen}, D={dfeat}: past the read "
+                         "kernel's 2^31 rows and theta entries")
     out = torch.empty((bsz, qlen), dtype=torch.float32, device=device)
     if bsz == 0 or qlen == 0:
         return out
+    ws = torch.empty(predict_workspace_bytes(bsz * qlen, d, dfeat, bf16),
+                     dtype=torch.uint8, device=device)
     lib = _lib()
     code = lib.bank_predict(
         theta.data_ptr(), xq.data_ptr(), w.data_ptr(), b.data_ptr(),
-        s.data_ptr(), out.data_ptr(), bsz, qlen, d, dfeat, block_q,
-        int(bf16), torch.cuda.current_stream(device).cuda_stream,
+        s.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(), bsz, qlen,
+        d, dfeat, int(bf16), torch.cuda.current_stream(device).cuda_stream,
     )
     if code:
         msg = lib.bank_predict_error_string(code).decode()

@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.rff import RFF, positive_random_features, sample_prf
 from repro_torch.features.base import (
     TrigFeatures,
+    as_trig,
     trig_features,
     uniform_trig_scale,
 )
@@ -60,8 +61,8 @@ def rff_attn_init(gen, cfg: ModelConfig, dtype=torch.float32,
                   device="cuda") -> dict:
     """Projections and the fixed feature buffers (per-layer Omega).
 
-    ``feature_map`` (a :class:`TrigFeatures` of shape (head_dim,
-    rff_num_features)) replaces the default orthogonal PRF draw; the prf
+    ``feature_map`` (a :class:`FeatureMap` or :class:`TrigFeatures` of a
+    trig family, shape (head_dim, rff_num_features)) replaces the default orthogonal PRF draw; the prf
     path reads only ``omega``, so trig families pair with
     ``feature_kind="trig"``.
     """
@@ -88,7 +89,7 @@ def rff_attn_init(gen, cfg: ModelConfig, dtype=torch.float32,
                 f"rff_num_features={dfeat}"
             )
         omega, bias, scale = (t.to(device=device, dtype=torch.float32)
-                              for t in feature_map)
+                              for t in as_trig(feature_map))
     p.update(omega=omega, bias=bias, scale=scale)
     return p
 

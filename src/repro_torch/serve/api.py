@@ -33,6 +33,7 @@ from repro_torch.core.bank import (
     rebuild_tenant,
 )
 from repro_torch.features.base import FeatureLike, as_trig
+from repro_torch.features.base import input_dim as fm_input_dim
 from repro_torch.serve.metrics import MetricsRegistry
 from repro_torch.serve.queue import MicroBatchQueue
 from repro_torch.serve.snapshot import SnapshotServer
@@ -103,11 +104,31 @@ def _rate(learner: str, h: dict):
     return h["beta"] if learner == "krls" else h["mu"]
 
 
-def make_tick(learner: str, feature_map: FeatureLike, *, mode: str = "auto",
+def _resolve_input_dim(learner: str, feature_map,
+                       input_dim: Optional[int]) -> int:
+    """``repro``'s rule: a feature map's input width wins and ``input_dim``
+    is then ignored; without a map ``input_dim`` is the width. The ported
+    families (klms, krls) need a map all the same; the dictionary
+    learners that take ``input_dim`` alone are not ported
+    (``_check_learner`` raises for them first)."""
+    if feature_map is not None:
+        return fm_input_dim(feature_map)
+    if input_dim is not None:
+        raise ValueError(
+            f"learner {learner!r} requires feature_map= (input_dim= alone "
+            "serves only the dictionary learners, not ported yet)"
+        )
+    raise ValueError(f"learner {learner!r} requires feature_map=")
+
+
+def make_tick(learner: str, feature_map: FeatureLike = None, *,
+              mode: str = "auto", input_dim: Optional[int] = None,
               **hp) -> Callable:
     """Lockstep tick ``(state, xs (B, d), ys (B,)) -> (state, StepOut)``
-    through the family's fused step kernel."""
+    through the family's fused step kernel. ``input_dim`` follows
+    ``repro``'s rule (the map's width wins)."""
     _check_learner(learner)
+    _resolve_input_dim(learner, feature_map, input_dim)
     rate = _rate(learner, _resolve_hp(hp))
     tf = as_trig(feature_map)
     bank_step = krls_bank_step if learner == "krls" else klms_bank_step
@@ -118,11 +139,14 @@ def make_tick(learner: str, feature_map: FeatureLike, *, mode: str = "auto",
     return tick
 
 
-def make_chunk_step(learner: str, feature_map: FeatureLike, *,
-                    mode: str = "auto", **hp) -> Callable:
+def make_chunk_step(learner: str, feature_map: FeatureLike = None, *,
+                    mode: str = "auto", input_dim: Optional[int] = None,
+                    **hp) -> Callable:
     """Chunked step ``(state, xs (B, T, d), ys (B, T), mask (B, T)) ->
-    (state, StepOut)``: one chunk-kernel launch (the queue's step)."""
+    (state, StepOut)``: one chunk-kernel launch (the queue's step).
+    ``input_dim`` follows ``repro``'s rule (the map's width wins)."""
     _check_learner(learner)
+    _resolve_input_dim(learner, feature_map, input_dim)
     rate = _rate(learner, _resolve_hp(hp))
     tf = as_trig(feature_map)
     chunk_step = (krls_bank_chunk_step if learner == "krls"
@@ -136,10 +160,12 @@ def make_chunk_step(learner: str, feature_map: FeatureLike, *,
 
 def run_stream(learner: str, feature_map: FeatureLike, xs, ys, *,
                state=None, mode: str = "auto", chunk: Optional[int] = None,
-               **hp):
+               input_dim: Optional[int] = None, **hp):
     """Serve B lockstep tenant streams ``xs (B, n, d)``, ``ys (B, n)``;
-    ``chunk=T`` picks the chunk-kernel schedule."""
+    ``chunk=T`` picks the chunk-kernel schedule. ``input_dim`` follows
+    ``repro``'s rule (the map's width wins)."""
     _check_learner(learner)
+    _resolve_input_dim(learner, feature_map, input_dim)
     h = _resolve_hp(hp)
     if learner == "krls":
         return krls_bank_run(feature_map, xs, ys, h["lam"], h["beta"],
@@ -151,13 +177,14 @@ def run_stream(learner: str, feature_map: FeatureLike, xs, ys, *,
 def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
                bank: int = 8, *, chunk: int = 16, mode: str = "auto",
                adaptive: bool = False, state=None,
-               device="cuda", **hp) -> MicroBatchQueue:
+               input_dim: Optional[int] = None, device="cuda",
+               **hp) -> MicroBatchQueue:
     """Ready-to-serve micro-batch queue: a fresh bank state on ``device``
     plus the chunk step, coalescing ragged arrivals into masked
-    ``(B, T)`` launches."""
+    ``(B, T)`` launches. ``input_dim`` follows ``repro``'s rule (the
+    map's width wins)."""
     _check_learner(learner)
-    if feature_map is None:
-        raise ValueError(f"learner {learner!r} requires feature_map=")
+    _resolve_input_dim(learner, feature_map, input_dim)
     tf = as_trig(feature_map).to(resolve_device(device))
     if state is None and learner == "krls":
         state = krls_bank_init(tf, bank, _resolve_hp(hp)["lam"])
@@ -293,6 +320,7 @@ def make_server(
     clock: Callable[[], float] = time.monotonic,
     metrics: Optional[MetricsRegistry] = None,
     state=None,
+    input_dim: Optional[int] = None,
     device="cuda",
     log_capacity: Optional[int] = None,
     rebuild_mode: str = "scan",
@@ -301,7 +329,10 @@ def make_server(
     """The serving facade for ``learner="klms"`` and ``"krls"``.
 
     Args:
-      feature_map: a trig feature map (moved to ``device``).
+      feature_map: a trig feature map, :class:`FeatureMap` or
+        :class:`TrigFeatures` (moved to ``device``).
+      input_dim: ``repro``'s input width; a feature map's width wins and
+        ``input_dim`` is then ignored (the ported families need a map).
       bank: number of bank slots B.
       chunk / mode / adaptive: micro-batch queue knobs (serve/queue.py);
         ``mode`` also drives the read path ("auto", "cuda" or "ref").
@@ -331,8 +362,7 @@ def make_server(
             )
         kw.pop(knob, None)
     h = _resolve_hp(kw)
-    if feature_map is None:
-        raise ValueError(f"learner {learner!r} requires feature_map=")
+    _resolve_input_dim(learner, feature_map, input_dim)
     tf = as_trig(feature_map).to(resolve_device(device))
     if rebuild_mode not in _REBUILD_MODES:
         raise ValueError(

@@ -138,11 +138,102 @@ def test_wrappers_refuse_bad_inputs(cuda_device):
         rff_klms_bank_chunk_cuda(a["theta"].double(), a["xs"], a["ys"],
                                  a["w"], a["b"], 0.5)
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 40_000, device=cuda_device)
+        wide = 60_000  # past chunking.klms_tick_plan's 58,112
+        big = torch.zeros(1, wide, device=cuda_device)
         rff_klms_bank_chunk_cuda(
             big, a["xs"][:1], a["ys"][:1],
-            torch.zeros(3, 40_000, device=cuda_device),
-            torch.zeros(40_000, device=cuda_device), 0.5)
+            torch.zeros(3, wide, device=cuda_device),
+            torch.zeros(wide, device=cuda_device), 0.5)
+
+
+# The KLMS serving shape (B, T, d, D) and its read block Q; the KRLS read
+# (the paper's d = 5, D = 300); chip_smoke's ragged shapes (B, d, D).
+SERVING = (1024, 16, 128, 2048)
+RAGGED = [(7, 5, 300), (1, 1, 17), (33, 128, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank,tlen,d,dfeat", [
+    SERVING, *((b, 5, d, f) for b, d, f in RAGGED), (3, 4, 6, 3000),
+])
+def test_klms_kernels_match_plain_at_serving_and_ragged(cuda_device, bank,
+                                                        tlen, d, dfeat):
+    """Both KLMS kernels (features tile, then one warp a tenant; theta in
+    shared memory at D = 3000) against their plain versions."""
+    a = _inputs(cuda_device, bank, tlen, d, dfeat, seed=5)
+    args = (a["theta"], a["xs"], a["ys"], a["w"], a["b"], a["mu"],
+            a["mask"], a["s"])
+    for g, w in zip(ops.rff_klms_bank_chunk(*args, mode="cuda"),
+                    ops.rff_klms_bank_chunk(*args, mode="ref")):
+        torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+    sargs = (a["theta"], a["xs"][:, 0].contiguous(),
+             a["ys"][:, 0].contiguous(), a["w"], a["b"], a["mu"], a["s"])
+    for g, w in zip(ops.rff_klms_bank_step(*sargs, mode="cuda"),
+                    ops.rff_klms_bank_step(*sargs, mode="ref")):
+        torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_klms_tenant_bits_do_not_depend_on_the_bank(cuda_device):
+    """A tenant's theta', predictions and errors from a chunk at B = 1
+    equal its row of the B = 1024 launch bit for bit, whatever its slot."""
+    bank, tlen, d, dfeat = SERVING
+    a = _inputs(cuda_device, bank, tlen, d, dfeat, seed=6)
+    common = (a["w"], a["b"])
+    full = ops.rff_klms_bank_chunk(a["theta"], a["xs"], a["ys"], *common,
+                                   a["mu"], a["mask"], a["s"], mode="cuda")
+    for row in (0, 517, bank - 1):
+        one = ops.rff_klms_bank_chunk(
+            a["theta"][row:row + 1], a["xs"][row:row + 1],
+            a["ys"][row:row + 1], *common, a["mu"][row:row + 1],
+            a["mask"][row:row + 1], a["s"], mode="cuda")
+        for g, w in zip(one, full):
+            assert torch.equal(g[0], w[row]), row
+
+
+@pytest.mark.cuda
+def test_klms_slabs_and_theta_placement_change_no_bit(cuda_device,
+                                                      monkeypatch):
+    """The ticks taken in slabs (a workspace budget of two ticks) and
+    theta held in shared memory instead of registers give the same bits
+    as one slab with theta in registers."""
+    from repro_torch.kernels import rff_klms_step
+
+    a = _inputs(cuda_device, 9, 7, 12, 300, seed=8)
+    args = (a["theta"], a["xs"], a["ys"], a["w"], a["b"], a["mu"],
+            a["mask"], a["s"])
+    want = rff_klms_step.rff_klms_bank_chunk_cuda(*args)
+    monkeypatch.setattr(rff_klms_step, "KLMS_WORKSPACE_BUDGET",
+                        2 * 4 * 9 * 300)
+    assert rff_klms_step.klms_slab_ticks(9, 7, 300) == 2
+    slabs = rff_klms_step.rff_klms_bank_chunk_cuda(*args)
+    monkeypatch.setattr(rff_klms_step, "klms_tick_plan",
+                        lambda dfeat: (0, 4 * dfeat))
+    shared = rff_klms_step.rff_klms_bank_chunk_cuda(*args)
+    for g, s1, s2 in zip(want, slabs, shared):
+        assert torch.equal(g, s1) and torch.equal(g, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("bank,qlen,d,dfeat", [
+    (1024, 64, 128, 2048), (1024, 64, 5, 300),
+    *((b, 13, d, f) for b, d, f in RAGGED),
+])
+def test_predict_kernel_matches_plain_at_read_shapes(cuda_device, precision,
+                                                     bank, qlen, d, dfeat):
+    """The read kernel (f32 CUDA cores; bf16 tensor cores) at the KLMS
+    and KRLS read shapes and the ragged ones; two reads give the same
+    bits."""
+    a = _inputs(cuda_device, bank, qlen, d, dfeat, seed=9)
+    pargs = (a["theta"], a["xs"], a["w"], a["b"], a["s"])
+    tol = BF16_TOL if precision else F32_TOL
+    got = ops.rff_bank_predict(*pargs, mode="cuda", precision=precision)
+    torch.testing.assert_close(
+        got, ops.rff_bank_predict(*pargs, mode="ref", precision=precision),
+        atol=tol, rtol=tol)
+    assert torch.equal(got, ops.rff_bank_predict(*pargs, mode="cuda",
+                                                 precision=precision))
 
 
 @pytest.mark.cuda
@@ -619,6 +710,37 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, causal, bh, slen, dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,slen,dh,dv", [
+    (4, 256, 192, 128),  # deepseek-v2-lite's MLA head
+    (3, 200, 96, 64),    # minicpm3's
+    (2, 192, 256, 256),  # recurrentgemma's: two V passes on the bf16 route
+])
+def test_flash_kernel_takes_every_config_head(cuda_device, dtype, causal, bh,
+                                              slen, dh, dv):
+    """q/k and v heads of different widths up to 256 on both routes, each
+    bf16 V pass counted as a launch."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_plan,
+    )
+
+    rng = np.random.default_rng(dh + dv)
+    q, k = (convert.tensor(rng.normal(size=(bh, slen, dh)),
+                           device=cuda_device, dtype=dtype) for _ in range(2))
+    v = convert.tensor(rng.normal(size=(bh, slen, dv)), device=cuda_device,
+                       dtype=dtype)
+    n = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
+    assert flash_attention_cuda.launches == n + len(flash_plan(q, k, v).passes)
+    want = ops.flash_attention(q, k, v, mode="ref", causal=causal)
+    assert got.dtype == dtype and got.shape == (bh, slen, dv)
+    _hold_rel(got, want, 2e-2 if dtype == torch.bfloat16 else F32_TOL,
+              f"flash {dtype} ({dh}, {dv}) causal={causal}")
+
+
+@pytest.mark.cuda
 def test_flash_routes_count_their_launches(cuda_device):
     """bf16 runs the tensor-core kernel and f32 the CUDA-core one; each
     launch counts once in the total and once in its route."""
@@ -650,7 +772,7 @@ def test_attention_kernels_smem_and_refusals(cuda_device):
     with pytest.raises(TypeError):
         ops.flash_attention(x, x, x.to(torch.bfloat16), mode="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.ones(1, 8, 256, device=cuda_device)
+        big = torch.ones(1, 8, 264, device=cuda_device)
         ops.flash_attention(big, big, big, mode="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         sm = torch.zeros(1, 1024, 128, device=cuda_device)

@@ -207,15 +207,99 @@ def test_time_blocks_roundtrip(n, chunk):
 
 
 def test_klms_block_sizing():
-    """The serving tile (d=128, D=2048) takes 8 tenants per block within
-    the shared-memory budget; huge D degrades to fewer, then none."""
-    assert chunking.klms_block_b(2048, 128) == 8
-    assert chunking.klms_smem_bytes(8, 2048, 128) <= chunking.SMEM_BUDGET
-    assert chunking.klms_block_b(8192, 128) == 2
-    assert chunking.klms_block_b(16384, 128) == 1
-    assert chunking.klms_block_b(40_000, 128) == 0
+    """The KLMS kernels' plan: theta in a warp's registers up to D = 2048
+    (4, 16 or 64 columns a lane), in shared memory beyond, refused past
+    D = 58,112 (one tenant's theta in a block's shared memory, above the
+    first design's 29k); the feature tile's grid."""
+    assert chunking.klms_tick_plan(17) == (4, 0)
+    assert chunking.klms_tick_plan(300) == (16, 0)
+    assert chunking.klms_tick_plan(2048) == (64, 0)
+    assert chunking.klms_tick_plan(2049) == (0, 4 * 2049)
+    assert chunking.klms_tick_plan(58_112) == (0, chunking.SMEM_BUDGET)
+    assert chunking.klms_fits(40_000) and not chunking.klms_fits(58_113)
+    with pytest.raises(ValueError, match="shared memory"):
+        chunking.klms_tick_plan(58_113)
+    assert chunking.feature_tile_grid(1024 * 16, 2048) == (128, 16)
+    assert chunking.feature_tile_grid(7 * 5, 300) == (1, 3)
+    with pytest.raises(ValueError, match="column tiles"):
+        chunking.feature_tile_grid(1, 128 * 65_535 + 1)
+    with pytest.raises(ValueError, match="rows"):
+        chunking.feature_tile_grid(2 ** 31, 8)
     assert chunking.default_chunk_t(1024, 2048, 128) == 512
-    assert chunking.default_chunk_t(1024, 40_000, 128) == 8
+    assert chunking.default_chunk_t(1024, 60_000, 128) == 8
+
+
+def test_klms_workspace_slabs():
+    """A call's (B, T, D) feature workspace stays within its budget: the
+    serving flush takes all 16 ticks at once, a 512-tick chunk of the
+    same bank 32 ticks a slab, and a huge tenant one tick."""
+    from repro_torch.kernels.rff_klms_step import (
+        KLMS_WORKSPACE_BUDGET,
+        klms_slab_ticks,
+    )
+
+    assert klms_slab_ticks(1024, 16, 2048) == 16
+    assert klms_slab_ticks(1024, 512, 2048) == 32
+    assert 4 * 1024 * 32 * 2048 <= KLMS_WORKSPACE_BUDGET
+    assert klms_slab_ticks(100_000, 8, 58_000) == 1
+    assert klms_slab_ticks(1, 3, 17) == 3
+
+
+OPS_WITH_TILES = {
+    "rff_features": dict(block_m=64, block_n=32, block_k=16),
+    "rff_bank_predict": dict(block_b=2, block_q=8),
+    "rff_klms_bank_step": dict(block_b=2),
+    "rff_klms_bank_chunk": dict(block_b=2),
+    "flash_attention": dict(block_q=16, block_k=16),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPS_WITH_TILES))
+def test_ops_accept_repro_tiling_keywords(name):
+    """Each op takes repro's tiling keywords and ignores them: the result
+    equals the call without them."""
+    a = _inputs(11, 5, 6, 40)
+    t = {k: _t(v) for k, v in a.items()}
+    args = {
+        "rff_features": (t["xs"], t["w"], t["b"], t["s"]),
+        "rff_bank_predict": (t["theta"], t["xs"], t["w"], t["b"], t["s"]),
+        "rff_klms_bank_step": (t["theta"], t["xs"][:, 0].contiguous(),
+                               t["ys"][:, 0].contiguous(), t["w"], t["b"],
+                               t["mu"], t["s"]),
+        "rff_klms_bank_chunk": (t["theta"], t["xs"], t["ys"], t["w"],
+                                t["b"], t["mu"], t["mask"], t["s"]),
+        "flash_attention": (t["xs"], t["xs"], t["xs"]),
+    }[name]
+    op = getattr(ops, name)
+    want = op(*args, mode="auto")
+    got = op(*args, mode="auto", **OPS_WITH_TILES[name])
+    for g, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want))):
+        assert torch.equal(g, w)
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header it
+    includes, directly or through another header: editing any of them
+    names a new library, so it is rebuilt."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "a.cuh"\nint f() { return 0; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\nconstexpr int kB = 1;\n')
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources(tmp_path / "k.cu")] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    names = {_build._target("k").name}
+    (tmp_path / "b.cuh").write_text('#pragma once\nconstexpr int kB = 2;\n')
+    names.add(_build._target("k").name)
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    names.add(_build._target("k").name)
+    assert len(names) == 3
+    monkeypatch.undo()
+    for name in ("klms_bank", "bank_predict"):
+        assert "feature_tile.cuh" in [
+            p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
 
 
 def test_uniform_trig_scale_matches_repro_bitwise():

@@ -202,6 +202,27 @@ def test_flash_attention_matches_pallas(causal, dh):
     close(got, want, F32, f"flash causal={causal} dh={dh}")
 
 
+# Every head shape in src/repro/configs: deepseek-v2-lite's MLA (192, 128),
+# minicpm3's (96, 64), recurrentgemma's 256.
+CONFIG_HEADS = [(192, 128), (96, 64), (256, 256)]
+
+
+@pytest.mark.parametrize("dh,dv", CONFIG_HEADS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_unequal_heads_match_pallas(causal, dh, dv):
+    """ops.flash_attention(mode="auto") on CPU tensors with q/k and v heads
+    of different widths against repro's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(dh + dv)
+    q, k, v = f32(rng, 2, 64, dh), f32(rng, 2, 64, dh), f32(rng, 2, 64, dv)
+    got = ops.flash_attention(t(q), t(k), t(v), mode="auto", causal=causal,
+                              block_q=32, block_k=32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), block_q=32, block_k=32,
+                                  causal=causal, interpret=True)
+    assert got.shape == (2, 64, dv)
+    close(got, want, F32, f"flash causal={causal} ({dh}, {dv})")
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_dispatcher_matches_repro(causal):
     """The dispatcher's dense path and, above ``dense_threshold`` keys, its
@@ -388,14 +409,15 @@ def test_rff_attn_feature_map_matches_repro():
                  cfg.rff_num_features, 1.0, device="cpu")
     p = trff.rff_attn_init(torch.Generator().manual_seed(0), cfg,
                            feature_map=fm, device="cpu")
-    for name, buf in zip(("omega", "bias", "scale"), fm):
+    tf = fm.trig  # rff_map returns a FeatureMap, as repro's does
+    for name, buf in zip(("omega", "bias", "scale"), tf):
         assert torch.equal(p[name], buf)
     jp = dict(params["blocks_list"][0]["attn"])
-    jp.update(omega=jnp.asarray(fm.omega.numpy()),
-              bias=jnp.asarray(fm.bias.numpy()),
-              scale=jnp.asarray(fm.scale.numpy()))
-    p = dict(tparams["blocks"][0]["attn"], omega=fm.omega, bias=fm.bias,
-             scale=fm.scale)
+    jp.update(omega=jnp.asarray(tf.omega.numpy()),
+              bias=jnp.asarray(tf.bias.numpy()),
+              scale=jnp.asarray(tf.scale.numpy()))
+    p = dict(tparams["blocks"][0]["attn"], omega=tf.omega, bias=tf.bias,
+             scale=tf.scale)
     x = f32(np.random.default_rng(8), 2, 6, cfg.d_model, scale=0.1)
     want = jrff.rff_attn_apply(jp, jcfg, jnp.asarray(x), feature_kind="trig")
     got, _ = trff.rff_attn_decode_block(
@@ -552,18 +574,47 @@ def test_flash_route_rule(dtype, dh, route, source, entry, width):
     from repro_torch.kernels.flash_attention import flash_plan
 
     x = torch.zeros(2, 5, dh, dtype=dtype)
-    assert flash_plan(x, x, x) == (route, source, entry, width)
+    assert flash_plan(x, x, x)[:4] == (route, source, entry, width)
 
 
-def test_flash_route_refusals():
-    """Both routes take dh <= 128 and f32 or bf16 only; q, k and v must
-    agree."""
+@pytest.mark.parametrize("dh,dv", CONFIG_HEADS)
+def test_flash_plan_takes_config_heads(dh, dv):
+    """Both routes take the config heads: q/k and v padded apart, the bf16
+    ring in 64-key tiles above a padded dh of 192 and one launch for each
+    128 columns of V, every block within the shared-memory budget."""
     from repro_torch.kernels.flash_attention import flash_plan
 
     for dtype in (torch.float32, torch.bfloat16):
-        big = torch.zeros(1, 4, 136, dtype=dtype)
+        q = torch.zeros(2, 5, dh, dtype=dtype)
+        plan = flash_plan(q, q, torch.zeros(2, 5, dv, dtype=dtype))
+        assert (plan.width, plan.v_width) == (dh, dv)
+        assert plan.smem_bytes <= chunking.SMEM_BUDGET
+        assert sum(cols for _, cols in plan.passes) == dv
+        if dtype == torch.float32:
+            assert plan.passes == ((0, dv),) and plan.key_tile == 64
+        else:
+            assert plan.key_tile == (64 if dh > 192 else 128)
+            assert all(cols <= 128 for _, cols in plan.passes)
+    bf = flash_plan(*(torch.zeros(1, 3, 256, dtype=torch.bfloat16),) * 3)
+    assert bf.passes == ((0, 128), (128, 128))
+
+
+def test_flash_route_refusals():
+    """Both routes take q/k and v heads up to 256 and f32 or bf16 only;
+    q and k must agree, and v must share their heads and length."""
+    from repro_torch.kernels.flash_attention import flash_plan
+
+    for dtype in (torch.float32, torch.bfloat16):
+        big = torch.zeros(1, 4, 264, dtype=dtype)
+        ok = torch.zeros(1, 4, 64, dtype=dtype)
         with pytest.raises(ValueError, match="head dim"):
             flash_plan(big, big, big)
+        with pytest.raises(ValueError, match="v head dim"):
+            flash_plan(ok, ok, big)
+        with pytest.raises(ValueError, match="k has shape"):
+            flash_plan(ok, torch.zeros(1, 4, 32, dtype=dtype), ok)
+        with pytest.raises(ValueError, match="v has shape"):
+            flash_plan(ok, ok, torch.zeros(1, 5, 64, dtype=dtype))
     half = torch.zeros(1, 4, 16, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_plan(half, half, half)

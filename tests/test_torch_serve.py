@@ -286,3 +286,105 @@ def test_import_hygiene():
     assert imports, "chip_smoke.py has no imports?"
     assert not [m for m in imports if m.split(".")[0] in ("jax", "repro")]
     assert not re.search(r"\bjax\b", text)
+
+
+def _serve_same_stream(*servers, seed=7, n=120):
+    tenants, xs, ys = _stream(seed, n)
+    for srv in servers:
+        for i in range(n):
+            srv.submit(int(tenants[i]), xs[i], ys[i])
+        srv.drain()
+    return xs
+
+
+def test_input_dim_follows_repro():
+    """input_dim= is taken by make_tick, make_chunk_step, make_queue,
+    run_stream and make_server with repro's rule: the feature map's width
+    wins and input_dim is ignored. The ported families need a map; the
+    dictionary learners that take input_dim alone still raise."""
+    jtf, ttf = _maps()
+    wide = api.make_server("klms", feature_map=ttf, bank=B, device="cpu",
+                           input_dim=D_IN + 7)
+    plain = api.make_server("klms", feature_map=ttf, bank=B, device="cpu")
+    jsrv = japi.make_server("klms", feature_map=jtf, bank=B, mode="xla",
+                            input_dim=D_IN + 7)
+    xs = _serve_same_stream(wide, plain, jsrv)
+    assert torch.equal(wide.snapshot.state.theta, plain.snapshot.state.theta)
+    _close(wide.snapshot.state.theta, jsrv.snapshot.state.theta)
+    xq = np.stack([xs[:3]] * B)
+    assert torch.equal(wide.predict_block(xq), plain.predict_block(xq))
+    kw = dict(input_dim=99, mode="ref")
+    state = plain.queue.state
+    x0 = convert.tensor(xs[:B], device="cpu")
+    y0 = convert.tensor(np.ones(B, np.float32), device="cpu")
+    for a, b in zip(api.make_tick("klms", ttf, **kw)(state, x0, y0),
+                    api.make_tick("klms", ttf, mode="ref")(state, x0, y0)):
+        for g, w in zip(a, b):
+            assert torch.equal(g, w)
+    step = api.make_chunk_step("klms", ttf, **kw)
+    got = step(state, x0[:, None], y0[:, None], torch.ones(B, 1))
+    assert torch.equal(got[0].theta, api.make_chunk_step("klms", ttf)(
+        state, x0[:, None], y0[:, None], torch.ones(B, 1))[0].theta)
+    assert api.make_queue("klms", ttf, B, device="cpu",
+                          input_dim=3).input_dim == D_IN
+    st, _ = api.run_stream("klms", ttf, x0[:, None], y0[:, None],
+                           input_dim=1, mu=0.3)
+    st2, _ = api.run_stream("klms", ttf, x0[:, None], y0[:, None], mu=0.3)
+    assert torch.equal(st.theta, st2.theta)
+    with pytest.raises(ValueError, match="feature_map"):
+        api.make_server("klms", input_dim=D_IN, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.make_server("qklms", input_dim=D_IN, device="cpu")
+
+
+def test_feature_map_matches_repro():
+    """The port's FeatureMap against repro's on the same numpy draw:
+    featurize and weights at 1e-6; rff_map / orf_map return one, as
+    repro's do, and every helper that takes a TrigFeatures takes it."""
+    from repro.features import base as jbase
+    from repro_torch.features import base as tbase
+    from repro_torch.features.random import orf_map, rff_map
+
+    jtf, ttf = _maps(3)
+    jfm = jbase.trig_map("rff", jtf, deterministic=False)
+    tfm = tbase.trig_map("rff", ttf, deterministic=False)
+    x = np.random.default_rng(3).normal(size=(4, 6, D_IN)).astype(np.float32)
+    _close(tfm.featurize(convert.tensor(x, device="cpu")),
+           jfm.featurize(x), 1e-6)
+    _close(tfm.weights, jfm.weights, 1e-6)
+    _close(tbase.feature_weights(tfm), jbase.feature_weights(jfm), 1e-6)
+    assert (tfm.family, tfm.deterministic, tfm.num_features, tfm.input_dim) \
+        == (jfm.family, jfm.deterministic, jfm.num_features, jfm.input_dim)
+    assert tbase.as_trig(tfm) is ttf and tfm.trig is ttf
+    assert tbase.num_features(tfm) == D_FEAT and tbase.input_dim(tfm) == D_IN
+    assert tbase.feature_dtype(tfm) == torch.float32
+    assert torch.equal(tbase.featurize(tfm, convert.tensor(x, device="cpu")),
+                       tbase.trig_features(ttf, convert.tensor(x, device="cpu")))
+    moved = tfm.to("cpu")
+    assert isinstance(moved, tbase.FeatureMap) and moved.family == "rff"
+    for make, family in ((rff_map, "rff"), (orf_map, "orf")):
+        fm = make(torch.Generator().manual_seed(0), D_IN, 32, 2.0,
+                  device="cpu")
+        assert isinstance(fm, tbase.FeatureMap)
+        assert (fm.family, fm.deterministic) == (family, False)
+        xt = convert.tensor(x, device="cpu")
+        assert torch.equal(fm.featurize(xt), tbase.trig_features(fm.trig, xt))
+        assert torch.equal(fm.weights, fm.trig.scale ** 2)
+
+
+def test_feature_map_serves_like_trig_features():
+    """A FeatureMap serves through make_server on the CPU bit for bit as
+    its TrigFeatures does."""
+    from repro_torch.features.base import trig_map
+
+    _, ttf = _maps(4)
+    fm = trig_map("rff", ttf, deterministic=False)
+    a = api.make_server("klms", feature_map=fm, bank=B, chunk=4,
+                        device="cpu")
+    b = api.make_server("klms", feature_map=ttf, bank=B, chunk=4,
+                        device="cpu")
+    xs = _serve_same_stream(a, b, seed=8)
+    assert torch.equal(a.snapshot.state.theta, b.snapshot.state.theta)
+    xq = np.stack([xs[:5]] * B)
+    assert torch.equal(a.predict_block(xq), b.predict_block(xq))
+    assert torch.equal(a.predict(2, xs[:5]), b.predict(2, xs[:5]))
