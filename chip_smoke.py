@@ -56,10 +56,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
 11. holds the LM slice's kernels (RFF decode block, chunked linear
     attention, flash attention) against their plain versions at
     qwen2-0.5b's shapes (56 heads at B=4, dh=64, D=256, S=2048), at
-    llama3-8b's head width (dh=dv=128) and at padded shapes; the decode
-    block for prf and trig, f32 and bf16, T = 1, the default block_t and
-    block_t + 3 (a remainder launch), and bit for bit a block of T against
-    T one-token launches; flash attention at f32 (the CUDA-core kernel)
+    llama3-8b's head width (dh=dv=128), at padded shapes and, for linear
+    attention, a long sequence (8 heads, S = 4096); the decode block for
+    prf and trig, f32 and bf16, T = 1, the default block_t and block_t + 3
+    (a remainder launch), and bit for bit, at every head, a block of T
+    against T one-token launches; bit for bit, the first dv tile of both
+    RFF kernels against a call on its columns alone, and two
+    linear-attention launches; flash attention at f32 (the CUDA-core kernel)
     and bf16 (the tensor-core kernel), also at the config heads whose q/k
     and v widths differ or pass 128 ((192, 128), (96, 64), (256, 256)),
     each route's error reported;
@@ -76,7 +79,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     on both routes; kernel 9 and its plain version by torch.profiler
     device time, since a one-token call's event time is the host's), the
     prefill and decode tokens per second of both models (the GQA prefill's
-    profile must show the tensor-core flash kernel once a layer), and the
+    profile must show the tensor-core flash kernel once a layer, the RFF
+    prefill's both launches of the linear-attention kernel once a layer
+    and no op of its plain version), and the
     decode state's bytes (the RFF state against the KV cache at 2048 and
     32768 tokens).
 
@@ -91,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1344,9 +1350,11 @@ ROUTE_SOURCES = {
 # (BH, dh, D, dv): qwen2-0.5b's decode at B = 4, llama3-8b's head width,
 # padded shapes.
 DECODE_SHAPES = [(56, 64, 256, 64), (32, 128, 256, 128), (3, 16, 40, 24)]
-# (BH, S, D, dv, chunk) and (BH, S, dh).
+# (BH, S, D, dv, chunk): qwen2-0.5b's prefill, llama3-8b's head width, a
+# padded shape, a long sequence (64 chunks of the kernels' 64 rows, 34 MB
+# an input).
 LINEAR_SHAPES = [(56, LM_S, 256, 64, 256), (8, 512, 256, 128, 256),
-                 (3, 192, 40, 24, 64)]
+                 (3, 192, 40, 24, 64), (8, 4096, 256, 64, 256)]
 # (BH, S, dh, dv): qwen2-0.5b's, llama3-8b's and a padded head, then the
 # heads of src/repro/configs whose q/k and v widths differ or pass 128:
 # deepseek-v2-lite's MLA (192, 128), minicpm3's (96, 64), recurrentgemma's
@@ -1354,6 +1362,11 @@ LINEAR_SHAPES = [(56, LM_S, 256, 64, 256), (8, 512, 256, 128, 256),
 FLASH_SHAPES = [(56, LM_S, 64, 64), (32, 1024, 128, 128), (3, 100, 24, 24),
                 (8, 512, 192, 128), (8, 512, 96, 64), (4, 512, 256, 256)]
 DECODE_CALLS = 20  # one-token decode calls per profiled timing
+PROFILE_TRIES = 3  # profiles of a prefill until one shows what is checked
+# Kernel 10's launches (csrc/rff_attention.cu): the state walk over chunks
+# (S_prev, z_prev) and the outputs; and the op only its plain version runs
+# (the chunk's causal mask, torch.tril).
+LINEAR_PHASE_KERNELS = ("linear_state_kernel", "linear_output_kernel")
 
 
 def hold_rel(name: str, got, want, rel: float) -> tuple[float, float, float]:
@@ -1395,12 +1408,37 @@ def positive(rng, *shape, device=None):
         f32_tensor(rng, *shape, device=device)) + 0.01
 
 
+def decode_tile_agrees(args, kw) -> bool:
+    """Fail unless the decode block's first dv tile (outputs and state)
+    equals a call on those columns of S and v alone, and z is the same."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import DECODE_TILE_COLS
+
+    sm, zv, q, k, v, w, b, s = args
+    full = ops.rff_attention_decode_block(*args, mode="cuda", **kw)
+    cols = min(DECODE_TILE_COLS, v.shape[-1])
+    first = ops.rff_attention_decode_block(
+        sm[..., :cols].contiguous(), zv, q, k, v[..., :cols].contiguous(), w,
+        b, s, mode="cuda", **kw)
+    same = (torch.equal(full[0][..., :cols], first[0])
+            and torch.equal(full[1][..., :cols], first[1])
+            and torch.equal(full[2], first[2]))
+    check(same, f"decode block {tuple(q.shape)}, dv {v.shape[-1]}: the first "
+          "dv tile differs from a call on its columns")
+    return same
+
+
 def phase_lm_kernels(rng, device) -> dict:
     """Kernels 9-11 against their plain versions at qwen2-0.5b's shapes,
-    llama3-8b's head width and padded shapes; the decode block of T equals
-    T one-token launches bit for bit."""
+    llama3-8b's head width and padded shapes; at every decode head a block
+    of T equals T one-token launches bit for bit; the first dv tile of
+    both RFF kernels equals a call on its columns alone, and two
+    linear-attention launches give the same bits."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.chunking import default_decode_block_t
+    from repro_torch.kernels.chunking import (
+        LINEAR_TILE_COLS,
+        default_decode_block_t,
+    )
 
     errs = dict.fromkeys(LM_REPLACES, 0.0)
     tols = dict.fromkeys(LM_REPLACES, 0.0)
@@ -1409,7 +1447,7 @@ def phase_lm_kernels(rng, device) -> dict:
                             "tolerance_of_max_plain": tol}
                     for route, tol in (("tensor_core", ATTN_BF16_TOL),
                                        ("cuda_core", ATTN_TOL))}
-    bitwise = {}
+    bitwise, tiles = {}, {}
 
     def note(name, err):
         if err[0] >= errs[name]:
@@ -1430,7 +1468,7 @@ def phase_lm_kernels(rng, device) -> dict:
                                  ATTN_BF16_TOL if prec else ATTN_TOL)
                     if not prec:
                         note("rff_decode_block", e)
-                    if bh == DECODE_SHAPES[0][0] and tlen == block_t + 3:
+                    if tlen == block_t + 3:
                         blk = ops.rff_attention_decode_block(*args, mode="cuda", **kw)
                         sm, zv, q, k, v, w, b, s = args
                         outs = []
@@ -1446,18 +1484,38 @@ def phase_lm_kernels(rng, device) -> dict:
                                 and torch.equal(blk[2], zv))
                         check(same, f"decode block of {tlen} ({kind}, {prec}) "
                               "differs from one-token launches")
-                        bitwise[f"{kind}_{prec or 'f32'}_T{tlen}"] = True
+                        bitwise[f"{bh}_{kind}_{prec or 'f32'}_T{tlen}"] = True
+                    if tlen == 1 or tlen == block_t + 3:
+                        tiles[f"decode_{bh}_{kind}_{prec or 'f32'}_T{tlen}"] = (
+                            decode_tile_agrees(args, kw))
                 del args
     for bh, slen, dfeat, dv, chunk in LINEAR_SHAPES:
         q, k = (positive(rng, bh, slen, dfeat, device=device) for _ in range(2))
         v = f32_tensor(rng, bh, slen, dv, device=device)
         for normalize in (True, False):
+            got = ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
+                                    normalize=normalize)
             e = hold_rel(f"linear attention {bh, slen, dfeat, dv} {normalize}",
-                         [ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
-                                            normalize=normalize)],
-                         [ops.rff_attention(q, k, v, mode="ref", chunk=chunk,
-                                            normalize=normalize)], ATTN_TOL)
+                         [got], [ops.rff_attention(q, k, v, mode="ref",
+                                                   chunk=chunk,
+                                                   normalize=normalize)],
+                         ATTN_TOL)
             note("rff_linear_attention", e)
+            # Two launches give the same bits; the first dv tile's columns
+            # are those of a call on them alone.
+            again = ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
+                                      normalize=normalize)
+            shape = (bh, slen, dfeat, dv)
+            check(torch.equal(got, again),
+                  f"linear attention {shape}: two launches differ")
+            first = ops.rff_attention(
+                q, k, v[..., :LINEAR_TILE_COLS].contiguous(), mode="cuda",
+                chunk=chunk, normalize=normalize)
+            check(torch.equal(got[..., :LINEAR_TILE_COLS], first),
+                  f"linear attention {shape}: the first dv tile differs "
+                  "from a call on its columns")
+            tiles[f"linear_{bh}_{slen}_{dv}_{normalize}"] = True
+            del got, again, first
         del q, k, v
     for bh, slen, dh, dv in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1485,7 +1543,8 @@ def phase_lm_kernels(rng, device) -> dict:
           "max_err_of_max_plain_f32": rels,
           "tolerance_of_max_plain": {"f32": ATTN_TOL, "bf16": ATTN_BF16_TOL},
           "flash_routes": flash_routes,
-          "bitwise_block_eq_one_token_launches": bitwise})
+          "bitwise_block_eq_one_token_launches": bitwise,
+          "bitwise_dv_tiles_and_reruns": tiles})
     return errs, tols, rels, flash_routes
 
 
@@ -1640,29 +1699,59 @@ def phase_lm_gqa_server(seed, device, kernels) -> dict:
     return launches
 
 
-def device_busy(fn, top: int = 6, named: str = "flash") -> dict:
+def device_busy(fn, top: int = 6, named: str = "flash", expect=None) -> dict:
     """One run of ``fn()`` under torch.profiler: the device's kernel time
     (the sum of CUDA kernel self times), the kernels launched, those that
     took most and those whose name holds ``named``. The profiled wall time
     is inflated by the profiler's own host cost; the callers set device
-    time against an unprofiled wall time."""
+    time against an unprofiled wall time.
+
+    ``expect(counts)``, given the launches of each kernel name, says
+    whether the profile shows what the caller checks. torch.profiler has
+    dropped one layer's kernel records from a prefill's profile late in a
+    chip_smoke run on the H100, though the wrappers' launch counts and the
+    outputs show that every layer ran: a profile that ``expect`` refuses
+    is taken again, up to PROFILE_TRIES times, and the caller checks the
+    last one (``profiles`` says how many were taken)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    check(bool(kern), "torch.profiler recorded no CUDA kernel")
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        check(bool(kern), "torch.profiler recorded no CUDA kernel")
+        names = {e.key: e.count for e in kern}
+        if expect is None or expect(names):
+            break
     dev = [e.self_device_time_total / 1e3 for e in kern]
     order = sorted(range(len(kern)), key=lambda i: -dev[i])[:top]
     return {"device_ms": sum(dev), "kernel_launches": sum(e.count for e in kern),
             "top": [[kern[i].key[:72], dev[i], kern[i].count] for i in order],
             "named": [[e.key[:72], d, e.count] for e, d in zip(kern, dev)
-                      if named in e.key]}
+                      if named in e.key],
+            "names": names, "profiles": tries}
+
+
+def gqa_prefill_profile(layers: int, names: dict) -> bool:
+    """Whether a GQA prefill's profile shows flash once a layer, all of it
+    on the bf16 route (the tensor-core kernel)."""
+    flash = {key: n for key, n in names.items() if "flash" in key}
+    return (sum(flash.values()) == layers
+            and all("flash_sm90" in key for key in flash))
+
+
+def rff_prefill_profile(layers: int, names: dict) -> bool:
+    """Whether an RFF prefill's profile shows each of kernel 10's launches
+    once a layer and no op of its plain version."""
+    return (all(sum(n for key, n in names.items() if phase in key) == layers
+                for phase in LINEAR_PHASE_KERNELS)
+            and not any("tril" in key for key in names))
 
 
 def phase_lm_times(rng, device) -> dict:
@@ -1789,15 +1878,28 @@ def phase_lm_times(rng, device) -> dict:
                 tok = logits.argmax(-1)
             torch.cuda.synchronize()
             decode_ms = (time.perf_counter() - t0) * 1e3 / LM_NEW
+            layers = cfg.num_layers
+            if label == "gqa":
+                expect = functools.partial(gqa_prefill_profile, layers)
+            else:
+                expect = functools.partial(rff_prefill_profile, layers)
             busy = {"prefill": device_busy(
-                        lambda: step(params, {"tokens": tokens})),
+                        lambda: step(params, {"tokens": tokens}),
+                        expect=expect),
                     "decode_step": device_busy(
                         lambda: decode_step(params, cfg, state, tok))}
-        if label == "gqa":  # the prefill's flash launches are the bf16 route
-            sm90 = [n for n in busy["prefill"]["named"] if "flash_sm90" in n[0]]
-            check(sum(n[2] for n in sm90) == cfg.num_layers
-                  and len(sm90) == len(busy["prefill"]["named"]),
-                  f"GQA prefill profile: flash kernels {busy['prefill']['named']}")
+        # GQA: the prefill's flash launches are the bf16 route; RFF: each of
+        # kernel 10's two launches once a layer, and no plain-version op.
+        names = busy["prefill"]["names"]
+        shown = {key[:60]: n for key, n in names.items()
+                 if any(w in key for w in ("flash", "linear", "tril"))}
+        check(expect(names), f"{label} prefill profile: kernels {shown}")
+        if label == "rff":
+            busy["prefill"]["linear_attention_launches"] = {
+                phase: sum(n for key, n in names.items() if phase in key)
+                for phase in LINEAR_PHASE_KERNELS}
+        for prof in busy.values():
+            prof.pop("names")
         busy["prefill"]["busy_share"] = busy["prefill"]["device_ms"] / prefill
         busy["decode_step"]["busy_share"] = (busy["decode_step"]["device_ms"]
                                              / decode_ms)

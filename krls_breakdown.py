@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the resident KRLS chunk kernel's time goes, and the feature-tile
-kernels' (the KLMS chunk and the read), on one GPU.
+"""Where the resident KRLS chunk kernel's time goes, the feature-tile
+kernels' (the KLMS chunk and the read) and the RFF attention kernels'
+(the prefill's linear attention and the decode block), on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and
 ``nvcc``: ``python3 krls_breakdown.py``.
@@ -34,6 +35,23 @@ Feature-tile variants:
   read no_cos      the read's epilogue without ``cosf`` (both routes);
   read no_epilogue the epilogue's bias, ``cosf``, scale and theta dropped
                    (z is the product itself): packing and the products.
+
+Attention variants (``csrc/rff_attention.cu`` through its C entries, at
+chip_smoke's LM shapes: linear attention at (BH, S, D, dv) = (56, 2048,
+256, 64), normalized; the decode block at (56, 64, 256, 64), prf, f32,
+T = 1 by torch.profiler device time over DECODE_CALLS launches and
+T = 512 by CUDA events):
+  linear state_only / outputs_only  one of the two launches alone (the
+                   state's walk over chunks, which writes each chunk's
+                   S_prev and z_prev; the outputs, on the workspace the
+                   full call leaves);
+  linear state_only_no_store  the walk without its S_prev stores: the
+                   local states' arithmetic (the stores are the prefix's
+                   cost);
+  decode no_s_pass     the S update and phi_q S skipped: loads, featurize,
+                   reductions and barriers;
+  decode no_featurize  featurize skipped (the feature rows keep what they
+                   hold): loads, the S pass, reductions and barriers.
 """
 from __future__ import annotations
 
@@ -45,8 +63,10 @@ import sys
 import numpy as np
 import torch
 
-from chip_smoke import (BANK, CHUNK, D_FEAT, D_IN, K_D_FEAT, K_D_IN, Q, SRC,
-                        inputs, krls_inputs, time_ms)
+from chip_smoke import (BANK, CHUNK, D_FEAT, D_IN, DECODE_CALLS,
+                        DECODE_SHAPES, K_D_FEAT, K_D_IN, LINEAR_SHAPES, Q, SRC,
+                        decode_inputs, device_busy, f32_tensor, inputs,
+                        krls_inputs, positive, time_ms)
 
 DIVIDES = [(f"__fdiv_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)",
             f"__fmul_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)", 1)
@@ -130,13 +150,13 @@ TILE_VARIANTS = {  # name: (source, [(text, replacement, times)])
 }
 
 
-def build_tiles(build, csrc, out) -> dict:
-    """Every feature-tile variant's library, compiled in parallel (the
-    header is copied beside the variants)."""
+def build_tiles(build, csrc, out, variants=None) -> dict:
+    """Every variant's library (``TILE_VARIANTS`` unless given), compiled
+    in parallel (the header is copied beside the variants)."""
     out.mkdir(parents=True, exist_ok=True)
     (out / "feature_tile.cuh").write_text((csrc / "feature_tile.cuh").read_text())
     procs = {}
-    for name, (source, edits) in TILE_VARIANTS.items():
+    for name, (source, edits) in (variants or TILE_VARIANTS).items():
         src = (csrc / f"{source}.cu").read_text()
         for old, new, count in edits:
             if src.count(old) != count:
@@ -213,6 +233,88 @@ def tile_breakdown(build, dev) -> dict:
             "ms": ms}
 
 
+LINEAR_LAUNCHES = {
+    "state": "  if ((err = linear_state(k, v, ws, BH, S, D, dv, st)) != "
+             "cudaSuccess) return err;\n",
+    "outputs": "  if ((err = linear_outputs(q, k, v, ws, out, BH, S, D, dv, "
+               "normalize != 0, eps, st)) != cudaSuccess) return err;\n",
+}
+ATTENTION_VARIANTS = {  # name: [(text, replacement, times)]
+    "full": [],
+    **{f"{keep}_only": [(line, "", 1) for name, line in LINEAR_LAUNCHES.items()
+                        if name != keep] for keep in LINEAR_LAUNCHES},
+    "state_only_no_store": [(LINEAR_LAUNCHES["outputs"], "", 1), (
+        "      if (d < g.Dp)\n", "      if (d < g.Dp && acc[i][0] == 12345.f)\n",
+        1)],
+    "no_s_pass": [("    s_pass(St, pq, pk, vb + cur * kDecCols, red, D, part, "
+                   "quad, lane, warp);\n", "", 1)],
+    "no_featurize": [(
+        "    float den_part = featurize<PRF, BF16>(wsrc, xq, xq + dh, bias, "
+        "scale, nrm[2 * cur], nrm[2 * cur + 1], z, pq, pk, dh, D, root_d);",
+        "    float den_part = 0.f;", 1)],
+}
+
+
+def attention_breakdown(build, dev) -> dict:
+    """The attention variants, each timed twice (the full kernels first and
+    last): linear attention's phases and the decode block's parts."""
+    from repro_torch.kernels.chunking import linear_attention_plan
+    from repro_torch.kernels.ref import prf_root
+
+    libs = build_tiles(build, build.CSRC, build.BUILD_DIR / "breakdown",
+                       {f"attn_{name}": ("rff_attention", edits)
+                        for name, edits in ATTENTION_VARIANTS.items()})
+    rng = np.random.default_rng(0)
+    P, L, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_float)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bh, slen, dfeat, dv, _ = LINEAR_SHAPES[0]
+    q, k = (positive(rng, bh, slen, dfeat, device=dev) for _ in range(2))
+    v = f32_tensor(rng, bh, slen, dv, device=dev)
+    out = torch.empty_like(v)
+    nbytes = linear_attention_plan(bh, slen, dfeat, dv).workspace_bytes
+    ws = torch.empty(nbytes // 4, device=dev)
+    dbh, dh, ddf, ddv = DECODE_SHAPES[0]
+    root = float(prf_root(ddf))
+    dec = {t: decode_inputs(rng, dbh, t, dh, ddf, ddv, "prf", dev)
+           for t in (1, 512)}
+    dec_out = {t: (torch.empty(dbh, t, ddv, device=dev),
+                   torch.empty_like(dec[t][0]), torch.empty_like(dec[t][1]))
+               for t in dec}
+
+    def linear(name):
+        fn = libs[f"attn_{name}"].rff_linear_attention
+        fn.argtypes = [P] * 5 + [L] + [I] * 5 + [F, P]
+        if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              ws.data_ptr(), nbytes, bh, slen, dfeat, dv, 1, 1e-6, stream):
+            raise SystemExit(f"linear {name}: launch failed")
+
+    def decode(name, tlen):
+        fn = libs[f"attn_{name}"].rff_decode_block
+        fn.argtypes = [P] * 11 + [I] * 8 + [F, F, P]
+        o, s_new, z_new = dec_out[tlen]
+        if fn(*(t.data_ptr() for t in dec[tlen]), o.data_ptr(),
+              s_new.data_ptr(), z_new.data_ptr(), dbh, tlen, dh, ddf, ddv, 1,
+              0, 1, 1e-6, root, stream):
+            raise SystemExit(f"decode {name}: launch failed")
+
+    lin_names = ["full", "state_only", "state_only_no_store", "outputs_only",
+                 "full"]
+    dec_names = ["full", "no_s_pass", "no_featurize", "full"]
+    ms = {f"linear/{n}": [] for n in lin_names}
+    ms.update({f"decode_T1_device/{n}": [] for n in dec_names})
+    ms.update({f"decode_T512/{n}": [] for n in dec_names})
+    for name in lin_names:
+        ms[f"linear/{name}"].append(time_ms(lambda: linear(name), 10))
+    for name in dec_names:
+        prof = device_busy(lambda: [decode(name, 1)
+                                    for _ in range(DECODE_CALLS)])
+        ms[f"decode_T1_device/{name}"].append(prof["device_ms"] / DECODE_CALLS)
+        ms[f"decode_T512/{name}"].append(time_ms(lambda: decode(name, 512), 5))
+    return {"linear_shape": LINEAR_SHAPES[0][:4],
+            "decode_shape": DECODE_SHAPES[0], "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
@@ -223,8 +325,9 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    fns = build_all(_build, _build.CSRC, _build.BUILD_DIR / "breakdown")
     dev = torch.device("cuda", 0)
+    print(json.dumps({"attention": attention_breakdown(_build, dev)}))
+    fns = build_all(_build, _build.CSRC, _build.BUILD_DIR / "breakdown")
     a = krls_inputs(np.random.default_rng(0), BANK, CHUNK, K_D_IN, K_D_FEAT,
                     dev, "eye")
     outs = [torch.empty_like(a["theta"]), torch.empty_like(a["pmat"]),

@@ -6,6 +6,8 @@ remainder bookkeeping of the chunked run-loops, in one place.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
@@ -35,10 +37,15 @@ __all__ = [
     "klms_element_strip",
     "default_chunk_t",
     "ATTENTION_THREADS",
+    "DECODE_TILE_COLS",
     "decode_smem_bytes",
     "decode_fits",
     "default_decode_block_t",
+    "LINEAR_ROWS",
+    "LINEAR_TILE_COLS",
     "linear_attention_smem_bytes",
+    "LinearAttentionPlan",
+    "linear_attention_plan",
 ]
 
 # Shared memory one thread block may use on an H100 (227 KB of the SM's
@@ -243,52 +250,113 @@ def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
 # Threads per block of csrc/rff_attention.cu and csrc/flash_attention.cu
 # (kThreads there).
 ATTENTION_THREADS = 256
+# The decode block's dv columns a block (kDecCols in csrc/rff_attention.cu).
+DECODE_TILE_COLS = 32
+# The linear-attention kernels' chunk rows, dv tile and feature slab
+# (kRows, kCols and kSlab there).
+LINEAR_ROWS, LINEAR_TILE_COLS, LINEAR_SLAB = 64, 64, 32
+# Shared memory of the linear-attention blocks: a state block's two chunks
+# of K (64, 64) and V (64, 64), 65,536 bytes; an output block's two stages
+# of (64, 36) Q and K slabs, a (32, 64) S_prev slab and 32 of z_prev (the
+# last slab's stages then hold the scores and the V tile) and two (64,)
+# rows (Q z_prev, normalizer), 54,016 bytes.
+_LINEAR_STATE_SMEM = 4 * 2 * LINEAR_ROWS * (64 + LINEAR_TILE_COLS)
+_LINEAR_OUT_STAGE = 2 * LINEAR_ROWS * 36 + LINEAR_SLAB * LINEAR_TILE_COLS \
+    + LINEAR_SLAB
+_LINEAR_SMEM = max(_LINEAR_STATE_SMEM,
+                   4 * (2 * _LINEAR_OUT_STAGE + 2 * LINEAR_ROWS))
+
+
+def _decode_base_floats(dfeat: int, head_dim: int) -> int:
+    threads = ATTENTION_THREADS
+    return (dfeat * DECODE_TILE_COLS + 2 * DECODE_TILE_COLS
+            + threads // 32 * DECODE_TILE_COLS + 3 * dfeat + 4 * head_dim
+            + threads // 32 + 4)
 
 
 def decode_smem_bytes(dfeat: int, dv: int, head_dim: int) -> int:
-    """Dynamic shared memory of one decode-block head (the layout in
-    csrc/rff_attention.cu): the head's ``(D, dv)`` S and ``(D,)`` z, the
-    tick's two feature rows, its q, k and v rows, the numerator's partial
-    sums (``max(1, 256 // dv)`` parts per column), the per-warp normalizer
-    partials and three scalars, all f32. W ``(dh, D)`` is streamed from L2
-    and is not charged."""
-    parts = 1 if dv >= ATTENTION_THREADS else ATTENTION_THREADS // dv
-    floats = (dfeat * dv + 3 * dfeat + 2 * head_dim + dv + parts * dv
-              + ATTENTION_THREADS // 32 + 4)
-    return 4 * floats
+    """Dynamic shared memory of one decode block of a launch of more than
+    one token (the layout in csrc/rff_attention.cu): the block's ``(D,
+    32)`` tile of S, two v rows, the ``(8, 32)`` partial numerators, z and
+    the tick's two feature rows ``(D,)``, two (q, k) token pairs ``(dh,)``,
+    the per-warp normalizer sums and two ``|x|^2`` pairs, all f32; and W
+    ``(dh, D)`` when it fits beside them (else it is read from L2, as at
+    every one-token launch). ``dv`` does not change it: a block owns 32
+    columns (103,728 bytes at D = 256, dh = 64)."""
+    del dv
+    base = _decode_base_floats(dfeat, head_dim)
+    with_w = 4 * (base + head_dim * dfeat)
+    return with_w if with_w <= SMEM_BUDGET else 4 * base
 
 
 def decode_fits(dfeat: int, dv: int, head_dim: int) -> bool:
-    """Whether a head's decode state fits :data:`SMEM_BUDGET` (D dv up to
-    about 56k f32: D = 256 at dv <= 128 fits, as at qwen2-0.5b and
-    llama3-8b)."""
-    return decode_smem_bytes(dfeat, dv, head_dim) <= SMEM_BUDGET
+    """Whether a head's decode state, S ``(D, dv)`` and z ``(D,)`` in f32,
+    fits :data:`SMEM_BUDGET`, as ``repro`` asks the head's state to fit
+    its VMEM (D = 256 at dv <= 128 fits, as at qwen2-0.5b and llama3-8b).
+    The kernel's blocks hold a 32-column tile of it; the rule stays the
+    head's, as pinned by ``default_decode_block_t``."""
+    del head_dim
+    return 4 * (dfeat * dv + dfeat) <= SMEM_BUDGET
 
 
 def default_decode_block_t(dfeat: int, dv: int, head_dim: int) -> int:
     """Default tokens T per fused decode-block launch.
 
     ``repro`` budgets T against VMEM, charging the resident S and W tiles
-    and two feature rows per streamed token. The CUDA kernel keeps S and z
-    in shared memory for the whole launch, streams W from L2 and featurizes
-    one token per tick into the same two rows, so T costs no shared
-    memory: when the head's state fits :data:`SMEM_BUDGET` the default is
-    the cap of 512 tokens that ``repro`` also clamps to (and reaches at
-    D = 256, dv = dh = 64). When it does not fit, the kernel cannot run
-    (its wrapper raises) and the floor of 8 is returned for the plain
-    path. ``repro``'s stream ``dtype`` argument is not taken: it does not
-    change the answer here.
+    and two feature rows per streamed token. The CUDA kernel keeps its S
+    tile, z and (where it fits) W in shared memory for the whole launch
+    and featurizes one token per tick into the same two rows, so T costs
+    no shared memory: when the head's state fits :data:`SMEM_BUDGET`
+    (:func:`decode_fits`) the default is the cap of 512 tokens that
+    ``repro`` also clamps to (and reaches at D = 256, dv = dh = 64). When
+    it does not fit, the wrapper refuses the kernel and the floor of 8 is
+    returned for the plain path. ``repro``'s stream ``dtype`` argument is
+    not taken: it does not change the answer here.
     """
     return 512 if decode_fits(dfeat, dv, head_dim) else 8
 
 
 def linear_attention_smem_bytes(dfeat: int) -> int:
-    """Dynamic shared memory of one chunked linear-attention block (the
-    layout in csrc/rff_attention.cu): the block's ``(D, 64)`` tile of S
-    and z (D rounded up to 64), two transposed ``(32, 65)`` Q and K slabs,
-    the ``(64, 65)`` score tile and the ``(64, 64)`` V tile, all f32."""
-    dp = -(-dfeat // 64) * 64
-    return 4 * (dp * 64 + dp + 2 * 32 * 65 + 64 * 65 + 64 * 64)
+    """Dynamic shared memory of the largest chunked linear-attention block
+    (layout in csrc/rff_attention.cu): a state block's two chunks of K and
+    V, ``(64, 64)`` each, in f32, 65,536 bytes (an output block takes
+    54,016). D does not change it: the state walks 64 features a block,
+    and the outputs stream Q, K and S_prev through in slabs."""
+    del dfeat
+    return _LINEAR_SMEM
+
+
+@dataclass(frozen=True)
+class LinearAttentionPlan:
+    """The two launches of one linear-attention call: chunks of 64 rows
+    (``nc``), dv tiles of 64 (``tiles``), D rounded up to 32 (``dp``),
+    each launch's block count and the f32 workspace's bytes."""
+
+    nc: int
+    tiles: int
+    dp: int
+    state_blocks: int
+    output_blocks: int
+    workspace_bytes: int
+
+
+def linear_attention_plan(bh: int, slen: int, dfeat: int,
+                          dv: int) -> LinearAttentionPlan:
+    """The plan ``csrc/rff_attention.cu`` launches for phi_q, phi_k ``(BH,
+    S, D)`` and v ``(BH, S, dv)``: (1) the state, one block per (head, 64
+    features, dv tile) walking the chunks in order and writing each
+    chunk's S_prev and z_prev; (2) the outputs, one block per (head, chunk,
+    dv tile). The workspace holds every chunk's record, ``tiles dp 64 +
+    dp`` floats: ``4 BH nc (tiles dp 64 + dp)`` bytes (119.3 MB at the LM
+    prefill, 56 heads, S = 2048, D = 256, dv = 64, with 224 state blocks
+    and 1792 output blocks)."""
+    nc = -(-slen // LINEAR_ROWS)
+    tiles = -(-dv // LINEAR_TILE_COLS)
+    dp = _round_up(dfeat, LINEAR_SLAB)
+    record = tiles * dp * LINEAR_TILE_COLS + dp
+    return LinearAttentionPlan(
+        nc=nc, tiles=tiles, dp=dp, state_blocks=bh * -(-dp // 64) * tiles,
+        output_blocks=bh * nc * tiles, workspace_bytes=4 * bh * nc * record)
 
 
 def num_chunks(n: int, chunk: int) -> int:

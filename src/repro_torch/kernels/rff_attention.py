@@ -6,12 +6,15 @@
   held across the T ticks, q and k featurized in-kernel (prf or trig, f32
   or the bf16 contract of ``kernels/ref.py``).
 * ``rff_attention_cuda`` replaces ``rff_attention_pallas``: chunked causal
-  linear attention over featurized ``phi_q``, ``phi_k``.
+  linear attention over featurized ``phi_q``, ``phi_k``, in two kernels
+  (the state walked over chunks, then the outputs) through an f32
+  workspace of each chunk's S_prev and z_prev
+  (``chunking.linear_attention_plan``).
 
-Each wrapper checks its inputs, allocates the outputs, launches on the
-current stream, raises on a non-zero ``cudaError_t`` and counts its
-launches in ``.launches``. CPU tensors are refused (``kernels/ops.py``
-routes them to the plain versions).
+Each wrapper checks its inputs, allocates the outputs (and the workspace),
+launches on the current stream, raises on a non-zero ``cudaError_t`` and
+counts its calls in ``.launches``. CPU tensors are refused
+(``kernels/ops.py`` routes them to the plain versions).
 """
 from __future__ import annotations
 
@@ -21,11 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunking import (
-    SMEM_BUDGET,
-    decode_smem_bytes,
-    linear_attention_smem_bytes,
-)
+from repro_torch.kernels.chunking import decode_fits, linear_attention_plan
 from repro_torch.kernels.ref import (
     canon_precision,
     default_decode_scale,
@@ -38,14 +37,16 @@ __all__ = ["rff_attention_decode_block_cuda", "rff_attention_cuda"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # s_in, z_in, q, k, v, w, b, s, out, s_out, z_out, BH, T, dh, D, dv,
     # prf, bf16, normalize, eps, root_d, stream
     "rff_decode_block": (_P,) * 11 + (_I,) * 8 + (_F, _F, _P),
-    # q, k, v, out, BH, S, D, dv, normalize, eps, stream
-    "rff_linear_attention": (_P,) * 4 + (_I,) * 5 + (_F, _P),
+    # q, k, v, out, ws, ws_bytes, BH, S, D, dv, normalize, eps, stream
+    "rff_linear_attention": (_P,) * 5 + (_L,) + (_I,) * 5 + (_F, _P),
     "rff_decode_block_smem_bytes": (_I, _I, _I),
     "rff_linear_attention_smem_bytes": (_I,),
+    "rff_linear_attention_workspace_bytes": (_I,) * 4,
     "rff_attention_error_string": (_I,),
 }
 
@@ -55,6 +56,7 @@ def _lib():
     lib.rff_attention_error_string.restype = ctypes.c_char_p
     lib.rff_decode_block_smem_bytes.restype = ctypes.c_longlong
     lib.rff_linear_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.rff_linear_attention_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -80,12 +82,18 @@ def _raise(lib, code: int, name: str) -> None:
 
 def smem_bytes(lib=None) -> dict:
     """The kernels' own dynamic shared-memory sizes at D = 256, dv = dh =
-    64 and 128 (for a check that ``kernels/chunking.py`` agrees)."""
+    64 and 128, and the linear-attention workspace at the LM prefill (56
+    heads, S = 2048, D = 256, dv = 64) and a ragged shape (for a check
+    that ``kernels/chunking.py`` agrees)."""
     lib = lib or _lib()
     return {
         "decode_64": lib.rff_decode_block_smem_bytes(64, 256, 64),
         "decode_128": lib.rff_decode_block_smem_bytes(128, 256, 128),
         "linear_256": lib.rff_linear_attention_smem_bytes(256),
+        "workspace_lm": lib.rff_linear_attention_workspace_bytes(
+            56, 2048, 256, 64),
+        "workspace_ragged": lib.rff_linear_attention_workspace_bytes(
+            3, 100, 40, 200),
     }
 
 
@@ -117,7 +125,7 @@ def rff_attention_decode_block_cuda(s_state, z_state, q, k, v, w, b, s=None,
         _check(name, t, shape, device)
     if dh < 1 or dfeat < 1 or dv < 1:
         raise ValueError(f"empty head: dh={dh}, D={dfeat}, dv={dv}")
-    if decode_smem_bytes(dfeat, dv, dh) > SMEM_BUDGET:
+    if not decode_fits(dfeat, dv, dh):
         raise ValueError(
             f"D={dfeat}, dv={dv}: one head's decode state exceeds the shared "
             "memory of a block"
@@ -148,8 +156,9 @@ def rff_attention_cuda(phi_q, phi_k, v, *, chunk=256, normalize=True,
                        eps=1e-6):
     """Causal linear attention on the card: phi_q, phi_k (BH, S, D), v (BH,
     S, dv), f32 -> (BH, S, dv) f32. Raises unless S is a multiple of
-    ``min(chunk, S)``, as ``repro`` asserts; the kernel's own chunk of 64
-    rows is not part of the function."""
+    ``min(chunk, S)``, as ``repro`` asserts; the kernels' own chunk of 64
+    rows is not part of the function. Allocates the f32 workspace of
+    ``chunking.linear_attention_plan`` on the current stream."""
     device = _cuda(phi_q, "linear-attention")
     if phi_q.ndim != 3:
         raise ValueError(
@@ -166,16 +175,15 @@ def rff_attention_cuda(phi_q, phi_k, v, *, chunk=256, normalize=True,
         _check(name, t, shape, device)
     if dfeat < 1 or dv < 1:
         raise ValueError(f"empty features: D={dfeat}, dv={dv}")
-    if linear_attention_smem_bytes(dfeat) > SMEM_BUDGET:
-        raise ValueError(
-            f"D={dfeat}: the state tile exceeds the shared memory of a block")
     out = torch.empty((bh, slen, dv), device=device, dtype=torch.float32)
     if bh == 0:
         return out
+    nbytes = linear_attention_plan(bh, slen, dfeat, dv).workspace_bytes
+    ws = torch.empty(nbytes // 4, device=device, dtype=torch.float32)
     lib = _lib()
     code = lib.rff_linear_attention(
         phi_q.data_ptr(), phi_k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, slen, dfeat, dv, int(normalize), eps,
+        ws.data_ptr(), nbytes, bh, slen, dfeat, dv, int(normalize), eps,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _raise(lib, code, "rff_linear_attention")

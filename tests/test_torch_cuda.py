@@ -23,7 +23,9 @@ of max|want| at f32 (another summation order in every product and in the
 online softmax) and 2e-2 of max|want| under bf16 (a feature or an output
 that crosses a bf16 rounding boundary moves by one bf16 ulp; the bf16
 flash kernel also rounds P to bf16 for P V); a decode block of T tokens
-equals T one-token launches bit for bit. Of the two-route kernels, flash
+equals T one-token launches bit for bit, and the dv column tiles of the
+decode block and of linear attention agree bit for bit with a call on
+those columns alone. Of the two-route kernels, flash
 attention runs bf16 on the tensor cores and f32 on the CUDA cores, and the
 KRLS chunk keeps P resident in shared memory up to D = 335 at d = 5 and
 streams it beyond, both routes equal to T step launches bit for bit.
@@ -667,6 +669,70 @@ def test_decode_block_equals_one_token_launches(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prf", "trig"])
+@pytest.mark.parametrize("bh,tlen,dh,dfeat,dv", [
+    (4, 7, 128, 256, 128),  # llama3-8b's head
+    (3, 9, 16, 40, 24),     # padded shapes
+])
+def test_decode_block_equals_one_token_launches_at_more_heads(
+        cuda_device, kind, bh, tlen, dh, dfeat, dv):
+    """A block of T tokens equals T launches of one, bit for bit."""
+    sm, zv, q, k, v, w, b, s = _decode_args(cuda_device, bh, tlen, dh, dfeat,
+                                            dv, kind, seed=2)
+    kw = dict(feature_kind=kind, normalize=kind == "prf")
+    blk = ops.rff_attention_decode_block(sm, zv, q, k, v, w, b, s,
+                                         mode="cuda", **kw)
+    outs = []
+    for i in range(tlen):
+        o, sm, zv = ops.rff_attention_decode_block(
+            sm, zv, q[:, i:i + 1].contiguous(), k[:, i:i + 1].contiguous(),
+            v[:, i:i + 1].contiguous(), w, b, s, mode="cuda", **kw)
+        outs.append(o)
+    assert torch.equal(blk[0], torch.cat(outs, 1))
+    assert torch.equal(blk[1], sm) and torch.equal(blk[2], zv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("kind", ["prf", "trig"])
+@pytest.mark.parametrize("tlen", [1, 4])
+def test_decode_block_kernel_matches_plain_at_odd_widths(cuda_device, kind,
+                                                         precision, tlen):
+    """dh, D and dv not multiples of 4 (scalar copies of S, W and the
+    tokens; W staged when T > 1)."""
+    args = _decode_args(cuda_device, 3, tlen, 7, 17, 5, kind, seed=4)
+    kw = dict(feature_kind=kind, normalize=kind == "prf",
+              precision=precision)
+    got = ops.rff_attention_decode_block(*args, mode="cuda", **kw)
+    want = ops.rff_attention_decode_block(*args, mode="ref", **kw)
+    rel = 2e-2 if precision else F32_TOL
+    for g, w, what in zip(got, want, ("out", "S", "z")):
+        _hold_rel(g, w, rel, f"{kind} {precision} T={tlen} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("kind", ["prf", "trig"])
+@pytest.mark.parametrize("tlen", [1, 6])
+def test_decode_block_column_tiles_agree(cuda_device, kind, precision, tlen):
+    """The first dv tile's outputs and state equal a call on those columns
+    of S and v, and z is the same."""
+    from repro_torch.kernels.chunking import DECODE_TILE_COLS as tile
+
+    sm, zv, q, k, v, w, b, s = _decode_args(cuda_device, 5, tlen, 64, 256,
+                                            80, kind, seed=3)
+    kw = dict(feature_kind=kind, normalize=kind == "prf",
+              precision=precision, mode="cuda")
+    full = ops.rff_attention_decode_block(sm, zv, q, k, v, w, b, s, **kw)
+    first = ops.rff_attention_decode_block(
+        sm[..., :tile].contiguous(), zv, q, k, v[..., :tile].contiguous(), w,
+        b, s, **kw)
+    assert torch.equal(full[0][..., :tile], first[0])
+    assert torch.equal(full[1][..., :tile], first[1])
+    assert torch.equal(full[2], first[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("bh,slen,dfeat,dv,chunk", [
     (3, 64, 32, 16, 16), (2, 192, 40, 24, 64), (2, 512, 256, 64, 256),
@@ -689,6 +755,73 @@ def test_linear_attention_kernel_matches_plain(cuda_device, normalize, bh,
     want = ops.rff_attention(q, k, v, mode="ref", chunk=chunk,
                              normalize=normalize)
     _hold_rel(got, want, F32_TOL, "linear attention")
+
+
+def _linear_args(device, bh, slen, dfeat, dv, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, positive=False):
+        a = rng.normal(size=shape)
+        if positive:
+            a = np.log1p(np.exp(a)) + 0.01
+        return convert.tensor(a, device=device, dtype=torch.float32)
+
+    return (t(bh, slen, dfeat, positive=True),
+            t(bh, slen, dfeat, positive=True), t(bh, slen, dv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("bh,slen,dfeat,dv,chunk", [
+    (2, 4096, 256, 64, 256),  # many chunks (64 of the kernels' 64 rows)
+    (2, 100, 40, 24, 256),    # S not a multiple of 64; min(chunk, S) = 100
+    (2, 256, 256, 128, 64),   # two dv tiles
+    (2, 192, 64, 200, 64),    # a ragged last dv tile
+    (2, 70, 17, 5, 70),       # D and dv not multiples of 4: scalar copies
+])
+def test_linear_attention_kernel_matches_plain_at_more_shapes(
+        cuda_device, normalize, bh, slen, dfeat, dv, chunk):
+    q, k, v = _linear_args(cuda_device, bh, slen, dfeat, dv, seed=dv)
+    got = ops.rff_attention(q, k, v, mode="cuda", chunk=chunk,
+                            normalize=normalize)
+    want = ops.rff_attention(q, k, v, mode="ref", chunk=chunk,
+                             normalize=normalize)
+    _hold_rel(got, want, F32_TOL, f"linear attention {bh, slen, dfeat, dv}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("bh,slen,dfeat,dv", [(2, 256, 256, 128),
+                                              (3, 100, 40, 200)])
+def test_linear_attention_column_tiles_and_reruns_agree(
+        cuda_device, normalize, bh, slen, dfeat, dv):
+    """The first dv tile's columns equal a call on those columns of v, and
+    two launches give the same bits (no atomics)."""
+    from repro_torch.kernels.chunking import LINEAR_TILE_COLS as tile
+    from repro_torch.kernels.rff_attention import rff_attention_cuda
+
+    q, k, v = _linear_args(cuda_device, bh, slen, dfeat, dv, seed=7)
+    kw = dict(chunk=slen, normalize=normalize)
+    n = rff_attention_cuda.launches
+    full = rff_attention_cuda(q, k, v, **kw)
+    again = rff_attention_cuda(q, k, v, **kw)
+    first = rff_attention_cuda(q, k, v[..., :tile].contiguous(), **kw)
+    assert rff_attention_cuda.launches == n + 3
+    assert torch.equal(full, again)
+    assert torch.equal(full[..., :tile], first)
+
+
+@pytest.mark.cuda
+def test_linear_attention_workspace_matches_c_layout(cuda_device):
+    """The wrapper's workspace plan is the kernels' own size."""
+    from repro_torch.kernels import chunking
+    from repro_torch.kernels import rff_attention as ra
+
+    sizes = ra.smem_bytes()
+    assert sizes["workspace_lm"] == chunking.linear_attention_plan(
+        56, 2048, 256, 64).workspace_bytes
+    assert sizes["workspace_ragged"] == chunking.linear_attention_plan(
+        3, 100, 40, 200).workspace_bytes
 
 
 @pytest.mark.cuda

@@ -476,6 +476,47 @@ def test_default_decode_block_t_rule():
     assert chunking.linear_attention_smem_bytes(256) <= chunking.SMEM_BUDGET
 
 
+@pytest.mark.parametrize("bh,slen,dfeat,dv", [
+    (56, 2048, 256, 64),   # qwen2-0.5b's prefill at B = 4, S = 2048
+    (8, 4096, 256, 64),    # chip_smoke's long sequence
+    (3, 100, 40, 24),      # ragged S, D and dv
+    (2, 192, 64, 200),     # a ragged fourth dv tile
+])
+def test_linear_attention_plan(bh, slen, dfeat, dv):
+    """Kernel 10's launches: chunks of 64 rows, dv tiles of 64, D rounded
+    up to 32; the state walks 64 features a block; the workspace holds each
+    (head, chunk)'s S_prev and z_prev, 4 BH nc (tiles Dp 64 + Dp) bytes; at
+    the LM shape each launch has more blocks than the card's 132 SMs."""
+    plan = chunking.linear_attention_plan(bh, slen, dfeat, dv)
+    nc, tiles, dp = -(-slen // 64), -(-dv // 64), -(-dfeat // 32) * 32
+    assert (plan.nc, plan.tiles, plan.dp) == (nc, tiles, dp)
+    assert plan.workspace_bytes == 4 * bh * nc * (tiles * dp * 64 + dp)
+    assert plan.output_blocks == bh * nc * tiles
+    assert plan.state_blocks == bh * tiles * -(-dp // 64)
+    if (bh, slen, dfeat, dv) == (56, 2048, 256, 64):
+        assert min(plan.state_blocks, plan.output_blocks) >= 132
+        assert (plan.state_blocks, plan.output_blocks) == (224, 1792)
+        assert plan.workspace_bytes == 119_275_520
+
+
+def test_decode_block_tile_smem():
+    """Kernel 9's blocks own 32 dv columns of a head (112 blocks at
+    qwen2-0.5b's decode, 56 heads of dv = 64): a block's shared memory
+    follows its tile, with W beside it where it fits, whatever dv; while
+    decode_fits answers for the head's whole state."""
+    assert chunking.DECODE_TILE_COLS == 32
+    assert chunking.decode_smem_bytes(256, 64, 64) == \
+        chunking.decode_smem_bytes(256, 128, 64)
+    assert chunking.decode_smem_bytes(256, 64, 64) == 4 * (
+        256 * 32 + 2 * 32 + 8 * 32 + 3 * 256 + 4 * 64 + 8 + 4 + 64 * 256)
+    # W (128, 1024) does not fit beside a (1024, 32) tile: read from L2.
+    assert chunking.decode_smem_bytes(1024, 128, 128) == 4 * (
+        1024 * 32 + 2 * 32 + 8 * 32 + 3 * 1024 + 4 * 128 + 8 + 4)
+    assert chunking.decode_smem_bytes(1024, 128, 128) <= chunking.SMEM_BUDGET
+    assert chunking.decode_fits(256, 128, 128)
+    assert not chunking.decode_fits(1024, 128, 128)
+
+
 def test_registry_names_only_ported_archs():
     """The port's configs are repro's, field for field; other archs and
     unported mixers raise, naming ROADMAP."""
