@@ -19,26 +19,30 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    ``mode="ref"`` on the card, and each kernel's launch count must rise;
 4. holds both KRLS kernels (chunk, step) against their plain versions at
    the serving shape (B=1024, d=5, D=300, T=16) and at ragged ones (D up
-   to 1024, and a P that is not symmetric), the chunk on each of its
-   routes (P's triangle resident in shared memory up to D = 335 at d = 5,
-   P streamed each tick at D = 400 and 1024), with the bitwise contracts
-   on each route (a chunk of T equals T steps, T = 1 a step, P' exactly
-   symmetric, masked ticks a no-op);
+   to 1024, and a P that is not symmetric), each on both of its routes
+   (P's triangle resident in shared memory up to D = 335 at d = 5, where
+   a step is the resident chunk kernel at T = 1; P streamed each tick at
+   D = 400 and 1024), with the bitwise contracts on each route (a chunk of
+   T equals T steps, T = 1 a step, the streaming step the routed step, P'
+   exactly symmetric, masked ticks a no-op);
 5. drives the KRLS main path: ``make_server("krls")`` at the paper's §6
    settings (d=5, D=300, sigma=5, lam=1e-4, beta=0.9995) with B=1024 and
    chunk=16, its reads and a ``make_tick("krls")`` tier, against the same
    server with ``mode="ref"`` and within the f32 error budget that a
    float64 run of the same stream measures;
 6. times each kernel, its plain version and its bound at the serving
-   shapes, the KRLS chunk's streaming route where it is picked (the
+   shapes, the KRLS kernels' streaming routes where they are picked (the
    serving bank at D = 400), and the read kernel on its bf16 route and at
    the KRLS read shape (d = 5, D = 300);
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
    against their plain versions at the replay shape (T=256, d=128,
    D=2048), the read-block shape of the feature map (65536 rows), the
-   paper's d=5, D=300 and ragged shapes, with their exact contracts (a
-   fully masked chunk is the identity element, a remainder chunk equals
-   its live ticks alone);
+   paper's d=5, D=300 and ragged shapes, the KLMS element (formed in
+   closed form, not by the fold) against a float64 fold at the replay
+   shape (within twice the f32 fold's distance) and in a stress case (d =
+   5, D = 300, mu = 1.5), with their exact contracts (a fully masked chunk
+   is the identity element, two calls agree, a remainder chunk equals its
+   live ticks alone);
 8. drives the KLMS lifecycle: ``make_server("klms", log_capacity=256)``
    at the KLMS serving configuration evicts four tenants (a history that
    overflows the ring, one of 201 ticks, one of a single tick, one with
@@ -52,7 +56,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    that the same server run in float64 measures, and bit for bit on
    untouched tenants;
 10. times the replay kernels and readmission (wall time per mode and
-    family, at D=2048 and D=300);
+    family, at D=2048 and D=300); the KLMS element's bound is the smaller
+    of the fold's and the closed form's operation counts;
 11. holds the LM slice's kernels (RFF decode block, chunked linear
     attention, flash attention) against their plain versions at
     qwen2-0.5b's shapes (56 heads at B=4, dh=64, D=256, S=2048), at
@@ -85,8 +90,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     decode state's bytes (the RFF state against the KV cache at 2048 and
     32768 tokens).
 
-The line before the last is ``{"kernels": [...]}`` (flash_attention and
-krls_bank_chunk with a record per route under "routes", bank_predict with
+The line before the last is ``{"kernels": [...]}`` (flash_attention,
+krls_bank_chunk and krls_bank_step with a record per route under
+"routes", bank_predict with
 "bf16" and "krls_read" records beside its f32 serving one); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
@@ -480,11 +486,15 @@ def krls_inputs(rng, bank, tlen, d, dfeat, device, pmat="spd"):
 def krls_contracts(a, route) -> None:
     """The bitwise contracts of the chunk route that a's shape picks
     (``route``, checked on every launch): a chunk of T equals T step
-    launches and T = 1 one step, P' of a symmetric P is exactly symmetric,
-    masked ticks leave theta and P bit for bit in fresh tensors and emit
+    launches (the step on the same route) and T = 1 one step, a chain of
+    streaming step launches equals the routed steps at every tick, P' of a
+    symmetric P is exactly symmetric, masked ticks leave theta and P bit for bit in fresh tensors and emit
     the prior prediction."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+    from repro_torch.kernels.rff_krls_step import (
+        rff_krls_bank_chunk_cuda,
+        rff_krls_bank_step_cuda,
+    )
 
     common = (a["w"], a["b"], a["beta"])
     tlen = a["xs"].shape[1]
@@ -502,12 +512,22 @@ def krls_contracts(a, route) -> None:
     check(torch.equal(chunk[1], chunk[1].transpose(1, 2)),
           f"{tag}: P' of a symmetric P is not exactly symmetric")
     theta, pmat = a["theta"], a["pmat"]
+    stheta, spmat = theta, pmat
     for t in range(tlen):
+        x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
         theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, a["xs"][:, t].contiguous(),
-            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+            theta, pmat, x_t, y_t, *common, a["s"], mode="cuda")
         check(torch.equal(pred, chunk[2][:, t]) and torch.equal(err, chunk[3][:, t]),
               f"{tag}: chunk of {tlen} vs steps: tick {t} outputs differ")
+        # The step's routes: a chain of the streaming step kernel, which
+        # the wider D take, equals the routed steps bit for bit.
+        streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t, *common,
+                                           a["s"], _route="streaming")
+        check(all(torch.equal(u, v) for u, v in
+                  zip(streamed, (theta, pmat, pred, err))),
+              f"{tag}: the streaming step vs the routed step: tick {t} differs")
+        stheta, spmat = streamed[0], streamed[1]
+        del streamed
         if t == 0:
             one = chunk_of(a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
                            a["ys"][:, :1].contiguous(), *common, None, a["s"])
@@ -516,7 +536,7 @@ def krls_contracts(a, route) -> None:
                   f"{tag}: chunk at T=1 vs step differ")
     check(torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1]),
           f"{tag}: chunk of {tlen} vs steps: theta or P differs")
-    del chunk, theta, pmat, one
+    del chunk, theta, pmat, one, stheta, spmat
     masked = chunk_of(a["theta"], a["pmat"], a["xs"], a["ys"], *common,
                       torch.zeros_like(a["ys"]), a["s"])
     check(torch.equal(masked[0], a["theta"]) and torch.equal(masked[1], a["pmat"]),
@@ -531,16 +551,18 @@ def krls_contracts(a, route) -> None:
 
 
 def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
-    """Both KRLS kernels against their plain versions, the chunk on each
-    of its routes (P resident in shared memory up to D = 335 at d = 5, P
-    streamed beyond), and the bitwise contracts of both routes."""
+    """Both KRLS kernels against their plain versions, each on both of its
+    routes (P resident in shared memory up to D = 335 at d = 5: the chunk
+    kernel, at T = 1 for a step; P streamed beyond: the chunk and step
+    kernels of the streaming design), and the bitwise contracts of both
+    routes."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rff_krls_step import krls_chunk_route
 
     names = ("krls_bank_chunk", "krls_bank_step")
     errs, shares, rels = (dict.fromkeys(names, 0.0) for _ in range(3))
-    by_route = {r: {"max_abs_err": 0.0, "p_rel_err": 0.0, "cases": []}
-                for r in KRLS_ROUTES}
+    by_route = {name: {r: {"max_abs_err": 0.0, "p_rel_err": 0.0, "cases": []}
+                       for r in KRLS_ROUTES} for name in names}
     cases = [(BANK, K_D_IN, K_D_FEAT, CHUNK, "eye"),
              (BANK, K_D_IN, K_D_FEAT, CHUNK, "spd")]
     cases += [(*shape, "spd") for shape in K_RAGGED] + [(4, 5, 70, 6, "asym")]
@@ -560,11 +582,10 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
             errs[name] = max(errs[name], e)
             shares[name] = max(shares[name], f)
             rels[name] = max(rels[name], r)
-            if name == "krls_bank_chunk":
-                rec = by_route[route]
-                rec["max_abs_err"] = max(rec["max_abs_err"], e)
-                rec["p_rel_err"] = max(rec["p_rel_err"], r)
-                rec["cases"].append([bank, d, dfeat, tlen, kind])
+            rec = by_route[name][route]  # the step routes as the chunk
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            rec["p_rel_err"] = max(rec["p_rel_err"], r)
+            rec["cases"].append([bank, d, dfeat, tlen, kind])
         del a, args, sargs
 
     krls_contracts(krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device,
@@ -576,10 +597,11 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
     emit({"phase": "krls_kernels_vs_plain",
           "cases": [list(c) for c in cases], "max_abs_err": errs,
           "max_share_of_tolerance": shares, "p_rel_err": rels,
-          "chunk_routes": by_route,
+          "routes": by_route,
           "tolerance": {"theta_pred_err": F32_TOL, "p_of_max_abs_p": P_TOL},
           "bitwise_on_each_route": {"chunk_eq_steps": True,
                                     "chunk1_eq_step": True,
+                                    "streaming_step_eq_routed_step": True,
                                     "masked_tick_noop_fresh_outputs": True,
                                     "p_out_exactly_symmetric": True}})
     return errs, rels, by_route
@@ -659,6 +681,10 @@ def phase_krls_server(seed, device, kernels) -> dict:
     routes = dict(kernels["krls_bank_chunk"].route_launches)
     check(routes["resident"] == launches["krls_bank_chunk"],
           f"krls flushes at D = {K_D_FEAT} did not all keep P resident: {routes}")
+    step_routes = dict(kernels["krls_bank_step"].route_launches)
+    check(step_routes["resident"] == launches["krls_bank_step"],
+          f"krls ticks at D = {K_D_FEAT} did not all keep P resident: "
+          f"{step_routes}")
 
     srv = servers[0]
     flushes = srv.queue.flushes
@@ -688,6 +714,7 @@ def phase_krls_server(seed, device, kernels) -> dict:
           "Q": Q, "submits": submits, "flushes": flushes,
           "prior_mse_per_round": mse, "staleness": srv.staleness,
           "launches": launches, "chunk_route_launches": routes,
+          "step_route_launches": step_routes,
           "seconds": seconds,
           "p_device_bytes": pmat.numel() * pmat.element_size(),
           "budget": {"factor": BUDGET, "floor": BUDGET_FLOOR, **budget}})
@@ -762,9 +789,9 @@ def phase_times(rng, device) -> dict:
     2 D^2 for P z, 5 D^2 for the downdate and its symmetrization, and 5 D
     for z . pz, the gain and the theta update (every tick of the timed
     chunk is live). Bytes count each input read once and each output
-    written once: for KRLS, P in and P' out dominate. The KRLS chunk is
-    timed on its resident route at D = 300 and its streaming route at
-    D = K_D_WIDE.
+    written once: for KRLS, P in and P' out dominate. Both KRLS kernels
+    are timed on their resident route at D = 300 and their streaming route
+    at D = K_D_WIDE.
     """
     from repro_torch.kernels import ops
 
@@ -804,27 +831,43 @@ def phase_times(rng, device) -> dict:
             k["s"], mode=m),
         *krls_cost(K_D_FEAT, 1),
     )
-    from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+    from repro_torch.kernels.rff_krls_step import (
+        rff_krls_bank_chunk_cuda,
+        rff_krls_bank_step_cuda,
+    )
 
-    counts = rff_krls_bank_chunk_cuda.route_launches
-    before = dict(counts)
+    counts = {name: k_.route_launches for name, k_ in (
+        ("krls_bank_chunk", rff_krls_bank_chunk_cuda),
+        ("krls_bank_step", rff_krls_bank_step_cuda))}
+    before = {name: dict(c) for name, c in counts.items()}
     out = {name: timed_case(*case) for name, case in cases.items()}
-    check(counts["resident"] > before["resident"]
-          and counts["streaming"] == before["streaming"],
-          f"krls_bank_chunk at D = {K_D_FEAT} was timed off its resident route")
-    # The chunk's streaming route where it is picked: the serving bank at
-    # D = K_D_WIDE, past the resident triangle's shared memory.
-    wide = timed_case(*krls_chunk_case(krls_inputs(
-        rng, BANK, CHUNK, K_D_IN, K_D_WIDE, device, "eye")), plain_reps=5)
-    check(counts["streaming"] > before["streaming"],
-          f"krls_bank_chunk at D = {K_D_WIDE} was timed off its streaming route")
-    row = out["krls_bank_chunk"]
+    for name, c in counts.items():
+        check(c["resident"] > before[name]["resident"]
+              and c["streaming"] == before[name]["streaming"],
+              f"{name} at D = {K_D_FEAT} was timed off its resident route")
+    # Both KRLS kernels' streaming routes where they are picked: the
+    # serving bank at D = K_D_WIDE, past the resident triangle's shared
+    # memory.
+    kw = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_WIDE, device, "eye")
+    kw0, kwy0 = kw["xs"][:, 0].contiguous(), kw["ys"][:, 0].contiguous()
+    wide = {"krls_bank_chunk": timed_case(*krls_chunk_case(kw), plain_reps=5),
+            "krls_bank_step": timed_case(
+                lambda m: ops.rff_krls_bank_step(
+                    kw["theta"], kw["pmat"], kw0, kwy0, kw["w"], kw["b"],
+                    kw["beta"], kw["s"], mode=m),
+                *krls_cost(K_D_WIDE, 1), plain_reps=5)}
+    del kw, kw0, kwy0
     keys = ("ms", "ms_runs", "plain_ms", "bound_ms", "bound_by")
-    row["routes"] = {
-        "resident": {**{k_: row[k_] for k_ in keys}, "library_ms": None,
-                     "shape": [BANK, CHUNK, K_D_IN, K_D_FEAT]},
-        "streaming": {**{k_: wide[k_] for k_ in keys}, "library_ms": None,
-                      "shape": [BANK, CHUNK, K_D_IN, K_D_WIDE]}}
+    for name, c in counts.items():
+        check(c["streaming"] > before[name]["streaming"],
+              f"{name} at D = {K_D_WIDE} was timed off its streaming route")
+        row, tlen = out[name], CHUNK if name == "krls_bank_chunk" else 1
+        row["routes"] = {
+            "resident": {**{k_: row[k_] for k_ in keys}, "library_ms": None,
+                         "shape": [BANK, tlen, K_D_IN, K_D_FEAT]},
+            "streaming": {**{k_: wide[name][k_] for k_ in keys},
+                          "library_ms": None,
+                          "shape": [BANK, tlen, K_D_IN, K_D_WIDE]}}
     keys = ("ms", "ms_runs", "plain_ms", "plain_ms_runs", "bound_ms",
             "bound_by")
     pred = out["bank_predict"]
@@ -876,6 +919,11 @@ def feature_inputs(rng, m, d, dfeat, device):
     )
 
 
+def f64_err(got, want) -> float:
+    """max |got - want|, taken in float64."""
+    return float((got.double() - want.double()).abs().max())
+
+
 def rel_norm(got, want) -> float:
     """Frobenius norm of the difference over that of ``want``."""
     g, w = got.double(), want.double()
@@ -886,17 +934,25 @@ def rel_norm(got, want) -> float:
 FEATURE_SHAPES = [(256, D_IN, D_FEAT), (65536, D_IN, D_FEAT), (1, 1, 17),
                   (33, 5, 300)]  # (M, d, D)
 # (T, d, D, chunk, normalized): the replay shape and the paper's (one
-# chunk each at the default Tc), remainders at both widths, and Tc = 1.
+# chunk each at the default Tc), remainders at both widths, Tc = 1, and
+# two chunks of the default Tc's cap, 512.
 ELEMENT_CASES = [(256, D_IN, D_FEAT, None, False),
                  (256, D_IN, D_FEAT, 100, True),
                  (256, K_D_IN, K_D_FEAT, None, False),
                  (256, K_D_IN, K_D_FEAT, 48, True),
-                 (40, K_D_IN, K_D_FEAT, 1, False)]
+                 (40, K_D_IN, K_D_FEAT, 1, False),
+                 (1024, D_IN, D_FEAT, 512, False)]
+# The KLMS element kernel composes a chunk in closed form, not by the fold:
+# at the replay shape its A and v must each be within WY_GATE times the
+# f32 fold's own distance from a float64 fold, and in the stress case (d =
+# 5, D = 300, mu = 1.5, where T's entries grow past 2) v within
+# WY_STRESS_TOL of max |v| of the float64 fold.
+WY_GATE, WY_STRESS_TOL, WY_STRESS_MU = 2.0, 1e-4, 1.5
 
 
 def phase_replay_kernels(rng, device) -> dict:
-    """The replay kernels against their plain versions, and their exact
-    contracts."""
+    """The replay kernels against their plain versions, the KLMS element's
+    numerical gate against a float64 fold, and their exact contracts."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rff_scan import (
         rff_klms_chunk_elements_cuda,
@@ -946,6 +1002,42 @@ def phase_replay_kernels(rng, device) -> dict:
             rel[name] = max(rel[name], r)
             del got, want
 
+    # The closed form's numerical gate against a float64 fold.
+    wy = {}
+    for label, d, dfeat, mu, norms in (
+            ("replay", D_IN, D_FEAT, MU, (False, True)),
+            ("stress", K_D_IN, K_D_FEAT, WY_STRESS_MU, (False,))):
+        a = feature_inputs(rng, LOG_CAP, d, dfeat, device)
+        ys = f32_tensor(rng, LOG_CAP, device=device)
+        f64 = [t.double() for t in (a["x"], ys, a["w"], a["b"])]
+        for norm in norms:
+            got = ops.rff_klms_chunk_elements(a["x"], ys, a["w"], a["b"], mu,
+                                              a["s"], mode="cuda",
+                                              normalized=norm)
+            plain = ops.rff_klms_chunk_elements(a["x"], ys, a["w"], a["b"],
+                                                mu, a["s"], mode="ref",
+                                                normalized=norm)
+            exact = ops.rff_klms_chunk_elements(*f64, mu, a["s"].double(),
+                                                mode="ref", normalized=norm)
+            dist = {f"{k}_{part}": f64_err(x[i], exact[i])
+                    for k, x in (("kernel", got), ("fold", plain))
+                    for i, part in enumerate(("a", "v"))}
+            dist["max_abs_v"] = float(exact[1].abs().max())
+            tag = f"klms_chunk_elements {label} D={dfeat} norm={norm}"
+            if label == "replay":
+                for part in ("a", "v"):
+                    check(dist[f"kernel_{part}"]
+                          <= WY_GATE * dist[f"fold_{part}"],
+                          f"{tag}: {part} is {dist[f'kernel_{part}']:.3g} from "
+                          f"float64, the f32 fold {dist[f'fold_{part}']:.3g} "
+                          f"(gate x{WY_GATE})")
+            else:
+                check(dist["kernel_v"] <= WY_STRESS_TOL * dist["max_abs_v"],
+                      f"{tag}: v is {dist['kernel_v']:.3g} from float64 "
+                      f"(tol {WY_STRESS_TOL} of max|v| {dist['max_abs_v']:.3g})")
+            wy[f"{label} norm={norm}"] = dist
+            del got, plain, exact
+        del a, f64
     # Exact contracts at the paper's width: chunk 1 of 3 fully masked.
     a = feature_inputs(rng, 24, K_D_IN, K_D_FEAT, device)
     ys = f32_tensor(rng, 24, device=device)
@@ -959,6 +1051,10 @@ def phase_replay_kernels(rng, device) -> dict:
     g, phi, r = rff_krls_chunk_elements_cuda(*args, K_BETA, mask, a["s"])
     check(float(g[1]) == 1.0 and not bool(phi[1].any())
           and not bool(r[1].any()), "masked KRLS chunk is not (1, 0, 0)")
+    # Two calls agree bit for bit.
+    again = rff_klms_chunk_elements_cuda(*args, MU, mask, a["s"])
+    check(torch.equal(again[0], av) and torch.equal(again[1], vv),
+          "klms_chunk_elements: two calls differ")
     # A remainder chunk (4 live + 12 masked ticks) equals its live ticks.
     x20, y20 = a["x"][:20], ys[:20]
     for op, hp in ((ops.rff_klms_chunk_elements, MU),
@@ -974,11 +1070,15 @@ def phase_replay_kernels(rng, device) -> dict:
           "feature_err_of_max_s": feat,
           "element_cases": [list(c) for c in ELEMENT_CASES],
           "max_abs_err": errs, "max_normwise_err": rel,
+          "klms_wy_vs_float64": wy,
           "tolerance": {"features_of_max_s": FEAT_TOL,
                         "features_bf16_of_max_s": FEAT_BF16_TOL,
                         "elements_elementwise": F32_TOL,
-                        "elements_normwise": F32_TOL},
+                        "elements_normwise": F32_TOL,
+                        "klms_wy_gate_of_fold": WY_GATE,
+                        "klms_wy_stress_v_of_max_v": WY_STRESS_TOL},
           "exact": {"masked_chunk_is_identity": True,
+                    "two_calls_agree": True,
                     "remainder_chunk_eq_live_ticks": True}})
     return errs
 
@@ -1229,10 +1329,17 @@ def phase_replay_times(rng, device) -> dict:
     replay shapes, and readmission wall time per family, mode and width.
 
     Operations, counting a multiply-add as two: the feature map's 2 d D
-    plus bias, cos (as one operation) and scale per output; a live KLMS
-    element tick 4 D^2 (z A, one multiply-add per element, and the rank-1
-    update, one multiply-add per element once mu_eff z_i is formed per
-    row) plus 5 D (z . v, v's update and mu_eff z); a live KRLS tick 3 D^2
+    plus bias, cos (as one operation) and scale per output. The KLMS
+    element has two counts, and its bound takes the smaller, the least
+    work known for the function: the fold's, a live tick 4 D^2 (z A, one
+    multiply-add per element, and the rank-1 update, one multiply-add per
+    element once mu_eff z_i is formed per row) plus 5 D (z . v, v's update
+    and mu_eff z); and the closed form's (what the kernel does), per chunk
+    Tc (Tc + 1) D (the Gram: G is symmetric, and the solve reads only its
+    lower triangle and diagonal), Tc^2 D (T Z, T triangular), 2 D^2 Tc
+    (the product), Tc^3 / 3 (the solve, a triangular inverse), 2 Tc D (v)
+    and 2 Tc^2 (c). A live
+    KRLS tick 3 D^2
     (beta Phi + z_i z_j: a multiply and a multiply-add; a masked tick is
     skipped, so no mask multiply) plus 3 D for r. Every tick of these
     inputs is live. Bytes: each input read once and each output written
@@ -1260,13 +1367,17 @@ def phase_replay_times(rng, device) -> dict:
         del a
     a = feature_inputs(rng, LOG_CAP, D_IN, D_FEAT, device)
     ys = f32_tensor(rng, LOG_CAP, device=device)
+    tc, feat = LOG_CAP, LOG_CAP * (2 * D_IN * D_FEAT + 3 * D_FEAT)
+    fold_ops = feat + tc * (4 * D_FEAT ** 2 + 5 * D_FEAT)
+    wy_ops = feat + (tc * (tc + 1) * D_FEAT + tc ** 2 * D_FEAT
+                     + 2 * D_FEAT ** 2 * tc + tc ** 3 // 3
+                     + 2 * tc * D_FEAT + 2 * tc ** 2)
     measure("klms_chunk_elements", lambda mode: ops.rff_klms_chunk_elements(
         a["x"], ys, a["w"], a["b"], MU, a["s"], mode=mode),
         shared(D_IN, D_FEAT) + 4 * (LOG_CAP * (D_IN + 1)
                                     + D_FEAT * D_FEAT + D_FEAT),
-        LOG_CAP * (2 * D_IN * D_FEAT + 3 * D_FEAT + 4 * D_FEAT ** 2
-                   + 5 * D_FEAT),
-        shape=[LOG_CAP, D_IN, D_FEAT])
+        min(fold_ops, wy_ops), shape=[LOG_CAP, D_IN, D_FEAT])
+    out["klms_chunk_elements"].update(ops_fold=fold_ops, ops_wy=wy_ops)
     k = feature_inputs(rng, LOG_CAP, K_D_IN, K_D_FEAT, device)
     kys = f32_tensor(rng, LOG_CAP, device=device)
     measure("krls_chunk_elements", lambda mode: ops.rff_krls_chunk_elements(
@@ -1339,13 +1450,16 @@ LM_SOURCES = {
     "rff_linear_attention": "src/repro_torch/csrc/rff_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
 }
-# Each route of the two kernels that have two, and its source.
+# Each route of the kernels that have two, and its source (the KRLS step's
+# resident route is the resident chunk kernel at T = 1).
 ROUTE_SOURCES = {
     "flash_attention": {
         "tensor_core": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
     "krls_bank_chunk": {"resident": "src/repro_torch/csrc/krls_bank.cu",
                         "streaming": "src/repro_torch/csrc/krls_bank.cu"},
+    "krls_bank_step": {"resident": "src/repro_torch/csrc/krls_bank.cu",
+                       "streaming": "src/repro_torch/csrc/krls_bank.cu"},
 }
 # (BH, dh, D, dv): qwen2-0.5b's decode at B = 4, llama3-8b's head width,
 # padded shapes.
@@ -2015,14 +2129,13 @@ def main() -> int:
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}
     # flash_attention's headline is its main-path route (bf16, tensor
-    # cores); both kernels with two routes list each one under "routes".
+    # cores); each kernel with two routes lists each one under "routes".
     fl = flash_routes["tensor_core"]
     errs["flash_attention"], lm_rels["flash_attention"] = (
         fl["max_abs_err"], fl["err_of_max_plain"])
     tolerance["flash_attention"] = None
-    timed = {"flash_attention": times["flash_attention"]["routes"],
-             "krls_bank_chunk": times["krls_bank_chunk"]["routes"]}
-    measured = {"flash_attention": flash_routes, "krls_bank_chunk": krls_routes}
+    timed = {name: times[name]["routes"] for name in ROUTE_SOURCES}
+    measured = {"flash_attention": flash_routes, **krls_routes}
     routes = {name: {route: {
         "source": src, "launches": ROUTE_LAUNCHES.get(name, {}).get(route, 0),
         **{k: v for k, v in measured[name][route].items() if k != "cases"},

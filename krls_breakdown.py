@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the resident KRLS chunk kernel's time goes, the feature-tile
-kernels' (the KLMS chunk and the read) and the RFF attention kernels'
-(the prefill's linear attention and the decode block), on one GPU.
+kernels' (the KLMS chunk and the read), the RFF attention kernels' (the
+prefill's linear attention and the decode block) and the KLMS replay
+element's (its phases), on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and
 ``nvcc``: ``python3 krls_breakdown.py``.
@@ -17,8 +18,15 @@ matches the source stops the run. It then does the same for variants of
 ``csrc/klms_bank.cu`` (``klms_bank_chunk`` at the KLMS serving shape, B =
 1024, T = 16, d = 128, D = 2048) and ``csrc/bank_predict.cu``
 (``bank_predict`` at the read shape, Q = 64, f32 and bf16), called through
-their C entries with workspaces of the wrappers' sizes. It prints the
-card's name and power limit and one JSON line for each.
+their C entries with workspaces of the wrappers' sizes. Last it times
+the KLMS replay element (``csrc/rff_scan.cu``) at the replay shape (T =
+256 ticks, one chunk, d = 128, D = 2048, mu = 0.5) by phase, through the
+C entries: the features (``rff_features``), then ``klms_chunk_elements``
+of variants of ``csrc/rff_scan.cu`` that launch one phase each (Gram;
+solve; T Z and v; the product) on the workspace a full run leaves, the
+four at once (the source as it is), and the whole call through
+``ops.rff_klms_chunk_elements``. It prints the card's name and power limit
+and one JSON line for each.
 
 Variants:
   no_downdate  the downdate of the ticks after the first live one skipped;
@@ -64,9 +72,10 @@ import numpy as np
 import torch
 
 from chip_smoke import (BANK, CHUNK, D_FEAT, D_IN, DECODE_CALLS,
-                        DECODE_SHAPES, K_D_FEAT, K_D_IN, LINEAR_SHAPES, Q, SRC,
-                        decode_inputs, device_busy, f32_tensor, inputs,
-                        krls_inputs, positive, time_ms)
+                        DECODE_SHAPES, K_D_FEAT, K_D_IN, LINEAR_SHAPES, LOG_CAP,
+                        MU, Q, SRC, decode_inputs, device_busy, f32_tensor,
+                        feature_inputs, inputs, krls_inputs, positive,
+                        time_ms)
 
 DIVIDES = [(f"__fdiv_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)",
             f"__fmul_rn(__fsub_rn(p, __fmul_rn({u}, {v})), beta)", 1)
@@ -315,6 +324,71 @@ def attention_breakdown(build, dev) -> dict:
             "decode_shape": DECODE_SHAPES[0], "ms": ms}
 
 
+ELEMENT_LAUNCHES = {"gram": ("gram_kernel",),
+                    "solve": ("diag_kernel", "off_kernel"),
+                    "tz_and_v": ("tz_kernel",), "product": ("gemm_kernel",)}
+# name: (source, [(text, replacement, times)]): each phase's variant skips
+# the other phases' launches; all_four is the source as it is.
+ELEMENT_VARIANTS = {
+    f"element_{name}": ("rff_scan", [
+        (f"    {k}<<<", f"    if (0) {k}<<<", 1)
+        for other, ks in ELEMENT_LAUNCHES.items() if other != name
+        for k in ks])
+    for name in ELEMENT_LAUNCHES}
+ELEMENT_VARIANTS["element_all_four"] = ("rff_scan", [])
+
+
+def element_breakdown(dev) -> dict:
+    """The KLMS replay element's phases at the replay shape, each timed
+    twice (the whole call first and last)."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.rff_features import _lib as features_lib
+    from repro_torch.kernels.rff_scan import _SIGNATURES
+    from repro_torch.kernels.rff_scan import _lib as scan_lib
+
+    rng = np.random.default_rng(0)
+    a = feature_inputs(rng, LOG_CAP, D_IN, D_FEAT, dev)
+    ys = f32_tensor(rng, LOG_CAP, device=dev)
+    z = torch.empty(LOG_CAP, D_FEAT, device=dev)
+    out_a = torch.empty(1, D_FEAT, D_FEAT, device=dev)
+    out_v = torch.empty(1, D_FEAT, device=dev)
+    flib, slib = features_lib(), scan_lib()
+    ws = torch.empty(slib.klms_element_chunk_floats(LOG_CAP, D_FEAT),
+                     device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def features():
+        if flib.rff_features(*(t.data_ptr() for t in (a["x"], a["w"], a["b"],
+                                                       a["s"], z)),
+                             LOG_CAP, D_IN, D_FEAT, 0, stream):
+            raise SystemExit("rff_features: launch failed")
+
+    libs = build_tiles(_build, _build.CSRC, _build.BUILD_DIR / "breakdown",
+                       ELEMENT_VARIANTS)
+    for lib in libs.values():
+        lib.klms_chunk_elements.argtypes = _SIGNATURES["klms_chunk_elements"]
+
+    def phases(name):
+        if libs[f"element_{name}"].klms_chunk_elements(
+                z.data_ptr(), ys.data_ptr(), None, out_a.data_ptr(),
+                out_v.data_ptr(), ws.data_ptr(), ws.numel(), 1, LOG_CAP,
+                D_FEAT, MU, 0, 1e-6, stream):
+            raise SystemExit(f"klms_chunk_elements {name}: failed")
+
+    def whole():
+        ops.rff_klms_chunk_elements(a["x"], ys, a["w"], a["b"], MU, a["s"],
+                                    mode="cuda")
+
+    features()
+    phases("all_four")
+    ms = {"ops": [time_ms(whole, 10)], "features": [time_ms(features, 10)]}
+    for name in [*ELEMENT_LAUNCHES, "all_four"]:
+        ms[name] = [time_ms(lambda: phases(name), 10) for _ in range(2)]
+    ms["ops"].append(time_ms(whole, 10))
+    return {"shape": {"T": LOG_CAP, "Tc": LOG_CAP, "d": D_IN, "D": D_FEAT,
+                      "mu": MU}, "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
@@ -354,6 +428,7 @@ def main() -> int:
         "share_of_full_ms": {name: full - min(v) for name, v in ms.items()
                              if name != "full"}}))
     print(json.dumps({"feature_tile": tile_breakdown(_build, dev)}))
+    print(json.dumps({"klms_element": element_breakdown(dev)}))
     return 0
 
 

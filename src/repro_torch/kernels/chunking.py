@@ -32,9 +32,6 @@ __all__ = [
     "krls_fits",
     "krls_resident_smem_bytes",
     "krls_resident_fits",
-    "ELEMENT_THREADS",
-    "klms_element_smem_bytes",
-    "klms_element_strip",
     "default_chunk_t",
     "ATTENTION_THREADS",
     "DECODE_TILE_COLS",
@@ -188,30 +185,6 @@ def krls_resident_fits(dfeat: int, input_dim: int) -> bool:
     return krls_resident_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
 
 
-# Threads per block of csrc/rff_scan.cu (kThreads there).
-ELEMENT_THREADS = 256
-_STRIPS = (16, 8, 4, 2, 1)
-
-
-def klms_element_smem_bytes(strip: int, dfeat: int) -> int:
-    """Dynamic shared memory of one KLMS element block (the layout in
-    csrc/rff_scan.cu): a ``(D, strip)`` column strip of the chunk's A, the
-    tick's z row, one partial sum per thread and the per-warp reduction
-    slots, all f32. The chunk's v block needs less (v and z rows)."""
-    floats = dfeat * strip + dfeat + ELEMENT_THREADS + ELEMENT_THREADS // 32
-    return 4 * floats
-
-
-def klms_element_strip(dfeat: int) -> int:
-    """Columns of A per KLMS element block: the widest of 16, 8, 4, 2, 1
-    whose strip fits :data:`SMEM_BUDGET`, or 0 when even one column does
-    not (D above about 29k features)."""
-    for strip in _STRIPS:
-        if klms_element_smem_bytes(strip, dfeat) <= SMEM_BUDGET:
-            return strip
-    return 0
-
-
 def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
                     pmat: bool = False, elements: bool = False) -> int:
     """Default tick count T for one chunked launch.
@@ -229,14 +202,16 @@ def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,
 
     ``elements=True`` sizes Tc, the ticks per chunk of the replay element
     kernels (``csrc/rff_scan.cu``). There no tile grows with Tc either:
-    z is featurized into device memory first and each block owns a strip
-    of one chunk's ``(D, D)`` element, so Tc trades per-chunk fold work
-    against the work after the kernel. One KLMS tick folds in with 5 D^2
-    operations, while composing two chunk elements is a ``(D, D)`` product
-    of 2 D^3; Tc >= D/2 keeps the nc - 1 cross-chunk products no costlier
-    than the folds. The same Tc keeps the ``(nc, D, D)`` stack of written
-    elements (KLMS and KRLS) at most 2 T D floats, twice the featurized
-    log. So Tc is the smallest power of two >= D/2, clamped to [8, 512]
+    z is featurized into device memory first, the KLMS element is a Gram,
+    a triangular solve and products over a workspace in device memory,
+    and a KRLS block owns a tile of one chunk's ``(D, D)`` element, so Tc
+    trades per-chunk work against the work after the kernel. One tick
+    costs the KLMS element 2 D^2 operations in its last product (4 D^2 in
+    the TPU kernel's fold), while composing two chunk elements is a ``(D,
+    D)`` product of 2 D^3; Tc >= D/2 keeps the nc - 1 cross-chunk products
+    within twice the elements' work. The same Tc keeps the ``(nc, D, D)``
+    stack of written elements (KLMS and KRLS) at most 2 T D floats, twice
+    the featurized log. So Tc is the smallest power of two >= D/2, clamped to [8, 512]
     (Tc = 1024 at D = 2048 clamps to 512; Tc = 256 at D = 300).
     """
     del bank

@@ -210,11 +210,16 @@ def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
 def _element_blocks(xs, ys, dfeat, chunk):
     """Time-block one stream ``xs (T, d)``, ``ys (T,)`` into ``(nc, Tc, d)``,
     ``(nc, Tc)`` and the ``(nc, Tc)`` validity mask (the padded remainder
-    masked); ``chunk=None`` takes ``default_chunk_t(..., elements=True)``."""
+    masked); ``chunk=None`` takes ``default_chunk_t(..., elements=True)``.
+    When Tc divides T no tick is padded: the blocks are views and the mask
+    is None (every tick live), which gives the same elements."""
     tlen, d = xs.shape
     if chunk is None:
         chunk = default_chunk_t(1, dfeat, d, elements=True)
     chunk = min(chunk, tlen)
+    if tlen % chunk == 0 and xs.is_contiguous() and ys.is_contiguous():
+        nc = tlen // chunk
+        return xs.view(nc, chunk, d), ys.view(nc, chunk), None
     return (
         time_blocks(xs, chunk).contiguous(),
         time_blocks(ys, chunk).contiguous(),

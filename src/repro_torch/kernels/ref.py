@@ -36,6 +36,7 @@ __all__ = [
     "rff_krls_bank_step_ref",
     "rff_krls_bank_chunk_ref",
     "klms_chunk_elements_ref",
+    "klms_chunk_elements_wy_ref",
     "krls_chunk_elements_ref",
     "prf_root",
     "default_decode_scale",
@@ -262,6 +263,53 @@ def klms_chunk_elements_ref(xs, ys, w, b, mu, mask=None, s=None,
             v = v - mu_eff * ((z @ v) - y) * z
         a_out.append(a)
         v_out.append(v)
+    return torch.stack(a_out), torch.stack(v_out)
+
+
+def klms_chunk_elements_wy_ref(xs, ys, w, b, mu, mask=None, s=None,
+                               normalized=False, eps=1e-6, block=64):
+    """The algebra of the CUDA KLMS element kernel (csrc/rff_scan.cu), for
+    the tests only: kernel 7's plain version stays the fold,
+    :func:`klms_chunk_elements_ref`. Same arguments and outputs.
+
+    The Tc rank-1 maps of a chunk compose in closed form (compact WY).
+    With Z (Tc, D) the chunk's features, G = Z Z^T, L its strictly lower
+    part and D_mu = diag(mu_eff) (NKLMS's mu from G's diagonal, 0 on a
+    masked tick):
+
+        T = (I + D_mu L)^-1 D_mu,  A = I - Z^T (T Z),  v = Z^T (T y).
+
+    T and c = T y are formed as the kernel forms them: each ``block`` x
+    ``block`` diagonal block T_rr by forward substitution, then a row block
+    at a time X_r = T_rr (B_r - sum_{q<r} G_rq X_q) for B = [I, y]."""
+    nc, tc, _ = xs.shape
+    dfeat = w.shape[-1]
+    dtype, device = xs.dtype, xs.device
+    if mask is None:
+        mask = torch.ones_like(ys)
+    mask = mask.to(dtype)
+    eye_t = torch.eye(tc, dtype=dtype, device=device)
+    a_out, v_out = [], []
+    for c in range(nc):
+        z = rff_features_ref(xs[c], w, b, s)  # (Tc, D)
+        g = z @ z.T
+        mu_t = mu / (eps + torch.diagonal(g)) if normalized else \
+            torch.full((tc,), float(mu), dtype=dtype, device=device)
+        mu_eff = torch.where(mask[c] == 0, torch.zeros_like(mu_t),
+                             mask[c] * mu_t)
+        rhs = torch.cat([eye_t, ys[c][:, None].to(dtype)], 1)  # B = [I, y]
+        x = torch.zeros_like(rhs)
+        for r0 in range(0, tc, block):
+            r1 = min(r0 + block, tc)
+            t_rr = torch.zeros(r1 - r0, r1 - r0, dtype=dtype, device=device)
+            for i in range(r1 - r0):  # row i: mu_i (e_i - sum_{l<i} G_il T_l)
+                t_rr[i] = mu_eff[r0 + i] * (
+                    eye_t[i, :r1 - r0] - g[r0 + i, r0:r0 + i] @ t_rr[:i])
+            x[r0:r1] = t_rr @ (rhs[r0:r1] - g[r0:r1, :r0] @ x[:r0])
+        t_mat, cvec = x[:, :tc], x[:, tc]
+        a_out.append(torch.eye(dfeat, dtype=dtype, device=device)
+                     - z.T @ (t_mat @ z))
+        v_out.append(z.T @ cvec)
     return torch.stack(a_out), torch.stack(v_out)
 
 

@@ -11,9 +11,13 @@ Three CUDA entry points, with one tick's arithmetic:
   memory every tick and takes the wider D. ``rff_krls_bank_chunk_cuda``
   picks the route (``krls_chunk_route``) and counts it in
   ``.route_launches``;
-* ``krls_bank_step`` — one unmasked tick, replacing
-  ``rff_krls_bank_step_pallas``. A chunk of T equals T steps bit for bit on
-  either route.
+* ``krls_bank_step`` — one unmasked tick with P streamed, the step
+  kernel for the wider D. ``rff_krls_bank_step_cuda``, which replaces
+  ``rff_krls_bank_step_pallas``, launches the resident chunk kernel at T =
+  1 instead wherever P's triangle fits (``krls_step_route``; its first
+  tick moves P in and out once), and counts the route in
+  ``.route_launches``. A chunk of T equals T steps bit for bit on either
+  route, and the two step routes agree bit for bit.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates fresh
 ``theta_out`` and ``p_out`` with ``torch.empty`` (a published snapshot may
@@ -34,7 +38,7 @@ from repro_torch.kernels.ref import beta_column, default_scale
 from repro_torch.kernels.rff_klms_step import _check, _cuda_device
 
 __all__ = ["rff_krls_bank_step_cuda", "rff_krls_bank_chunk_cuda",
-           "krls_chunk_route"]
+           "krls_chunk_route", "krls_step_route"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +64,13 @@ def krls_chunk_route(dfeat: int, input_dim: int) -> str:
     """The chunk kernel a bank of width D = ``dfeat`` goes to: "resident"
     when P's triangle fits a block's shared memory, else "streaming"."""
     return "resident" if krls_resident_fits(dfeat, input_dim) else "streaming"
+
+
+def krls_step_route(dfeat: int, input_dim: int) -> str:
+    """The kernel one step of width D = ``dfeat`` goes to: "resident" (the
+    resident chunk kernel at T = 1) when P's triangle fits a block's shared
+    memory, else "streaming" (the step kernel)."""
+    return krls_chunk_route(dfeat, input_dim)
 
 
 def _prepare(theta, pmat, rows, w, b, beta, s):
@@ -131,29 +142,43 @@ def rff_krls_bank_chunk_cuda(theta, pmat, xs, ys, w, b, beta, mask=None,
     return theta_out, p_out, pred, err
 
 
-def rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s=None):
+def rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s=None, *,
+                            _route=None):
     """One fused EW-RLS tick on the card: theta (B, D), pmat (B, D, D), x
     (B, d), y (B,). Returns (theta' (B, D), P' (B, D, D), preds (B,), errs
-    (B,))."""
+    (B,)), from the kernel :func:`krls_step_route` picks (``_route``
+    forces one, for the tests that hold the routes against each other)."""
     bsz, d = x.shape
     rows = [("x", x, (bsz, d)), ("y", y, (bsz,))]
     device, beta, s = _prepare(theta, pmat, rows, w, b, beta, s)
     theta_out, p_out, pred, err = _outputs(theta, pmat, ())
     if bsz == 0:
         return theta_out, p_out, pred, err
+    route = _route or krls_step_route(theta.shape[1], d)
     lib = _lib()
-    code = lib.krls_bank_step(
-        theta.data_ptr(), pmat.data_ptr(), x.data_ptr(), y.data_ptr(),
-        beta.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(),
-        theta_out.data_ptr(), p_out.data_ptr(), pred.data_ptr(),
-        err.data_ptr(), bsz, d, theta.shape[1],
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _raise_on(lib, code, "krls_bank_step")
+    ptrs = (theta.data_ptr(), pmat.data_ptr(), x.data_ptr(), y.data_ptr())
+    outs = (theta_out.data_ptr(), p_out.data_ptr(), pred.data_ptr(),
+            err.data_ptr())
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if route == "resident":  # x as (B, 1, d), y, pred and err as (B, 1)
+        entry = "krls_bank_chunk_resident"
+        code = lib.krls_bank_chunk_resident(
+            *ptrs, None, beta.data_ptr(), w.data_ptr(), b.data_ptr(),
+            s.data_ptr(), *outs, bsz, 1, d, theta.shape[1], stream)
+    elif route == "streaming":
+        entry = "krls_bank_step"
+        code = lib.krls_bank_step(
+            *ptrs, beta.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(),
+            *outs, bsz, d, theta.shape[1], stream)
+    else:
+        raise ValueError(f"unknown KRLS step route {route!r}")
+    _raise_on(lib, code, entry)
     rff_krls_bank_step_cuda.launches += 1
+    rff_krls_bank_step_cuda.route_launches[route] += 1
     return theta_out, p_out, pred, err
 
 
 rff_krls_bank_chunk_cuda.launches = 0
 rff_krls_bank_chunk_cuda.route_launches = {"resident": 0, "streaming": 0}
 rff_krls_bank_step_cuda.launches = 0
+rff_krls_bank_step_cuda.route_launches = {"resident": 0, "streaming": 0}

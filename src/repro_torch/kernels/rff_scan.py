@@ -2,19 +2,26 @@
 
 * ``klms_chunk_elements`` replaces
   ``repro/kernels/rff_scan.py::rff_klms_chunk_elements_pallas``: per
-  chunk of Tc ticks, the composed KLMS (or NKLMS) affine element ``(A, v)``;
+  chunk of Tc ticks, the composed KLMS (or NKLMS) affine element ``(A, v)``,
+  in the closed (compact WY) form ``A = I - Z^T (T Z)``, ``v = Z^T (T y)``
+  with ``T = (I + D_mu L)^-1 D_mu`` (a Gram, a triangular solve and two
+  products; ``kernels/ref.py`` ``klms_chunk_elements_wy_ref`` is the same
+  algebra in PyTorch);
 * ``krls_chunk_elements`` replaces ``rff_krls_chunk_elements_pallas``: per
   chunk, the information-form element ``(g, Phi, r)``.
 
 Each wrapper takes the time-blocked layout of ``repro`` (xs ``(nc, Tc,
 d)``, ys and mask ``(nc, Tc)``), featurizes every tick with the feature
 kernel (``kernels/rff_features.py``) into a ``(nc Tc, D)`` buffer and then
-launches the element kernel over it, so the pair computes what the TPU
-kernel computes. It checks device, dtype, shape and contiguity, allocates
-its outputs with ``torch.empty``, launches on the current stream, raises
-on a non-zero ``cudaError_t`` and counts its element launches in
-``.launches``. CPU tensors are refused: the plain versions live in
-``kernels/ref.py`` and ``kernels/ops.py`` picks between the two.
+launches the element kernels over it, so together they compute what the
+TPU kernel computes. The KLMS call also allocates a workspace of at most
+:data:`ELEMENT_WORKSPACE_BUDGET` bytes (or one chunk's, if that is more),
+taken by the C entry a group of chunks at a time. Each checks device,
+dtype, shape and contiguity, allocates its outputs with ``torch.empty``,
+launches on the current stream, raises on a non-zero ``cudaError_t`` and
+counts its calls in ``.launches``. CPU tensors are refused: the plain
+versions live in ``kernels/ref.py`` and ``kernels/ops.py`` picks between
+the two.
 """
 from __future__ import annotations
 
@@ -23,35 +30,41 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunking import klms_element_strip
 from repro_torch.kernels.ref import default_scale
 from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import _check
 
-__all__ = ["rff_klms_chunk_elements_cuda", "rff_krls_chunk_elements_cuda"]
+__all__ = ["rff_klms_chunk_elements_cuda", "rff_krls_chunk_elements_cuda",
+           "ELEMENT_WORKSPACE_BUDGET"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+_KLMS_ARGS = (_P,) * 6 + (_L,) + (_I,) * 3 + (_F, _I, _F, _P)
 _SIGNATURES = {
-    # z, ys, mask, a_out, v_out, nc, tc, D, strip, mu, normalized, eps,
-    # stream
-    "klms_chunk_elements": (_P,) * 5 + (_I,) * 4 + (_F, _I, _F, _P),
+    # z, ys, mask, a_out, v_out, ws, ws_floats, nc, tc, D, mu, normalized,
+    # eps, stream
+    "klms_chunk_elements": _KLMS_ARGS,
+    "klms_element_chunk_floats": (_I, _I),
     # z, ys, mask, beta, g_out, phi_out, r_out, nc, tc, D, stream
     "krls_chunk_elements": (_P,) * 3 + (_F,) + (_P,) * 3 + (_I,) * 3 + (_P,),
     "rff_scan_error_string": (_I,),
 }
-# Rows of the launch grid (one per chunk) that CUDA allows.
+# Rows of the KRLS launch grid (one per chunk) that CUDA allows.
 _MAX_CHUNKS = 65535
+# The KLMS workspace a call allocates, unless one chunk needs more.
+ELEMENT_WORKSPACE_BUDGET = 256 << 20
 
 
 def _lib():
     lib = _build.load("rff_scan", _SIGNATURES)
     lib.rff_scan_error_string.restype = ctypes.c_char_p
+    lib.klms_element_chunk_floats.restype = ctypes.c_longlong
     return lib
 
 
-def _features(xs, ys, w, b, mask, s):
+def _features(xs, ys, w, b, mask, s, max_chunks=None):
     """Check the time-blocked inputs and featurize every tick on the card.
     Returns (device, z (nc Tc, D))."""
     if xs.device.type != "cuda":
@@ -74,8 +87,8 @@ def _features(xs, ys, w, b, mask, s):
         _check(name, t, shape, device)
     if tc < 1:
         raise ValueError("chunks must hold at least one tick")
-    if nc > _MAX_CHUNKS:
-        raise ValueError(f"{nc} chunks exceed the grid's {_MAX_CHUNKS} rows")
+    if max_chunks is not None and nc > max_chunks:
+        raise ValueError(f"{nc} chunks exceed the grid's {max_chunks} rows")
     return device, rff_features_cuda(xs.reshape(nc * tc, d), w, b, s)
 
 
@@ -91,25 +104,33 @@ def rff_klms_chunk_elements_cuda(xs, ys, w, b, mu, mask=None, s=None,
     (nc, Tc), shared w (d, D), b (D,), s (D,) (None = sqrt(2/D)), mu a
     scalar, mask optional (nc, Tc) gate (0 = the tick composes the
     identity). ``normalized`` sizes each tick's step as ``mu / (eps +
-    ||z||^2)``. Returns ``(a (nc, D, D), v (nc, D))``."""
-    dfeat = w.shape[-1]
-    strip = klms_element_strip(dfeat)
-    if not strip:
-        raise ValueError(
-            f"D={dfeat}: one column of a KLMS element exceeds the shared "
-            "memory of a block"
-        )
+    ||z||^2)``. Returns ``(a (nc, D, D), v (nc, D))``. Tc <= 16384 and D
+    <= 4194304.
+
+    After the features, one C call runs the four phases (Gram, solve, T Z
+    with v, the (D, Tc) (Tc, D) product) over as many chunks at a time as
+    the workspace holds. The element is not bit for bit the fold of
+    ``kernels/ref.py`` (another summation order), but two calls, and a
+    chunk alone or among others, agree bit for bit, and a fully masked
+    chunk is ``(I, 0)`` exactly."""
     device, z = _features(xs, ys, w, b, mask, s)
     nc, tc, _ = xs.shape
+    dfeat = w.shape[-1]
+    lib = _lib()
+    per = lib.klms_element_chunk_floats(tc, dfeat)
+    if per < 1:
+        raise ValueError(f"Tc={tc}, D={dfeat}: the KLMS element kernel takes "
+                         "Tc <= 16384 and D <= 4194304")
     a = torch.empty((nc, dfeat, dfeat), dtype=torch.float32, device=device)
     v = torch.empty((nc, dfeat), dtype=torch.float32, device=device)
     if nc == 0:
         return a, v
-    lib = _lib()
+    group = max(1, min(nc, ELEMENT_WORKSPACE_BUDGET // (4 * per)))
+    ws = torch.empty(group * per, dtype=torch.float32, device=device)
     code = lib.klms_chunk_elements(
         z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),
-        a.data_ptr(), v.data_ptr(), nc, tc, dfeat, strip, float(mu),
-        int(bool(normalized)), float(eps),
+        a.data_ptr(), v.data_ptr(), ws.data_ptr(), ws.numel(), nc, tc, dfeat,
+        float(mu), int(bool(normalized)), float(eps),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(lib, code, "klms_chunk_elements")
@@ -121,7 +142,7 @@ def rff_krls_chunk_elements_cuda(xs, ys, w, b, beta, mask=None, s=None):
     """Per-chunk composed KRLS decay elements on the card: layout as
     :func:`rff_klms_chunk_elements_cuda`, ``beta`` the scalar forgetting
     factor. Returns ``(g (nc,), phi (nc, D, D), r (nc, D))``."""
-    device, z = _features(xs, ys, w, b, mask, s)
+    device, z = _features(xs, ys, w, b, mask, s, _MAX_CHUNKS)
     nc, tc, _ = xs.shape
     dfeat = w.shape[-1]
     g = torch.empty((nc,), dtype=torch.float32, device=device)

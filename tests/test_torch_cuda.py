@@ -17,7 +17,11 @@ bound would measure. The contracts between the two kernels of a family
 are bitwise. The feature kernel is held relative to max|s| (z is at most
 s in size): 1e-5 at f32, 2e-2 for bf16 features (the read contract). The
 replay elements A, v, g, Phi and r are held at 1e-4 (abs + rel); a fully
-masked chunk gives the identity element bit for bit. The attention kernels
+masked chunk gives the identity element bit for bit. The KLMS element is
+formed in closed form (compact WY), not by the fold: at the replay shape
+its A and v are each within twice the f32 fold's own distance from a
+float64 fold, and two calls, or a chunk alone and among others, agree bit
+for bit. The attention kernels
 (decode block, chunked linear attention, flash attention) are held at 1e-4
 of max|want| at f32 (another summation order in every product and in the
 online softmax) and 2e-2 of max|want| under bf16 (a feature or an output
@@ -28,7 +32,9 @@ decode block and of linear attention agree bit for bit with a call on
 those columns alone. Of the two-route kernels, flash
 attention runs bf16 on the tensor cores and f32 on the CUDA cores, and the
 KRLS chunk keeps P resident in shared memory up to D = 335 at d = 5 and
-streams it beyond, both routes equal to T step launches bit for bit.
+streams it beyond, both routes equal to T step launches bit for bit; the
+KRLS step takes the same route (the resident chunk kernel at T = 1, or
+the streaming step), and both step routes agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -314,20 +320,26 @@ def test_krls_kernels_match_plain(cuda_device, bank, d, dfeat, tlen,
 
 @pytest.mark.cuda
 def test_krls_bitwise_contracts(cuda_device):
-    """A chunk of T equals T step launches; T=1 equals one step; masked
-    ticks leave theta and P bit for bit in fresh tensors; P' is exactly
-    symmetric."""
+    """A chunk of T equals T step launches, and equals T launches of the
+    streaming step at every tick; T=1 equals one step; masked ticks leave
+    theta and P bit for bit in fresh tensors; P' is exactly symmetric."""
     a = _krls_inputs(cuda_device, 9, 6, 5, 200, seed=3)
     common = (a["w"], a["b"], a["beta"])
     chunk = ops.rff_krls_bank_chunk(a["theta"], a["pmat"], a["xs"], a["ys"],
                                     *common, None, a["s"], mode="cuda")
     theta, pmat = a["theta"], a["pmat"]
+    stheta, spmat = theta, pmat
     for t in range(6):
+        x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
         theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, a["xs"][:, t].contiguous(),
-            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+            theta, pmat, x_t, y_t, *common, a["s"], mode="cuda")
         assert torch.equal(pred, chunk[2][:, t])
         assert torch.equal(err, chunk[3][:, t])
+        streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t, *common,
+                                           a["s"], _route="streaming")
+        assert all(torch.equal(u, w) for u, w in
+                   zip(streamed, (theta, pmat, pred, err)))
+        stheta, spmat = streamed[0], streamed[1]
         if t == 0:
             one = ops.rff_krls_bank_chunk(
                 a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
@@ -351,7 +363,11 @@ def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route):
     """Either chunk route: a chunk of T equals T step launches and T=1 one
     step, bit for bit, from a non-symmetric P; P' is exactly symmetric; a
     chunk with masked ticks matches the plain version; the launch counts
-    its route."""
+    its route. The step takes the chunk's route (the resident chunk kernel
+    at T = 1 up to D = 335 at d = 5, the streaming step beyond), and the
+    routed step, the chunk at T = 1 and the step forced onto each route it
+    can take agree bit for bit; over the T ticks, a chain of streaming
+    steps equals the routed chain at every tick."""
     a = _krls_inputs(cuda_device, 3, 5, 5, dfeat, seed=7, symmetric=False)
     common = (a["w"], a["b"], a["beta"])
     before = dict(rff_krls_bank_chunk_cuda.route_launches)
@@ -361,12 +377,18 @@ def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route):
     assert after[route] == before[route] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     theta, pmat = a["theta"], a["pmat"]
+    stheta, spmat = theta, pmat
     for t in range(5):
+        x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
         theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, a["xs"][:, t].contiguous(),
-            a["ys"][:, t].contiguous(), *common, a["s"], mode="cuda")
+            theta, pmat, x_t, y_t, *common, a["s"], mode="cuda")
         assert torch.equal(pred, chunk[2][:, t])
         assert torch.equal(err, chunk[3][:, t])
+        streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t, *common,
+                                           a["s"], _route="streaming")
+        assert all(torch.equal(u, w) for u, w in
+                   zip(streamed, (theta, pmat, pred, err)))
+        stheta, spmat = streamed[0], streamed[1]
         if t == 0:
             one = ops.rff_krls_bank_chunk(
                 a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
@@ -379,6 +401,23 @@ def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route):
             a["s"])
     _hold_krls(ops.rff_krls_bank_chunk(*args, mode="cuda"),
                ops.rff_krls_bank_chunk(*args, mode="ref"))
+    # The step: routed as the chunk is; the routed step, the chunk at T = 1
+    # and the step forced onto each route it can take agree bit for bit.
+    sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
+             a["ys"][:, 0].contiguous(), *common, a["s"])
+    before = dict(rff_krls_bank_step_cuda.route_launches)
+    routed = rff_krls_bank_step_cuda(*sargs)
+    after = rff_krls_bank_step_cuda.route_launches
+    assert after[route] == before[route] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    one = rff_krls_bank_chunk_cuda(
+        a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
+        a["ys"][:, :1].contiguous(), *common, None, a["s"])
+    takes = ("resident", "streaming") if route == "resident" else ("streaming",)
+    others = [tuple(t.reshape(u.shape) for t, u in zip(one, routed))]
+    others += [rff_krls_bank_step_cuda(*sargs, _route=r) for r in takes]
+    for other in others:
+        assert all(torch.equal(u, w) for u, w in zip(routed, other))
 
 
 @pytest.mark.cuda
@@ -481,18 +520,20 @@ def test_features_kernel_matches_plain(cuda_device, m, d, dfeat):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tlen,d,dfeat,chunk,normalized", [
-    (64, 8, 256, None, False), (37, 5, 300, 16, True), (9, 3, 17, 1, False),
-    (100, 128, 513, 48, False),
+@pytest.mark.parametrize("tlen,d,dfeat,chunk,normalized,mu", [
+    (64, 8, 256, None, False, 0.5), (37, 5, 300, 16, True, 0.5),
+    (9, 3, 17, 1, False, 0.5), (100, 128, 513, 48, False, 0.5),
+    (256, 128, 2048, None, False, 0.5), (256, 128, 2048, None, True, 0.5),
+    (1024, 128, 2048, 512, False, 0.5), (256, 5, 300, None, False, 1.5),
 ])
 def test_element_kernels_match_plain(cuda_device, tlen, d, dfeat, chunk,
-                                     normalized):
+                                     normalized, mu):
     a = _inputs(cuda_device, 1, tlen, d, dfeat, seed=4)
     xs, ys = a["xs"][0], a["ys"][0]
     common = (xs, ys, a["w"], a["b"])
-    got = ops.rff_klms_chunk_elements(*common, 0.5, a["s"], mode="cuda",
+    got = ops.rff_klms_chunk_elements(*common, mu, a["s"], mode="cuda",
                                       chunk=chunk, normalized=normalized)
-    want = ops.rff_klms_chunk_elements(*common, 0.5, a["s"], mode="ref",
+    want = ops.rff_klms_chunk_elements(*common, mu, a["s"], mode="ref",
                                        chunk=chunk, normalized=normalized)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
@@ -502,6 +543,104 @@ def test_element_kernels_match_plain(cuda_device, tlen, d, dfeat, chunk,
                                        chunk=chunk)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+
+
+def _element_args(a, mu, dtype=torch.float32):
+    return (a["xs"][0].to(dtype), a["ys"][0].to(dtype), a["w"].to(dtype),
+            a["b"].to(dtype), mu, a["s"].to(dtype))
+
+
+def _dist(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalized", [False, True])
+def test_klms_elements_no_farther_from_float64_than_the_fold(cuda_device,
+                                                             normalized):
+    """Kernel 7 composes a chunk in closed form (compact WY), not by the
+    fold: at the replay shape (T = 256, d = 128, D = 2048, mu = 0.5) its A
+    and v are each within twice the f32 fold's own distance from a float64
+    fold."""
+    a = _inputs(cuda_device, 1, 256, 128, 2048, seed=6)
+    kw = dict(normalized=normalized)
+    exact = ops.rff_klms_chunk_elements(*_element_args(a, 0.5, torch.float64),
+                                        mode="ref", **kw)
+    plain = ops.rff_klms_chunk_elements(*_element_args(a, 0.5), mode="ref",
+                                        **kw)
+    got = ops.rff_klms_chunk_elements(*_element_args(a, 0.5), mode="cuda",
+                                      **kw)
+    for g, p, e in zip(got, plain, exact):
+        assert _dist(g, e) <= 2.0 * _dist(p, e)
+
+
+@pytest.mark.cuda
+def test_klms_elements_stress_case(cuda_device):
+    """d = 5, D = 300, mu = 1.5: T's entries grow past 2; v stays within
+    1e-4 of max |v| of a float64 fold."""
+    a = _inputs(cuda_device, 1, 256, 5, 300, seed=7)
+    exact = ops.rff_klms_chunk_elements(*_element_args(a, 1.5, torch.float64),
+                                        mode="ref")
+    got = ops.rff_klms_chunk_elements(*_element_args(a, 1.5), mode="cuda")
+    assert _dist(got[1], exact[1]) <= 1e-4 * float(exact[1].abs().max())
+    assert _dist(got[0], exact[0]) <= F32_TOL
+
+
+@pytest.mark.cuda
+def test_klms_elements_bitwise_contracts(cuda_device):
+    """Two calls agree bit for bit; a chunk's element equals the same chunk
+    launched alone; a call whose workspace holds one chunk at a time gives
+    the same bits as one that holds all three."""
+    from repro_torch.kernels import rff_scan
+
+    a = _inputs(cuda_device, 1, 300, 6, 300, seed=8)
+    xs = a["xs"][0].reshape(3, 100, 6)
+    ys = a["ys"][0].reshape(3, 100)
+    mask = a["mask"][0].reshape(3, 100)
+    args = (xs, ys, a["w"], a["b"], 0.5, mask, a["s"])
+    first = rff_klms_chunk_elements_cuda(*args, normalized=True)
+    again = rff_klms_chunk_elements_cuda(*args, normalized=True)
+    assert all(torch.equal(u, w) for u, w in zip(first, again))
+    alone = rff_klms_chunk_elements_cuda(
+        xs[1:2].contiguous(), ys[1:2].contiguous(), a["w"], a["b"], 0.5,
+        mask[1:2].contiguous(), a["s"], normalized=True)
+    assert torch.equal(alone[0][0], first[0][1])
+    assert torch.equal(alone[1][0], first[1][1])
+    budget = rff_scan.ELEMENT_WORKSPACE_BUDGET
+    try:
+        rff_scan.ELEMENT_WORKSPACE_BUDGET = 1
+        grouped = rff_klms_chunk_elements_cuda(*args, normalized=True)
+    finally:
+        rff_scan.ELEMENT_WORKSPACE_BUDGET = budget
+    assert all(torch.equal(u, w) for u, w in zip(first, grouped))
+
+
+@pytest.mark.cuda
+def test_klms_element_workspace(cuda_device):
+    """The C entry sizes one chunk's workspace (1,843,200 floats at Tc =
+    256, D = 2048: the padded Z and Y, the Gram's 16 partial slabs of 10
+    lower tiles, G and [T | c]), 0 past Tc = 16384 or D = 2^22, and refuses
+    a workspace one float short; an all-zero Z gives A = I."""
+    from repro_torch.kernels.rff_scan import _lib
+
+    lib = _lib()
+    assert lib.klms_element_chunk_floats(256, 2048) == 1_843_200
+    assert lib.klms_element_chunk_floats(16385, 17) == 0
+    assert lib.klms_element_chunk_floats(8, (1 << 22) + 1) == 0
+    ys = torch.zeros(8, device=cuda_device)
+    z = torch.zeros(8, 17, device=cuda_device)
+    out_a = torch.empty(1, 17, 17, device=cuda_device)
+    out_v = torch.empty(1, 17, device=cuda_device)
+    per = lib.klms_element_chunk_floats(8, 17)
+    ws = torch.empty(per, device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = [lib.klms_chunk_elements(
+        z.data_ptr(), ys.data_ptr(), None, out_a.data_ptr(),
+        out_v.data_ptr(), ws.data_ptr(), n, 1, 8, 17, 0.5, 0, 1e-6, stream)
+        for n in (per, per - 1)]
+    torch.cuda.synchronize()
+    assert codes == [0, 1]  # 1 = cudaErrorInvalidValue
+    assert torch.equal(out_a[0], torch.eye(17, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -546,11 +685,17 @@ def test_replay_wrappers_refuse_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         rff_krls_chunk_elements_cuda(a["xs"], a["ys"][:, :2], a["w"],
                                      a["b"], 0.99)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = 40_000
+    with pytest.raises(ValueError, match="shape"):
+        rff_klms_chunk_elements_cuda(a["xs"], a["ys"], a["w"], a["b"][:8],
+                                     0.5)
+    with pytest.raises(ValueError, match="Tc <= 16384"):
         rff_klms_chunk_elements_cuda(
-            a["xs"], a["ys"], torch.zeros(3, big, device=cuda_device),
-            torch.zeros(big, device=cuda_device), 0.5)
+            torch.zeros(1, 16385, 3, device=cuda_device),
+            torch.zeros(1, 16385, device=cuda_device), a["w"], a["b"], 0.5)
+    with pytest.raises(ValueError, match="65535"):
+        rff_krls_chunk_elements_cuda(
+            torch.zeros(65536, 1, 3, device=cuda_device),
+            torch.zeros(65536, 1, device=cuda_device), a["w"], a["b"], 0.99)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,145 @@
+"""The KLMS replay element's closed form (kernel 7's algebra on the card)
+and the KRLS step's route, held on the CPU.
+
+The CUDA KLMS element kernel (``csrc/rff_scan.cu``) composes a chunk's
+rank-1 maps in closed form (compact WY): ``A = I - Z^T (T Z)``, ``v = Z^T
+(T y)``, ``T = (I + D_mu L)^-1 D_mu``. ``kernels/ref.py``
+``klms_chunk_elements_wy_ref`` is that algebra in PyTorch, with T formed
+by the kernel's blocks; here it is held against ``repro``'s Pallas kernel
+in interpret mode and against a float64 fold. Inputs come from
+``np.random.default_rng(seed)``.
+
+Tolerances:
+* against ``rff_klms_chunk_elements_pallas`` (interpret mode): 2e-6 atol
+  and rtol, the bound of ``tests/test_torch_replay.py`` for the port's
+  elements against ``repro``'s; a fully masked chunk is ``(I, 0)`` exactly;
+* in float64 against the float64 fold: 1e-12 (the two are one algebra;
+  only the summation order differs);
+* at the replay shape (T = 256, d = 128, D = 2048, mu = 0.5), KLMS and
+  NKLMS: the f32 closed form is no farther from a float64 fold than twice
+  the f32 fold is (the card's numerical gate for kernel 7);
+* the stress case (d = 5, D = 300, mu = 1.5; T's entries grow past 2): v
+  within 1e-4 of max |v| of the float64 fold.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.rff import sample_rff as jax_sample_rff
+from repro.features.base import as_trig_or_none as jax_as_trig
+from repro.kernels.rff_scan import rff_klms_chunk_elements_pallas
+from repro_torch import convert
+from repro_torch.kernels import chunking, ref
+from repro_torch.kernels.rff_krls_step import krls_chunk_route, krls_step_route
+
+torch.set_num_threads(2)
+
+ELEM_TOL, F64_TOL, GATE, STRESS_TOL = 2e-6, 1e-12, 2.0, 1e-4
+
+
+def _t(a, dtype=np.float32):
+    return convert.tensor(np.asarray(a, dtype), device="cpu")
+
+
+def _inputs(seed, nc, tc, d, dfeat, dtype=np.float64):
+    """xs ~ N(0, 1), ys ~ N(0, 1), W ~ N(0, 1/d), b ~ U[0, 2 pi], s =
+    sqrt(2/D), as chip_smoke's replay inputs."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        xs=_t(rng.normal(size=(nc, tc, d)), dtype),
+        ys=_t(rng.normal(size=(nc, tc)), dtype),
+        w=_t(rng.normal(size=(d, dfeat)) / np.sqrt(d), dtype),
+        b=_t(rng.uniform(0, 2 * np.pi, size=dfeat), dtype),
+        s=_t(np.full(dfeat, np.sqrt(2.0 / dfeat)), dtype),
+    )
+
+
+def _f32(a):
+    return {k: v.float() for k, v in a.items()}
+
+
+def _args(a, mu):
+    return a["xs"], a["ys"], a["w"], a["b"], mu, None, a["s"]
+
+
+def _dist(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.parametrize("block", [64, 2])
+@pytest.mark.parametrize("normalized", [False, True])
+def test_wy_algebra_matches_pallas_interpret(normalized, block):
+    """repro's Pallas element kernel in interpret mode against the closed
+    form, with a masked remainder (chunk 2) and a fully masked chunk
+    (chunk 1, which is (I, 0) exactly); ``block=2`` walks T's blocks."""
+    jtf = jax_as_trig(jax_sample_rff(jax.random.PRNGKey(0), 3, 20, 1.0))
+    rng = np.random.default_rng(11)
+    xs = rng.normal(size=(3, 6, 3)).astype(np.float32)
+    ys = rng.normal(size=(3, 6)).astype(np.float32)
+    mask = np.ones((3, 6), np.float32)
+    mask[1] = 0.0
+    mask[2, 2:] = 0.0
+    omega, bias, scale = (np.asarray(t) for t in (jtf.omega, jtf.bias,
+                                                  jtf.scale))
+    want = rff_klms_chunk_elements_pallas(
+        jnp.asarray(xs), jnp.asarray(ys), jtf.omega, jtf.bias, 0.3,
+        jnp.asarray(mask), jtf.scale, normalized=normalized, interpret=True)
+    a, v = ref.klms_chunk_elements_wy_ref(
+        _t(xs), _t(ys), _t(omega), _t(bias), 0.3, _t(mask), _t(scale),
+        normalized=normalized, block=block)
+    for got, w in ((a, want[0]), (v, want[1])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=ELEM_TOL,
+                                   rtol=ELEM_TOL)
+    assert torch.equal(a[1], torch.eye(20)) and torch.equal(v[1], torch.zeros(20))
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_wy_algebra_is_the_fold_in_float64(normalized):
+    """Four of T's 64-row blocks (one partial), random masked ticks: the
+    closed form and the fold agree to float64 rounding."""
+    a = _inputs(3, 2, 230, 4, 48)
+    mask = torch.from_numpy(
+        (np.random.default_rng(4).random((2, 230)) > 0.2).astype(np.float64))
+    args = (*_args(a, 0.7)[:5], mask, a["s"])
+    fold = ref.klms_chunk_elements_ref(*args, normalized=normalized)
+    wy = ref.klms_chunk_elements_wy_ref(*args, normalized=normalized)
+    for got, want in zip(wy, fold):
+        assert _dist(got, want) <= F64_TOL
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_wy_no_farther_from_float64_than_the_f32_fold(normalized):
+    """kernel 7's numerical gate at chip_smoke's replay shape (T = 256, d =
+    128, D = 2048, mu = 0.5): the f32 closed form's A and v are each within
+    GATE times the f32 fold's own distance from the float64 fold."""
+    a = _inputs(0, 1, 256, 128, 2048)
+    exact = ref.klms_chunk_elements_ref(*_args(a, 0.5), normalized=normalized)
+    a32 = _args(_f32(a), 0.5)
+    plain = ref.klms_chunk_elements_ref(*a32, normalized=normalized)
+    wy = ref.klms_chunk_elements_wy_ref(*a32, normalized=normalized)
+    for got, fold, want in zip(wy, plain, exact):
+        assert _dist(got, want) <= GATE * _dist(fold, want)
+
+
+def test_wy_stress_case_keeps_v_within_tolerance():
+    """d = 5, D = 300, mu = 1.5 over 256 ticks: T's entries grow past 2 and
+    the closed form's v is several times farther from float64 than the
+    fold's, but within STRESS_TOL of max |v|."""
+    a = _inputs(1, 1, 256, 5, 300)
+    exact = ref.klms_chunk_elements_ref(*_args(a, 1.5))
+    wy = ref.klms_chunk_elements_wy_ref(*_args(_f32(a), 1.5))
+    vmax = float(exact[1].abs().max())
+    assert _dist(wy[1], exact[1]) <= STRESS_TOL * vmax
+    assert _dist(wy[0], exact[0]) <= STRESS_TOL
+
+
+@pytest.mark.parametrize("dfeat,d", [(300, 5), (335, 5), (336, 5), (400, 5),
+                                     (17, 4), (129, 128), (1, 1)])
+def test_krls_step_route(dfeat, d):
+    """One KRLS step goes to the resident chunk kernel at T = 1 where P's
+    triangle fits a block, else to the streaming step kernel."""
+    fits = chunking.krls_resident_fits(dfeat, d)
+    assert krls_step_route(dfeat, d) == ("resident" if fits else "streaming")
+    assert krls_step_route(dfeat, d) == krls_chunk_route(dfeat, d)

@@ -194,8 +194,6 @@ def test_default_chunk_t_elements_rule():
            for dfeat in (1, 16, 17, 48, 300, 1024, 2048)}
     assert got == {1: 8, 16: 8, 17: 16, 48: 32, 300: 256, 1024: 512,
                    2048: 512}
-    assert chunking.klms_element_strip(2048) == 16
-    assert chunking.klms_element_strip(40_000) == 0
 
 
 # -- element algebra and the hand-written scan --------------------------------
