@@ -40,9 +40,14 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    paper's d=5, D=300 and ragged shapes, the KLMS element (formed in
    closed form, not by the fold) against a float64 fold at the replay
    shape (within twice the f32 fold's distance) and in a stress case (d =
-   5, D = 300, mu = 1.5), with their exact contracts (a fully masked chunk
-   is the identity element, two calls agree, a remainder chunk equals its
-   live ticks alone);
+   5, D = 300, mu = 1.5), the KRLS element (one weighted Gram, not the
+   fold) against a float64 fold at the paper's shape and at D = 2048
+   (within twice the f32 fold's distance), with their exact contracts (a
+   fully masked chunk is the identity element, two calls agree, a
+   remainder chunk equals its live ticks alone, a chunk alone equals it
+   among others, Phi equals Phi^T, every product tile gives the same
+   bits) and a feature row's bits alone, in a 256-row and in a 65536-row
+   call on every tile plan;
 8. drives the KLMS lifecycle: ``make_server("klms", log_capacity=256)``
    at the KLMS serving configuration evicts four tenants (a history that
    overflows the ring, one of 201 ticks, one of a single tick, one with
@@ -56,8 +61,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    that the same server run in float64 measures, and bit for bit on
    untouched tenants;
 10. times the replay kernels and readmission (wall time per mode and
-    family, at D=2048 and D=300); the KLMS element's bound is the smaller
-    of the fold's and the closed form's operation counts;
+    family, at D=2048 and D=300), the KRLS element at the paper's shape
+    and at D = 2048; each element's bound is the smaller of the fold's and
+    the closed form's operation counts;
 11. holds the LM slice's kernels (RFF decode block, chunked linear
     attention, flash attention) against their plain versions at
     qwen2-0.5b's shapes (56 heads at B=4, dh=64, D=256, S=2048), at
@@ -93,7 +99,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
 "routes", bank_predict with
-"bf16" and "krls_read" records beside its f32 serving one); the last is
+"bf16" and "krls_read" records beside its f32 serving one, rff_features
+with a "read_block" record, krls_chunk_elements with a "d2048" one); the
+last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
 result.
@@ -948,12 +956,17 @@ ELEMENT_CASES = [(256, D_IN, D_FEAT, None, False),
 # 5, D = 300, mu = 1.5, where T's entries grow past 2) v within
 # WY_STRESS_TOL of max |v| of the float64 fold.
 WY_GATE, WY_STRESS_TOL, WY_STRESS_MU = 2.0, 1e-4, 1.5
+# The KRLS element kernel forms a chunk as one weighted Gram, not by the
+# fold: at these (T, d, D, beta) its g, Phi and r must each be within
+# WY_GATE times the f32 fold's own distance from a float64 fold.
+GRAM_CASES = [(LOG_CAP, 5, 300, 0.9995), (LOG_CAP, 128, 2048, 0.99)]
 
 
 def phase_replay_kernels(rng, device) -> dict:
     """The replay kernels against their plain versions, the KLMS element's
     numerical gate against a float64 fold, and their exact contracts."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_features import rff_features_cuda
     from repro_torch.kernels.rff_scan import (
         rff_klms_chunk_elements_cuda,
         rff_krls_chunk_elements_cuda,
@@ -1038,6 +1051,50 @@ def phase_replay_kernels(rng, device) -> dict:
             wy[f"{label} norm={norm}"] = dist
             del got, plain, exact
         del a, f64
+    gram = {}
+    for tlen, d, dfeat, beta in GRAM_CASES:
+        a = feature_inputs(rng, tlen, d, dfeat, device)
+        ys = f32_tensor(rng, tlen, device=device)
+        f32 = (a["x"], ys, a["w"], a["b"], beta, a["s"])
+        got = ops.rff_krls_chunk_elements(*f32, mode="cuda")
+        plain = ops.rff_krls_chunk_elements(*f32, mode="ref")
+        exact = ops.rff_krls_chunk_elements(
+            *(t.double() for t in (a["x"], ys, a["w"], a["b"])), beta,
+            a["s"].double(), mode="ref")
+        dist = {f"{k}_{part}": f64_err(x[i], exact[i])
+                for k, x in (("kernel", got), ("fold", plain))
+                for i, part in enumerate(("g", "phi", "r"))}
+        tag = f"krls_chunk_elements D={dfeat} beta={beta}"
+        for part in ("g", "phi", "r"):
+            check(dist[f"kernel_{part}"] <= WY_GATE * dist[f"fold_{part}"],
+                  f"{tag}: {part} is {dist[f'kernel_{part}']:.3g} from "
+                  f"float64, the f32 fold {dist[f'fold_{part}']:.3g} "
+                  f"(gate x{WY_GATE})")
+        check(torch.equal(got[1][0], got[1][0].T), f"{tag}: Phi != Phi^T")
+        for tile in (64, 32):
+            forced = rff_krls_chunk_elements_cuda(
+                a["x"][None], ys[None], a["w"], a["b"], beta, None, a["s"],
+                _tile=tile)
+            check(all(torch.equal(u, w) for u, w in zip(forced, got)),
+                  f"{tag}: the {tile}-tile product changes bits")
+        gram[f"D={dfeat} beta={beta}"] = dist
+        del a, got, plain, exact, forced
+    # A feature row's bits: alone, in a 256-row call and in a call of the
+    # read block's 65536 rows, on every tile plan.
+    a = feature_inputs(rng, BANK * Q, D_IN, D_FEAT, device)
+    for prec in (None, "bf16"):
+        args = (a["w"], a["b"], a["s"], prec)
+        one = rff_features_cuda(a["x"][300:301].contiguous(), *args)
+        for rows in (None, 128, 32):
+            block = rff_features_cuda(a["x"][256:512].contiguous(), *args,
+                                      _rows=rows)
+            whole = rff_features_cuda(a["x"], *args, _rows=rows)
+            check(torch.equal(block[44], one[0])
+                  and torch.equal(whole[300], one[0]),
+                  f"rff_features {prec or 'f32'} rows={rows}: a row's bits "
+                  "depend on the call")
+            del block, whole
+    del a
     # Exact contracts at the paper's width: chunk 1 of 3 fully masked.
     a = feature_inputs(rng, 24, K_D_IN, K_D_FEAT, device)
     ys = f32_tensor(rng, 24, device=device)
@@ -1051,10 +1108,19 @@ def phase_replay_kernels(rng, device) -> dict:
     g, phi, r = rff_krls_chunk_elements_cuda(*args, K_BETA, mask, a["s"])
     check(float(g[1]) == 1.0 and not bool(phi[1].any())
           and not bool(r[1].any()), "masked KRLS chunk is not (1, 0, 0)")
-    # Two calls agree bit for bit.
+    check(torch.equal(phi[0], phi[0].T), "KRLS chunk's Phi != Phi^T")
+    # Two calls agree bit for bit; a chunk alone equals it among others.
     again = rff_klms_chunk_elements_cuda(*args, MU, mask, a["s"])
     check(torch.equal(again[0], av) and torch.equal(again[1], vv),
           "klms_chunk_elements: two calls differ")
+    again = rff_krls_chunk_elements_cuda(*args, K_BETA, mask, a["s"])
+    check(all(torch.equal(u, w) for u, w in zip(again, (g, phi, r))),
+          "krls_chunk_elements: two calls differ")
+    alone = rff_krls_chunk_elements_cuda(
+        xs_c[2:].contiguous(), ys_c[2:].contiguous(), a["w"], a["b"], K_BETA,
+        None, a["s"])
+    check(all(torch.equal(u[0], w[2]) for u, w in zip(alone, (g, phi, r))),
+          "krls_chunk_elements: a chunk alone differs from it among others")
     # A remainder chunk (4 live + 12 masked ticks) equals its live ticks.
     x20, y20 = a["x"][:20], ys[:20]
     for op, hp in ((ops.rff_klms_chunk_elements, MU),
@@ -1070,16 +1136,21 @@ def phase_replay_kernels(rng, device) -> dict:
           "feature_err_of_max_s": feat,
           "element_cases": [list(c) for c in ELEMENT_CASES],
           "max_abs_err": errs, "max_normwise_err": rel,
-          "klms_wy_vs_float64": wy,
+          "klms_wy_vs_float64": wy, "krls_gram_vs_float64": gram,
           "tolerance": {"features_of_max_s": FEAT_TOL,
                         "features_bf16_of_max_s": FEAT_BF16_TOL,
                         "elements_elementwise": F32_TOL,
                         "elements_normwise": F32_TOL,
                         "klms_wy_gate_of_fold": WY_GATE,
+                        "krls_gram_gate_of_fold": WY_GATE,
                         "klms_wy_stress_v_of_max_v": WY_STRESS_TOL},
           "exact": {"masked_chunk_is_identity": True,
                     "two_calls_agree": True,
-                    "remainder_chunk_eq_live_ticks": True}})
+                    "remainder_chunk_eq_live_ticks": True,
+                    "krls_chunk_alone_eq_among_others": True,
+                    "krls_phi_symmetric": True,
+                    "krls_tiles_agree": True,
+                    "feature_row_bits_independent_of_call": True}})
     return errs
 
 
@@ -1338,12 +1409,14 @@ def phase_replay_times(rng, device) -> dict:
     Tc (Tc + 1) D (the Gram: G is symmetric, and the solve reads only its
     lower triangle and diagonal), Tc^2 D (T Z, T triangular), 2 D^2 Tc
     (the product), Tc^3 / 3 (the solve, a triangular inverse), 2 Tc D (v)
-    and 2 Tc^2 (c). A live
-    KRLS tick 3 D^2
-    (beta Phi + z_i z_j: a multiply and a multiply-add; a masked tick is
-    skipped, so no mask multiply) plus 3 D for r. Every tick of these
-    inputs is live. Bytes: each input read once and each output written
-    once (the (D, D) element per chunk).
+    and 2 Tc^2 (c). The KRLS element likewise: the fold's, a live tick 3
+    D^2 (beta Phi + z_i z_j: a multiply and a multiply-add; a masked tick
+    is skipped, so no mask multiply) plus 3 D for r; and the closed form's
+    (what the kernel does), per chunk D (D + 1) Tc (the lower triangle of
+    Z^T (w Z), diagonal included), Tc D (w Z) and 2 Tc D (r), the
+    features added to both. It is timed at the paper's shape and at D =
+    2048. Every tick of these inputs is live. Bytes: each input read once
+    and each output written once (the (D, D) element per chunk).
     """
     from repro_torch.core.scan import replay_klms, replay_krls
     from repro_torch.features import rff_map
@@ -1378,15 +1451,22 @@ def phase_replay_times(rng, device) -> dict:
                                     + D_FEAT * D_FEAT + D_FEAT),
         min(fold_ops, wy_ops), shape=[LOG_CAP, D_IN, D_FEAT])
     out["klms_chunk_elements"].update(ops_fold=fold_ops, ops_wy=wy_ops)
-    k = feature_inputs(rng, LOG_CAP, K_D_IN, K_D_FEAT, device)
-    kys = f32_tensor(rng, LOG_CAP, device=device)
-    measure("krls_chunk_elements", lambda mode: ops.rff_krls_chunk_elements(
-        k["x"], kys, k["w"], k["b"], K_BETA, k["s"], mode=mode),
-        shared(K_D_IN, K_D_FEAT) + 4 * (LOG_CAP * (K_D_IN + 1) + 1
-                                        + K_D_FEAT * K_D_FEAT + K_D_FEAT),
-        LOG_CAP * (2 * K_D_IN * K_D_FEAT + 3 * K_D_FEAT + 3 * K_D_FEAT ** 2
-                   + 3 * K_D_FEAT),
-        shape=[LOG_CAP, K_D_IN, K_D_FEAT])
+    for label, d, dfeat, beta in (("krls_chunk_elements", K_D_IN, K_D_FEAT,
+                                   K_BETA),
+                                  ("krls_chunk_elements_d2048", D_IN, D_FEAT,
+                                   0.99)):
+        k = feature_inputs(rng, LOG_CAP, d, dfeat, device)
+        kys = f32_tensor(rng, LOG_CAP, device=device)
+        feat = tc * (2 * d * dfeat + 3 * dfeat)
+        fold_ops = feat + tc * (3 * dfeat ** 2 + 3 * dfeat)
+        gram_ops = feat + dfeat * (dfeat + 1) * tc + 3 * tc * dfeat
+        measure(label, lambda mode: ops.rff_krls_chunk_elements(
+            k["x"], kys, k["w"], k["b"], beta, k["s"], mode=mode),
+            shared(d, dfeat) + 4 * (LOG_CAP * (d + 1) + 1 + dfeat * dfeat
+                                    + dfeat),
+            min(fold_ops, gram_ops), shape=[LOG_CAP, d, dfeat])
+        out[label].update(ops_fold=fold_ops, ops_gram=gram_ops)
+        del k
 
     def wall_ms(fn, reps=3) -> float:
         fn()
@@ -2162,6 +2242,10 @@ def main() -> int:
                             for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "shape")}}
             if name == "rff_features" else {}),
+         **({"d2048": {k: times["krls_chunk_elements_d2048"][k]
+                       for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "shape")}}
+            if name == "krls_chunk_elements" else {}),
          **({k: times[name][k] for k in ("bf16", "krls_read")}
             if name == "bank_predict" else {}),
          **({"routes": routes[name]} if name in routes else {})}

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Where the resident KRLS chunk kernel's time goes, the feature-tile
 kernels' (the KLMS chunk and the read), the RFF attention kernels' (the
-prefill's linear attention and the decode block) and the KLMS replay
-element's (its phases), on one GPU.
+prefill's linear attention and the decode block), the replay elements'
+(the KLMS element's phases, the KRLS element's launches), the feature
+map's and the blocked KRLS readmit's, on one GPU.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and
-``nvcc``: ``python3 krls_breakdown.py``.
+``nvcc``: ``python3 krls_breakdown.py``. ``python3 krls_breakdown.py --ops
+SRC`` only times the replay ops (``ops.rff_features`` and
+``ops.rff_krls_chunk_elements`` at the shapes below) of the ``repro_torch``
+package under ``SRC`` (for example an unpacked parent commit's ``src``),
+so that two trees can be compared in one call.
 
 It compiles timing-only variants of ``src/repro_torch/csrc/krls_bank.cu``
 into ``build/repro_torch/breakdown/``, each with one part of the resident
@@ -25,8 +30,21 @@ C entries: the features (``rff_features``), then ``klms_chunk_elements``
 of variants of ``csrc/rff_scan.cu`` that launch one phase each (Gram;
 solve; T Z and v; the product) on the workspace a full run leaves, the
 four at once (the source as it is), and the whole call through
-``ops.rff_klms_chunk_elements``. It prints the card's name and power limit
-and one JSON line for each.
+``ops.rff_klms_chunk_elements``. Then the KRLS replay element at the
+paper's replay shape (T = 256, d = 5, D = 300, beta = 0.9995) and at D =
+2048 (d = 128, beta = 0.99), through its C entry: the whole call, the
+prep launch alone (weights, g, Zp and [w Zp | c]), the product alone (on
+the workspace a full run leaves), the whole call on each product tile
+(64, 32), with the device time of the whole entry (torch.profiler);
+the features of its rows and the op. Then the feature map
+(``csrc/rff_features.cu``) through its C entry at 256 and 65536 rows (d =
+128, D = 2048), f32 and bf16, with the device time at 256 rows, and at
+65536 rows f32 its ``FEATURE_VARIANTS`` (without ``cosf``, without the z
+stores, the packing alone). Last the blocked KRLS readmit of
+a 256-tick log at the paper's settings by part: the features, the element
+op (features included) and the ``torch.linalg`` tail (compose, apply to
+lam I, invert, solve), against the whole ``replay_krls``. It prints the
+card's name and power limit and one JSON line for each.
 
 Variants:
   no_downdate  the downdate of the ticks after the first live one skipped;
@@ -67,13 +85,15 @@ import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from chip_smoke import (BANK, CHUNK, D_FEAT, D_IN, DECODE_CALLS,
-                        DECODE_SHAPES, K_D_FEAT, K_D_IN, LINEAR_SHAPES, LOG_CAP,
-                        MU, Q, SRC, decode_inputs, device_busy, f32_tensor,
+                        DECODE_SHAPES, K_BETA, K_D_FEAT, K_D_IN, K_LAM,
+                        LINEAR_SHAPES, LOG_CAP, MU, Q, SIGMA, SRC,
+                        decode_inputs, device_busy, f32_tensor,
                         feature_inputs, inputs, krls_inputs, positive,
                         time_ms)
 
@@ -342,6 +362,7 @@ def element_breakdown(dev) -> dict:
     """The KLMS replay element's phases at the replay shape, each timed
     twice (the whole call first and last)."""
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.chunking import feature_tile_pack_floats
     from repro_torch.kernels.rff_features import _lib as features_lib
     from repro_torch.kernels.rff_scan import _SIGNATURES
     from repro_torch.kernels.rff_scan import _lib as scan_lib
@@ -357,11 +378,11 @@ def element_breakdown(dev) -> dict:
                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
+    fws = torch.empty(feature_tile_pack_floats(LOG_CAP, D_IN, D_FEAT),
+                      device=dev)
+
     def features():
-        if flib.rff_features(*(t.data_ptr() for t in (a["x"], a["w"], a["b"],
-                                                       a["s"], z)),
-                             LOG_CAP, D_IN, D_FEAT, 0, stream):
-            raise SystemExit("rff_features: launch failed")
+        features_call(flib, a, z, fws, 0, stream)
 
     libs = build_tiles(_build, _build.CSRC, _build.BUILD_DIR / "breakdown",
                        ELEMENT_VARIANTS)
@@ -389,17 +410,243 @@ def element_breakdown(dev) -> dict:
                       "mu": MU}, "ms": ms}
 
 
+def features_call(flib, a, out, ws, bf16, stream) -> None:
+    """``rff_features`` through its C entry (the plan's tile), a (x, w, b,
+    s) into out."""
+    m, d = a["x"].shape
+    if flib.rff_features(*(t.data_ptr() for t in (a["x"], a["w"], a["b"],
+                                                   a["s"], out, ws)),
+                         ws.numel(), m, d, a["w"].shape[1], bf16, 0, stream):
+        raise SystemExit("rff_features: launch failed")
+
+
+# The KRLS element's launches (csrc/rff_scan.cu krls_run): prep, then the
+# product (r's tiles in front).
+KRLS_PRODUCT = ("    const int t = krls_tile(tile, D, ng);\n",
+                "    const int t = krls_tile(tile, D, ng);\n    if (t) continue;\n",
+                1)
+KRLS_NO_PREP = ("    krls_prep_kernel<<<", "    if (0) krls_prep_kernel<<<", 1)
+KRLS_ELEMENT_VARIANTS = {
+    "kelem_full": ("rff_scan", []),
+    "kelem_prep_only": ("rff_scan", [KRLS_PRODUCT]),
+    "kelem_product_only": ("rff_scan", [KRLS_NO_PREP]),
+}
+KRLS_SHAPES = {"paper": (K_D_IN, K_D_FEAT, K_BETA),
+               "d2048": (D_IN, D_FEAT, 0.99)}
+
+
+def krls_element_breakdown(dev) -> dict:
+    """The KRLS replay element's launches at both shapes through its C
+    entry, each timed twice (the whole op first and last), and the device
+    time of the whole entry."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.chunking import feature_tile_pack_floats
+    from repro_torch.kernels.rff_features import _lib as features_lib
+    from repro_torch.kernels.rff_scan import _SIGNATURES
+    from repro_torch.kernels.rff_scan import _lib as scan_lib
+
+    libs = build_tiles(_build, _build.CSRC, _build.BUILD_DIR / "breakdown",
+                       KRLS_ELEMENT_VARIANTS)
+    for lib in libs.values():
+        lib.krls_chunk_elements.argtypes = _SIGNATURES["krls_chunk_elements"]
+    flib, slib = features_lib(), scan_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, (d, dfeat, beta) in KRLS_SHAPES.items():
+        a = feature_inputs(rng, LOG_CAP, d, dfeat, dev)
+        ys = f32_tensor(rng, LOG_CAP, device=dev)
+        z = torch.empty(LOG_CAP, dfeat, device=dev)
+        fws = torch.empty(feature_tile_pack_floats(LOG_CAP, d, dfeat),
+                          device=dev)
+        g = torch.empty(1, device=dev)
+        phi = torch.empty(1, dfeat, dfeat, device=dev)
+        r = torch.empty(1, dfeat, device=dev)
+        ws = torch.empty(slib.krls_element_chunk_floats(LOG_CAP, dfeat),
+                         device=dev)
+
+        def part(name, tile=0):
+            if libs[name].krls_chunk_elements(
+                    z.data_ptr(), ys.data_ptr(), None, beta, g.data_ptr(),
+                    phi.data_ptr(), r.data_ptr(), ws.data_ptr(), ws.numel(),
+                    1, LOG_CAP, dfeat, tile, stream):
+                raise SystemExit(f"krls_chunk_elements {name}: failed")
+
+        def whole():
+            ops.rff_krls_chunk_elements(a["x"], ys, a["w"], a["b"], beta,
+                                        a["s"], mode="cuda")
+
+        features_call(flib, a, z, fws, 0, stream)
+        part("kelem_full")
+        ms = {"ops": [time_ms(whole, 10)],
+              "features": [time_ms(lambda: features_call(flib, a, z, fws, 0,
+                                                         stream), 10)]}
+        for name in KRLS_ELEMENT_VARIANTS:
+            ms[name] = [time_ms(lambda: part(name), 10) for _ in range(2)]
+        for tile in (64, 32):
+            ms[f"kelem_full tile={tile}"] = [
+                time_ms(lambda: part("kelem_full", tile), 10)
+                for _ in range(2)]
+        ms["ops"].append(time_ms(whole, 10))
+        calls = 20
+        busy = device_busy(lambda: [part("kelem_full") for _ in range(calls)],
+                           named="krls")
+        out[label] = {"shape": {"T": LOG_CAP, "d": d, "D": dfeat,
+                                "beta": beta},
+                      "ms": ms, "entry_device_ms": busy["device_ms"] / calls,
+                      "entry_kernels": busy["named"]}
+        del a, z, phi, ws
+    return out
+
+
+FEATURE_STORE = ("            *reinterpret_cast<float4*>(zr + col) =\n",
+                 "            if (v[0] + v[1] + v[2] + v[3] == 12345.f)\n"
+                 "            *reinterpret_cast<float4*>(zr + col) =\n", 1)
+# name: (source, [(text, replacement, times)]), timed at 65536 rows, f32.
+FEATURE_VARIANTS = {
+    "feat_full": ("rff_features", []),
+    "feat_no_cos": ("rff_features", [(
+        "v[c] = __fmul_rn(sj[j], cosf(__fadd_rn(acc[i][j], bj[j])));",
+        "v[c] = __fmul_rn(sj[j], __fadd_rn(acc[i][j], bj[j]));", 1)]),
+    "feat_no_store": ("rff_features", [FEATURE_STORE]),
+    "feat_pack_only": ("rff_features", [(
+        "  if (rows == 128)\n    return bf16 ?",
+        "  return cudaSuccess;\n  if (rows == 128)\n    return bf16 ?", 1)]),
+}
+
+
+def features_breakdown(dev) -> dict:
+    """The feature map through its C entry at 256 and 65536 rows, f32 and
+    bf16, by CUDA events (twice each), and by device time at 256 rows;
+    then at 65536 rows, f32, the timing-only variants (``FEATURE_VARIANTS``:
+    without ``cosf``, without the z stores, the packing alone), the full
+    source first and last."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.chunking import feature_tile_pack_floats
+    from repro_torch.kernels.rff_features import _SIGNATURES
+    from repro_torch.kernels.rff_features import _lib as features_lib
+
+    flib = features_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(0)
+    out = {}
+    for m in (LOG_CAP, BANK * Q):
+        a = feature_inputs(rng, m, D_IN, D_FEAT, dev)
+        ws = torch.empty(feature_tile_pack_floats(m, D_IN, D_FEAT),
+                         device=dev)
+        for bf16, dtype in ((0, torch.float32), (1, torch.bfloat16)):
+            z = torch.empty(m, D_FEAT, dtype=dtype, device=dev)
+            run = lambda: features_call(flib, a, z, ws, bf16, stream)
+            rec = {"ms": [time_ms(run, 10) for _ in range(2)]}
+            if m == LOG_CAP:
+                calls = 20
+                busy = device_busy(lambda: [run() for _ in range(calls)],
+                                   named="_kernel")
+                rec["device_ms"] = busy["device_ms"] / calls
+                rec["kernels"] = busy["named"]
+            out[f"{m}x{D_IN}->{D_FEAT} {'bf16' if bf16 else 'f32'}"] = rec
+            if m == BANK * Q and not bf16:
+                libs = build_tiles(_build, _build.CSRC,
+                                   _build.BUILD_DIR / "breakdown",
+                                   FEATURE_VARIANTS)
+                for lib in libs.values():
+                    lib.rff_features.argtypes = _SIGNATURES["rff_features"]
+                rec["variants"] = {name: [] for name in FEATURE_VARIANTS}
+                for name in [*FEATURE_VARIANTS, "feat_full"]:
+                    rec["variants"][name].append(time_ms(
+                        lambda: features_call(libs[name], a, z, ws, 0,
+                                              stream), 10))
+            del z
+        del a, ws
+    return out
+
+
+def readmit_breakdown(dev) -> dict:
+    """The blocked KRLS readmit of a 256-tick log at the paper's settings,
+    by part, each timed twice (CUDA events; host time included)."""
+    from repro_torch.core.scan import (DecayElement, _decay_to_rls,
+                                       decay_apply, decay_combine,
+                                       replay_krls, tree_reduce)
+    from repro_torch.features import rff_map
+    from repro_torch.features.base import as_trig_or_none
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    fm = rff_map(torch.Generator().manual_seed(7), K_D_IN, K_D_FEAT, SIGMA,
+                 device=dev)
+    tf = as_trig_or_none(fm)
+    xs = f32_tensor(rng, LOG_CAP, K_D_IN, device=dev)
+    ys = f32_tensor(rng, LOG_CAP, device=dev)
+    elements = DecayElement(*ops.rff_krls_chunk_elements(
+        xs, ys, tf.omega, tf.bias, K_BETA, tf.scale))
+    step = torch.tensor(LOG_CAP, dtype=torch.int32, device=dev)
+
+    def tail():
+        composed = tree_reduce(decay_combine, elements)
+        phi0 = K_LAM * torch.eye(K_D_FEAT, device=dev)
+        phi, r = decay_apply(composed, phi0,
+                             torch.zeros(K_D_FEAT, device=dev))
+        _decay_to_rls(phi, r, step)
+
+    parts = {
+        "readmit_blocked": lambda: replay_krls(fm, xs, ys, K_LAM, K_BETA,
+                                               mode="blocked"),
+        "features": lambda: ops.rff_features(xs, tf.omega, tf.bias,
+                                             tf.scale),
+        "element_op": lambda: ops.rff_krls_chunk_elements(
+            xs, ys, tf.omega, tf.bias, K_BETA, tf.scale),
+        "linalg_tail": tail,
+    }
+    ms = {name: [time_ms(fn, 10) for _ in range(2)]
+          for name, fn in parts.items()}
+    return {"shape": {"T": LOG_CAP, "d": K_D_IN, "D": K_D_FEAT,
+                      "lam": K_LAM, "beta": K_BETA}, "ms": ms}
+
+
+def ops_times(dev) -> dict:
+    """The replay ops of the imported package (whichever tree is on the
+    path), each timed three times (medians of 30 calls; the small calls
+    are host-bound, and the host's speed wanders): the KRLS element at
+    both shapes, the feature map at 256 and 65536 rows, f32 and bf16."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for label, (d, dfeat, beta) in KRLS_SHAPES.items():
+        a = feature_inputs(rng, LOG_CAP, d, dfeat, dev)
+        ys = f32_tensor(rng, LOG_CAP, device=dev)
+        out[f"krls_chunk_elements {label}"] = [time_ms(
+            lambda: ops.rff_krls_chunk_elements(
+                a["x"], ys, a["w"], a["b"], beta, a["s"], mode="cuda"), 30)
+            for _ in range(3)]
+    for m in (LOG_CAP, BANK * Q):
+        a = feature_inputs(rng, m, D_IN, D_FEAT, dev)
+        for prec in (None, "bf16"):
+            out[f"rff_features {m} {prec or 'f32'}"] = [time_ms(
+                lambda: ops.rff_features(a["x"], a["w"], a["b"], a["s"],
+                                         mode="cuda", precision=prec), 30)
+                for _ in range(3)]
+        del a
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ops":
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        print(smi)
+        print(json.dumps({"ops_times": ops_times(dev), "src": sys.argv[2]}))
+        return 0
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
-    dev = torch.device("cuda", 0)
+    print(smi)
     print(json.dumps({"attention": attention_breakdown(_build, dev)}))
     fns = build_all(_build, _build.CSRC, _build.BUILD_DIR / "breakdown")
     a = krls_inputs(np.random.default_rng(0), BANK, CHUNK, K_D_IN, K_D_FEAT,
@@ -429,6 +676,9 @@ def main() -> int:
                              if name != "full"}}))
     print(json.dumps({"feature_tile": tile_breakdown(_build, dev)}))
     print(json.dumps({"klms_element": element_breakdown(dev)}))
+    print(json.dumps({"krls_element": krls_element_breakdown(dev)}))
+    print(json.dumps({"features": features_breakdown(dev)}))
+    print(json.dumps({"krls_readmit": readmit_breakdown(dev)}))
     return 0
 
 

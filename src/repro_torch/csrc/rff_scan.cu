@@ -11,12 +11,12 @@
 //    information-form element folded from (1, 0, 0):
 //        g <- beta_eff g;  Phi <- beta_eff Phi + m outer(z, z);
 //        r <- beta_eff r + (m y) z,
-//    beta_eff = beta on a live tick; a masked tick skips its update.
+//    beta_eff = beta on a live tick (m > 0), 1 on a masked one.
 //
 // The features z (nc * Tc, D) are made first by the feature-map kernel
 // (csrc/rff_features.cu) into device memory; the wrapper launches both,
 // so together they compute what the TPU kernel computes,
-// (xs, ys, W, b, mu, mask, s) -> (A, v).
+// (xs, ys, W, b, mu, mask, s) -> (A, v), or (g, Phi, r).
 //
 // KLMS. The TPU kernel folds the ticks one by one into a (D, D)
 // accumulator resident in VMEM (row = z A; A <- A - mu_eff outer(z, row)).
@@ -64,12 +64,38 @@
 // no farther from a float64 fold than the f32 fold is at the replay shape.
 // IEEE f32 throughout (no TF32, no fast math); 64-bit offsets.
 //
-// KRLS. Phi <- beta Phi + m z z^T is elementwise, so a block owns a
-// 64 x 64 tile of one chunk's Phi in registers (16 values a thread) and
-// reads z_i, z_j from L2 each tick; one extra block per chunk folds g and
-// r. A KRLS tick is 4 D^2 elementwise operations: bound by operations.
-// Each update uses _rn intrinsics in the reference's operation order (no
-// contraction). Ragged D by bounds checks.
+// KRLS. The fold (g, Phi, r) <- (beta_eff g, beta_eff Phi + m z z^T,
+// beta_eff r + (m y) z) from (1, 0, 0) has a closed form too: with n_t the
+// live ticks after t and w_t = m_t beta^(n_t),
+//     Phi = Z^T diag(w) Z,   r = Z^T (w y),   g = beta^(live ticks).
+// So the TPU kernel's Tc dependent passes over a (D, D) accumulator (a
+// chain of Tc L2 round trips a tile on this card) become one weighted
+// Gram, a (D, Tc) (Tc, D) product. A call runs two launches over a group
+// of chunks:
+//  1. krls_prep_kernel: the weights by a suffix chain of f32 multiplies
+//     (and g, bit for bit the fold's), then Zp = Z and Yp = [w Z | c, 0,
+//     ...] with c = w y, zero-padded so that the product copies 16 bytes
+//     unchecked.
+//  2. The product: only the lower tiles of Phi = Zp^T (w Z), each element
+//     stored with its mirror image, so Phi equals Phi^T bit for bit (w_t
+//     z_ti z_tj summed as z_i (w z_j) is not symmetric under
+//     transposition) and the work halves; one more tile a row of tiles,
+//     Zp^T [c, 0, ...], gives r in its first column. The tiles are 64 x 64
+//     or 32 x 32 (krls_tile), on the feature tile's discipline (cp.async
+//     copies of 16 bytes through a ring, fixed-order fmaf chains) with a
+//     deeper ring: at the paper's D = 300 the feature tile's 128 x 128
+//     gives 6 blocks for 132 SMs, and at D = 2048 its 136 leave most SMs
+//     with one block and a few with two; it ran slower at both.
+// What bounds it: operations, D (D + 1) Tc for the lower triangle (1.07
+// GFLOP at Tc = 256, D = 2048), against the fold's 3 D^2 Tc.
+// Exactness: every element of Phi and r is one chain of fmaf over t in
+// order from +0, whatever the tile (the product's tile changes no bit);
+// no split-K, no atomics, so two calls agree and a chunk's element depends
+// on its own ticks alone. A masked or padded tick has w_t = 0, so every
+// term it adds is an exact zero: a fully masked chunk is (1, 0, 0) and a
+// remainder chunk equals its live ticks alone. Not bit for bit the fold
+// (another rounding sequence): within 1e-4 of it, and no farther from a
+// float64 fold than twice the f32 fold is.
 //
 // Plain C interface (loaded with ctypes); each entry returns cudaError_t.
 
@@ -82,8 +108,6 @@ namespace {
 namespace ft = feature_tile;
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;                 // KRLS Phi tile edge
-constexpr int kTileRows = kThreads / 32;  // rows covered per pass (8)
 
 // ---------------------------------------------------------------- KLMS (WY)
 
@@ -588,81 +612,260 @@ int klms_run(const float* z, const float* ys, const float* mask,
 
 // ---------------------------------------------------------------- KRLS
 
-// Grid (tiles + 1, nc), tiles = ceil(D / 64)^2. Block x < tiles owns one
-// 64 x 64 tile of chunk y's Phi; block x == tiles folds g and r.
-__global__ void __launch_bounds__(kThreads)
-krls_elements_kernel(const float* __restrict__ z, const float* __restrict__ ys,
-                     const float* __restrict__ mask, float beta,
-                     float* __restrict__ g_out, float* __restrict__ phi_out,
-                     float* __restrict__ r_out, int tc, int D) {
-  extern __shared__ float r_s[];  // [D], the g/r block only
-  const int chunk = blockIdx.y;
-  const int edge = (D + kTile - 1) / kTile;
-  const int tiles = edge * edge;
+constexpr int kPrepRows = 16;    // ticks a prep block
+constexpr int kPrepCols = 128;   // features a prep block
+constexpr int kWave = 132;       // SMs of an H100 SXM: blocks a wave
 
-  if ((int)blockIdx.x == tiles) {  // ---- g and r block
-    for (int i = threadIdx.x; i < D; i += kThreads) r_s[i] = 0.f;
-    float g = 1.f;
-    for (int t = 0; t < tc; ++t) {
-      const size_t row = (size_t)chunk * tc + t;
-      const float m = mask ? __ldg(mask + row) : 1.f;
-      if (m == 0.f) continue;
-      const float my = __fmul_rn(m, __ldg(ys + row));
-      const float* zt = z + row * D;
-      g = __fmul_rn(g, beta);
-      for (int i = threadIdx.x; i < D; i += kThreads)
-        r_s[i] = __fadd_rn(__fmul_rn(beta, r_s[i]), __fmul_rn(my, __ldg(zt + i)));
+// One chunk's padded extents and workspace (floats).
+struct KPlan {
+  int tc, D;
+  int tcp, dp;  // tc rounded up to a k-step, D to a prep block
+  int ldy;      // Y's row: dp columns of w Z, then 128 of [c, 0, ...]
+  size_t zp, yp;  // floats a chunk: Z and Y padded
+  __host__ __device__ size_t chunk_floats() const { return zp + yp; }
+};
+
+__host__ __device__ inline KPlan make_kplan(int tc, int D) {
+  KPlan p;
+  p.tc = tc;
+  p.D = D;
+  p.tcp = round_up(tc, kKT);
+  p.dp = round_up(D, kPrepCols);
+  p.ldy = p.dp + kPrepCols;
+  p.zp = (size_t)p.tcp * p.dp;   // Z (Tcp, Dp)
+  p.yp = (size_t)p.tcp * p.ldy;  // Y (Tcp, Dp + 128)
+  return p;
+}
+
+// Weights and operands. Grid (dp / 128 + 1, tcp / 16, ng), one block a 16
+// ticks x 128 features piece (the last column of blocks fills Y's [c, 0,
+// ...] columns). The weights of the block's ticks: with n_t
+// the live ticks (m > 0) after t, w_t = m_t beta^(n_t) (0 past tc). The
+// block counts the live ticks after its own (a block-wide count), its
+// rows' n_t by a ballot, and one thread takes the powers of beta up to
+// the largest n it needs as the suffix chain does, repeated __fmul_rn
+// from 1 (no table: it keeps the at most 17 powers its rows use). The
+// block of the first ticks and features runs the chain on to the chunk's
+// live count and writes g, the fold's g bit for bit (the same products
+// from 1, in the same order). Then Zp[t][a] = z[t][a] (0 past tc or D),
+// Yp[t][a] = w_t Zp[t][a], and Yp[t][dp] = c_t = w_t y_t (0 past tc), the
+// rest of those 128 columns 0.
+__global__ void __launch_bounds__(kThreads)
+krls_prep_kernel(const float* __restrict__ z, const float* __restrict__ ys,
+                 const float* __restrict__ mask, float beta,
+                 float* __restrict__ zp, float* __restrict__ yp,
+                 float* __restrict__ g_out, KPlan p) {
+  __shared__ float w[kPrepRows];
+  __shared__ float pw[kPrepRows + 1];  // beta^(after + i)
+  const int chunk = blockIdx.z;
+  const int t0 = blockIdx.y * kPrepRows, c0 = blockIdx.x * kPrepCols;
+  const size_t row0 = (size_t)chunk * p.tc;
+  auto m_at = [&](int t) { return mask ? __ldg(mask + row0 + t) : 1.f; };
+  int after = 0;  // live ticks after the block's
+  for (int t1 = t0 + kPrepRows; t1 < p.tc; t1 += kThreads) {
+    const int t = t1 + threadIdx.x;
+    after += __syncthreads_count(t < p.tc && m_at(t) > 0.f);
+  }
+  if (threadIdx.x < 32) {
+    const int t = t0 + threadIdx.x;
+    const bool own = threadIdx.x < kPrepRows && t < p.tc;
+    const float m = own ? m_at(t) : 0.f;
+    const unsigned live =
+        __ballot_sync(0xffffffffu, own && m > 0.f) & ((1u << kPrepRows) - 1);
+    // n_t for lane i: after + the live ticks among lanes i + 1 .. 15.
+    const int n = after + __popc(live >> threadIdx.x >> 1);
+    const bool first = blockIdx.x == 0 && blockIdx.y == 0;
+    const int top = after + (first ? __popc(live) : __popc(live >> 1));
+    if (threadIdx.x == 0) {
+      float q = 1.f;
+      if (after == 0) pw[0] = q;
+#pragma unroll 4
+      for (int k = 1; k <= top; ++k) {
+        q = __fmul_rn(q, beta);
+        if (k >= after) pw[k - after] = q;
+      }
+      if (first) g_out[chunk] = q;
     }
-    for (int i = threadIdx.x; i < D; i += kThreads)
-      r_out[(size_t)chunk * D + i] = r_s[i];
-    if (threadIdx.x == 0) g_out[chunk] = g;
+    __syncwarp();
+    if (threadIdx.x < kPrepRows)
+      w[threadIdx.x] = own ? __fmul_rn(m, pw[n - after]) : 0.f;
+  }
+  __syncthreads();
+  float* zc = zp + (size_t)chunk * p.zp;
+  float* yc = yp + (size_t)chunk * p.yp;
+  if (c0 == p.dp) {  // [c, 0, ...]
+#pragma unroll
+    for (int h = 0; h < kPrepRows * kPrepCols / kThreads; ++h) {
+      const int e = threadIdx.x + kThreads * h;
+      const int r = e / kPrepCols, t = t0 + r, j = e % kPrepCols;
+      yc[(size_t)t * p.ldy + c0 + j] =
+          j == 0 && t < p.tc ? __fmul_rn(w[r], __ldg(ys + row0 + t)) : 0.f;
+    }
     return;
   }
+#pragma unroll
+  for (int h = 0; h < kPrepRows * kPrepCols / kThreads; ++h) {
+    const int e = threadIdx.x + kThreads * h;
+    const int r = e / kPrepCols, t = t0 + r, a = c0 + e % kPrepCols;
+    const float v =
+        (t < p.tc && a < p.D) ? __ldg(z + (row0 + t) * p.D + a) : 0.f;
+    zc[(size_t)t * p.dp + a] = v;
+    yc[(size_t)t * p.ldy + a] = __fmul_rn(w[r], v);
+  }
+}
 
-  // ---- Phi tile block: rows r0 + ty + 8 k, columns c0 + tx + 32 l.
-  const int r0 = (blockIdx.x / edge) * kTile;
-  const int c0 = (blockIdx.x % edge) * kTile;
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;
-  constexpr int kRowsPer = kTile / kTileRows;  // 8
-  constexpr int kColsPer = kTile / 32;         // 2
-  float phi[kRowsPer][kColsPer];
+// Phi[row][col] and Phi[col][row] = v for an element of a lower tile;
+// on a diagonal tile only row >= col is stored (so both halves hold the
+// lower one's bits).
+__device__ __forceinline__ void store_sym(float* __restrict__ phi, int D,
+                                          bool diag, int row, int col,
+                                          float v) {
+  if (row >= D || col >= D || (diag && row < col)) return;
+  phi[(size_t)row * D + col] = v;
+  phi[(size_t)col * D + row] = v;
+}
+
+// The product on T x T tiles (T = 64 or 32): tile (ti, tj) forms acc[i][j]
+// = sum over t, in order, of Zp[t][ti T + i] Yp[t][tj T + j], one chain of
+// fmaf from +0 an element, so the bits do not depend on T; it is stored
+// mirrored (store_sym). Grid (nt + lower tiles, 1, ng), nt = ceil(D / T):
+// the first nt blocks are r's, tile (i, Y's [c, 0, ...] columns), which
+// keep their first column. A thread owns U x U = (T / 16)^2 elements, rows
+// ty U .., columns tx U ..; k-steps of 16 through a ring of
+// small_stages(T) shared buffers filled by cp.async, so that several
+// steps' loads are in flight (a step's products are short against an L2
+// round trip).
+template <int T>
+__host__ __device__ constexpr int small_stages() {
+  return T == 32 ? 8 : 5;  // about 37 and 44 KB of static shared memory
+}
+
+template <int T>
+__global__ void __launch_bounds__(kThreads)
+krls_product_kernel(const float* __restrict__ zp, const float* __restrict__ yp,
+                  float* __restrict__ phi_out, float* __restrict__ r_out,
+                  KPlan p) {
+  constexpr int U = T / 16;
+  constexpr int Q = kKT * T / 4;  // float4s of one operand a k-step
+  constexpr int S = small_stages<T>();
+  __shared__ __align__(16) float xs[S][kKT][T + 4];
+  __shared__ __align__(16) float ws[S][kKT][T + 4];
+  const int chunk = blockIdx.z;
+  const float* zc = zp + (size_t)chunk * p.zp;
+  const int nt = (p.D + T - 1) / T;
+  const bool r_tile = (int)blockIdx.x < nt;
+  int ti = blockIdx.x, tj = 0;
+  if (!r_tile) lower_tile(blockIdx.x - nt, ti, tj);
+  const bool diag = !r_tile && ti == tj;
+  const int i0 = ti * T, j0 = r_tile ? p.dp : tj * T;
+  const float* yc = yp + (size_t)chunk * p.yp;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  // Thread e < Q copies x's float4 e, Q <= e < 2 Q W's (both at T = 64).
+  const int e = threadIdx.x % Q, kk = e / (T / 4), cq = (e % (T / 4)) * 4;
+  const bool loads_x = T == 64 || (int)threadIdx.x < Q;
+  const bool loads_w = T == 64 || (int)threadIdx.x >= Q;
+  const int steps = p.tcp / kKT;
+  auto load = [&](int st) {
+    const int slot = st % S;
+    const size_t k = (size_t)(st * kKT + kk);
+    if (loads_x) ft::cp_async16(&xs[slot][kk][cq], zc + k * p.dp + i0 + cq);
+    if (loads_w) ft::cp_async16(&ws[slot][kk][cq], yc + k * p.ldy + j0 + cq);
+  };
 #pragma unroll
-  for (int k = 0; k < kRowsPer; ++k)
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < steps) load(st);
+    ft::cp_commit();
+  }
+  float acc[U][U];
 #pragma unroll
-    for (int l = 0; l < kColsPer; ++l) phi[k][l] = 0.f;
-  for (int t = 0; t < tc; ++t) {
-    const size_t row = (size_t)chunk * tc + t;
-    const float m = mask ? __ldg(mask + row) : 1.f;
-    if (m == 0.f) continue;
-    const float* zt = z + row * D;
-    float zc[kColsPer];
+  for (int i = 0; i < U; ++i)
 #pragma unroll
-    for (int l = 0; l < kColsPer; ++l) {
-      const int c = c0 + tx + 32 * l;
-      zc[l] = c < D ? __ldg(zt + c) : 0.f;
-    }
+    for (int j = 0; j < U; ++j) acc[i][j] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    ft::cp_wait<S - 2>();
+    // Step st has landed for every thread, and every thread is done with
+    // the slot that the next copy overwrites (read at step st - 1).
+    __syncthreads();
+    if (st + S - 1 < steps) load(st + S - 1);
+    ft::cp_commit();
+    const int slot = st % S;
 #pragma unroll
-    for (int k = 0; k < kRowsPer; ++k) {
-      const int r = r0 + ty + kTileRows * k;
-      const float zr = r < D ? __ldg(zt + r) : 0.f;
+    for (int k = 0; k < kKT; ++k) {
+      float av[U], bv[U];
 #pragma unroll
-      for (int l = 0; l < kColsPer; ++l)
-        phi[k][l] = __fadd_rn(__fmul_rn(beta, phi[k][l]),
-                              __fmul_rn(m, __fmul_rn(zr, zc[l])));
+      for (int i = 0; i < U; ++i) av[i] = xs[slot][k][ty * U + i];
+#pragma unroll
+      for (int j = 0; j < U; ++j) bv[j] = ws[slot][k][tx * U + j];
+#pragma unroll
+      for (int i = 0; i < U; ++i)
+#pragma unroll
+        for (int j = 0; j < U; ++j) acc[i][j] = __fmaf_rn(av[i], bv[j], acc[i][j]);
     }
   }
-  float* dst = phi_out + (size_t)chunk * D * D;
+  ft::cp_wait<0>();
+  if (r_tile) {
+    if (tx == 0)
 #pragma unroll
-  for (int k = 0; k < kRowsPer; ++k) {
-    const int r = r0 + ty + kTileRows * k;
-    if (r >= D) continue;
-#pragma unroll
-    for (int l = 0; l < kColsPer; ++l) {
-      const int c = c0 + tx + 32 * l;
-      if (c < D) dst[(size_t)r * D + c] = phi[k][l];
-    }
+      for (int i = 0; i < U; ++i)
+        if (i0 + ty * U + i < p.D)
+          r_out[(size_t)chunk * p.D + i0 + ty * U + i] = acc[i][0];
+    return;
   }
+  float* phi = phi_out + (size_t)chunk * p.D * p.D;
+#pragma unroll
+  for (int i = 0; i < U; ++i)
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      store_sym(phi, p.D, diag, i0 + ty * U + i, j0 + tx * U + j, acc[i][j]);
+}
+
+// The product's tile: `tile` if given (64 or 32), else 64 where its lower
+// tiles over the group's chunks give every SM two blocks (D = 2048: 528),
+// else 32 (D = 300: 55 blocks where 64 gives 15).
+int krls_tile(int tile, int D, int ng) {
+  if (tile) return tile;
+  const long long n = (D + 63) / 64;
+  return n * (n + 1) / 2 * ng >= 2 * kWave ? 64 : 32;
+}
+
+int krls_run(const float* z, const float* ys, const float* mask, float beta,
+             float* g_out, float* phi_out, float* r_out, float* ws,
+             long long ws_floats, int nc, int tc, int D, int tile,
+             cudaStream_t st) {
+  if (nc < 0 || tc < 1 || D < 1 || tc > kMaxTc || D > kMaxD)
+    return cudaErrorInvalidValue;
+  if (tile != 0 && tile != 64 && tile != 32) return cudaErrorInvalidValue;
+  if (nc == 0) return cudaSuccess;
+  const KPlan p = make_kplan(tc, D);
+  const long long per = (long long)p.chunk_floats();
+  if (ws_floats < per) return cudaErrorInvalidValue;
+  const long long fit = ws_floats / per;
+  const int group = fit < 65535 ? (int)fit : 65535;
+  cudaError_t rc;
+  for (int c0 = 0; c0 < nc; c0 += group) {
+    const int ng = nc - c0 < group ? nc - c0 : group;
+    float* zp = ws;
+    float* yp = zp + p.zp * ng;
+    const size_t t0 = (size_t)c0 * tc;
+    krls_prep_kernel<<<dim3(p.dp / kPrepCols + 1, p.tcp / kPrepRows, ng),
+                       kThreads, 0, st>>>(z + t0 * D, ys + t0,
+                                          mask ? mask + t0 : nullptr, beta,
+                                          zp, yp, g_out + c0, p);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
+    const int t = krls_tile(tile, D, ng);
+    const long long n = (D + t - 1) / t;
+    const long long blocks = n + n * (n + 1) / 2;  // r's, then Phi's
+    if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+    const dim3 grid((unsigned)blocks, 1, ng);
+    float* phi = phi_out + (size_t)c0 * D * D;
+    float* r = r_out + (size_t)c0 * D;
+    if (t == 64)
+      krls_product_kernel<64><<<grid, kThreads, 0, st>>>(zp, yp, phi, r, p);
+    else
+      krls_product_kernel<32><<<grid, kThreads, 0, st>>>(zp, yp, phi, r, p);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return rc;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -689,25 +892,23 @@ long long klms_element_chunk_floats(int tc, int D) {
 }
 
 // z (nc * tc, D), ys and mask (nc * tc) (mask may be null); g_out (nc,),
-// phi_out (nc, D, D), r_out (nc, D).
+// phi_out (nc, D, D), r_out (nc, D); ws a workspace of ws_floats floats,
+// at least one chunk's (krls_element_chunk_floats), 16-byte aligned. tile:
+// the product's tile (64 or 32), or 0 for the plan's. Tc <= 16384, D
+// <= 4194304.
 int krls_chunk_elements(const float* z, const float* ys, const float* mask,
                         float beta, float* g_out, float* phi_out,
-                        float* r_out, int nc, int tc, int D, void* stream) {
-  if (nc < 0 || tc < 1 || D < 1) return cudaErrorInvalidValue;
-  if (nc == 0) return cudaSuccess;
-  const long long edge = (D + kTile - 1) / kTile;
-  if (nc > 65535 || edge * edge + 1 > 2147483647LL)
-    return cudaErrorInvalidConfiguration;
-  const size_t smem = sizeof(float) * (size_t)D;
-  cudaError_t rc = cudaFuncSetAttribute(
-      krls_elements_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (rc != cudaSuccess) return rc;
-  const dim3 grid((unsigned)(edge * edge + 1), nc);
-  krls_elements_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      z, ys, mask, beta, g_out, phi_out, r_out, tc, D);
-  return cudaGetLastError();
+                        float* r_out, float* ws, long long ws_floats, int nc,
+                        int tc, int D, int tile, void* stream) {
+  return krls_run(z, ys, mask, beta, g_out, phi_out, r_out, ws, ws_floats,
+                  nc, tc, D, tile, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of one chunk's KRLS workspace at (tc, D); 0 outside the Tc <=
+// 16384 and D <= 4194304 a call takes.
+long long krls_element_chunk_floats(int tc, int D) {
+  if (tc < 1 || D < 1 || tc > kMaxTc || D > kMaxD) return 0;
+  return (long long)make_kplan(tc, D).chunk_floats();
 }
 
 const char* rff_scan_error_string(int code) {

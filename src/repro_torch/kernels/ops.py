@@ -89,6 +89,8 @@ def rff_features(x, w, b, s=None, *, mode: str = "auto", block_m: int = 128,
     precision = ref.canon_precision(precision)
     if not use_kernel(mode, x):
         return ref.rff_features_ref(x, w, b, s, precision)
+    if x.ndim == 2:
+        return rff_features_cuda(x.contiguous(), w, b, s, precision)
     lead = x.shape[:-1]
     out = rff_features_cuda(x.reshape(-1, x.shape[-1]).contiguous(), w, b, s,
                             precision)

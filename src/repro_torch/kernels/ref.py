@@ -38,6 +38,7 @@ __all__ = [
     "klms_chunk_elements_ref",
     "klms_chunk_elements_wy_ref",
     "krls_chunk_elements_ref",
+    "krls_chunk_elements_gram_ref",
     "prf_root",
     "default_decode_scale",
     "decode_features_ref",
@@ -346,6 +347,42 @@ def krls_chunk_elements_ref(xs, ys, w, b, beta, mask=None, s=None):
         g_out.append(g)
         phi_out.append(phi)
         r_out.append(r)
+    return torch.stack(g_out), torch.stack(phi_out), torch.stack(r_out)
+
+
+def krls_chunk_elements_gram_ref(xs, ys, w, b, beta, mask=None, s=None):
+    """The algebra of the CUDA KRLS element kernel (csrc/rff_scan.cu), for
+    the tests only: kernel 8's plain version stays the fold,
+    :func:`krls_chunk_elements_ref`. Same arguments and outputs.
+
+    With n_t the live ticks (m > 0) after t, the fold from ``(1, 0, 0)``
+    is ``Phi = Z^T diag(w) Z``, ``r = Z^T (w y)``, ``g = beta^(live
+    ticks)``, ``w_t = m_t beta^(n_t)``. w comes from the kernel's suffix
+    chain, ``p = beta^(n_t)`` as repeated products from 1 in the input's
+    dtype (so g is the fold's g bit for bit); ``Y = w Z``; Phi is the
+    lower triangle of ``Z^T Y``, diagonal included, mirrored (``Phi ==
+    Phi^T`` bit for bit)."""
+    nc, tc, _ = xs.shape
+    dtype, device = xs.dtype, xs.device
+    if mask is None:
+        mask = torch.ones_like(ys)
+    mask = mask.to(dtype)
+    beta_t = torch.as_tensor(beta, dtype=dtype)
+    g_out, phi_out, r_out = [], [], []
+    for c in range(nc):
+        z = rff_features_ref(xs[c], w, b, s)  # (Tc, D)
+        m = mask[c].cpu()
+        wts = torch.zeros(tc, dtype=dtype)
+        p = torch.ones((), dtype=dtype)
+        for t in range(tc - 1, -1, -1):
+            wts[t] = m[t] * p
+            if m[t] > 0:
+                p = p * beta_t
+        wts = wts.to(device)
+        lower = torch.tril(z.T @ (wts[:, None] * z))
+        g_out.append(p.to(device))
+        phi_out.append(lower + torch.tril(lower, -1).T)
+        r_out.append(z.T @ (wts * ys[c].to(dtype)))
     return torch.stack(g_out), torch.stack(phi_out), torch.stack(r_out)
 
 

@@ -8,13 +8,17 @@
   products; ``kernels/ref.py`` ``klms_chunk_elements_wy_ref`` is the same
   algebra in PyTorch);
 * ``krls_chunk_elements`` replaces ``rff_krls_chunk_elements_pallas``: per
-  chunk, the information-form element ``(g, Phi, r)``.
+  chunk, the information-form element ``(g, Phi, r)``, in the closed form
+  ``Phi = Z^T diag(w) Z``, ``r = Z^T (w y)``, ``g = beta^(live ticks)``
+  with ``w_t = m_t beta^(live ticks after t)`` (one weighted Gram, its
+  lower tiles mirrored; ``kernels/ref.py`` ``krls_chunk_elements_gram_ref``
+  is the same algebra in PyTorch).
 
 Each wrapper takes the time-blocked layout of ``repro`` (xs ``(nc, Tc,
 d)``, ys and mask ``(nc, Tc)``), featurizes every tick with the feature
 kernel (``kernels/rff_features.py``) into a ``(nc Tc, D)`` buffer and then
 launches the element kernels over it, so together they compute what the
-TPU kernel computes. The KLMS call also allocates a workspace of at most
+TPU kernel computes. Each call also allocates a workspace of at most
 :data:`ELEMENT_WORKSPACE_BUDGET` bytes (or one chunk's, if that is more),
 taken by the C entry a group of chunks at a time. Each checks device,
 dtype, shape and contiguity, allocates its outputs with ``torch.empty``,
@@ -29,9 +33,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, rff_features
+from repro_torch.kernels.chunking import feature_tile_pack_floats
 from repro_torch.kernels.ref import default_scale
-from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import _check
 
 __all__ = ["rff_klms_chunk_elements_cuda", "rff_krls_chunk_elements_cuda",
@@ -47,26 +51,37 @@ _SIGNATURES = {
     # eps, stream
     "klms_chunk_elements": _KLMS_ARGS,
     "klms_element_chunk_floats": (_I, _I),
-    # z, ys, mask, beta, g_out, phi_out, r_out, nc, tc, D, stream
-    "krls_chunk_elements": (_P,) * 3 + (_F,) + (_P,) * 3 + (_I,) * 3 + (_P,),
+    # z, ys, mask, beta, g_out, phi_out, r_out, ws, ws_floats, nc, tc, D,
+    # tile, stream
+    "krls_chunk_elements": (_P,) * 3 + (_F,) + (_P,) * 4 + (_L,)
+                           + (_I,) * 4 + (_P,),
+    "krls_element_chunk_floats": (_I, _I),
     "rff_scan_error_string": (_I,),
 }
-# Rows of the KRLS launch grid (one per chunk) that CUDA allows.
-_MAX_CHUNKS = 65535
-# The KLMS workspace a call allocates, unless one chunk needs more.
+# The workspace an element call allocates, unless one chunk needs more.
 ELEMENT_WORKSPACE_BUDGET = 256 << 20
+# The KRLS product's tiles a test may force (``_tile=``); None takes the
+# plan's.
+KRLS_TILES = (64, 32)
 
 
 def _lib():
     lib = _build.load("rff_scan", _SIGNATURES)
     lib.rff_scan_error_string.restype = ctypes.c_char_p
     lib.klms_element_chunk_floats.restype = ctypes.c_longlong
+    lib.krls_element_chunk_floats.restype = ctypes.c_longlong
     return lib
 
 
-def _features(xs, ys, w, b, mask, s, max_chunks=None):
-    """Check the time-blocked inputs and featurize every tick on the card.
-    Returns (device, z (nc Tc, D))."""
+def _group(per: int, nc: int) -> int:
+    """Chunks a workspace holds (``per`` floats each): as many as
+    :data:`ELEMENT_WORKSPACE_BUDGET` holds, at least one, at most nc."""
+    return max(1, min(nc, ELEMENT_WORKSPACE_BUDGET // (4 * per)))
+
+
+def _check_blocks(xs, ys, w, b, mask, s):
+    """Check the time-blocked inputs. Returns (device, s, the raw current
+    stream)."""
     if xs.device.type != "cuda":
         raise ValueError(
             "the CUDA element kernels take CUDA tensors; use mode='ref' (or "
@@ -87,9 +102,7 @@ def _features(xs, ys, w, b, mask, s, max_chunks=None):
         _check(name, t, shape, device)
     if tc < 1:
         raise ValueError("chunks must hold at least one tick")
-    if max_chunks is not None and nc > max_chunks:
-        raise ValueError(f"{nc} chunks exceed the grid's {max_chunks} rows")
-    return device, rff_features_cuda(xs.reshape(nc * tc, d), w, b, s)
+    return device, s, torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(lib, code: int, kernel: str) -> None:
@@ -113,7 +126,8 @@ def rff_klms_chunk_elements_cuda(xs, ys, w, b, mu, mask=None, s=None,
     ``kernels/ref.py`` (another summation order), but two calls, and a
     chunk alone or among others, agree bit for bit, and a fully masked
     chunk is ``(I, 0)`` exactly."""
-    device, z = _features(xs, ys, w, b, mask, s)
+    device, s, stream = _check_blocks(xs, ys, w, b, mask, s)
+    z = rff_features.launch(xs, w, b, s, False, stream)
     nc, tc, _ = xs.shape
     dfeat = w.shape[-1]
     lib = _lib()
@@ -125,36 +139,61 @@ def rff_klms_chunk_elements_cuda(xs, ys, w, b, mu, mask=None, s=None,
     v = torch.empty((nc, dfeat), dtype=torch.float32, device=device)
     if nc == 0:
         return a, v
-    group = max(1, min(nc, ELEMENT_WORKSPACE_BUDGET // (4 * per)))
-    ws = torch.empty(group * per, dtype=torch.float32, device=device)
+    ws = torch.empty(_group(per, nc) * per, dtype=torch.float32,
+                     device=device)
     code = lib.klms_chunk_elements(
         z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),
         a.data_ptr(), v.data_ptr(), ws.data_ptr(), ws.numel(), nc, tc, dfeat,
-        float(mu), int(bool(normalized)), float(eps),
-        torch.cuda.current_stream(device).cuda_stream,
+        float(mu), int(bool(normalized)), float(eps), stream,
     )
     _raise_on(lib, code, "klms_chunk_elements")
     rff_klms_chunk_elements_cuda.launches += 1
     return a, v
 
 
-def rff_krls_chunk_elements_cuda(xs, ys, w, b, beta, mask=None, s=None):
+def rff_krls_chunk_elements_cuda(xs, ys, w, b, beta, mask=None, s=None, *,
+                                 _tile=None):
     """Per-chunk composed KRLS decay elements on the card: layout as
     :func:`rff_klms_chunk_elements_cuda`, ``beta`` the scalar forgetting
-    factor. Returns ``(g (nc,), phi (nc, D, D), r (nc, D))``."""
-    device, z = _features(xs, ys, w, b, mask, s, _MAX_CHUNKS)
-    nc, tc, _ = xs.shape
+    factor. Returns ``(g (nc,), phi (nc, D, D), r (nc, D))``. Tc <= 16384
+    and D <= 4194304.
+
+    After the features, one C call runs two launches over as many chunks
+    at a time as the workspace holds: the weights w (a suffix chain of f32
+    multiplies; g is the fold's g bit for bit) with Z and w Z packed, then
+    the lower tiles of ``Z^T (w Z)`` stored mirrored, and r. The element is
+    not bit for bit the fold of ``kernels/ref.py`` (another rounding
+    sequence), but Phi equals Phi^T, two calls, a chunk alone or among
+    others, and either tile (64 or 32; the plan picks one from the
+    count of lower tiles, a test may force one with the private
+    ``_tile=``) agree bit for bit, and a fully masked chunk is ``(1, 0,
+    0)`` exactly."""
+    device, s, stream = _check_blocks(xs, ys, w, b, mask, s)
+    nc, tc, d = xs.shape
     dfeat = w.shape[-1]
+    if _tile is not None and _tile not in KRLS_TILES:
+        raise ValueError(f"_tile={_tile}: the product takes {KRLS_TILES}")
+    lib = _lib()
+    per = lib.krls_element_chunk_floats(tc, dfeat)
+    if per < 1:
+        raise ValueError(f"Tc={tc}, D={dfeat}: the KRLS element kernel takes "
+                         "Tc <= 16384 and D <= 4194304")
     g = torch.empty((nc,), dtype=torch.float32, device=device)
     phi = torch.empty((nc, dfeat, dfeat), dtype=torch.float32, device=device)
     r = torch.empty((nc, dfeat), dtype=torch.float32, device=device)
     if nc == 0:
         return g, phi, r
-    lib = _lib()
+    # One workspace: the elements' chunks, then the features' packed
+    # operands (per is a multiple of 128 floats, so both start on 16 bytes).
+    group = _group(per, nc)
+    ws = torch.empty(group * per + feature_tile_pack_floats(nc * tc, d, dfeat),
+                     dtype=torch.float32, device=device)
+    z = rff_features.launch(xs, w, b, s, False, stream,
+                            ws_ptr=ws.data_ptr() + 4 * group * per)
     code = lib.krls_chunk_elements(
         z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),
-        float(beta), g.data_ptr(), phi.data_ptr(), r.data_ptr(), nc, tc,
-        dfeat, torch.cuda.current_stream(device).cuda_stream,
+        float(beta), g.data_ptr(), phi.data_ptr(), r.data_ptr(),
+        ws.data_ptr(), group * per, nc, tc, dfeat, _tile or 0, stream,
     )
     _raise_on(lib, code, "krls_chunk_elements")
     rff_krls_chunk_elements_cuda.launches += 1

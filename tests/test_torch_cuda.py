@@ -21,7 +21,13 @@ masked chunk gives the identity element bit for bit. The KLMS element is
 formed in closed form (compact WY), not by the fold: at the replay shape
 its A and v are each within twice the f32 fold's own distance from a
 float64 fold, and two calls, or a chunk alone and among others, agree bit
-for bit. The attention kernels
+for bit. The KRLS element is formed as one weighted Gram (Phi = Z^T diag(w)
+Z, its lower tiles mirrored): at the paper's replay shape and at the KLMS
+replay width its g, Phi and r are each within twice the f32 fold's own
+distance from a float64 fold; Phi equals Phi^T, and two calls, a chunk
+alone and among others and every product tile agree bit for bit. A
+feature row's bits do not depend on the call's rows or on the tile's
+rows. The attention kernels
 (decode block, chunked linear attention, flash attention) are held at 1e-4
 of max|want| at f32 (another summation order in every product and in the
 online softmax) and 2e-2 of max|want| under bf16 (a feature or an output
@@ -520,6 +526,25 @@ def test_features_kernel_matches_plain(cuda_device, m, d, dfeat):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_feature_row_bits_do_not_depend_on_the_call(cuda_device, precision):
+    """A row of x featurized alone, inside a 256-row call and inside a
+    65536-row call gives the same bits, on every tile plan (128 rows of 8 x
+    8 a thread, 32 rows of 4 x 4, and the plan's own)."""
+    a = _inputs(cuda_device, 1, 65536, 128, 2048, seed=9)
+    x = a["xs"][0]
+    args = (a["w"], a["b"], a["s"], precision)
+    row = 300
+    want = rff_features_cuda(x[row:row + 1].contiguous(), *args)
+    for rows in (None, 128, 32):
+        for block in (x[256:512], x):
+            got = rff_features_cuda(block.contiguous(), *args, _rows=rows)
+            at = row - 256 if block.shape[0] == 256 else row
+            assert torch.equal(got[at], want[0]), (rows, block.shape[0])
+        del got
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tlen,d,dfeat,chunk,normalized,mu", [
     (64, 8, 256, None, False, 0.5), (37, 5, 300, 16, True, 0.5),
     (9, 3, 17, 1, False, 0.5), (100, 128, 513, 48, False, 0.5),
@@ -584,6 +609,67 @@ def test_klms_elements_stress_case(cuda_device):
     got = ops.rff_klms_chunk_elements(*_element_args(a, 1.5), mode="cuda")
     assert _dist(got[1], exact[1]) <= 1e-4 * float(exact[1].abs().max())
     assert _dist(got[0], exact[0]) <= F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tlen,d,dfeat,beta", [(256, 5, 300, 0.9995),
+                                               (256, 128, 2048, 0.99)])
+def test_krls_elements_no_farther_from_float64_than_the_fold(
+        cuda_device, tlen, d, dfeat, beta):
+    """Kernel 8 forms a chunk as one weighted Gram, not by the fold: at the
+    paper's replay shape and at the KLMS replay width its g, Phi and r are
+    each within twice the f32 fold's own distance from a float64 fold."""
+    a = _inputs(cuda_device, 1, tlen, d, dfeat, seed=10)
+    exact = ops.rff_krls_chunk_elements(
+        *_element_args(a, beta, torch.float64), mode="ref")
+    plain = ops.rff_krls_chunk_elements(*_element_args(a, beta), mode="ref")
+    got = ops.rff_krls_chunk_elements(*_element_args(a, beta), mode="cuda")
+    for g, p, e in zip(got, plain, exact):
+        assert _dist(g, e) <= 2.0 * _dist(p, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dfeat", [300, 2048, 129])
+def test_krls_elements_bitwise_contracts(cuda_device, dfeat):
+    """Two calls agree bit for bit; a chunk's element equals the same chunk
+    launched alone; both product tiles (64, 32) and a workspace of
+    one chunk at a time give the same bits; Phi equals Phi^T; the masked
+    chunk is (1, 0, 0) and g is the fold's g."""
+    from repro_torch.kernels import rff_scan
+
+    a = _inputs(cuda_device, 1, 300, 6, dfeat, seed=11)
+    xs = a["xs"][0].reshape(3, 100, 6)
+    ys = a["ys"][0].reshape(3, 100)
+    mask = a["mask"][0].reshape(3, 100).clone()
+    mask[2] = 0
+    args = (xs, ys, a["w"], a["b"], 0.999, mask, a["s"])
+    first = rff_krls_chunk_elements_cuda(*args)
+    again = rff_krls_chunk_elements_cuda(*args)
+    assert all(torch.equal(u, w) for u, w in zip(first, again))
+    for tile in (64, 32):
+        forced = rff_krls_chunk_elements_cuda(*args, _tile=tile)
+        assert all(torch.equal(u, w) for u, w in zip(first, forced)), tile
+    alone = rff_krls_chunk_elements_cuda(
+        xs[1:2].contiguous(), ys[1:2].contiguous(), a["w"], a["b"], 0.999,
+        mask[1:2].contiguous(), a["s"])
+    assert all(torch.equal(u[0], w[1]) for u, w in zip(alone, first))
+    budget = rff_scan.ELEMENT_WORKSPACE_BUDGET
+    try:
+        rff_scan.ELEMENT_WORKSPACE_BUDGET = 1
+        grouped = rff_krls_chunk_elements_cuda(*args)
+    finally:
+        rff_scan.ELEMENT_WORKSPACE_BUDGET = budget
+    assert all(torch.equal(u, w) for u, w in zip(first, grouped))
+    g, phi, r = first
+    assert all(torch.equal(p, p.T) for p in phi)
+    assert float(g[2]) == 1.0 and not bool(phi[2].any()) and not bool(
+        r[2].any())
+    fold = ops.rff_krls_chunk_elements(a["xs"][0][:200], a["ys"][0][:200],
+                                       a["w"], a["b"], 0.999, a["s"],
+                                       mode="ref", chunk=100)
+    live = rff_krls_chunk_elements_cuda(xs[:2], ys[:2], a["w"], a["b"], 0.999,
+                                        None, a["s"])
+    assert torch.equal(live[0], fold[0])
 
 
 @pytest.mark.cuda
@@ -692,10 +778,15 @@ def test_replay_wrappers_refuse_bad_inputs(cuda_device):
         rff_klms_chunk_elements_cuda(
             torch.zeros(1, 16385, 3, device=cuda_device),
             torch.zeros(1, 16385, device=cuda_device), a["w"], a["b"], 0.5)
-    with pytest.raises(ValueError, match="65535"):
+    with pytest.raises(ValueError, match="Tc <= 16384"):
         rff_krls_chunk_elements_cuda(
-            torch.zeros(65536, 1, 3, device=cuda_device),
-            torch.zeros(65536, 1, device=cuda_device), a["w"], a["b"], 0.99)
+            torch.zeros(1, 16385, 3, device=cuda_device),
+            torch.zeros(1, 16385, device=cuda_device), a["w"], a["b"], 0.99)
+    with pytest.raises(ValueError, match="_tile"):
+        rff_krls_chunk_elements_cuda(a["xs"], a["ys"], a["w"], a["b"], 0.99,
+                                     _tile=16)
+    with pytest.raises(ValueError, match="_rows"):
+        rff_features_cuda(a["xs"][0], a["w"], a["b"], _rows=16)
 
 
 @pytest.mark.cuda

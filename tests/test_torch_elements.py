@@ -1,5 +1,5 @@
-"""The KLMS replay element's closed form (kernel 7's algebra on the card)
-and the KRLS step's route, held on the CPU.
+"""The replay elements' closed forms (the algebra of kernels 7 and 8 on
+the card) and the KRLS step's route, held on the CPU.
 
 The CUDA KLMS element kernel (``csrc/rff_scan.cu``) composes a chunk's
 rank-1 maps in closed form (compact WY): ``A = I - Z^T (T Z)``, ``v = Z^T
@@ -20,6 +20,17 @@ Tolerances:
   the f32 fold is (the card's numerical gate for kernel 7);
 * the stress case (d = 5, D = 300, mu = 1.5; T's entries grow past 2): v
   within 1e-4 of max |v| of the float64 fold.
+
+The CUDA KRLS element kernel forms a chunk's ``(g, Phi, r)`` as one
+weighted Gram: ``Phi = Z^T diag(w) Z``, ``r = Z^T (w y)``, ``w_t = m_t
+beta^(live ticks after t)``, Phi's lower triangle mirrored.
+``krls_chunk_elements_gram_ref`` is that algebra; it is held against
+``rff_krls_chunk_elements_pallas`` in interpret mode (2e-6, as above),
+against the float64 fold in float64 (1e-12), at the paper's replay shape
+(T = 256, d = 5, D = 300, beta = 0.9995) and the KLMS replay width (T =
+256, d = 128, D = 2048, beta = 0.99) in f32 no farther from a float64 fold
+than GATE times the f32 fold, and exactly: a fully masked chunk is ``(1,
+0, 0)``, g is the fold's g and Phi equals Phi^T bit for bit.
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +40,10 @@ import torch
 
 from repro.core.rff import sample_rff as jax_sample_rff
 from repro.features.base import as_trig_or_none as jax_as_trig
-from repro.kernels.rff_scan import rff_klms_chunk_elements_pallas
+from repro.kernels.rff_scan import (
+    rff_klms_chunk_elements_pallas,
+    rff_krls_chunk_elements_pallas,
+)
 from repro_torch import convert
 from repro_torch.kernels import chunking, ref
 from repro_torch.kernels.rff_krls_step import krls_chunk_route, krls_step_route
@@ -133,6 +147,85 @@ def test_wy_stress_case_keeps_v_within_tolerance():
     vmax = float(exact[1].abs().max())
     assert _dist(wy[1], exact[1]) <= STRESS_TOL * vmax
     assert _dist(wy[0], exact[0]) <= STRESS_TOL
+
+
+def _krls_args(a, beta, mask=None):
+    return a["xs"], a["ys"], a["w"], a["b"], beta, mask, a["s"]
+
+
+def test_gram_algebra_matches_pallas_interpret():
+    """repro's Pallas KRLS element kernel in interpret mode against the
+    weighted Gram, with a masked remainder (chunk 2) and a fully masked
+    chunk (chunk 1, exactly (1, 0, 0))."""
+    jtf = jax_as_trig(jax_sample_rff(jax.random.PRNGKey(1), 3, 20, 1.0))
+    rng = np.random.default_rng(12)
+    xs = rng.normal(size=(3, 6, 3)).astype(np.float32)
+    ys = rng.normal(size=(3, 6)).astype(np.float32)
+    mask = np.ones((3, 6), np.float32)
+    mask[1] = 0.0
+    mask[2, 4:] = 0.0
+    omega, bias, scale = (np.asarray(t) for t in (jtf.omega, jtf.bias,
+                                                  jtf.scale))
+    want = rff_krls_chunk_elements_pallas(
+        jnp.asarray(xs), jnp.asarray(ys), jtf.omega, jtf.bias, 0.9,
+        jnp.asarray(mask), jtf.scale, interpret=True)
+    got = ref.krls_chunk_elements_gram_ref(
+        _t(xs), _t(ys), _t(omega), _t(bias), 0.9, _t(mask), _t(scale))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ELEM_TOL,
+                                   rtol=ELEM_TOL)
+    assert float(got[0][1]) == 1.0
+    assert not bool(got[1][1].any()) and not bool(got[2][1].any())
+
+
+def test_gram_algebra_is_the_fold_in_float64():
+    """Random masked ticks over two chunks: the weighted Gram and the fold
+    agree to float64 rounding, and g is the fold's g bit for bit."""
+    a = _inputs(5, 2, 230, 4, 48)
+    mask = torch.from_numpy(
+        (np.random.default_rng(6).random((2, 230)) > 0.2).astype(np.float64))
+    fold = ref.krls_chunk_elements_ref(*_krls_args(a, 0.97, mask))
+    gram = ref.krls_chunk_elements_gram_ref(*_krls_args(a, 0.97, mask))
+    assert torch.equal(gram[0], fold[0])
+    for got, want in zip(gram, fold):
+        assert _dist(got, want) <= F64_TOL
+
+
+@pytest.mark.parametrize("tc,d,dfeat,beta", [(256, 5, 300, 0.9995),
+                                             (256, 128, 2048, 0.99)])
+def test_gram_no_farther_from_float64_than_the_f32_fold(tc, d, dfeat, beta):
+    """Kernel 8's numerical gate: at the paper's replay shape and at the
+    KLMS replay width the f32 weighted Gram's g, Phi and r are each within
+    GATE times the f32 fold's own distance from the float64 fold."""
+    a = _inputs(2, 1, tc, d, dfeat)
+    exact = ref.krls_chunk_elements_ref(*_krls_args(a, beta))
+    a32 = _krls_args(_f32(a), beta)
+    plain = ref.krls_chunk_elements_ref(*a32)
+    gram = ref.krls_chunk_elements_gram_ref(*a32)
+    for got, fold, want in zip(gram, plain, exact):
+        assert _dist(got, want) <= GATE * _dist(fold, want)
+
+
+def test_gram_exact_contracts():
+    """A fully masked chunk is (1, 0, 0) exactly; Phi equals Phi^T bit for
+    bit; g is the f32 fold's g bit for bit; a remainder chunk (its last
+    ticks masked) equals its live ticks alone."""
+    a = _f32(_inputs(8, 3, 24, 6, 37))
+    mask = torch.ones(3, 24)
+    mask[1] = 0
+    mask[2, 10:] = 0
+    g, phi, r = ref.krls_chunk_elements_gram_ref(*_krls_args(a, 0.95, mask))
+    assert float(g[1]) == 1.0
+    assert not bool(phi[1].any()) and not bool(r[1].any())
+    assert all(torch.equal(p, p.T) for p in phi)
+    fold = ref.krls_chunk_elements_ref(*_krls_args(a, 0.95, mask))
+    assert torch.equal(g, fold[0])
+    alone = ref.krls_chunk_elements_gram_ref(
+        a["xs"][2:, :10], a["ys"][2:, :10], a["w"], a["b"], 0.95, None,
+        a["s"])
+    assert float(alone[0][0]) == float(g[2])
+    torch.testing.assert_close(alone[1][0], phi[2], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(alone[2][0], r[2], atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("dfeat,d", [(300, 5), (335, 5), (336, 5), (400, 5),
