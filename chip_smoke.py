@@ -94,7 +94,28 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     prefill's both launches of the linear-attention kernel once a layer
     and no op of its plain version), and the
     decode state's bytes (the RFF state against the KV cache at 2048 and
-    32768 tokens).
+    32768 tokens);
+15. serves the remaining learners: ``make_server("nklms")`` at the KLMS
+    serving configuration on the KLMS phase's ragged stream (writes
+    through the generic chunk loop, f32 and bf16 reads through the read
+    kernel) against ``mode="ref"`` and ``rff_klms_run(normalized=True)``
+    over each of the busiest tenants' logs, then through the lifecycle
+    of step 8 (readmits through the feature map and the KLMS element
+    kernel); ``make_server("qklms")`` and ``make_server("ald")`` at the
+    paper's example-2 settings (d = 5, sigma = 5, capacity 256; ALD at
+    nu = 5e-3) with B = 1024 and chunk = 16 on model-(9) streams, each
+    equal to ``run_stream`` on the same sequences bit for bit, a masked
+    tick changing no bit and a sequential readmit within 1e-5 (relative)
+    of a never-evicted control (whether it is bitwise is printed); one
+    flush of each of the three families timed;
+16. runs the paper's experiments (``repro_torch.paper.run_all``):
+    figures 1-3 at ``EXPERIMENTS``' run counts (fig. 2b at repro's 3000
+    samples), table 1 and table1_highdim, each RFF side through its chunk
+    kernel and again with ``mode="ref"`` on the same realizations (tail
+    MSEs within 1e-3, relative), printing each figure's tail MSEs, derived
+    ratio and per-sample microseconds, and example 2's RFF-KRLS over
+    15000 samples in f32 (kernel and plain) against float64; the phase
+    must end within 120 s.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
@@ -1203,9 +1224,11 @@ def untouched_equal(srv, ctl) -> bool:
                for g, w in zip(got, want))
 
 
-def phase_replay_server(seed, device, kernels) -> dict:
-    """The KLMS lifecycle: evict -> log -> readmit under every rebuild mode,
-    at the KLMS serving configuration with log_capacity=256."""
+def phase_replay_server(seed, device, kernels, learner="klms") -> dict:
+    """The KLMS (or NKLMS) lifecycle: evict -> log -> readmit under every
+    rebuild mode, at the KLMS serving configuration with log_capacity=256.
+    NKLMS writes through the generic chunk loop (no kernel), and reads and
+    readmits through the KLMS kernels."""
     from repro_torch.core.klms import rff_klms_run
     from repro_torch.features import rff_map
     from repro_torch.serve import make_server
@@ -1213,11 +1236,12 @@ def phase_replay_server(seed, device, kernels) -> dict:
     fm = rff_map(torch.Generator().manual_seed(seed), D_IN, D_FEAT, SIGMA,
                  device=device)
     hp = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU, device=device)
+    normalized = learner == "nklms"
     modes = ("blocked", "scan", "sequential")
-    ctl = make_server("klms", **hp)
-    srv = {m: make_server("klms", log_capacity=LOG_CAP, rebuild_mode=m, **hp)
+    ctl = make_server(learner, **hp)
+    srv = {m: make_server(learner, log_capacity=LOG_CAP, rebuild_mode=m, **hp)
            for m in modes}
-    ref = {m: make_server("klms", log_capacity=LOG_CAP, rebuild_mode=m,
+    ref = {m: make_server(learner, log_capacity=LOG_CAP, rebuild_mode=m,
                           mode="ref", **hp) for m in modes}
     rng = np.random.default_rng(seed + 3)
     before, during, after = lifecycle_history(rng, D_IN, BANK)
@@ -1257,7 +1281,7 @@ def phase_replay_server(seed, device, kernels) -> dict:
         check(not bool(theta[3].any()), f"{m}: cold tenant 3 is not fresh")
         for t in (0, 1, 2):  # every log: rff_klms_run over the log itself
             xs, ys = (torch.from_numpy(a).to(device) for a in log.arrays(t))
-            run, _ = rff_klms_run(fm, xs, ys, MU)
+            run, _ = rff_klms_run(fm, xs, ys, MU, normalized=normalized)
             dist[f"vs_run_{t}"] = rel_norm(theta[t], run.theta)
             if m == "sequential":
                 check(torch.equal(theta[t], run.theta),
@@ -1285,9 +1309,10 @@ def phase_replay_server(seed, device, kernels) -> dict:
                  [s.predict(t, xq[t])], [r.predict(t, xq[t])], SERVER_TOL)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = path_launches(kernels, ("rff_features", "klms_chunk_elements",
-                                       "klms_bank_chunk", "bank_predict"))
-    emit({"phase": "replay_server", "learner": "klms", "bank": BANK,
+    launches = path_launches(kernels, (
+        "rff_features", "klms_chunk_elements", "bank_predict",
+        *(() if normalized else ("klms_bank_chunk",))))
+    emit({"phase": "replay_server", "learner": learner, "bank": BANK,
           "d": D_IN, "D": D_FEAT, "chunk": CHUNK, "mu": MU,
           "log_capacity": LOG_CAP, "submits_per_server":
           len(before) + len(during) + len(after), "modes": report,
@@ -2118,6 +2143,260 @@ def phase_lm_times(rng, device) -> dict:
     return out
 
 
+# Phase 15 (learner_servers): NKLMS at the KLMS serving configuration, and
+# the paper's baselines at example 2's settings (section 5.2: d = 5, sigma
+# = 5, QKLMS mu = 1 and eps = 5; ALD at repro's f32 nu = 5e-3; capacity 256)
+# on model-(9) streams, at the serving bank and chunk.
+DICT_D = 5
+DICT_HP = {"qklms": dict(sigma=5.0, mu=1.0, quant_eps=5.0, capacity=256),
+           "ald": dict(sigma=5.0, nu=5e-3, capacity=256)}
+DICT_TICKS = 32  # lockstep ticks a tenant before eviction (two chunks)
+DICT_REL = 1e-5  # a sequential readmit against its never-evicted row
+# Phase 16 (paper): the kernel path against mode="ref" on the same
+# realizations, relative on every figure's tail MSE, and the phase's time.
+PAPER_REL = 1e-3
+PAPER_SECONDS = 120.0
+
+
+def phase_nklms_server(seed, device, kernels) -> tuple[dict, dict]:
+    """make_server("nklms") on the KLMS phase's ragged stream: writes
+    through the generic chunk loop, f32 and bf16 reads through the read
+    kernel, against the same server with mode="ref" and against
+    rff_klms_run(normalized=True) over each tenant's log; then one flush
+    timed."""
+    from repro_torch.core.klms import rff_klms_run
+    from repro_torch.features import rff_map
+    from repro_torch.serve import make_server
+
+    fm = rff_map(torch.Generator().manual_seed(seed), D_IN, D_FEAT, SIGMA,
+                 device=device)
+    hp = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU, device=device,
+              log_capacity=LOG_CAP)
+    srv = make_server("nklms", **hp)
+    ref_srv = make_server("nklms", mode="ref", **hp)
+    rng = np.random.default_rng(seed + 1)  # phase_server's draws, in order
+    xq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, D_IN)).astype(np.float32)).to(device)
+    rng.normal(size=(4, BANK, D_IN))
+
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    mse = []
+    for rnd, (tenants, xs, ys) in enumerate(ragged_stream(rng, 6, D_IN)):
+        for s in (srv, ref_srv):
+            for t, x, y in zip(tenants.tolist(), xs, ys.tolist()):
+                s.submit(t, x, y)
+        res = srv.drain() if rnd % 2 else srv.flush()
+        ref_res = ref_srv.drain() if rnd % 2 else ref_srv.flush()
+        check(sorted(res) == sorted(ref_res), "nklms: served tenants differ")
+        got = np.array([e for r in res.values() for _, e in r])
+        want = np.array([e for r in ref_res.values() for _, e in r])
+        check(np.allclose(got, want, atol=SERVER_TOL, rtol=SERVER_TOL),
+              f"nklms flush errors differ by {np.abs(got - want).max():.3g}")
+        mse.append(float(np.mean(got ** 2)))
+    srv.drain()
+    ref_srv.drain()
+    reads = {}
+    for prec in (None, "bf16"):
+        for s in (srv, ref_srv):
+            s.snapshot_server.precision = prec
+        tol = SERVER_TOL if prec is None else BF16_TOL
+        reads[prec] = srv.predict_block(xq)
+        hold(f"nklms predict_block {prec}", [reads[prec]],
+             [ref_srv.predict_block(xq)], tol)
+        for tenant in (0, 1, BANK - 1):
+            hold(f"nklms predict tenant {tenant} {prec}",
+                 [srv.predict(tenant, xq[tenant])],
+                 [ref_srv.predict(tenant, xq[tenant])], tol)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(kernels, ("bank_predict",))
+
+    theta = srv.snapshot.state.theta
+    hold("nklms theta vs mode=ref", [theta], [ref_srv.snapshot.state.theta],
+         SERVER_TOL)
+    log = srv.snapshot_server.log
+    busiest = np.argsort(-np.array([log.size(t) for t in range(BANK)]))[:8]
+    for t in busiest.tolist():
+        check(log.complete(t), f"nklms: tenant {t}'s log overflowed")
+        xs, ys = (torch.from_numpy(a).to(device) for a in log.arrays(t))
+        run, _ = rff_klms_run(fm, xs, ys, MU, normalized=True)
+        hold(f"nklms tenant {t} vs rff_klms_run(normalized=True)",
+             [theta[t]], [run.theta], SERVER_TOL)
+    check(mse[-1] < mse[0], f"nklms prior MSE did not fall: {mse}")
+    bf16_gap = max_err(reads["bf16"], reads[None])
+    check(0 < bf16_gap < 2e-2, f"nklms bf16 read contract: gap {bf16_gap}")
+
+    xc = torch.from_numpy(
+        rng.normal(size=(BANK, CHUNK, D_IN)).astype(np.float32)).to(device)
+    yc, mask = torch.sin(xc[..., 0]), torch.ones(BANK, CHUNK, device=device)
+    step, state = srv.queue._chunk_step, srv.queue.state
+    flush_ms = time_ms(lambda: step(state, xc, yc, mask), reps=10)
+    emit({"phase": "learner_servers", "learner": "nklms", "bank": BANK,
+          "d": D_IN, "D": D_FEAT, "chunk": CHUNK, "mu": MU,
+          "prior_mse_per_round": mse, "bf16_vs_f32_read_gap": bf16_gap,
+          "vs_rff_klms_run_tenants": busiest.tolist(),
+          "tolerance": {"vs_ref_server_and_run": SERVER_TOL,
+                        "bf16_read": BF16_TOL},
+          "flush_ms": flush_ms, "flush_path": "generic chunk loop (no kernel)",
+          "launches": launches, "seconds": seconds})
+    return launches, {"nklms": flush_ms}
+
+
+def model9_streams(rng, bank, ticks, d):
+    """Per tenant a model-(9) stream (paper section 5.2): y = w0 . x +
+    0.1 (w1 . x)^2 + eta, eta ~ N(0, 0.05^2), w0, w1, x ~ N(0, I)."""
+    w0, w1 = rng.normal(size=(2, bank, 1, d))
+    xs = rng.normal(size=(bank, ticks, d))
+    ys = ((xs * w0).sum(-1) + 0.1 * ((xs * w1).sum(-1)) ** 2
+          + 0.05 * rng.normal(size=(bank, ticks)))
+    return xs.astype(np.float32), ys.astype(np.float32)
+
+
+def leaf_rel(got, want) -> float:
+    """The largest relative distance over a state's floating leaves."""
+    return max(rel_norm(g, w) for g, w in zip(got, want)
+               if g.is_floating_point())
+
+
+def phase_dictionary_server(seed, device, learner: str) -> dict:
+    """make_server("qklms" | "ald") at B=1024, chunk=16 on model-(9)
+    streams: the server against run_stream on the same per-tenant
+    sequences (bit for bit), a masked tick (no bit moves), a sequential
+    readmit against a never-evicted control (1e-5 relative; whether it is
+    bitwise is printed), reads, and one flush timed."""
+    from repro_torch.serve import make_server, run_stream
+
+    hp = DICT_HP[learner]
+    common = dict(input_dim=DICT_D, bank=BANK, chunk=CHUNK, device=device,
+                  **hp)
+    srv = make_server(learner, log_capacity=LOG_CAP,
+                      rebuild_mode="sequential", **common)
+    ctl = make_server(learner, **common)
+    rng = np.random.default_rng(seed + 5)
+    xs, ys = model9_streams(rng, BANK, DICT_TICKS, DICT_D)
+    t0 = time.perf_counter()
+    for t in range(DICT_TICKS):
+        for b in range(BANK):
+            for s in (srv, ctl):
+                s.submit(b, xs[b, t], float(ys[b, t]))
+    for s in (srv, ctl):
+        s.drain()
+    want, out = run_stream(learner, None, torch.from_numpy(xs).to(device),
+                           torch.from_numpy(ys).to(device),
+                           input_dim=DICT_D, **hp)
+    for name, g, w in zip(want._fields, srv.queue.state, want):
+        check(torch.equal(g, w), f"{learner}: server {name} differs from "
+              "run_stream")
+    check(all(torch.equal(g, w) for g, w in zip(ctl.queue.state, want)),
+          f"{learner}: control server differs from run_stream")
+    sizes = srv.queue.state.size
+
+    before = srv.queue.state
+    for b in EVICTED:
+        srv.submit(b, xs[b, 0], 0.0)
+    srv.flush()
+    check(all(torch.equal(a[len(EVICTED):], b[len(EVICTED):])
+              for a, b in zip(before, srv.queue.state)),
+          f"{learner}: a masked tick changed a row")
+    for b in EVICTED:  # the control takes the same arrivals
+        ctl.submit(b, xs[b, 0], 0.0)
+    ctl.flush()
+
+    for b in EVICTED:
+        srv.evict(b)
+    more_x, more_y = model9_streams(rng, 64, CHUNK, DICT_D)
+    for t in range(CHUNK):
+        for b in range(64):
+            for s in (srv, ctl):
+                s.submit(b, more_x[b, t], float(more_y[b, t]))
+    for s in (srv, ctl):
+        s.drain()
+    readmit_ms = readmit_all(srv)
+    rows = [tuple(a[b] for a in srv.queue.state) for b in EVICTED]
+    ctl_rows = [tuple(a[b] for a in ctl.queue.state) for b in EVICTED]
+    rel = [leaf_rel(r, c) for r, c in zip(rows, ctl_rows)]
+    bitwise = all(torch.equal(a, b) for r, c in zip(rows, ctl_rows)
+                  for a, b in zip(r, c))
+    for b, r, c, d in zip(EVICTED, rows, ctl_rows, rel):
+        check(torch.equal(r[-2], c[-2]) and torch.equal(r[-1], c[-1]),
+              f"{learner}: readmitted tenant {b}'s size or step differs")
+        check(d <= DICT_REL, f"{learner}: readmitted tenant {b} is {d:.3g} "
+              f"from its never-evicted row (tol {DICT_REL})")
+    check(untouched_equal(srv, ctl), f"{learner}: an untouched tenant "
+          "differs from the control")
+    xq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, DICT_D)).astype(np.float32)).to(device)
+    blk = srv.predict_block(xq)
+    hold(f"{learner} predict_block vs control", [blk],
+         [ctl.predict_block(xq)], SERVER_TOL)
+    check(blk.shape == (BANK, Q), f"{learner}: read shape {blk.shape}")
+    hold(f"{learner} predict tenant 5", [srv.predict(5, xq[5])], [blk[5]],
+         SERVER_TOL)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+
+    xn, yn = model9_streams(rng, BANK, CHUNK, DICT_D)
+    xc, yc = torch.from_numpy(xn).to(device), torch.from_numpy(yn).to(device)
+    mask = torch.ones(BANK, CHUNK, device=device)
+    step, state = srv.queue._chunk_step, srv.queue.state
+    flush_ms = time_ms(lambda: step(state, xc, yc, mask), reps=5)
+    for b in range(BANK):
+        for t in range(CHUNK):
+            srv.submit(b, xn[b, t], float(yn[b, t]))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    srv.flush()
+    torch.cuda.synchronize()
+    flush_wall_ms = (time.perf_counter() - t1) * 1e3
+    emit({"phase": "learner_servers", "learner": learner, "bank": BANK,
+          "d": DICT_D, "chunk": CHUNK, "hp": hp, "ticks": DICT_TICKS,
+          "dict_size": {"min": int(sizes.min()), "mean": float(
+              sizes.float().mean()), "max": int(sizes.max())},
+          "bitwise": {"server_eq_run_stream": True, "masked_tick": True,
+                      "untouched_eq_control": True,
+                      "readmit_eq_control": bitwise},
+          "readmit_rel": rel, "readmit_ms": readmit_ms,
+          "tolerance": {"readmit_rel": DICT_REL, "reads": SERVER_TOL},
+          "flush_ms": flush_ms, "flush_wall_ms": flush_wall_ms,
+          "flush_path": "generic chunk loop (no kernel)",
+          "seconds": seconds})
+    return {learner: flush_ms}
+
+
+def phase_paper(seed, device, kernels) -> dict:
+    """The paper's figures and table 1 at EXPERIMENTS' settings through
+    repro_torch.paper.run_all: every RFF side through its chunk kernel and
+    again with mode="ref" on the same realizations (the gate), QKLMS and
+    ALD through the generic bank."""
+    from repro_torch import paper
+
+    torch.cuda.empty_cache()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    res = paper.run_all(seed=seed, device=device, check_ref=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(kernels, ("klms_bank_chunk", "krls_bank_chunk"))
+    for name, (us, derived, detail) in res.items():
+        emit({"phase": "paper", "figure": name, "us_per_sample": us,
+              "derived": derived, **detail})
+    for name, (us, derived, detail) in res.items():
+        if name == "krls_f32_horizon":
+            continue  # a measurement of f32 itself, printed above
+        rels = {k: v for k, v in detail.items() if k.startswith("ref_rel_")}
+        check(bool(rels) or name == "table1", f"paper {name}: no ref check")
+        for k, v in rels.items():
+            check(v <= PAPER_REL, f"paper {name}: {k} = {v:.3g} (kernel vs "
+                  f"mode=ref on the tail MSE, tol {PAPER_REL})")
+        check(np.isfinite(derived), f"paper {name}: derived {derived}")
+    check(seconds <= PAPER_SECONDS, f"paper phase took {seconds:.1f} s "
+          f"(limit {PAPER_SECONDS})")
+    emit({"phase": "paper", "seconds": seconds, "launches": launches,
+          "tolerance": {"kernel_vs_ref_tail_mse_rel": PAPER_REL}})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2205,6 +2484,18 @@ def main() -> int:
     launches.update(phase_lm_server(args.seed, device, kernels))
     launches.update(phase_lm_gqa_server(args.seed, device, kernels))
     times.update(phase_lm_times(lrng, device))
+    # The remaining learners and the paper's experiments, after the LM
+    # slice.
+    nklms_launches, flush_ms = phase_nklms_server(args.seed, device, kernels)
+    for learner in DICT_HP:
+        flush_ms.update(phase_dictionary_server(args.seed, device, learner))
+    emit({"phase": "learner_flush_ms", "bank": BANK, "chunk": CHUNK,
+          **flush_ms})
+    for paths in (nklms_launches,
+                  phase_replay_server(args.seed, device, kernels, "nklms"),
+                  phase_paper(args.seed, device, kernels)):
+        for name, n in paths.items():
+            launches[name] = launches.get(name, 0) + n
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}

@@ -1,14 +1,17 @@
-"""Filter-bank engine, KLMS and KRLS tiers: B independent RFF filters
-sharing one feature map, stepped as one program.
+"""Filter-bank engine: B independent online learners stepped as one
+program.
 
-Counterpart of the fused KLMS and KRLS tiers of ``repro/core/bank.py``,
-with the slot lifecycle (``evict_tenant``, ``rebuild_tenant``).
-The bank axis that ``repro`` gets from ``jax.vmap`` is written out: theta
-is ``(B, D)`` (and P ``(B, D, D)``) and every tick goes through the fused
-kernels of ``kernels/ops.py`` (the CUDA kernels on the card, the plain
-versions on the CPU). State is never updated in place: each tick returns a
-fresh theta and P, so a published snapshot that still holds the old ones
-never changes under its readers.
+Counterpart of ``repro/core/bank.py``'s generic tier (``bank_init``,
+``bank_step``, ``bank_run``, ``bank_predict``: any ``OnlineLearner``), its
+fused KLMS and KRLS tiers (B RFF filters sharing one feature map) and the
+slot lifecycle (``evict_tenant``, ``rebuild_tenant``). The bank axis that
+``repro`` gets from ``jax.vmap`` is written out: every state leaf carries
+a leading ``(B,)`` axis, the generic tier calls the learner's step on the
+whole bank (``core/learner.py``'s steps take leading batch dims), and
+every fused tick goes through the kernels of ``kernels/ops.py`` (the CUDA
+kernels on the card, the plain versions on the CPU). State is never
+updated in place: each tick returns fresh tensors, so a published snapshot
+that still holds the old ones never changes under its readers.
 """
 from __future__ import annotations
 
@@ -18,11 +21,16 @@ import torch
 
 from repro_torch.core.klms import LMSState, StepOut
 from repro_torch.core.krls import RLSState, rff_krls_init
+from repro_torch.core.learner import OnlineLearner
 from repro_torch.core.scan import replay_klms, replay_krls
 from repro_torch.features.base import FeatureLike, as_trig, feature_dtype
 from repro_torch.kernels import ops, ref
 
 __all__ = [
+    "bank_init",
+    "bank_step",
+    "bank_run",
+    "bank_predict",
     "bank_predict_block",
     "klms_bank_init",
     "klms_bank_step",
@@ -38,6 +46,41 @@ __all__ = [
     "bank_size",
     "rebuild_tenant",
 ]
+
+
+def bank_init(learner: OnlineLearner, size: int, key=None):
+    """``size`` fresh learners: each leaf of ``learner.init()`` stacked on
+    a leading bank axis (``key`` is accepted for ``repro``'s signature)."""
+    del key
+    row = learner.init()
+    return type(row)(*(a.expand(size, *a.shape).clone() for a in row))
+
+
+def bank_step(learner: OnlineLearner, states, xs: torch.Tensor,
+              ys: torch.Tensor):
+    """One lockstep tick: ``xs (B, d)``, ``ys (B,)`` -> (state, StepOut
+    ``(B,)``)."""
+    return learner.step_fn(states, xs, ys)
+
+
+def bank_run(learner: OnlineLearner, states, xs: torch.Tensor,
+             ys: torch.Tensor):
+    """Drive B lockstep streams ``xs (B, n, d)``, ``ys (B, n)``: a loop
+    over time of the bank's step. Returns the final state and ``StepOut``
+    tensors ``(B, n)``."""
+    return learner.run(states, xs, ys)
+
+
+def bank_predict(learner: OnlineLearner, states,
+                 xs: torch.Tensor) -> torch.Tensor:
+    """Batched inference: one ``x (d,)`` per learner, ``xs (B, d)``."""
+    return learner.predict_fn(states, xs)
+
+
+def per_query(state):
+    """A bank state with a query axis after the bank axis, so a learner's
+    ``predict_fn`` answers a ``(B, Q, d)`` block with ``(B, Q)``."""
+    return type(state)(*(a.unsqueeze(1) for a in state))
 
 
 def bank_predict_block(state, xq: torch.Tensor, rff: FeatureLike,
@@ -267,17 +310,19 @@ def rebuild_tenant(state, tenant: int, rff: FeatureLike, xs, ys, *,
                    lam: Union[float, torch.Tensor] = 1e-4,
                    beta: Union[float, torch.Tensor] = 0.9995,
                    mode: str = "scan", chunk: Optional[int] = None,
-                   normalized: bool = False, kernel_mode: str = "auto"):
+                   normalized: bool = False, eps: float = 1e-6,
+                   kernel_mode: str = "auto"):
     """Reconstruct slot ``tenant`` from its replay log ``xs (T, d)``, ``ys
     (T,)`` (tensors or host arrays) and write it into a copy of the bank.
 
-    The family follows the state (``RLSState`` = KRLS); hyperparameters
-    are scalars or per-tenant ``(B,)`` (the tenant's entry is used). The
+    The family follows the state (``RLSState`` = KRLS, else KLMS;
+    ``normalized=True`` with ``eps`` for NKLMS); hyperparameters are
+    scalars or per-tenant ``(B,)`` (the tenant's entry is used). The
     replay starts from a fresh row. ``mode`` / ``chunk`` pick the schedule
     of ``core/scan.py`` (``"sequential"`` is bit for bit the training
     path); ``kernel_mode`` is the ops dispatch. Returns the new bank state.
     """
-    like = state.theta
+    like = state[0]
     xs = torch.as_tensor(xs, dtype=like.dtype, device=like.device)
     ys = torch.as_tensor(ys, dtype=like.dtype, device=like.device)
     if isinstance(state, RLSState):
@@ -286,6 +331,6 @@ def rebuild_tenant(state, tenant: int, rff: FeatureLike, xs, ys, *,
                           kernel_mode=kernel_mode)
     else:
         row = replay_klms(rff, xs, ys, _hp_row(mu, tenant), mode=mode,
-                          chunk=chunk, normalized=normalized,
+                          chunk=chunk, normalized=normalized, eps=eps,
                           kernel_mode=kernel_mode)
     return set_tenant_row(state, tenant, row)

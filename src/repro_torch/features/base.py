@@ -13,12 +13,14 @@ one. The family registry and the qmc, gq and taylor families arrive later
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, NamedTuple, Optional, Union
+from typing import TYPE_CHECKING, Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
-from repro_torch.core.rff import RFF, rff_features
 from repro_torch.kernels.ref import default_scale
+
+if TYPE_CHECKING:  # at run time lazily: core's learners import this module
+    from repro_torch.core.rff import RFF
 
 __all__ = [
     "TrigFeatures",
@@ -133,7 +135,7 @@ class FeatureMap:
                           self.deterministic)
 
 
-FeatureLike = Union[FeatureMap, TrigFeatures, RFF]
+FeatureLike = Union[FeatureMap, TrigFeatures, "RFF"]
 
 
 def uniform_trig_scale(num_features: int, dtype=torch.float32,
@@ -170,13 +172,21 @@ def trig_map(family: str, params: TrigFeatures,
                       deterministic=deterministic)
 
 
+def _is_rff(fm: Any) -> bool:
+    from repro_torch.core.rff import RFF
+
+    return isinstance(fm, RFF)
+
+
 def featurize(fm: FeatureLike, x: torch.Tensor) -> torch.Tensor:
     """Family-agnostic feature map: ``(..., d) -> (..., D)``."""
     if isinstance(fm, FeatureMap):
         return fm.featurize(x)
     if isinstance(fm, TrigFeatures):
         return trig_features(fm, x)
-    if isinstance(fm, RFF):
+    if _is_rff(fm):
+        from repro_torch.core.rff import rff_features
+
         return rff_features(fm, x)
     raise TypeError(f"not a feature map: {type(fm).__name__}")
 
@@ -186,7 +196,7 @@ def as_trig_or_none(fm: FeatureLike) -> Optional[TrigFeatures]:
     (none is ported yet)."""
     if isinstance(fm, TrigFeatures):
         return fm
-    if isinstance(fm, RFF):
+    if _is_rff(fm):
         return trig_from_rff(fm)
     if isinstance(fm, FeatureMap):
         return fm.trig

@@ -58,7 +58,7 @@ class MicroBatchQueue:
         self.adaptive = adaptive
         self.stale_after = stale_after
         self._clock = clock
-        lead = state.theta
+        lead = state[0]  # any family: the first leaf has the bank axis
         self.num_tenants = int(lead.shape[0])
         self.device = lead.device
         self._dtype = np.dtype(str(lead.dtype).removeprefix("torch."))

@@ -181,7 +181,7 @@ class SnapshotServer:
         return self.queue.ticks_served - self._snapshot.tick
 
     def _queries(self, xs) -> torch.Tensor:
-        return torch.as_tensor(xs, dtype=self.queue.state.theta.dtype,
+        return torch.as_tensor(xs, dtype=self.queue.state[0].dtype,
                                device=self.queue.device).contiguous()
 
     def predict(self, tenant: int, xs) -> torch.Tensor:

@@ -1195,3 +1195,70 @@ def test_lm_runs_through_the_attention_kernels(cuda_device, attn):
         assert after[1] == counts[1] + cfg.num_layers
     else:
         assert after[2] == counts[2] + cfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["nklms", "qklms", "ald"])
+def test_learner_servers_on_card(cuda_device, learner):
+    """The baselines and NKLMS served on the card: a ragged stream, reads
+    and a sequential readmit against the same server with mode="ref" (NKLMS
+    reads through the read kernel; the dictionary learners run the same
+    plain PyTorch on both)."""
+    rng = np.random.default_rng(0)
+    bank, d = 16, 5
+    hp = {"nklms": dict(mu=0.5), "qklms": dict(sigma=5.0, mu=1.0,
+                                               quant_eps=5.0, capacity=64),
+          "ald": dict(sigma=5.0, nu=5e-3, capacity=64)}[learner]
+    kw = dict(bank=bank, chunk=4, device=cuda_device, log_capacity=64,
+              rebuild_mode="sequential", input_dim=d, **hp)
+    if learner == "nklms":
+        kw["feature_map"] = rff_map(torch.Generator().manual_seed(0), d, 96,
+                                    2.0, device=cuda_device)
+    srv = make_server(learner, **kw)
+    ref = make_server(learner, mode="ref", **kw)
+    before = ops.rff_bank_predict_cuda.launches
+    tenants = rng.integers(0, bank, 200)
+    xs = rng.normal(size=(200, d)).astype(np.float32)
+    ys = (xs[:, 0] + 0.1 * xs[:, 1] ** 2).astype(np.float32)
+    for s in (srv, ref):
+        for i in range(120):
+            s.submit(int(tenants[i]), xs[i], float(ys[i]))
+        s.drain()
+        s.evict(2)
+        for i in range(120, 200):
+            s.submit(int(tenants[i]), xs[i], float(ys[i]))
+        s.drain()
+        s.readmit(2)
+    for g, w in zip(srv.queue.state, ref.queue.state):
+        if g.is_floating_point():
+            torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+        else:
+            assert torch.equal(g, w)
+    xq = torch.from_numpy(
+        rng.normal(size=(bank, 3, d)).astype(np.float32)).to(cuda_device)
+    torch.testing.assert_close(srv.predict_block(xq), ref.predict_block(xq),
+                               atol=F32_TOL, rtol=F32_TOL)
+    launched = ops.rff_bank_predict_cuda.launches > before
+    assert launched == (learner == "nklms")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["klms", "krls"])
+def test_paper_realizations_on_card(cuda_device, family):
+    """A figure's RFF realizations through the chunk kernels against
+    mode="ref" on the same realizations: the tail MSE within 1e-3."""
+    from repro_torch import paper
+    from repro_torch.core.rff import sample_rff
+    from repro_torch.data.synthetic import gen_nonlinear_wiener
+
+    rff = sample_rff(torch.Generator().manual_seed(0), 5, 300, 5.0,
+                     device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    xs, ys = gen_nonlinear_wiener(gen, num_samples=600, runs=64)
+    run = (paper.klms_realizations if family == "klms"
+           else paper.krls_realizations)
+    kw = dict(mu=1.0) if family == "klms" else {}
+    _, got = run(rff, xs, ys, mode="cuda", **kw)
+    _, want = run(rff, xs, ys, mode="ref", **kw)
+    tail = lambda e: float(torch.mean(torch.square(e[:, -100:])))
+    assert abs(tail(got) - tail(want)) <= 1e-3 * tail(want)

@@ -217,11 +217,105 @@ def test_default_device_is_cuda_and_raises_without_it():
         api.make_server("klms", feature_map=ttf, bank=2)
 
 
+# The baselines' serving hyperparameters: ALD at sigma = 1, where f32 is
+# well conditioned (at sigma = 5 f32 itself is the limit,
+# tests/test_torch_learners.py).
+FAMILY_HP = {
+    "nklms": dict(mu=0.5),
+    "qklms": dict(sigma=1.0, mu=0.5, quant_eps=1.0, capacity=32),
+    "ald": dict(sigma=1.0, nu=5e-3, capacity=32),
+}
+
+
+def _family_servers(learner, **kw):
+    jtf, ttf = _maps()
+    hp = dict(FAMILY_HP[learner], bank=B, chunk=4, **kw)
+    if learner == "nklms":
+        return (japi.make_server(learner, feature_map=jtf, mode="xla", **hp),
+                api.make_server(learner, feature_map=ttf, device="cpu", **hp))
+    return (japi.make_server(learner, input_dim=D_IN, **hp),
+            api.make_server(learner, input_dim=D_IN, device="cpu", **hp))
+
+
+def _state_close(tstate, jstate):
+    for name, t, j in zip(tstate._fields, tstate, jstate):
+        if t.dtype == torch.int32 or name == "centers":
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        else:
+            _close(t, j)
+
+
 @pytest.mark.parametrize("learner", ["nklms", "qklms", "ald"])
-def test_unported_learner_raises(learner):
-    _, ttf = _maps()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_server(learner, feature_map=ttf, device="cpu")
+def test_learner_server_matches_repro(learner):
+    """The baselines and NKLMS served end to end against ``repro``'s
+    ``make_server``: a ragged stream of submits and flushes, the bank
+    state, single-tenant and block reads, all at 1e-4."""
+    jsrv, tsrv = _family_servers(learner)
+    tenants, xs, ys = _stream(0, 240)
+    for start in range(0, 240, 40):
+        for i in range(start, start + 40):
+            jsrv.submit(int(tenants[i]), xs[i], ys[i])
+            tsrv.submit(int(tenants[i]), xs[i], ys[i])
+        _flush_results_close(jsrv.flush(), tsrv.flush())
+    _flush_results_close(jsrv.drain(), tsrv.drain())
+    _state_close(tsrv.snapshot.state, jsrv.snapshot.state)
+    rng = np.random.default_rng(1)
+    xq = rng.normal(size=(B, 7, D_IN)).astype(np.float32)
+    for tenant in (0, 3, 11):
+        _close(tsrv.predict(tenant, xq[tenant, 0]),
+               jsrv.predict(tenant, xq[tenant, 0]))
+        _close(tsrv.predict(tenant, xq[tenant]),
+               jsrv.predict(tenant, xq[tenant]))
+    _close(tsrv.predict_block(xq), jsrv.predict_block(xq))
+    assert tsrv.predict_block(xq).shape == (B, 7)
+    assert tsrv.metrics.count("requests.read") == 8
+
+
+@pytest.mark.parametrize("learner", ["nklms", "qklms", "ald"])
+def test_learner_server_lifecycle(learner):
+    """Evict two tenants, keep logging their arrivals, readmit them
+    sequentially: the dictionary learners equal a never-evicted control
+    bit for bit (NKLMS within the replay bound 5e-5), untouched tenants
+    are bit for bit the control's, and the result matches ``repro``'s
+    server at 1e-4. A masked tick changes no bit; reset_tenant parks a
+    fresh row."""
+    jsrv, tsrv = _family_servers(learner, log_capacity=64,
+                                 rebuild_mode="sequential")
+    _, ctl = _family_servers(learner)
+    tenants, xs, ys = _stream(2, 200)
+
+    def feed(lo, hi):
+        for srv in (jsrv, tsrv, ctl):
+            for i in range(lo, hi):
+                srv.submit(int(tenants[i]), xs[i], ys[i])
+            srv.drain()
+
+    feed(0, 120)
+    for srv in (jsrv, tsrv):
+        srv.evict(0)
+        srv.evict(2)
+    assert float(tsrv.snapshot.state[0][0].abs().max()) == 0.0
+    feed(120, 200)
+    for srv in (jsrv, tsrv):
+        assert srv.readmit(0) == int((tenants == 0).sum())
+        srv.readmit(2)
+    for got, want in zip(tsrv.queue.state, ctl.queue.state):
+        assert torch.equal(got[3:], want[3:]) and torch.equal(got[1], want[1])
+        if learner == "nklms":
+            rel = float((got[:3].double() - want[:3].double()).norm()
+                        / want[:3].double().norm())
+            assert rel <= 5e-5
+        else:
+            assert torch.equal(got, want)
+    _state_close(tsrv.snapshot.state, jsrv.snapshot.state)
+    before = tsrv.queue.state
+    tsrv.submit(5, xs[0], ys[0])
+    tsrv.flush()
+    for a, b in zip(before, tsrv.queue.state):
+        assert torch.equal(torch.cat([a[:5], a[6:]]),
+                           torch.cat([b[:5], b[6:]]))
+    assert tsrv.reset_tenant(5) == 0
+    assert all(not bool(a[5].any()) for a in tsrv.queue.state)
 
 
 @pytest.mark.parametrize("knob", [
@@ -300,8 +394,8 @@ def _serve_same_stream(*servers, seed=7, n=120):
 def test_input_dim_follows_repro():
     """input_dim= is taken by make_tick, make_chunk_step, make_queue,
     run_stream and make_server with repro's rule: the feature map's width
-    wins and input_dim is ignored. The ported families need a map; the
-    dictionary learners that take input_dim alone still raise."""
+    wins and input_dim is ignored. The RFF families need a map; a
+    dictionary learner is served from input_dim alone."""
     jtf, ttf = _maps()
     wide = api.make_server("klms", feature_map=ttf, bank=B, device="cpu",
                            input_dim=D_IN + 7)
@@ -333,8 +427,12 @@ def test_input_dim_follows_repro():
     assert torch.equal(st.theta, st2.theta)
     with pytest.raises(ValueError, match="feature_map"):
         api.make_server("klms", input_dim=D_IN, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_server("qklms", input_dim=D_IN, device="cpu")
+    # repro's rule: input_dim= alone serves a dictionary learner.
+    qsrv = api.make_server("qklms", input_dim=D_IN, device="cpu")
+    assert qsrv.queue.input_dim == D_IN and qsrv.feature_map is None
+    qsrv.submit(1, np.ones(D_IN, np.float32), 1.0)
+    qsrv.drain()
+    assert int(qsrv.snapshot.state.size[1]) == 1
 
 
 def test_feature_map_matches_repro():
