@@ -112,9 +112,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     figures 1-3 at ``EXPERIMENTS``' run counts (fig. 2b at repro's 3000
     samples), table 1 and table1_highdim, each RFF side through its chunk
     kernel and again with ``mode="ref"`` on the same realizations (tail
-    MSEs within 1e-3, relative), printing each figure's tail MSEs, derived
-    ratio and per-sample microseconds, and example 2's RFF-KRLS over
-    15000 samples in f32 (kernel and plain) against float64; the phase
+    MSEs within 1e-3, relative; every prior error of every run within
+    1e-4 of the largest, RFF-KRLS's within the KRLS server's float64
+    budget), printing each figure's tail MSEs, derived ratio
+    and per-sample microseconds (QKLMS and ALD also as one CUDA graph of
+    the generic loop: their device time without the launches); the phase
     must end within 120 s.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
@@ -2153,8 +2155,12 @@ DICT_HP = {"qklms": dict(sigma=5.0, mu=1.0, quant_eps=5.0, capacity=256),
 DICT_TICKS = 32  # lockstep ticks a tenant before eviction (two chunks)
 DICT_REL = 1e-5  # a sequential readmit against its never-evicted row
 # Phase 16 (paper): the kernel path against mode="ref" on the same
-# realizations, relative on every figure's tail MSE, and the phase's time.
+# realizations: relative on every figure's tail MSE, and every prior error
+# of every run within the f32 serving bound of the largest (RFF-KRLS at
+# lam = 1e-4: within BUDGET times the plain path's own distance from a
+# float64 run, as the KRLS server); the phase's time.
 PAPER_REL = 1e-3
+PAPER_MAXREL = SERVER_TOL
 PAPER_SECONDS = 120.0
 
 
@@ -2382,18 +2388,39 @@ def phase_paper(seed, device, kernels) -> dict:
         emit({"phase": "paper", "figure": name, "us_per_sample": us,
               "derived": derived, **detail})
     for name, (us, derived, detail) in res.items():
-        if name == "krls_f32_horizon":
-            continue  # a measurement of f32 itself, printed above
         rels = {k: v for k, v in detail.items() if k.startswith("ref_rel_")}
-        check(bool(rels) or name == "table1", f"paper {name}: no ref check")
+        maxrels = {k: v for k, v in detail.items()
+                   if k.startswith("ref_maxrel_")}
+        check(len(rels) == len(maxrels) == (name != "table1"),
+              f"paper {name}: no ref check")
         for k, v in rels.items():
             check(v <= PAPER_REL, f"paper {name}: {k} = {v:.3g} (kernel vs "
                   f"mode=ref on the tail MSE, tol {PAPER_REL})")
-        check(np.isfinite(derived), f"paper {name}: derived {derived}")
+        for k, v in maxrels.items():
+            side = k[len("ref_maxrel_"):]
+            if f"f64_maxrel_{side}" not in detail:
+                check(v <= PAPER_MAXREL, f"paper {name}: {k} = {v:.3g} "
+                      f"(kernel vs mode=ref, every prior error, tol "
+                      f"{PAPER_MAXREL})")
+                continue
+            eps = detail[f"f64_maxrel_{side}_plain"]
+            kernel = detail[f"f64_maxrel_{side}"]
+            check(kernel <= BUDGET * eps + BUDGET_FLOOR,
+                  f"paper {name}: {side} kernel {kernel:.3g} from float64, "
+                  f"plain {eps:.3g} (budget x{BUDGET})")
+            check(v <= (BUDGET + 1) * eps + BUDGET_FLOOR,
+                  f"paper {name}: {side} kernel vs plain {v:.3g}, plain "
+                  f"{eps:.3g} from float64")
+        # Fig. 2b's derived is repro's mean over all runs, which f32 ALD's
+        # blown-up runs may leave non-finite; its typical run must not be.
+        headline = detail["median_run_ratio"] if name == "fig2b" else derived
+        check(np.isfinite(headline), f"paper {name}: {headline}")
     check(seconds <= PAPER_SECONDS, f"paper phase took {seconds:.1f} s "
           f"(limit {PAPER_SECONDS})")
     emit({"phase": "paper", "seconds": seconds, "launches": launches,
-          "tolerance": {"kernel_vs_ref_tail_mse_rel": PAPER_REL}})
+          "tolerance": {"kernel_vs_ref_tail_mse_rel": PAPER_REL,
+                        "kernel_vs_ref_max_err_rel": PAPER_MAXREL,
+                        "krls_f64_budget": [BUDGET, BUDGET_FLOOR]}})
     return launches
 
 

@@ -51,6 +51,10 @@ class RFF(NamedTuple):
     def num_features(self) -> int:
         return self.omega.shape[1]
 
+    def featurize(self, x: torch.Tensor) -> torch.Tensor:
+        """:func:`rff_features` of ``x``."""
+        return rff_features(self, x)
+
 
 def sample_rff(
     generator: torch.Generator,

@@ -13,14 +13,11 @@ one. The family registry and the qmc, gq and taylor families arrive later
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Any, Callable, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.kernels.ref import default_scale
-
-if TYPE_CHECKING:  # at run time lazily: core's learners import this module
-    from repro_torch.core.rff import RFF
 
 __all__ = [
     "TrigFeatures",
@@ -135,7 +132,11 @@ class FeatureMap:
                           self.deterministic)
 
 
-FeatureLike = Union[FeatureMap, TrigFeatures, "RFF"]
+# The third kind is the paper's RFF draw (``core.rff.RFF``, a NamedTuple of
+# ``omega`` and ``bias`` with a ``featurize`` method). It is recognised by
+# those attributes: ``core``'s learners import this module, so it does not
+# import ``core``.
+FeatureLike = Union[FeatureMap, TrigFeatures, tuple]
 
 
 def uniform_trig_scale(num_features: int, dtype=torch.float32,
@@ -147,7 +148,7 @@ def uniform_trig_scale(num_features: int, dtype=torch.float32,
     return default_scale(num_features, dtype, device)
 
 
-def trig_from_rff(rff: RFF) -> TrigFeatures:
+def trig_from_rff(rff) -> TrigFeatures:
     """Canonicalize the paper's RFF struct: uniform ``sqrt(2/D)`` scale."""
     return TrigFeatures(
         omega=rff.omega,
@@ -172,22 +173,12 @@ def trig_map(family: str, params: TrigFeatures,
                       deterministic=deterministic)
 
 
-def _is_rff(fm: Any) -> bool:
-    from repro_torch.core.rff import RFF
-
-    return isinstance(fm, RFF)
-
-
 def featurize(fm: FeatureLike, x: torch.Tensor) -> torch.Tensor:
     """Family-agnostic feature map: ``(..., d) -> (..., D)``."""
-    if isinstance(fm, FeatureMap):
-        return fm.featurize(x)
     if isinstance(fm, TrigFeatures):
         return trig_features(fm, x)
-    if _is_rff(fm):
-        from repro_torch.core.rff import rff_features
-
-        return rff_features(fm, x)
+    if hasattr(fm, "featurize"):  # a FeatureMap or an RFF draw
+        return fm.featurize(x)
     raise TypeError(f"not a feature map: {type(fm).__name__}")
 
 
@@ -196,10 +187,10 @@ def as_trig_or_none(fm: FeatureLike) -> Optional[TrigFeatures]:
     (none is ported yet)."""
     if isinstance(fm, TrigFeatures):
         return fm
-    if _is_rff(fm):
-        return trig_from_rff(fm)
     if isinstance(fm, FeatureMap):
         return fm.trig
+    if hasattr(fm, "omega") and hasattr(fm, "bias"):  # an RFF draw
+        return trig_from_rff(fm)
     raise TypeError(f"not a feature map: {type(fm).__name__}")
 
 

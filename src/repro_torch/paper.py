@@ -14,10 +14,22 @@ warm-up call on the first samples (the host clock on the CPU).
 
 ``check_ref=True`` runs every RFF side a second time with ``mode="ref"``
 (the plain PyTorch versions) on the same realizations and reports the
-tail MSE of each run and their relative difference.
+relative difference of the tail MSEs and the largest difference of any
+prior error of any run, relative to the largest prior error. RFF-KRLS at
+the paper's lam = 1e-4 is where f32 itself is the limit, so fig. 2b also
+runs the plain version in float64 and reports both f32 paths' distance
+from it, on the same scale.
+
+On the card the QKLMS and ALD sides are also timed as one CUDA graph of
+``GRAPH_TICKS`` ticks of the generic bank loop (``us_*_graph``): the
+loop's device time a sample without the host's launch cost, beside its
+wall time (``us_*``), which the host's launches of a few tens of small
+kernels a tick set.
 
 Run on the card: ``python -m repro_torch.paper`` (every figure at the
 run counts of ``configs/paper_rff.EXPERIMENTS``, one JSON line each).
+:func:`krls_f32_horizon`, which sets fig. 2b's length, is called on its
+own.
 """
 from __future__ import annotations
 
@@ -67,6 +79,7 @@ __all__ = [
 
 CHUNK = 512  # ticks per chunk launch of the RFF realizations
 WARM_SAMPLES = 32  # samples of the warm-up call before a timed one
+GRAPH_TICKS = 256  # ticks of the generic bank loop in one timed CUDA graph
 # Fig. 2b's stream length: repro's fig2b_krls default. Example 2's 15000
 # samples are past the f32 horizon of the EW-RLS recursion at lam = 1e-4,
 # beta = 0.9995: its runs depart from float64 and blow up after about 7000
@@ -74,9 +87,6 @@ WARM_SAMPLES = 32  # samples of the warm-up call before a timed one
 # it), so the figure's tail MSE there measures f32 overflow, not the
 # filter.
 FIG2B_SAMPLES = 3000
-# A run has diverged when a prior error passes this many times the largest
-# |y| of its stream (a prediction that far outside the data is a blow-up).
-DIVERGED = 1e3
 
 
 def klms_realizations(rff, xs, ys, mu, *, mode: str = "auto",
@@ -95,18 +105,26 @@ def krls_realizations(rff, xs, ys, lam=1e-4, beta=0.9995, *,
     return state, out.error
 
 
+def _qklms(xs, sigma, mu, eps, capacity):
+    return qklms_learner(xs.shape[-1], sigma, mu, eps, capacity=capacity,
+                         dtype=xs.dtype, device=xs.device)
+
+
+def _ald(xs, sigma, nu, capacity):
+    return ald_krls_learner(xs.shape[-1], sigma, nu=nu, capacity=capacity,
+                            dtype=xs.dtype, device=xs.device)
+
+
 def qklms_realizations(xs, ys, sigma, mu, eps, capacity):
     """QKLMS over R realizations through the generic bank."""
-    lrn = qklms_learner(xs.shape[-1], sigma, mu, eps, capacity=capacity,
-                        dtype=xs.dtype, device=xs.device)
+    lrn = _qklms(xs, sigma, mu, eps, capacity)
     state, out = bank_run(lrn, bank_init(lrn, xs.shape[0]), xs, ys)
     return state, out.error
 
 
 def ald_realizations(xs, ys, sigma, nu, capacity):
     """ALD-KRLS over R realizations through the generic bank."""
-    lrn = ald_krls_learner(xs.shape[-1], sigma, nu=nu, capacity=capacity,
-                           dtype=xs.dtype, device=xs.device)
+    lrn = _ald(xs, sigma, nu, capacity)
     state, out = bank_run(lrn, bank_init(lrn, xs.shape[0]), xs, ys)
     return state, out.error
 
@@ -135,6 +153,30 @@ def _timed(run: Callable, xs, ys):
     return state, errs, sec
 
 
+def _graph_us(lrn, state, xs, ys):
+    """Device µs a sample of the generic bank loop from ``state``: its
+    first ``GRAPH_TICKS`` ticks captured as one CUDA graph, replayed once
+    to warm and once timed. None off the card. A tick's work does not
+    depend on the data (fixed-capacity dictionaries), so the first ticks
+    time every tick."""
+    if xs.device.type != "cuda":
+        return None
+    xs = xs[:, :GRAPH_TICKS].contiguous()
+    ys = ys[:, :GRAPH_TICKS].contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture asks
+        bank_run(lrn, state, xs, ys)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        bank_run(lrn, state, xs, ys)
+    graph.replay()
+    _, sec = _seconds(graph.replay, xs.device)
+    del graph
+    return sec / xs.shape[:2].numel() * 1e6
+
+
 def _tail(curve, k: int) -> float:
     return float(torch.mean(curve[-k:]))
 
@@ -146,11 +188,17 @@ def _median_run(errs, k: int) -> float:
     return float(torch.median(torch.nan_to_num(per_run, nan=math.inf)))
 
 
+def _max_rel(got, want) -> float:
+    """``max |got - want| / max |want|`` over every run and tick."""
+    return float(torch.max(torch.abs(got - want)) / torch.max(torch.abs(want)))
+
+
 def _rff_side(name: str, run: Callable, xs, ys, tail: int,
-              check_ref: bool) -> tuple:
+              check_ref: bool, exact: Optional[Callable] = None) -> tuple:
     """An RFF side: its timed kernel run and, with ``check_ref``, the same
-    realizations with ``mode="ref"``. Returns (prior errors, seconds,
-    detail)."""
+    realizations with ``mode="ref"`` and, given ``exact() -> float64
+    prior errors``, both paths' distance from those. Returns (prior
+    errors, seconds, detail)."""
     _, errs, sec = _timed(lambda x, y: run(x, y, "auto"), xs, ys)
     curve = monte_carlo_mse(errs)
     detail = {}
@@ -159,7 +207,13 @@ def _rff_side(name: str, run: Callable, xs, ys, tail: int,
         got, want = _tail(curve, tail), _tail(monte_carlo_mse(ref_errs), tail)
         detail = {f"mse_{name}_ref": want, f"us_{name}_ref":
                   ref_sec / errs.numel() * 1e6,
-                  f"ref_rel_{name}": abs(got - want) / abs(want)}
+                  f"ref_rel_{name}": abs(got - want) / abs(want),
+                  f"ref_maxrel_{name}": _max_rel(errs, ref_errs)}
+        if exact is not None:
+            want64 = exact()
+            detail[f"f64_maxrel_{name}"] = _max_rel(errs.double(), want64)
+            detail[f"f64_maxrel_{name}_plain"] = _max_rel(ref_errs.double(),
+                                                          want64)
     return errs, sec, detail
 
 
@@ -210,6 +264,8 @@ def _klms_vs_qklms(gen_fn, input_dim, sigma, mu, eps, rff_dim, qcap, runs,
     detail.update(
         us_rffklms=t_rff / (runs * n) * 1e6,
         us_qklms=t_q / (runs * n) * 1e6,
+        us_qklms_graph=_graph_us(_qklms(xs, sigma, mu, eps, qcap), final_q,
+                                 xs, ys),
         mse_rffklms=_tail(monte_carlo_mse(errs_rff), tail),
         mse_qklms=_tail(monte_carlo_mse(errs_q), tail),
         qklms_dict_size=int(final_q.size[0]),
@@ -262,35 +318,32 @@ def fig2b_krls(runs: int = 10, num_samples: int = 3000, *, seed: int = 0,
     nu = 5e-3 instead of the paper's 5e-4, as in ``repro``: the bordered
     inverse of the near-flat sigma = 5 kernel is f64-only at 5e-4. Even at
     5e-3 a few f32 ALD runs blow up (``repro``'s own CPU reading of this
-    figure has an ALD MSE of 2e10). A run diverged when a prior error is
-    not finite or exceeds ``DIVERGED`` times its stream's largest |y|;
-    ``ald_runs_diverged`` counts them, ``mse_aldkrls_all`` is ``repro``'s
-    mean over all runs (in float64; None when not finite), and both MSEs
-    of ``derived`` = MSE(RFF-KRLS) / MSE(ALD-KRLS) are over the other runs.
-    ``mse_*_median_run`` is the median over runs of a run's tail MSE, the
-    typical run whatever a few blown-up ones do.
+    figure has an ALD MSE of 2e10). derived = MSE(RFF-KRLS) / MSE(ALD-KRLS)
+    over all runs, as in ``repro`` (taken in float64; not finite when a
+    run's errors are not), so those runs set it. The comparison of the
+    typical run is ``median_run_ratio``: the ratio of the medians over runs
+    of a run's tail MSE (``mse_*_median_run``).
     """
     rff, gen = _setup(seed, device, 5, 300, 5.0)
     xs, ys = gen_nonlinear_wiener(gen, num_samples=num_samples, runs=runs)
+    rff64 = type(rff)(*(a.double() for a in rff))
     errs_r, t_r, detail = _rff_side(
         "rffkrls", lambda x, y, m: krls_realizations(rff, x, y, mode=m),
-        xs, ys, 300, check_ref)
+        xs, ys, 300, check_ref,
+        exact=lambda: krls_realizations(rff64, xs.double(), ys.double(),
+                                        mode="ref")[1])
     final_a, errs_a, t_a = _timed(
         lambda x, y: ald_realizations(x, y, 5.0, 5e-3, 128), xs, ys)
-    bound = DIVERGED * ys.abs().amax(dim=1, keepdim=True)
-    kept = (torch.isfinite(errs_a) & (errs_a.abs() <= bound)).all(dim=1)
-    mse_all = _tail(monte_carlo_mse(errs_a.double()), 300)
-    mse_r = _tail(monte_carlo_mse(errs_r[kept]), 300)
-    mse_a = _tail(monte_carlo_mse(errs_a[kept]), 300)
+    mse_r = _tail(monte_carlo_mse(errs_r.double()), 300)
+    mse_a = _tail(monte_carlo_mse(errs_a.double()), 300)
+    med_r, med_a = _median_run(errs_r, 300), _median_run(errs_a, 300)
     detail.update(
         mse_rffkrls=mse_r, mse_aldkrls=mse_a,
-        mse_rffkrls_all=_tail(monte_carlo_mse(errs_r), 300),
-        mse_aldkrls_all=mse_all if math.isfinite(mse_all) else None,
-        ald_runs_diverged=int((~kept).sum()),
-        mse_rffkrls_median_run=_median_run(errs_r, 300),
-        mse_aldkrls_median_run=_median_run(errs_a, 300),
+        mse_rffkrls_median_run=med_r, mse_aldkrls_median_run=med_a,
+        median_run_ratio=med_r / med_a,
         us_rffkrls=t_r / (runs * num_samples) * 1e6,
         us_aldkrls=t_a / (runs * num_samples) * 1e6,
+        us_aldkrls_graph=_graph_us(_ald(xs, 5.0, 5e-3, 128), final_a, xs, ys),
         speedup_vs_engel=t_a / t_r,
         ald_dict_size=int(final_a.size[0]),
         ald_dict_mean=float(final_a.size.float().mean()),
@@ -319,6 +372,8 @@ def table1_highdim(runs: int = 3, num_samples: int = 4000,
         qklms_dict_size=int(final_q.size[0]), rff_D=300,
         us_rffklms=t_r / (runs * num_samples) * 1e6,
         us_qklms=t_q / (runs * num_samples) * 1e6,
+        us_qklms_graph=_graph_us(_qklms(data.xs, 5.0, 1.0, 10.0, 2048),
+                                 final_q, data.xs, data.ys),
         mse_rffklms=_tail(monte_carlo_mse(errs_r), 400),
         mse_qklms=_tail(monte_carlo_mse(errs_q), 400),
         speedup=t_q / t_r, runs=runs, num_samples=num_samples,
@@ -337,7 +392,11 @@ def table1_timing(runs: int = 5, *, figures: Optional[dict] = None,
 
     ``figures`` maps ``"example2"``..``"example4"`` to the details of
     figure runs already made (so table 1 reuses them); the rest run here
-    at ``runs`` runs. derived = the mean RFF-KLMS speedup (paper: 2-6x).
+    at ``runs`` runs. derived = the mean RFF-KLMS speedup (paper: 2-6x)
+    in wall time. A row's ``speedup_graph`` is against QKLMS's device time
+    (``us_qklms_graph``, None off the card): the wall-time speedup counts
+    the host's launches of the generic loop, ``speedup_graph`` the two
+    algorithms' work on the card.
     """
     rows, speeds = {}, []
     for name, fn, n in _TABLE1:
@@ -348,8 +407,12 @@ def table1_timing(runs: int = 5, *, figures: Optional[dict] = None,
         rows[name] = {
             "rffklms_s_per_run": r["us_rffklms"] * 1e-6 * n,
             "qklms_s_per_run": r["us_qklms"] * 1e-6 * n,
+            "qklms_graph_s_per_run": (None if r["us_qklms_graph"] is None
+                                      else r["us_qklms_graph"] * 1e-6 * n),
             "qklms_dict": r["qklms_dict_size"],
             "speedup": r["speedup"],
+            "speedup_graph": (None if r["us_qklms_graph"] is None
+                              else r["us_qklms_graph"] / r["us_rffklms"]),
             "runs": r["runs"],
         }
         speeds.append(r["speedup"])
@@ -422,9 +485,8 @@ def run_all(*, runs: Optional[int] = None, seed: int = 0, device="cuda",
             check_ref: bool = False) -> dict:
     """Every figure at its ``EXPERIMENTS`` settings (``runs`` caps the run
     counts; samples are never cut, but fig. 2b runs ``FIG2B_SAMPLES``, as
-    ``repro``'s does), then table 1 from the figures' runs,
-    ``table1_highdim`` and ``krls_f32_horizon``. Returns ``{name: (us,
-    derived, detail)}``."""
+    ``repro``'s does), then table 1 from the figures' runs and
+    ``table1_highdim``. Returns ``{name: (us, derived, detail)}``."""
 
     def n_runs(example):
         r = EXPERIMENTS[example].runs
@@ -447,8 +509,6 @@ def run_all(*, runs: Optional[int] = None, seed: int = 0, device="cuda",
             figures={"example2": out["fig2a"][2], "example3": out["fig3a"][2],
                      "example4": out["fig3b"][2]}, seed=seed, device=device),
         "table1_highdim": lambda: table1_highdim(**kw),
-        "krls_f32_horizon": lambda: krls_f32_horizon(seed=seed,
-                                                     device=device),
     }
     out = {}
     for name, job in jobs.items():

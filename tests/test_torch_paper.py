@@ -240,8 +240,12 @@ def test_figures_run(fig, kw):
     sides) a ``check_ref`` difference of exactly 0."""
     us, derived, detail = fig(runs=2, device="cpu", check_ref=True, **kw)
     assert us > 0 and np.isfinite(derived)
-    refs = [k for k in detail if k.startswith("ref_rel_")]
-    assert refs and all(detail[k] == 0.0 for k in refs)
+    refs = [k for k in detail if k.startswith(("ref_rel_", "ref_maxrel_"))]
+    assert len(refs) == 2 and all(detail[k] == 0.0 for k in refs)
+    f64 = [k for k in detail if k.startswith("f64_maxrel_")]
+    assert len(f64) == (2 if fig is paper.fig2b_krls else 0)
+    if f64:  # one plain f32 run on both sides: the same distance
+        assert detail[f64[0]] == detail[f64[1]] < 1e-3
     assert detail["runs"] == 2
 
 
@@ -256,3 +260,15 @@ def test_table1_reuses_figures():
         np.mean([figs[k]["speedup"] for k in rows]))
     _, ratio, detail = paper.orf_vs_iid(num_seeds=2, device="cpu")
     assert ratio > 0 and set(detail) == {"rmse_iid", "rmse_orthogonal"}
+
+
+def test_krls_f32_horizon():
+    """The f32 horizon study at a small size: on the CPU the kernel path
+    is the plain one, so both f32 runs give the same window MSEs and
+    depart from float64 at the same tick."""
+    us, departs, detail = paper.krls_f32_horizon(
+        runs=2, num_samples=300, window=100, device="cpu")
+    assert us > 0 and departs == detail["departs_plain_f32"]
+    assert detail["mse_kernel"] == detail["mse_plain_f32"]
+    assert len(detail["mse_float64"]) == 3
+    assert all(np.isfinite(v) for v in detail["mse_float64"])
