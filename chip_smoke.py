@@ -117,7 +117,34 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     budget), printing each figure's tail MSEs, derived ratio
     and per-sample microseconds (QKLMS and ALD also as one CUDA graph of
     the generic loop: their device time without the launches); the phase
-    must end within 120 s.
+    must end within 120 s;
+17. drives the feature families (``feature_families``): a qmc map (built
+    on the card and bit for bit the CPU's) through step 3's KLMS main path
+    at d = 128, D = 2048 and a gq map (non-uniform per-feature scales)
+    through step 5's KRLS main path at the paper's section 6 settings, each
+    with its launches checked; gq at d = 128 must raise (the tensor grid's
+    cap); the taylor map (no trig form, D = C(10, 5) = 252 at d = 5, degree
+    5) through make_server("klms") and ("krls"), reads and make_tick on
+    the generic route: state on the card, no kernel launch, mode="ref"
+    changing no bit, held against a float64 run (KLMS at SERVER_TOL, KRLS
+    by the budget rule); then steps 8 and 9 under "blocked" alone with the
+    qmc KLMS and the gq KRLS servers (kernels 6 and 7, 6 and 8);
+18. runs the bank as a cache (``policy``): make_server("klms",
+    policy=p, log_capacity=256, rebuild_mode="blocked") at the KLMS
+    serving configuration, for p in lru, lfu and cost, on 16384 writes and
+    one read of Q = 64 queries every 4 writes from a Zipf(0.9) stream over
+    4096 tenants (zipf_bench's middle alpha and 1:4 ratio at the serving
+    bank); held against the same server with rebuild_mode="sequential"
+    (identical counters and resident map, resident rows and reads within
+    REPLAY_REL) and, on a prefix of the stream, mode="ref" (the same
+    decisions, SERVER_TOL); under lru, Server.resize 1024 -> 512 -> 1024
+    keeps the surviving rows bit for bit; auto_resize (lfu) against
+    mode="ref" on a short stream; make_server("krls", policy="lru") at the
+    paper's section 6 settings on 4096 writes, within the float64 budget.
+    Prints, per policy, the hit rate, the counters, write and read p50/p99
+    from the server's registry and the install count and install ms
+    (each install timed with a synchronize on each side). The last phase
+    line gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
@@ -384,14 +411,22 @@ def path_launches(kernels, names) -> dict:
     return launches
 
 
-def phase_server(seed, device, kernels) -> dict:
+def family_map(family, seed, d, dfeat, sigma, device):
+    """A feature map of ``family`` on the card (the Monte-Carlo families
+    drawn from ``seed``)."""
+    from repro_torch.features import make_feature_map
+
+    return make_feature_map(family, d, dfeat, sigma,
+                            generator=torch.Generator().manual_seed(seed),
+                            device=device)
+
+
+def phase_server(seed, device, kernels, family="rff") -> dict:
     """The KLMS main path: make_server("klms") writes and reads,
-    make_tick."""
-    from repro_torch.features import rff_map
+    make_tick (the paper's rff map, or another trig family)."""
     from repro_torch.serve import make_server, make_tick
 
-    fm = rff_map(torch.Generator().manual_seed(seed), D_IN, D_FEAT, SIGMA,
-                 device=device)
+    fm = family_map(family, seed, D_IN, D_FEAT, SIGMA, device)
     srv = make_server("klms", feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU,
                       device=device)
     ref_srv = make_server("klms", feature_map=fm, bank=BANK, chunk=CHUNK,
@@ -453,8 +488,9 @@ def phase_server(seed, device, kernels) -> dict:
     check(mse[-1] < mse[0], f"prior MSE did not fall: {mse}")
     bf16_gap = max_err(reads["bf16"], reads[None])
     check(0 < bf16_gap < 2e-2, f"bf16 read contract: gap {bf16_gap}")
-    emit({"phase": "server", "bank": BANK, "d": D_IN, "D": D_FEAT,
-          "chunk": CHUNK, "Q": Q, "submits": submits, "flushes": flushes,
+    emit({"phase": "server", "family": family, "bank": BANK, "d": D_IN,
+          "D": D_FEAT, "chunk": CHUNK, "Q": Q, "submits": submits,
+          "flushes": flushes,
           "prior_mse_per_round": mse, "bf16_vs_f32_read_gap": bf16_gap,
           "staleness": srv.staleness, "launches": launches,
           "seconds": seconds})
@@ -655,21 +691,19 @@ def within_budget(name: str, got, plain, exact, dist) -> dict:
 
 
 def f64_map(fm):
-    """The same trig feature map in float64 (for the float64 servers)."""
-    from repro_torch.features import TrigFeatures
+    """The same feature map in float64, its f32 parameters widened (for
+    the float64 servers; taylor's integer exponents stay as they are)."""
+    return dataclasses.replace(fm, params=type(fm.params)(*(
+        t.double() if t.is_floating_point() else t for t in fm.params)))
 
-    return dataclasses.replace(
-        fm, params=TrigFeatures(*(t.double() for t in fm.trig)))
 
-
-def phase_krls_server(seed, device, kernels) -> dict:
+def phase_krls_server(seed, device, kernels, family="rff") -> dict:
     """The KRLS main path: make_server("krls") writes and reads,
-    make_tick("krls"); held against mode="ref" and a float64 run."""
-    from repro_torch.features import rff_map
+    make_tick("krls"); held against mode="ref" and a float64 run (the
+    paper's rff map, or another trig family)."""
     from repro_torch.serve import make_server, make_tick
 
-    fm = rff_map(torch.Generator().manual_seed(seed), K_D_IN, K_D_FEAT,
-                 K_SIGMA, device=device)
+    fm = family_map(family, seed, K_D_IN, K_D_FEAT, K_SIGMA, device)
     fm64 = f64_map(fm)
     hp = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
     servers = (make_server("krls", feature_map=fm, **hp),
@@ -740,7 +774,8 @@ def phase_krls_server(seed, device, kernels) -> dict:
         check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
               "krls server output not finite or of the wrong shape")
     pmat = srv.snapshot.state.pmat
-    emit({"phase": "krls_server", "bank": BANK, "d": K_D_IN, "D": K_D_FEAT,
+    emit({"phase": "krls_server", "family": family, "bank": BANK,
+          "d": K_D_IN, "D": K_D_FEAT,
           "sigma": K_SIGMA, "lam": K_LAM, "beta": K_BETA, "chunk": CHUNK,
           "Q": Q, "submits": submits, "flushes": flushes,
           "prior_mse_per_round": mse, "staleness": srv.staleness,
@@ -1226,20 +1261,20 @@ def untouched_equal(srv, ctl) -> bool:
                for g, w in zip(got, want))
 
 
-def phase_replay_server(seed, device, kernels, learner="klms") -> dict:
+def phase_replay_server(seed, device, kernels, learner="klms",
+                        family="rff",
+                        modes=("blocked", "scan", "sequential")) -> dict:
     """The KLMS (or NKLMS) lifecycle: evict -> log -> readmit under every
-    rebuild mode, at the KLMS serving configuration with log_capacity=256.
+    rebuild mode (or ``modes``), at the KLMS serving configuration with
+    log_capacity=256, with the paper's rff map or another trig family.
     NKLMS writes through the generic chunk loop (no kernel), and reads and
     readmits through the KLMS kernels."""
     from repro_torch.core.klms import rff_klms_run
-    from repro_torch.features import rff_map
     from repro_torch.serve import make_server
 
-    fm = rff_map(torch.Generator().manual_seed(seed), D_IN, D_FEAT, SIGMA,
-                 device=device)
+    fm = family_map(family, seed, D_IN, D_FEAT, SIGMA, device)
     hp = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU, device=device)
     normalized = learner == "nklms"
-    modes = ("blocked", "scan", "sequential")
     ctl = make_server(learner, **hp)
     srv = {m: make_server(learner, log_capacity=LOG_CAP, rebuild_mode=m, **hp)
            for m in modes}
@@ -1314,7 +1349,8 @@ def phase_replay_server(seed, device, kernels, learner="klms") -> dict:
     launches = path_launches(kernels, (
         "rff_features", "klms_chunk_elements", "bank_predict",
         *(() if normalized else ("klms_bank_chunk",))))
-    emit({"phase": "replay_server", "learner": learner, "bank": BANK,
+    emit({"phase": "replay_server", "learner": learner, "family": family,
+          "bank": BANK,
           "d": D_IN, "D": D_FEAT, "chunk": CHUNK, "mu": MU,
           "log_capacity": LOG_CAP, "submits_per_server":
           len(before) + len(during) + len(after), "modes": report,
@@ -1327,21 +1363,20 @@ def phase_replay_server(seed, device, kernels, learner="klms") -> dict:
     return launches
 
 
-def phase_krls_replay_server(seed, device, kernels) -> dict:
+def phase_krls_replay_server(seed, device, kernels, family="rff",
+                             modes=("blocked", "scan")) -> dict:
     """The KRLS lifecycle at the paper's section 6 settings under "blocked"
-    and "scan". At lam = 1e-4 f32 itself is the limit (PR 12's finding),
-    so readmitted state, and reads and state after more training, are held
+    and "scan" (or ``modes``), with the paper's rff map or another trig
+    family. At lam = 1e-4 f32 itself is the limit (PR 12's finding), so
+    readmitted state, and reads and state after more training, are held
     within BUDGET times the plain path's own distance from the same server
     run in float64; untouched tenants' state and reads equal the
     never-evicted control's bit for bit."""
-    from repro_torch.features import rff_map
     from repro_torch.serve import make_server
 
-    fm = rff_map(torch.Generator().manual_seed(seed), K_D_IN, K_D_FEAT,
-                 K_SIGMA, device=device)
+    fm = family_map(family, seed, K_D_IN, K_D_FEAT, K_SIGMA, device)
     fm64 = f64_map(fm)
     hp = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
-    modes = ("blocked", "scan")
     ctl = make_server("krls", feature_map=fm, **hp)
     trio = {m: [make_server("krls", feature_map=f, log_capacity=LOG_CAP,
                             rebuild_mode=m, mode=k, **hp)
@@ -1412,7 +1447,8 @@ def phase_krls_replay_server(seed, device, kernels) -> dict:
     seconds = time.perf_counter() - t0
     launches = path_launches(kernels, ("rff_features", "krls_chunk_elements",
                                        "krls_bank_chunk", "bank_predict"))
-    emit({"phase": "krls_replay_server", "learner": "krls", "bank": BANK,
+    emit({"phase": "krls_replay_server", "learner": "krls",
+          "family": family, "bank": BANK,
           "d": K_D_IN, "D": K_D_FEAT, "sigma": K_SIGMA, "lam": K_LAM,
           "beta": K_BETA, "chunk": CHUNK, "log_capacity": LOG_CAP,
           "modes": report,
@@ -2424,6 +2460,402 @@ def phase_paper(seed, device, kernels) -> dict:
     return launches
 
 
+# Feature families (phase 17): taylor at the paper's section 6 width, d = 5
+# and degree 5, so D = C(10, 5) = 252.
+TAYLOR_DEGREE = 5
+# The policy tier (phase 18): zipf_bench's middle alpha and its 1:4 bank to
+# tenant ratio (benchmarks/zipf_bench.py:47-57) at the serving bank; one
+# read of Q queries every READ_EVERY writes. The mode="ref" control runs
+# on the first POLICY_REF_PREFIX requests of each policy's stream.
+POLICIES = ("lru", "lfu", "cost")
+ZIPF_ALPHA, POLICY_TENANTS = 0.9, 4 * BANK
+POLICY_WRITES, KRLS_POLICY_WRITES, READ_EVERY = 16384, 4096, 4
+POLICY_REF_PREFIX = 8192
+AUTO_RESIZE_REQUESTS = 4096
+SMI = "not read"  # the card's nvidia-smi name and power limit (main)
+
+
+def add_launches(total: dict, paths: dict) -> dict:
+    for name, n in paths.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_taylor(seed, device, kernels) -> None:
+    """The taylor map (no trig form): make_server("klms") and ("krls") at
+    d = 5, sigma = 5, degree 5 on phase 5's stream, with reads and
+    make_tick, through the generic route on the card. No kernel may
+    launch; mode="ref" changes no bit; held against a float64 run: KLMS at
+    SERVER_TOL, KRLS by the budget rule."""
+    from repro_torch.features import taylor_map
+    from repro_torch.serve import make_server, make_tick
+
+    fm = taylor_map(K_D_IN, TAYLOR_DEGREE, K_SIGMA, device=device)
+    check(fm.num_features == 252, "taylor at d = 5, degree 5: D != 252")
+    fm64 = f64_map(fm)
+    rng = np.random.default_rng(seed + 2)
+    stream = list(ragged_stream(rng, 6, K_D_IN))
+    xq = rng.normal(size=(BANK, Q, K_D_IN)).astype(np.float32)
+    tick_x = rng.normal(size=(4, BANK, K_D_IN)).astype(np.float32)
+    tick_y = np.sin(tick_x[..., 0]).astype(np.float32)
+    report = {}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    for learner, hp in (("klms", dict(mu=MU)),
+                        ("krls", dict(lam=K_LAM, beta=K_BETA))):
+        kw = dict(bank=BANK, chunk=CHUNK, device=device, **hp)
+        trio = [make_server(learner, feature_map=f, mode=m, **kw)
+                for f, m in ((fm, "auto"), (fm, "ref"), (fm64, "ref"))]
+        for tenants, xs, ys in stream:
+            for srv in trio:
+                for t, x, y in zip(tenants.tolist(), xs, ys.tolist()):
+                    srv.submit(t, x, y)
+                srv.drain()
+        blocks = [srv.predict_block(xq) for srv in trio]
+        states = [srv.queue.state for srv in trio]
+        ticks = [make_tick(learner, f, mode=m, **hp)
+                 for f, m in ((fm, "auto"), (fm, "ref"), (fm64, "ref"))]
+        for t in range(tick_x.shape[0]):
+            for i, (tick, st) in enumerate(zip(ticks, states)):
+                dt = st.theta.dtype
+                states[i], _ = tick(
+                    st, torch.from_numpy(tick_x[t]).to(device, dt),
+                    torch.from_numpy(tick_y[t]).to(device, dt))
+        got, plain, exact = (srv.queue.state for srv in trio)
+        check(got.theta.device == device and got.pmat.device == device
+              if learner == "krls" else got.theta.device == device,
+              "taylor state is not on the card")
+        check(all(torch.equal(a, b) for a, b in zip(got, plain))
+              and torch.equal(blocks[0], blocks[1])
+              and all(torch.equal(a, b) for a, b in zip(states[0], states[1])),
+              f"taylor {learner}: mode='ref' changed a bit (no kernel runs)")
+        check(bool(torch.isfinite(blocks[0]).all())
+              and blocks[0].shape == (BANK, Q),
+              f"taylor {learner}: reads not finite or misshapen")
+        if learner == "klms":
+            for name, g, w in (("theta", got.theta, exact.theta),
+                               ("predict_block", blocks[0], blocks[2]),
+                               ("make_tick theta", states[0].theta,
+                                states[2].theta)):
+                hold(f"taylor klms {name} vs float64", [g], [w.float()],
+                     SERVER_TOL)
+            report[learner] = {
+                "theta_vs_f64": max_err(got.theta, exact.theta),
+                "read_vs_f64": max_err(blocks[0], blocks[2])}
+        else:
+            report[learner] = {
+                "theta": within_budget("taylor theta", got.theta, plain.theta,
+                                       exact.theta, normwise),
+                "P": within_budget("taylor P", got.pmat, plain.pmat,
+                                   exact.pmat, p_rel),
+                "predict_block": within_budget("taylor reads", *blocks,
+                                               normwise),
+                "tick_P": within_budget("taylor make_tick P",
+                                        *[s.pmat for s in states], p_rel)}
+    torch.cuda.synchronize()
+    launched = {name: k.launches for name, k in kernels.items()
+                if k.launches}
+    check(not launched, f"taylor launched kernels: {launched}")
+    emit({"phase": "taylor", "bank": BANK, "d": K_D_IN, "D": fm.num_features,
+          "degree": TAYLOR_DEGREE, "sigma": K_SIGMA, "chunk": CHUNK,
+          "lam": K_LAM, "beta": K_BETA, "tolerance": {
+              "klms_vs_f64": SERVER_TOL, "krls_budget": [BUDGET, BUDGET_FLOOR]},
+          "bitwise": {"auto_eq_ref": True}, "launches": 0,
+          "report": report, "seconds": time.perf_counter() - t0,
+          "card": SMI})
+
+
+def phase_feature_families(seed, device, kernels) -> dict:
+    """Phase 17: qmc through the KLMS main path, gq through the KRLS main
+    path, taylor through the generic route, and blocked readmits of the
+    qmc KLMS and gq KRLS servers. Every trig part must raise its kernels'
+    launches (the path checks); the taylor part none."""
+    from repro_torch.features import make_feature_map
+
+    t0 = time.perf_counter()
+    for family, d, dfeat, sigma in (("qmc", D_IN, D_FEAT, SIGMA),
+                                    ("gq", K_D_IN, K_D_FEAT, K_SIGMA)):
+        card = make_feature_map(family, d, dfeat, sigma, device=device)
+        host = make_feature_map(family, d, dfeat, sigma, device="cpu")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(card.trig, host.trig)),
+              f"{family}: the map built on the card is not the CPU's")
+    try:
+        make_feature_map("gq", 128, 2048, SIGMA, device=device)
+        fail("gq at d = 128 did not raise (the tensor grid's cap)")
+    except ValueError as err:
+        check("cap" in str(err), f"gq at d = 128: {err}")
+    launches: dict = {}
+    add_launches(launches, phase_server(seed, device, kernels, family="qmc"))
+    add_launches(launches, phase_krls_server(seed, device, kernels,
+                                             family="gq"))
+    phase_taylor(seed, device, kernels)
+    add_launches(launches, phase_replay_server(
+        seed, device, kernels, family="qmc", modes=("blocked",)))
+    add_launches(launches, phase_krls_replay_server(
+        seed, device, kernels, family="gq", modes=("blocked",)))
+    emit({"phase": "feature_families", "launches": launches,
+          "seconds": time.perf_counter() - t0, "card": SMI})
+    return launches
+
+
+def policy_requests(rng, writes, d):
+    """zipf_bench's stream over POLICY_TENANTS tenants: ids with pmf
+    1/rank^ZIPF_ALPHA, a read after every READ_EVERY writes; each write a
+    tenant's target (an offset plus a ridge function of x)."""
+    n = writes + writes // READ_EVERY
+    probs = np.arange(1, POLICY_TENANTS + 1, dtype=np.float64) ** -ZIPF_ALPHA
+    ids = rng.choice(POLICY_TENANTS, size=n, p=probs / probs.sum())
+    dirs = rng.normal(size=(POLICY_TENANTS, d)) / np.sqrt(d)
+    xs = rng.normal(size=(n, d)).astype(np.float32)
+    ys = (1.0 + 0.5 * np.sin(np.einsum("nd,nd->n", xs, dirs[ids]))
+          + 0.05 * rng.normal(size=n)).astype(np.float32)
+    pool = rng.normal(size=(64, Q, d)).astype(np.float32)
+    return [("read", t, pool[i % len(pool)], None)
+            if i % (READ_EVERY + 1) == READ_EVERY
+            else ("write", t, xs[i], float(ys[i]))
+            for i, t in enumerate(ids.tolist())]
+
+
+def serve_requests(srv, requests) -> list:
+    reads = []
+    for kind, tenant, x, y in requests:
+        if kind == "read":
+            reads.append(srv.predict(tenant, x))
+        else:
+            srv.submit(tenant, x, y)
+    srv.drain()
+    return reads
+
+
+def time_installs(srv) -> list:
+    """Wall milliseconds of each install (a replay into a slot), measured
+    around the server's rebuild function with a synchronize on each side."""
+    inner, ms = srv.snapshot_server, []
+    rebuild = inner._rebuild_fn
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rebuild(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    inner._rebuild_fn = timed
+    return ms
+
+
+def same_decisions(name, srv, ctl) -> dict:
+    counters = srv.metrics.snapshot()["counters"]
+    check(counters == ctl.metrics.snapshot()["counters"],
+          f"{name}: counters differ from the control's")
+    check(srv.resident == ctl.resident, f"{name}: resident maps differ")
+    return counters
+
+
+def resident_rows(srv):
+    slots = sorted(srv.resident.values())
+    return srv.queue.state.theta[slots], slots
+
+
+def reads_close(name, got, want, tol) -> float:
+    g, w = torch.cat([r.reshape(-1) for r in got]), torch.cat(
+        [r.reshape(-1) for r in want])
+    return hold(name, [g], [w.to(g.dtype)], tol) if tol else rel_norm(g, w)
+
+
+def policy_resize(srv) -> dict:
+    """Shrink 1024 -> 512 and grow back: the surviving rows bit for bit."""
+    before = {t: (srv.queue.state.theta[s].clone(), int(srv.queue.state.step[s]))
+              for t, s in srv.resident.items()}
+    out = {}
+    for size in (BANK // 2, BANK):
+        srv.resize(size)
+        check(srv.slots == srv.queue.num_tenants == size, "resize: slots")
+        state = srv.queue.state
+        for t, s in srv.resident.items():
+            check(torch.equal(state.theta[s], before[t][0])
+                  and int(state.step[s]) == before[t][1],
+                  f"resize to {size}: tenant {t}'s row changed")
+        out[size] = srv.policy.occupancy
+    check(not bool(srv.queue.state.theta[BANK // 2:].any()),
+          "grown rows are not fresh")
+    return {"occupancy_after": out, "survivors_bitwise": True}
+
+
+def phase_policy(seed, device, kernels) -> dict:
+    """Phase 18: the bank as a cache. KLMS at the serving configuration
+    with a 4096-tenant Zipf stream under lru, lfu and cost (blocked
+    installs, kernels 6 and 7), held against the same server with
+    sequential installs (identical counters and resident map, rows within
+    REPLAY_REL) and, on a prefix, mode="ref"; Server.resize and
+    auto_resize; KRLS under lru at the paper's section 6 settings, held
+    within the float64 budget. Prints each policy's hit rate, counters,
+    write and read p50/p99 and install ms."""
+    from repro_torch.serve import make_server
+
+    fm = family_map("rff", seed, D_IN, D_FEAT, SIGMA, device)
+    kw = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU,
+              log_capacity=LOG_CAP, size_watermark=CHUNK, device=device)
+    rng = np.random.default_rng(seed + 5)
+    requests = policy_requests(rng, POLICY_WRITES, D_IN)
+    prefix = requests[:POLICY_REF_PREFIX]
+    launches: dict = {}
+    t_phase = time.perf_counter()
+    for policy in POLICIES:
+        srv = make_server("klms", policy=policy, rebuild_mode="blocked", **kw)
+        ctl = make_server("klms", policy=policy, rebuild_mode="sequential",
+                          **kw)
+        ref = make_server("klms", policy=policy, rebuild_mode="blocked",
+                          mode="ref", **kw)
+        install_ms = time_installs(srv)
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        reads = serve_requests(srv, prefix)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # The kernel server at the prefix's end, for the mode="ref" control.
+        at_prefix = (srv.metrics.snapshot()["counters"], srv.resident,
+                     srv.queue.state.theta, len(reads))
+        reads += serve_requests(srv, requests[len(prefix):])
+        torch.cuda.synchronize()
+        seconds_all = time.perf_counter() - t0
+        add_launches(launches, path_launches(kernels, (
+            "klms_bank_chunk", "bank_predict", "rff_features",
+            "klms_chunk_elements")))
+        snap = srv.metrics.snapshot()
+        t1 = time.perf_counter()
+        ref_reads = serve_requests(ref, prefix)
+        ref_seconds = time.perf_counter() - t1
+        check(at_prefix[0] == ref.metrics.snapshot()["counters"]
+              and at_prefix[1] == ref.resident,
+              f"{policy}: decisions on the prefix differ from mode=ref's")
+        hold(f"{policy} theta vs mode=ref", [at_prefix[2]],
+             [ref.queue.state.theta], SERVER_TOL)
+        vs_ref_reads = reads_close(f"{policy} reads vs mode=ref",
+                                   reads[:at_prefix[3]], ref_reads,
+                                   SERVER_TOL)
+        ctl_reads = serve_requests(ctl, prefix)
+        ctl_reads += serve_requests(ctl, requests[len(prefix):])
+        counters = same_decisions(f"{policy} vs sequential installs", srv, ctl)
+        rows, slots = resident_rows(srv)
+        ctl_rows, ctl_slots = resident_rows(ctl)
+        vs_ctl = rel_norm(rows, ctl_rows)
+        check(slots == ctl_slots and vs_ctl <= REPLAY_REL,
+              f"{policy}: resident rows {vs_ctl:.3g} from the sequential "
+              f"control (tol {REPLAY_REL})")
+        vs_ctl_reads = reads_close(f"{policy} reads vs sequential", reads,
+                                   ctl_reads, None)
+        check(vs_ctl_reads <= REPLAY_REL,
+              f"{policy}: reads {vs_ctl_reads:.3g} from the sequential control")
+        check(len(install_ms) == counters.get("readmissions", 0) > 0,
+              f"{policy}: installs {len(install_ms)} vs readmissions "
+              f"{counters.get('readmissions')}")
+        hist = snap["histograms"]
+        record = {
+            "phase": "policy", "learner": "klms", "policy": policy,
+            "bank": BANK, "tenants": POLICY_TENANTS, "alpha": ZIPF_ALPHA,
+            "d": D_IN, "D": D_FEAT, "chunk": CHUNK, "Q": Q,
+            "writes": POLICY_WRITES, "read_every": READ_EVERY,
+            "log_capacity": LOG_CAP, "rebuild_mode": "blocked",
+            "hit_rate": srv.hit_rate(), "counters": counters,
+            "write_us": {k: hist["latency.write_us"][k]
+                         for k in ("p50", "p99", "mean", "count")},
+            "read_us": {k: hist["latency.read_us"][k]
+                        for k in ("p50", "p99", "mean", "count")},
+            "installs": len(install_ms),
+            "install_ms": {"p50": float(np.percentile(install_ms, 50)),
+                           "p99": float(np.percentile(install_ms, 99)),
+                           "mean": float(np.mean(install_ms))},
+            "vs_sequential": {"rows_rel": vs_ctl, "reads_rel": vs_ctl_reads},
+            "vs_ref_prefix": {"requests": len(prefix),
+                              "reads_max_abs": vs_ref_reads,
+                              "ref_seconds": ref_seconds},
+            "seconds_prefix": seconds, "seconds": seconds_all, "card": SMI}
+        if policy == "lru":
+            record["resize"] = policy_resize(srv)
+        emit(record)
+        del srv, ctl, ref
+    # auto_resize: lfu (its rejects grow the bank; low occupancy shrinks
+    # it), the kernel server against mode="ref" on a short stream.
+    auto_kw = dict(kw, policy={"scorer": "lfu", "min_slots": BANK // 8},
+                   auto_resize=True, rebuild_mode="blocked")
+    auto = [make_server("klms", mode=m, **auto_kw) for m in ("auto", "ref")]
+    auto_reads = [serve_requests(s, requests[:AUTO_RESIZE_REQUESTS])
+                  for s in auto]
+    counters = same_decisions("auto_resize vs mode=ref", *auto)
+    check(counters.get("resizes", 0) > 0, "auto_resize did not resize")
+    check(auto[0].slots == auto[1].slots, "auto_resize: slots differ")
+    hold("auto_resize theta vs mode=ref", [auto[0].queue.state.theta],
+         [auto[1].queue.state.theta], SERVER_TOL)
+    reads_close("auto_resize reads vs mode=ref", *auto_reads, SERVER_TOL)
+    emit({"phase": "policy_auto_resize", "requests": AUTO_RESIZE_REQUESTS,
+          "counters": counters, "slots": auto[0].slots, "card": SMI})
+    del auto
+    launches_krls = phase_policy_krls(seed, device, kernels)
+    add_launches(launches, launches_krls)
+    emit({"phase": "policy", "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "card": SMI})
+    return launches
+
+
+def phase_policy_krls(seed, device, kernels) -> dict:
+    """KRLS under lru at the paper's section 6 settings on the first
+    KRLS_POLICY_WRITES writes of a Zipf stream: kernel server, plain f32
+    and plain float64, the same decisions; resident rows and reads within
+    the float64 budget (phase 9's rule)."""
+    from repro_torch.serve import make_server
+
+    fm = family_map("rff", seed, K_D_IN, K_D_FEAT, K_SIGMA, device)
+    kw = dict(bank=BANK, chunk=CHUNK, lam=K_LAM, beta=K_BETA,
+              policy="lru", log_capacity=LOG_CAP, rebuild_mode="blocked",
+              size_watermark=CHUNK, device=device)
+    trio = [make_server("krls", feature_map=f, mode=m, **kw)
+            for f, m in ((fm, "auto"), (fm, "ref"), (f64_map(fm), "ref"))]
+    rng = np.random.default_rng(seed + 6)
+    requests = policy_requests(rng, KRLS_POLICY_WRITES, K_D_IN)
+    install_ms = time_installs(trio[0])
+    torch.cuda.empty_cache()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    reads = [serve_requests(trio[0], requests)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(kernels, ("krls_bank_chunk", "bank_predict",
+                                       "rff_features", "krls_chunk_elements"))
+    reads += [serve_requests(s, requests) for s in trio[1:]]
+    counters = same_decisions("krls policy vs plain", trio[0], trio[1])
+    same_decisions("krls policy vs float64", trio[0], trio[2])
+    slots = sorted(trio[0].resident.values())
+    states = [s.queue.state for s in trio]
+    flat = [torch.cat([r.reshape(-1) for r in rs])[None] for rs in reads]
+    budget = {
+        "theta": within_budget("krls policy theta",
+                               *[st.theta[slots] for st in states], normwise),
+        "P": within_budget("krls policy P", *[st.pmat[slots] for st in states],
+                           p_rel),
+        "reads": within_budget("krls policy reads", *flat, normwise)}
+    check(len(install_ms) == counters.get("readmissions", 0) > 0,
+          "krls policy: no install")
+    hist = trio[0].metrics.snapshot()["histograms"]
+    emit({"phase": "policy", "learner": "krls", "policy": "lru",
+          "bank": BANK, "tenants": POLICY_TENANTS, "alpha": ZIPF_ALPHA,
+          "d": K_D_IN, "D": K_D_FEAT, "lam": K_LAM, "beta": K_BETA,
+          "writes": KRLS_POLICY_WRITES, "read_every": READ_EVERY,
+          "hit_rate": trio[0].hit_rate(), "counters": counters,
+          "write_us": {k: hist["latency.write_us"][k]
+                       for k in ("p50", "p99", "mean", "count")},
+          "read_us": {k: hist["latency.read_us"][k]
+                      for k in ("p50", "p99", "mean", "count")},
+          "installs": len(install_ms),
+          "install_ms": {"p50": float(np.percentile(install_ms, 50)),
+                         "p99": float(np.percentile(install_ms, 99)),
+                         "mean": float(np.mean(install_ms))},
+          "budget": {"factor": BUDGET, "floor": BUDGET_FLOOR, **budget},
+          "launches": launches, "seconds": seconds, "card": SMI})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2436,6 +2868,7 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the "
               "root of a checkout", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
     from repro_torch.kernels.rff_klms_step import (
@@ -2467,6 +2900,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    global SMI
+    SMI = smi
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     build_s = _build.build()
@@ -2523,6 +2958,11 @@ def main() -> int:
                   phase_paper(args.seed, device, kernels)):
         for name, n in paths.items():
             launches[name] = launches.get(name, 0) + n
+    # The feature families and the policy tier, after the paper phase.
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_feature_families(args.seed, device, kernels))
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_policy(args.seed, device, kernels))
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}
@@ -2539,6 +2979,8 @@ def main() -> int:
         **{k: v for k, v in measured[name][route].items() if k != "cases"},
         **timed[name][route]} for route, src in per.items()}
         for name, per in ROUTE_SOURCES.items()}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_run,
+          "card": smi})
     print(smi)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],

@@ -7,19 +7,33 @@ imports ``repro`` or ``jax``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.bank import BankHParams
 from repro_torch.core.klms import LMSState
 from repro_torch.core.krls import RLSState
-from repro_torch.features.base import TrigFeatures, uniform_trig_scale
+from repro_torch.features.base import (
+    FeatureMap,
+    TrigFeatures,
+    trig_map,
+    uniform_trig_scale,
+)
+from repro_torch.features.deterministic import (
+    TaylorParams,
+    taylor_features,
+    taylor_weights,
+)
 
 __all__ = [
     "tensor",
     "trig_features",
+    "feature_map",
+    "bank_hparams",
+    "policy_state",
     "lms_state",
     "rls_state",
     "lm_params",
@@ -50,6 +64,35 @@ def trig_features(omega, bias, scale: Optional[np.ndarray] = None, *,
         scale_t = tensor(scale, device=dev)
     return TrigFeatures(omega=omega_t, bias=tensor(bias, device=dev),
                         scale=scale_t)
+
+
+def feature_map(family: str, leaves: Sequence[np.ndarray], *,
+                deterministic: bool, device="cuda") -> FeatureMap:
+    """``repro``'s ``FeatureMap`` from its family and its params' numpy
+    leaves (``[np.asarray(a) for a in fm.params]``): a trig family's
+    ``(omega, bias, scale)``, or taylor's ``(exponents, coeff,
+    inv_two_sigma_sq)``. Leaf dtypes are kept."""
+    dev = resolve_device(device)
+    tensors = [tensor(a, device=dev) for a in leaves]
+    if family == "taylor":
+        return FeatureMap(family, TaylorParams(*tensors), taylor_features,
+                          taylor_weights, deterministic)
+    return trig_map(family, TrigFeatures(*tensors), deterministic)
+
+
+def bank_hparams(mu, beta, lam, *, device="cuda") -> BankHParams:
+    """``repro``'s ``BankHParams`` (``(B,)`` numpy leaves) as the port's."""
+    return BankHParams(*(tensor(a, device=device) for a in (mu, beta, lam)))
+
+
+def policy_state(d: dict) -> dict:
+    """``repro``'s ``SlotPolicy.state_dict()`` as plain Python values (int
+    keys and counts), which the port's ``SlotPolicy.load_state`` takes."""
+    ints = {k: int(d[k]) for k in ("slots", "clock", "rejects_since_resize")}
+    maps = {k: {int(t): int(v) for t, v in d[k].items()}
+            for k in ("last_touch", "touches", "resident")}
+    return {"scorer": str(d["scorer"]), **ints, **maps,
+            "free": [int(s) for s in d["free"]]}
 
 
 def lms_state(theta, step, *, device="cuda") -> LMSState:

@@ -61,6 +61,9 @@ from repro_torch.core.bank import (
     krls_bank_init,
     krls_bank_step,
     krls_bank_run,
+    mixed_klms_bank_run,
+    mixed_krls_bank_run,
+    stack_feature_maps,
 )
 from repro_torch.core import theory, adaptive
 
@@ -81,6 +84,9 @@ __all__ = [
     "krls_bank_init",
     "krls_bank_step",
     "krls_bank_run",
+    "mixed_klms_bank_run",
+    "mixed_krls_bank_run",
+    "stack_feature_maps",
     "RFF",
     "sample_rff",
     "rff_features",

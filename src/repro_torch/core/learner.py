@@ -50,7 +50,7 @@ from repro_torch.core.scan import (
 )
 from repro_torch.features.base import (
     FeatureLike,
-    as_trig,
+    feature_device,
     feature_dtype,
     featurize,
 )
@@ -177,7 +177,8 @@ def klms_learner(rff: FeatureLike, mu: float) -> OnlineLearner:
 
     return OnlineLearner(
         init_fn=lambda key=None: rff_klms_init(
-            rff.num_features, feature_dtype(rff), device=_device(rff)),
+            rff.num_features, feature_dtype(rff),
+            device=feature_device(rff)),
         step_fn=step,
         predict_fn=_theta_predict(rff),
         scan_element=klms_scan_element(mu),
@@ -198,7 +199,8 @@ def nklms_learner(rff: FeatureLike, mu: float,
 
     return OnlineLearner(
         init_fn=lambda key=None: rff_klms_init(
-            rff.num_features, feature_dtype(rff), device=_device(rff)),
+            rff.num_features, feature_dtype(rff),
+            device=feature_device(rff)),
         step_fn=step,
         predict_fn=_theta_predict(rff),
         scan_element=nklms_scan_element(mu, eps),
@@ -220,7 +222,8 @@ def krls_learner(rff: FeatureLike, lam: float = 1e-4,
 
     return OnlineLearner(
         init_fn=lambda key=None: rff_krls_init(
-            rff.num_features, lam, feature_dtype(rff), device=_device(rff)),
+            rff.num_features, lam, feature_dtype(rff),
+            device=feature_device(rff)),
         step_fn=step,
         predict_fn=_theta_predict(rff),
         scan_element=krls_scan_element(beta),
@@ -253,7 +256,3 @@ def ald_krls_learner(input_dim: int, sigma: float, nu: float = 5e-4,
         step_fn=lambda s, x, y: ald_krls_step(s, (x, y), sigma, nu),
         predict_fn=lambda s, x: ald_krls_predict(s, x, sigma),
     )
-
-
-def _device(rff: FeatureLike) -> torch.device:
-    return as_trig(rff).omega.device

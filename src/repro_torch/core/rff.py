@@ -29,6 +29,7 @@ __all__ = [
     "RFF",
     "sample_rff",
     "rff_features",
+    "rff_features_unscaled",
     "kernel_estimate",
     "gaussian_kernel",
     "sample_prf",
@@ -88,6 +89,14 @@ def rff_features(rff: RFF, x: torch.Tensor) -> torch.Tensor:
     """``z(x) = sqrt(2/D) cos(x @ omega + b)`` — paper eq. (3)."""
     proj = x @ rff.omega + rff.bias
     return mc_scale(rff.num_features) * torch.cos(proj)
+
+
+def rff_features_unscaled(rff: RFF, x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(2) cos(x @ omega + b)`` — the per-feature form of Theorem 1
+    (``sqrt(2)`` rounded once to the working dtype, as ``repro``'s)."""
+    proj = x @ rff.omega + rff.bias
+    root2 = torch.tensor(math.sqrt(2.0), dtype=proj.dtype, device=proj.device)
+    return root2 * torch.cos(proj)
 
 
 def kernel_estimate(rff: RFF, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

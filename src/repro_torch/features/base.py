@@ -6,9 +6,10 @@ Counterpart of ``repro/features/base.py``. Every trig family reduces to
 
 held as :class:`TrigFeatures`. A :class:`FeatureMap` wraps a family's
 params with its pure ``featurize`` and ``weights`` functions, as
-``repro``'s does; the Monte-Carlo families (``features/random.py``) return
-one. The family registry and the qmc, gq and taylor families arrive later
-(ROADMAP §1 item 2).
+``repro``'s does: the Monte-Carlo families (``features/random.py``), qmc
+(``features/qmc.py``), gq and taylor (``features/deterministic.py``).
+Taylor has no affine-trig form; :func:`as_trig_or_none` returns None for
+it and every bank tier routes on that.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ __all__ = [
     "num_features",
     "input_dim",
     "feature_dtype",
+    "feature_device",
+    "map_to",
 ]
 
 
@@ -83,8 +86,8 @@ class FeatureMap:
     """A feature family behind one contract: params plus pure featurize.
 
     Attributes:
-      family: registry name (``rff``, ``orf``; ``qmc``, ``gq`` and
-        ``taylor`` are not ported yet).
+      family: registry name (``rff``, ``orf``, ``qmc``, ``gq``,
+        ``taylor``).
       params: the family's parameters — :class:`TrigFeatures` for trig
         families; they expose ``num_features`` / ``input_dim`` / ``dtype``.
       featurize_fn: pure ``(params, x) -> (..., D)``.
@@ -184,7 +187,7 @@ def featurize(fm: FeatureLike, x: torch.Tensor) -> torch.Tensor:
 
 def as_trig_or_none(fm: FeatureLike) -> Optional[TrigFeatures]:
     """Canonical ``(W, b, scale)`` form, or None for a non-trig family
-    (none is ported yet)."""
+    (taylor)."""
     if isinstance(fm, TrigFeatures):
         return fm
     if isinstance(fm, FeatureMap):
@@ -225,3 +228,19 @@ def feature_dtype(fm: FeatureLike) -> torch.dtype:
     if isinstance(fm, FeatureMap):
         return fm.dtype
     return fm.omega.dtype
+
+
+def feature_device(fm: FeatureLike) -> torch.device:
+    """The device a feature map's parameters live on."""
+    if isinstance(fm, FeatureMap):
+        return fm.params.device
+    return fm.omega.device
+
+
+def map_to(fm: FeatureLike, device) -> FeatureLike:
+    """``fm`` with its parameters on ``device``. A :class:`FeatureMap` or
+    :class:`TrigFeatures` keeps its type; an RFF draw becomes its
+    :class:`TrigFeatures` (the form the kernels take, the same numbers)."""
+    if isinstance(fm, (FeatureMap, TrigFeatures)):
+        return fm.to(device)
+    return as_trig(fm).to(device)

@@ -4,8 +4,7 @@ Counterpart of ``repro/features/random.py``. Both sample through
 :func:`repro_torch.core.rff.sample_rff`, canonicalize to
 :class:`~repro_torch.features.base.TrigFeatures` with the uniform
 ``sqrt(2/D)`` scale and return it wrapped as a
-:class:`~repro_torch.features.base.FeatureMap`, as ``repro`` does. The qmc,
-gq and taylor families are ported in a later slice (ROADMAP §1 item 2).
+:class:`~repro_torch.features.base.FeatureMap`, as ``repro`` does.
 """
 from __future__ import annotations
 

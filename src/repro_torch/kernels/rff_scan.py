@@ -33,7 +33,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, rff_features
+from repro_torch.kernels import _build
+from repro_torch.kernels.rff_features import launch as feature_launch
 from repro_torch.kernels.chunking import feature_tile_pack_floats
 from repro_torch.kernels.ref import default_scale
 from repro_torch.kernels.rff_klms_step import _check
@@ -127,7 +128,7 @@ def rff_klms_chunk_elements_cuda(xs, ys, w, b, mu, mask=None, s=None,
     chunk alone or among others, agree bit for bit, and a fully masked
     chunk is ``(I, 0)`` exactly."""
     device, s, stream = _check_blocks(xs, ys, w, b, mask, s)
-    z = rff_features.launch(xs, w, b, s, False, stream)
+    z = feature_launch(xs, w, b, s, False, stream)
     nc, tc, _ = xs.shape
     dfeat = w.shape[-1]
     lib = _lib()
@@ -188,7 +189,7 @@ def rff_krls_chunk_elements_cuda(xs, ys, w, b, beta, mask=None, s=None, *,
     group = _group(per, nc)
     ws = torch.empty(group * per + feature_tile_pack_floats(nc * tc, d, dfeat),
                      dtype=torch.float32, device=device)
-    z = rff_features.launch(xs, w, b, s, False, stream,
+    z = feature_launch(xs, w, b, s, False, stream,
                             ws_ptr=ws.data_ptr() + 4 * group * per)
     code = lib.krls_chunk_elements(
         z.data_ptr(), ys.data_ptr(), None if mask is None else mask.data_ptr(),

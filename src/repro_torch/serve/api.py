@@ -16,9 +16,18 @@ readmits through the KLMS read and replay kernels; ``"qklms"`` and
 queue and snapshot machinery by the generic chunk loop over their batched
 ``OnlineLearner`` step, with dictionary predicts from the frozen replica
 and sequential replays. ``repro`` has no kernel for these two families, so
-their path is plain PyTorch on the card.
+their path is plain PyTorch on the card. Every feature family serves: a
+trig map (rff, orf, qmc, gq) runs the kernels, taylor the generic route
+of the bank tiers.
 
-The knobs of later slices raise ``NotImplementedError`` naming the
+Policy mode (``make_server(policy=...)``, ``serve/policy.py``): tenant ids
+are unbounded and the bank is a cache of hot tenants. A write miss admits
+the tenant (evicting the coldest incumbent, subject to the admission
+floor) and installs it by replaying its log; a rejected arrival is logged,
+not trained; ``Server.resize`` grows and shrinks the bank in powers of
+two, surviving rows moved bit for bit.
+
+The knobs of a later slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -26,12 +35,14 @@ from __future__ import annotations
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.bank import (
     bank_init,
     bank_run,
+    bank_size,
     evict_tenant,
     klms_bank_chunk_step,
     klms_bank_init,
@@ -43,6 +54,7 @@ from repro_torch.core.bank import (
     krls_bank_step,
     per_query,
     rebuild_tenant,
+    resize_bank,
     set_tenant_row,
     tenant_row,
 )
@@ -56,11 +68,12 @@ from repro_torch.core.learner import (
     nklms_learner,
     qklms_learner,
 )
-from repro_torch.features.base import FeatureLike, as_trig
+from repro_torch.features.base import FeatureLike, as_trig_or_none, map_to
 from repro_torch.features.base import input_dim as fm_input_dim
 from repro_torch.serve.metrics import MetricsRegistry
+from repro_torch.serve.policy import SlotPolicy
 from repro_torch.serve.queue import MicroBatchQueue
-from repro_torch.serve.snapshot import SnapshotServer
+from repro_torch.serve.snapshot import ReplayLog, SnapshotServer
 
 __all__ = [
     "LEARNER_FAMILIES",
@@ -80,10 +93,8 @@ LEARNER_FAMILIES = ("klms", "nklms", "qklms", "krls", "ald")
 # map: they ride the fused read path; the rest carry dictionaries.
 _THETA_FAMILIES = frozenset({"klms", "nklms", "krls"})
 
-# Knobs of make_server that belong to later slices, with their items.
+# Knobs of make_server that belong to a later slice, with their items.
 _UNPORTED_KNOBS = {
-    "policy": "ROADMAP §1 item 5 (serve/policy.py)",
-    "auto_resize": "ROADMAP §1 item 5 (serve/policy.py)",
     "trace": "ROADMAP §1 item 9 (obs/trace.py)",
     "probe": "ROADMAP §1 item 9 (obs/probes.py)",
     "recovery": "ROADMAP §1 item 9 (serve/recovery.py)",
@@ -163,30 +174,34 @@ def build_learner(learner: str, feature_map: Optional[FeatureLike] = None,
 
 
 def _fused_map(learner: str, feature_map, input_dim):
-    """The trig map of a fused family (klms, krls), checked as ``repro``
-    checks it; ``input_dim`` follows the width rule."""
+    """The feature map of a fused family (klms, krls), checked as
+    ``repro`` checks it (``input_dim`` follows the width rule): its trig
+    form, taken once, or the map itself for a family without one (taylor,
+    which the bank tiers run on the generic route)."""
     if feature_map is None:
         raise ValueError(f"learner {learner!r} requires feature_map=")
     _resolve_input_dim(learner, feature_map, input_dim)
-    return as_trig(feature_map)
+    tf = as_trig_or_none(feature_map)
+    return feature_map if tf is None else tf
 
 
 def make_tick(learner: str, feature_map: FeatureLike = None, *,
               mode: str = "auto", input_dim: Optional[int] = None,
               device="cuda", **hp) -> Callable:
     """Lockstep tick ``(state, xs (B, d), ys (B,)) -> (state, StepOut)``:
-    klms and krls through their fused step kernels, the other families
+    klms and krls through their fused step kernels (the generic route for
+    taylor), the other families
     through their batched ``OnlineLearner`` step (``device`` places the
     dictionary learners)."""
     _check_learner(learner)
     h = _resolve_hp(hp)
     if learner in ("klms", "krls"):
-        tf = _fused_map(learner, feature_map, input_dim)
+        fm = _fused_map(learner, feature_map, input_dim)
         bank_step = krls_bank_step if learner == "krls" else klms_bank_step
         rate = h["beta"] if learner == "krls" else h["mu"]
 
         def tick(state, xs, ys):
-            return bank_step(state, xs, ys, tf, rate, mode=mode)
+            return bank_step(state, xs, ys, fm, rate, mode=mode)
 
         return tick
     lrn = build_learner(learner, feature_map, input_dim, device, **hp)
@@ -225,17 +240,18 @@ def make_chunk_step(learner: str, feature_map: FeatureLike = None, *,
                     device="cuda", **hp) -> Callable:
     """Chunked step ``(state, xs (B, T, d), ys (B, T), mask (B, T)) ->
     (state, StepOut)`` (the queue's step): one chunk-kernel launch for klms
-    and krls, the generic masked loop for the other families."""
+    and krls (the generic route for taylor), the generic masked loop for
+    the other families."""
     _check_learner(learner)
     h = _resolve_hp(hp)
     if learner in ("klms", "krls"):
-        tf = _fused_map(learner, feature_map, input_dim)
+        fm = _fused_map(learner, feature_map, input_dim)
         chunk_step = (krls_bank_chunk_step if learner == "krls"
                       else klms_bank_chunk_step)
         rate = h["beta"] if learner == "krls" else h["mu"]
 
         def step(state, xs, ys, mask):
-            return chunk_step(state, xs, ys, tf, rate, mask, mode=mode)
+            return chunk_step(state, xs, ys, fm, rate, mask, mode=mode)
 
         return step
     return _generic_chunk_server(
@@ -296,7 +312,7 @@ def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
     h = _resolve_hp(hp)
     dev = resolve_device(device)
     d = _resolve_input_dim(learner, feature_map, input_dim)
-    fm = as_trig(feature_map).to(dev) if feature_map is not None else None
+    fm = map_to(feature_map, dev) if feature_map is not None else None
     if state is None:
         if learner in ("klms", "nklms"):
             state = klms_bank_init(_fused_map(learner, fm, input_dim), bank)
@@ -314,14 +330,27 @@ def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
 
 
 class Server:
-    """One serving object per bank: write path, read path and metrics.
+    """One serving object per bank: write path, read path, lifecycle,
+    policy and metrics.
 
-    Built by :func:`make_server`. ``tenant`` arguments are bank-slot
-    indices in ``[0, slots)``. Metrics (``self.metrics``): counters
-    ``requests.write`` / ``requests.read``, gauge ``queue.backlog``,
-    histograms ``latency.write_us`` / ``latency.read_us`` (host clock),
-    lifecycle counters ``evictions`` / ``readmissions`` / ``resets``.
-    The RFF families read through the fused predict kernel; the
+    Built by :func:`make_server`. Without a policy, ``tenant`` arguments
+    are bank-slot indices in ``[0, slots)``. With one (``policy=``),
+    ``tenant`` is any int id and the bank is a cache of hot tenants: a
+    write miss admits the tenant (evicting the coldest incumbent, subject
+    to the admission floor) and installs it by replaying its log from
+    ``self.log`` (keyed by tenant id); a rejected arrival is logged, not
+    trained; a read of a non-resident tenant is answered cold (the fresh
+    row's zeros) and admits nobody; :meth:`resize` grows or shrinks the
+    bank in powers of two, moving surviving rows bit for bit.
+
+    Metrics (``self.metrics``): counters ``requests.write`` /
+    ``requests.read``, lifecycle counters ``evictions`` / ``readmissions``
+    / ``resets``, with a policy ``bank.hits`` / ``bank.misses`` /
+    ``admission.rejects`` / ``read.cold`` / ``resizes``; gauge
+    ``queue.backlog``; histograms ``latency.write_us`` /
+    ``latency.read_us`` (host clock, around the whole call: flushes and
+    installs land in the write tail). The RFF families read through the
+    fused predict kernel (a trig map) or ``featurize`` (taylor); the
     dictionary learners through their ``predict_fn`` on the frozen
     replica.
     """
@@ -329,16 +358,32 @@ class Server:
     def __init__(self, inner: SnapshotServer, *, learner: str,
                  feature_map: Optional[FeatureLike], hp: dict,
                  lrn: Optional[OnlineLearner] = None,
+                 policy: Optional[SlotPolicy] = None,
                  metrics: Optional[MetricsRegistry] = None,
+                 log_capacity: Optional[int] = None,
+                 auto_resize: bool = False,
                  latency_clock: Callable[[], float] = time.perf_counter):
         self._inner = inner
         self.learner = learner
         self.feature_map = feature_map
         self._hp = hp
         self._lrn = lrn
+        self.policy = policy
+        self.auto_resize = auto_resize
         self._theta_family = learner in _THETA_FAMILIES
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._lat = latency_clock
+        if policy is not None:
+            # Tenant ids are unbounded: the log is keyed by id (the inner,
+            # slot-keyed one is off).
+            self.log = ReplayLog(capacity=log_capacity or 256,
+                                 dtype=inner.queue._dtype)
+            if policy.cost_fn is None:
+                policy.cost_fn = self._rebuild_cost
+        else:
+            self.log = inner.log
+        # A row captured before any training: the pad row of bank growth.
+        self._fresh_row = tenant_row(inner.queue.state, 0)
 
     @property
     def queue(self) -> MicroBatchQueue:
@@ -360,17 +405,78 @@ class Server:
     def snapshot_server(self) -> SnapshotServer:
         return self._inner
 
+    @property
+    def resident(self) -> dict:
+        """tenant -> slot map (the identity without a policy)."""
+        if self.policy is None:
+            return {t: t for t in range(self.slots)}
+        return self.policy.resident
+
+    def hit_rate(self) -> float:
+        """Resident-lookup hit fraction over all reads and writes so far."""
+        hits = self.metrics.count("bank.hits")
+        misses = self.metrics.count("bank.misses")
+        return hits / (hits + misses) if hits + misses else 1.0
+
+    # -- write path --------------------------------------------------------
+
     def submit(self, tenant: int, x, y) -> None:
-        """Enqueue one observation for ``tenant`` (a watermark may flush)."""
+        """Enqueue one observation for ``tenant`` (a watermark may flush;
+        with a policy, admitting, evicting or rejecting first)."""
         t0 = self._lat()
         self.metrics.counter("requests.write").inc()
-        self._inner.submit(tenant, x, y)
+        if self.policy is None:
+            self._inner.submit(tenant, x, y)
+        else:
+            self._policy_submit(tenant, x, y)
         self.metrics.set_gauge(
             "queue.backlog", float(sum(self._inner.queue.backlog()))
         )
         self.metrics.histogram("latency.write_us").observe(
             (self._lat() - t0) * 1e6
         )
+        if self.policy is not None and self.auto_resize:
+            target = self.policy.suggest_size()
+            if target != self.slots:
+                self.resize(target)
+
+    def _policy_submit(self, tenant: int, x, y) -> None:
+        x = self._inner.queue.check_x(x)
+        pol = self.policy
+        pol.touch(tenant)
+        slot = pol.lookup(tenant)
+        if slot is not None:
+            self.metrics.counter("bank.hits").inc()
+        else:
+            self.metrics.counter("bank.misses").inc()
+            decision = pol.admit(tenant)
+            if decision.action == "reject":
+                # Logged, not trained: the history stays whole for a later
+                # admission, and the bank spends nothing on the tenant.
+                self.metrics.counter("admission.rejects").inc()
+                self.log.append(tenant, x, y)
+                return
+            if decision.action == "evict":
+                self.metrics.counter("evictions").inc()
+                self._inner.release_slot(decision.slot)
+            slot = decision.slot
+            self._install(tenant, slot)
+        self.log.append(tenant, x, y)
+        self._inner.submit(slot, x, y)
+
+    def _install(self, tenant: int, slot: int) -> int:
+        """Rebuild ``tenant``'s state from its log into ``slot`` (with the
+        server's ``rebuild_mode``) and publish; an empty log leaves the
+        fresh row. Returns the ticks replayed."""
+        n = self.log.size(tenant)
+        if n:
+            xs, ys = self.log.arrays(tenant)
+            inner = self._inner
+            inner.queue.state = inner._rebuild_fn(inner.queue.state, slot,
+                                                  xs, ys)
+            self.metrics.counter("readmissions").inc()
+            inner.publish()
+        return n
 
     def flush(self) -> dict:
         return self._inner.flush()
@@ -381,31 +487,51 @@ class Server:
     def drain(self) -> dict:
         return self._inner.drain()
 
-    def _slot_predict(self, tenant: int, xs) -> torch.Tensor:
+    # -- read path ---------------------------------------------------------
+
+    def _slot_predict(self, slot: int, xs) -> torch.Tensor:
         if self._theta_family:
-            return self._inner.predict(tenant, xs)
+            return self._inner.predict(slot, xs)
         xq = self._inner._queries(xs)
         single = xq.ndim == 1
         if single:
             xq = xq[None]
-        row = tenant_row(self._inner.snapshot.state, tenant)
+        row = tenant_row(self._inner.snapshot.state, slot)
         pred = self._lrn.predict_fn(row, xq)
         return pred[0] if single else pred
 
     def predict(self, tenant: int, xs) -> torch.Tensor:
         """Serve queries for one tenant from the frozen read replica:
-        ``xs (d,)`` -> scalar, ``(Q, d)`` -> ``(Q,)``."""
+        ``xs (d,)`` -> scalar, ``(Q, d)`` -> ``(Q,)``. With a policy, a
+        tenant that is not resident gets the cold prediction (zeros) and
+        is not admitted, so a read costs the same whatever the log."""
         t0 = self._lat()
         self.metrics.counter("requests.read").inc()
-        pred = self._slot_predict(tenant, xs)
+        if self.policy is None:
+            pred = self._slot_predict(tenant, xs)
+        else:
+            self.policy.touch(tenant)
+            slot = self.policy.lookup(tenant)
+            if slot is None:
+                self.metrics.counter("bank.misses").inc()
+                self.metrics.counter("read.cold").inc()
+                xq = np.asarray(xs)
+                shape = () if xq.ndim == 1 else (xq.shape[0],)
+                lead = self._inner.queue.state[0]
+                pred = torch.zeros(shape, dtype=lead.dtype,
+                                   device=lead.device)
+            else:
+                self.metrics.counter("bank.hits").inc()
+                pred = self._slot_predict(slot, xs)
         self.metrics.histogram("latency.read_us").observe(
             (self._lat() - t0) * 1e6
         )
         return pred
 
     def predict_block(self, xq) -> torch.Tensor:
-        """Serve a ``(B, Q, d)`` query block over the whole bank from the
-        frozen replica -> ``(B, Q)`` (one launch for the RFF families)."""
+        """Serve a ``(B, Q, d)`` query block over the whole bank (slot
+        space) from the frozen replica -> ``(B, Q)`` (one launch for the
+        RFF families with a trig map)."""
         t0 = self._lat()
         self.metrics.counter("requests.read").inc()
         if self._theta_family:
@@ -418,30 +544,158 @@ class Server:
         )
         return pred
 
+    # -- lifecycle ---------------------------------------------------------
+
     @property
     def evicted(self) -> frozenset[int]:
-        """Tenants whose slots are released."""
+        """Slots released without a policy (the policy tier's evicted
+        tenants are those not in :attr:`resident`)."""
         return self._inner.evicted
 
     def evict(self, tenant: int) -> int:
-        """Release ``tenant``'s slot (a fresh row is parked there; its later
-        arrivals are only logged). Returns the dropped pending count."""
+        """Release ``tenant``'s slot (a fresh row is parked there). Without
+        a policy its later arrivals are only logged; with one the slot is
+        free for the next admission. Returns the dropped pending count."""
+        if self.policy is None:
+            dropped = self._inner.evict(tenant)
+        else:
+            slot = self.policy.release(tenant)
+            if slot is None:
+                return 0
+            dropped = self._inner.release_slot(slot)
         self.metrics.counter("evictions").inc()
-        return self._inner.evict(tenant)
+        return dropped
 
     def readmit(self, tenant: int) -> int:
         """Re-admit ``tenant``, rebuilding its slot from the replay log with
         the server's ``rebuild_mode`` (the dictionary learners replay
-        sequentially). Returns the ticks replayed."""
-        n = self._inner.readmit(tenant)
-        self.metrics.counter("readmissions").inc()
-        return n
+        sequentially). With a policy this bypasses the admission floor (an
+        operator's decision), evicting the coldest incumbent of a full
+        bank. Returns the ticks replayed."""
+        if self.policy is None:
+            n = self._inner.readmit(tenant)
+            self.metrics.counter("readmissions").inc()
+            return n
+        pol = self.policy
+        if pol.lookup(tenant) is not None:
+            return 0
+        pol.touch(tenant)
+        decision = pol.admit(tenant, force=True)
+        if decision.action == "evict":
+            self.metrics.counter("evictions").inc()
+            self._inner.release_slot(decision.slot)
+        return self._install(tenant, decision.slot)
 
     def reset_tenant(self, tenant: int) -> int:
-        """Reset one tenant to a fresh row and forget its replay history.
-        Returns the dropped pending count."""
+        """Reset one tenant to a fresh row and forget its replay history
+        (with a policy, a resident tenant keeps its slot). Returns the
+        dropped pending count."""
         self.metrics.counter("resets").inc()
-        return self._inner.reset_tenant(tenant)
+        if self.policy is None:
+            return self._inner.reset_tenant(tenant)
+        self.log.clear(tenant)
+        slot = self.policy.lookup(tenant)
+        if slot is None:
+            return 0
+        inner = self._inner
+        dropped = inner.queue.drop_pending(slot)
+        inner._arrival_times[slot].clear()
+        inner.queue.state = inner._evict_fn(inner.queue.state, slot)
+        inner.publish()
+        return dropped
+
+    def reset(self, state=None) -> None:
+        """Restart on a fresh bank state (every slot the fresh row by
+        default): queue, replica, logs, residency and the policy's clocks
+        drop to zero. Drain pending observations first."""
+        if state is None:
+            state = type(self._fresh_row)(*(
+                r.expand(self.slots, *r.shape).clone()
+                for r in self._fresh_row))
+        self._inner.reset(state)
+        if self.policy is not None:
+            self.log.clear()
+            pol = self.policy
+            pol.clock = 0
+            pol.last_touch.clear()
+            pol.touches.clear()
+            pol._resident.clear()
+            pol.set_slots(bank_size(state))
+
+    # -- capacity ----------------------------------------------------------
+
+    def resize(self, new_slots: int) -> None:
+        """Grow or shrink the bank to ``new_slots`` (a power of two).
+
+        Growth appends fresh rows; resident rows are untouched. Shrinking
+        first evicts the coldest residents until the rest fit, then moves
+        each resident above ``new_slots`` into a free slot below it (one
+        indexed copy of every state leaf, bit for bit) and slices the bank.
+        """
+        if self.policy is None:
+            raise ValueError("resize requires a policy tier")
+        if new_slots < 1 or (new_slots & (new_slots - 1)):
+            raise ValueError(
+                f"new_slots must be a power of two, got {new_slots}")
+        if new_slots == self.slots:
+            return
+        self.metrics.counter("resizes").inc()
+        pol, inner = self.policy, self._inner
+        if new_slots < self.slots:
+            while pol.occupancy > new_slots:
+                self.evict(pol.victim())
+            used = set(pol.resident.values())
+            free_low = [s for s in range(new_slots) if s not in used]
+            moves = [(tenant, slot, free_low.pop(0)) for tenant, slot in
+                     sorted(pol.resident.items(), key=lambda kv: kv[1])
+                     if slot >= new_slots]
+            if moves:
+                dev = inner.queue.device
+                src = torch.tensor([m[1] for m in moves], device=dev)
+                dst = torch.tensor([m[2] for m in moves], device=dev)
+                leaves = [a.clone() for a in inner.queue.state]
+                for a in leaves:
+                    a[dst] = a[src]
+                inner.queue.state = type(inner.queue.state)(*leaves)
+            for tenant, slot, dst_slot in moves:
+                inner.move_slot(slot, dst_slot)
+                pol.move(tenant, dst_slot)
+        inner.adopt_resized(resize_bank(inner.queue.state, new_slots,
+                                        fresh_row=self._fresh_row))
+        pol.set_slots(new_slots)
+
+    def _rebuild_cost(self, tenant: int) -> float:
+        """Rebuild-cost estimate for the ``cost`` scorer (``repro``'s):
+        log length times the family's cost a tick, plus KRLS's one (D, D)
+        solve; the dictionary learners replay over their capacity-M
+        buffers (QKLMS O(M) a tick, ALD O(M^2))."""
+        n = max(1, self.log.size(tenant))
+        if self._theta_family:
+            dfeat = self.feature_map.num_features
+            if self.learner == "krls":
+                return float(n) * dfeat * dfeat + float(dfeat) ** 3
+            return float(n) * dfeat
+        cap = self._hp["capacity"]
+        if self.learner == "ald":
+            return float(n) * cap * cap
+        return float(n) * cap
+
+
+def _resolve_policy(policy, bank: int) -> Optional[SlotPolicy]:
+    if policy is None:
+        return None
+    if isinstance(policy, SlotPolicy):
+        if policy.slots != bank:
+            raise ValueError(
+                f"policy manages {policy.slots} slots but bank={bank}"
+            )
+        return policy
+    if isinstance(policy, str):
+        return SlotPolicy(bank, scorer=policy)
+    if isinstance(policy, dict):
+        return SlotPolicy(bank, **policy)
+    raise TypeError(
+        f"policy must be None, str, dict or SlotPolicy; got {policy!r}")
 
 
 def make_server(
@@ -463,6 +717,8 @@ def make_server(
     device="cuda",
     log_capacity: Optional[int] = None,
     rebuild_mode: str = "scan",
+    policy=None,
+    auto_resize: bool = False,
     **kw,
 ) -> Server:
     """The serving facade: one :class:`Server` for any learner family.
@@ -470,9 +726,10 @@ def make_server(
     Args:
       learner: ``"klms"``, ``"nklms"``, ``"qklms"``, ``"krls"`` or
         ``"ald"``.
-      feature_map: a trig feature map, :class:`FeatureMap` or
-        :class:`TrigFeatures` (moved to ``device``); the RFF families need
-        one, the dictionary learners take ``input_dim=`` alone.
+      feature_map: any feature family (:class:`FeatureMap`,
+        :class:`TrigFeatures` or an RFF draw; moved to ``device``): a trig
+        map runs the kernels, taylor the generic route. The RFF families
+        need one, the dictionary learners take ``input_dim=`` alone.
       input_dim: ``repro``'s input width; a feature map's width wins and
         ``input_dim`` is then ignored.
       bank: number of bank slots B.
@@ -485,16 +742,22 @@ def make_server(
       state: initial bank state (fresh by default).
       device: where the state and the map live; ``"cuda"`` by default,
         which raises when there is no CUDA device.
-      log_capacity: per-tenant replay-log ring size (serve/snapshot.py);
-        None keeps no log, and a readmitted tenant restarts cold.
+      log_capacity: per-tenant replay-log ring size (serve/snapshot.py).
+        With a policy it defaults to 256; without one, None keeps no log,
+        and a readmitted tenant restarts cold.
       rebuild_mode: replay schedule of ``readmit`` (core/scan.py):
         ``"scan"``, ``"blocked"`` or ``"sequential"`` (bit for bit the
         training path); its kernels follow ``mode``. The dictionary
-        learners always replay sequentially.
+        learners always replay sequentially. Policy installs take it too.
+      policy: None (tenant == slot), a scorer name (``"lru"``, ``"lfu"``,
+        ``"cost"``), a :class:`SlotPolicy` kwargs dict, or an instance
+        managing ``bank`` slots.
+      auto_resize: after each submit, apply the policy's power-of-two
+        ``suggest_size``.
       **kw: family hyperparameters, ``repro``'s table: ``mu``, ``eps``,
         ``lam``, ``beta``, ``sigma``, ``quant_eps``, ``nu``, ``capacity``.
-        The knobs of later slices (``policy``, ``trace``, ``probe``,
-        ``recovery``, ``wal``, ...) raise ``NotImplementedError``.
+        The knobs of a later slice (``trace``, ``probe``, ``recovery``,
+        ``wal``) raise ``NotImplementedError``.
     """
     _check_learner(learner)
     for knob in _UNPORTED_KNOBS:
@@ -510,7 +773,7 @@ def make_server(
             f"unknown rebuild_mode {rebuild_mode!r}; pick from {_REBUILD_MODES}"
         )
     dev = resolve_device(device)
-    fm = as_trig(feature_map).to(dev) if feature_map is not None else None
+    fm = map_to(feature_map, dev) if feature_map is not None else None
     lrn = build_learner(learner, fm, input_dim, dev, **kw)
     queue = make_queue(learner, fm, bank, chunk=chunk, mode=mode,
                        adaptive=adaptive, state=state, input_dim=input_dim,
@@ -540,11 +803,13 @@ def make_server(
             return set_tenant_row(bank_state, slot,
                                   type(fresh)(*map(torch.zeros_like, fresh)))
 
+    pol = _resolve_policy(policy, bank)
     inner = SnapshotServer(
         queue, fm, publish_every, mode=mode, precision=precision,
         age_watermark=age_watermark, size_watermark=size_watermark,
-        clock=clock, log_capacity=log_capacity, evict_fn=evict_fn,
-        rebuild_fn=rebuild_fn,
+        clock=clock, log_capacity=None if pol is not None else log_capacity,
+        evict_fn=evict_fn, rebuild_fn=rebuild_fn,
     )
     return Server(inner, learner=learner, feature_map=fm, hp=h, lrn=lrn,
-                  metrics=metrics)
+                  policy=pol, metrics=metrics, log_capacity=log_capacity,
+                  auto_resize=auto_resize)

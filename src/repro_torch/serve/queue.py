@@ -78,6 +78,10 @@ class MicroBatchQueue:
         or an ``x`` of the wrong shape."""
         if not 0 <= tenant < self.num_tenants:
             raise IndexError(f"tenant {tenant} outside [0, {self.num_tenants})")
+        return self.check_x(x)
+
+    def check_x(self, x) -> np.ndarray:
+        """``x`` as this queue's dtype; raises for a wrong shape."""
         x = np.asarray(x, self._dtype)
         if x.shape != (self.input_dim,):
             raise ValueError(f"x has shape {x.shape}, expected ({self.input_dim},)")
@@ -106,6 +110,40 @@ class MicroBatchQueue:
         self._pending[tenant].clear()
         self._first_pending_at[tenant] = None
         return dropped
+
+    def move_slot(self, src: int, dst: int) -> None:
+        """Move one slot's pending backlog and arrival counter to another
+        slot (bank compaction; the state row moves through
+        ``tenant_row`` / ``set_tenant_row``). ``src`` is left empty."""
+        if src == dst:
+            return
+        self._pending[dst] = self._pending[src]
+        self._pending[src] = deque()
+        self._first_pending_at[dst] = self._first_pending_at[src]
+        self._first_pending_at[src] = None
+        self.arrivals[dst] = self.arrivals[src]
+        self.arrivals[src] = 0
+
+    def adopt(self, state) -> None:
+        """Adopt a resized bank state (``core.bank.resize_bank``): B follows
+        the state and the per-slot buffers grow or shrink with it. Slots cut
+        off must have empty backlogs: compact first."""
+        new_b = int(state[0].shape[0])
+        if any(len(q) for q in self._pending[new_b:]):
+            raise RuntimeError(
+                "resize would drop pending observations; compact or drain"
+            )
+        self.state = state
+        if new_b >= self.num_tenants:
+            grow = new_b - self.num_tenants
+            self._pending.extend(deque() for _ in range(grow))
+            self._first_pending_at.extend([None] * grow)
+            self.arrivals.extend([0] * grow)
+        else:
+            self._pending = self._pending[:new_b]
+            self._first_pending_at = self._first_pending_at[:new_b]
+            self.arrivals = self.arrivals[:new_b]
+        self.num_tenants = new_b
 
     def replace_tenant(self, tenant: int, row) -> None:
         """Overwrite one tenant's slot of the live state with a

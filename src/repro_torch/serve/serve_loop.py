@@ -59,7 +59,8 @@ def generate(params: dict, cfg: ModelConfig, prompt: torch.Tensor, *,
              steps: int = 32, max_len: int = 1024, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              kernel_mode: str = "auto") -> torch.Tensor:
-    """Generate ``steps`` tokens after ``prompt`` (B, P) -> (B, steps).
+    """Generate ``steps`` tokens after ``prompt`` (B, P) -> (B, steps)
+    int32 tokens, as ``repro`` returns them.
 
     Greedy at ``temperature <= 0``; else each token is drawn from
     ``softmax(logits / temperature)`` with ``generator`` (on the logits'
@@ -72,7 +73,8 @@ def generate(params: dict, cfg: ModelConfig, prompt: torch.Tensor, *,
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
-    return _decode(params, cfg, prompt, steps, max_len, kernel_mode, pick)[0]
+    toks = _decode(params, cfg, prompt, steps, max_len, kernel_mode, pick)[0]
+    return toks.to(torch.int32)
 
 
 def path_logits(params: dict, cfg: ModelConfig, prompt: torch.Tensor,

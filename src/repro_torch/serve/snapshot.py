@@ -20,7 +20,9 @@ to a per-tenant :class:`ReplayLog` ring, so ``evict(tenant)`` releases the
 slot as one row write (``core.bank.evict_tenant``) and ``readmit(tenant)``
 rebuilds it by replaying the log (``core.bank.rebuild_tenant`` over
 ``core/scan.py``). While evicted, a tenant's arrivals are logged but not
-trained; readmission folds them in.
+trained; readmission folds them in. The policy tier (``serve/api.py``)
+keeps its own log keyed by tenant id and drives the slots through
+``release_slot``, ``move_slot``, ``adopt_resized`` and ``reset``.
 """
 from __future__ import annotations
 
@@ -45,10 +47,14 @@ class ReplayLog:
     outgrows ``capacity`` loses its oldest ticks, and a rebuild from the
     log then gives the *windowed* state (fresh init + the last
     ``capacity`` ticks); :meth:`complete` says which contract holds. Keys
-    are slot indices, created on first append.
+    are ints created on first append: slot indices on the snapshot tier,
+    unbounded tenant ids on the policy tier. ``num_tenants`` is accepted
+    for ``repro``'s signature and sizes nothing.
     """
 
-    def __init__(self, capacity: int = 256, dtype=np.float32):
+    def __init__(self, num_tenants: int = 0, capacity: int = 256,
+                 dtype=np.float32):
+        del num_tenants
         if capacity < 1:
             raise ValueError("log capacity must be >= 1")
         self.capacity = capacity
@@ -64,6 +70,10 @@ class ReplayLog:
             buf = self._buf[tenant] = deque(maxlen=self.capacity)
         self._appended[tenant] = self._appended.get(tenant, 0) + 1
         buf.append((np.asarray(x, self._dtype), self._dtype.type(y)))
+
+    def tenants(self) -> list[int]:
+        """Keys with any recorded history."""
+        return list(self._buf)
 
     def size(self, tenant: int) -> int:
         """Entries held for ``tenant`` (at most ``capacity``)."""
@@ -89,6 +99,16 @@ class ReplayLog:
         xs = np.stack([x for x, _ in buf])
         ys = np.asarray([y for _, y in buf], self._dtype)
         return xs, ys
+
+    def move(self, src: int, dst: int) -> None:
+        """Re-key one history (bank compaction): ``dst`` takes over
+        ``src``'s buffer and overflow counter; with none at ``src``,
+        ``dst`` is cleared."""
+        self.clear(dst)
+        buf = self._buf.pop(src, None)
+        if buf is not None:
+            self._buf[dst] = buf
+            self._appended[dst] = self._appended.pop(src)
 
     def clear(self, tenant: Optional[int] = None) -> None:
         """Forget one tenant's history, overflow counter included (so it
@@ -162,7 +182,7 @@ class SnapshotServer:
         self._clock = clock
         self._arrival_times = [deque() for _ in range(queue.num_tenants)]
         self._snapshot = StateSnapshot(state=queue.state, version=0, tick=0)
-        self.log = (ReplayLog(log_capacity, queue._dtype)
+        self.log = (ReplayLog(capacity=log_capacity, dtype=queue._dtype)
                     if log_capacity is not None else None)
         self._evict_fn = evict_fn if evict_fn is not None else evict_tenant
         self._rebuild_fn = rebuild_fn
@@ -326,6 +346,70 @@ class SnapshotServer:
         self._evicted.discard(tenant)
         self.publish()
         return dropped
+
+    def release_slot(self, slot: int) -> int:
+        """Release one slot without entering the evicted set (the policy
+        tier's eviction): drop its pending observations and arrival times,
+        park a fresh row and publish. Later submits to the slot train (the
+        policy hands it to another tenant at once, whose history lives in
+        the policy tier's log). Returns the dropped pending count."""
+        dropped = self.queue.drop_pending(slot)
+        self._arrival_times[slot].clear()
+        self.queue.state = self._evict_fn(self.queue.state, slot)
+        self._evicted.discard(slot)
+        self.publish()
+        return dropped
+
+    def move_slot(self, src: int, dst: int) -> None:
+        """Move the slot bookkeeping of ``src`` to ``dst`` (bank compaction;
+        the caller moves the state row): pending backlog, arrival counter
+        and times, evicted membership and slot-keyed log. ``src`` is left
+        empty."""
+        self.queue.move_slot(src, dst)
+        self._arrival_times[dst] = self._arrival_times[src]
+        self._arrival_times[src] = deque()
+        if src in self._evicted:
+            self._evicted.discard(src)
+            self._evicted.add(dst)
+        else:
+            self._evicted.discard(dst)
+        if self.log is not None:
+            self.log.move(src, dst)
+
+    def adopt_resized(self, state) -> None:
+        """Adopt a grown or shrunk bank state (the policy tier's resize):
+        resize the queue's per-slot buffers and the arrival times, drop the
+        bookkeeping of truncated slots (which must be empty: compact
+        first) and publish."""
+        old = self.queue.num_tenants
+        self.queue.adopt(state)
+        new = self.queue.num_tenants
+        if new >= old:
+            self._arrival_times.extend(deque() for _ in range(new - old))
+        else:
+            self._arrival_times = self._arrival_times[:new]
+            self._evicted = {s for s in self._evicted if s < new}
+            if self.log is not None:
+                for t in self.log.tenants():
+                    if t >= new:
+                        self.log.clear(t)
+        self.publish()
+
+    def reset(self, state) -> None:
+        """Restart both buffers on a fresh bank state: the live state and
+        the replica drop to version 0, and the arrival counters, replay
+        logs (overflow flags included) and evicted set are wiped. Raises
+        while observations are pending: drain first."""
+        if any(self.queue.backlog()):
+            raise RuntimeError("reset with pending observations; drain first")
+        self.queue.state = state
+        self.queue.ticks_served = 0
+        self.queue.arrivals = [0] * self.queue.num_tenants
+        self._arrival_times = [deque() for _ in range(self.queue.num_tenants)]
+        self._snapshot = StateSnapshot(state=state, version=0, tick=0)
+        if self.log is not None:
+            self.log.clear()
+        self._evicted.clear()
 
     def publish(self) -> StateSnapshot:
         """Swap the read replica to the live state (one reference

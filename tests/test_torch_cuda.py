@@ -1051,9 +1051,9 @@ def test_linear_attention_column_tiles_and_reruns_agree(
 def test_linear_attention_workspace_matches_c_layout(cuda_device):
     """The wrapper's workspace plan is the kernels' own size."""
     from repro_torch.kernels import chunking
-    from repro_torch.kernels import rff_attention as ra
+    from repro_torch.kernels.rff_attention import smem_bytes
 
-    sizes = ra.smem_bytes()
+    sizes = smem_bytes()
     assert sizes["workspace_lm"] == chunking.linear_attention_plan(
         56, 2048, 256, 64).workspace_bytes
     assert sizes["workspace_ragged"] == chunking.linear_attention_plan(
@@ -1128,9 +1128,9 @@ def test_flash_routes_count_their_launches(cuda_device):
 @pytest.mark.cuda
 def test_attention_kernels_smem_and_refusals(cuda_device):
     from repro_torch.kernels import chunking
-    from repro_torch.kernels import rff_attention as ra
+    from repro_torch.kernels.rff_attention import smem_bytes
 
-    sizes = ra.smem_bytes()
+    sizes = smem_bytes()
     assert sizes["decode_64"] == chunking.decode_smem_bytes(256, 64, 64)
     assert sizes["decode_128"] == chunking.decode_smem_bytes(256, 128, 128)
     assert sizes["linear_256"] == chunking.linear_attention_smem_bytes(256)
@@ -1271,3 +1271,75 @@ def test_paper_realizations_on_card(cuda_device, family):
         _, exact = run(rff64, xs.double(), ys.double(), mode="ref")
         eps = paper._max_rel(want.double(), exact)
         assert paper._max_rel(got.double(), exact) <= 2.0 * eps + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,d,dfeat", [("qmc", 128, 2048),
+                                            ("gq", 5, 300), ("qmc", 5, 300)])
+def test_deterministic_families_through_the_kernels(cuda_device, family, d,
+                                                    dfeat):
+    """qmc and gq maps (gq's scales are not uniform) through the KLMS chunk
+    (kernel 1), the read (kernel 3) and the KRLS chunk (kernel 4) against
+    their plain versions; the map built on the card is the CPU's bit for
+    bit."""
+    from repro_torch.features import make_feature_map
+
+    sigma = float(np.sqrt(d))
+    fm = make_feature_map(family, d, dfeat, sigma, device=cuda_device)
+    host = make_feature_map(family, d, dfeat, sigma, device="cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(fm.trig, host.trig))
+    tf = fm.trig
+    a = _krls_inputs(cuda_device, 16, 6, d, dfeat, seed=3)
+    args = (a["theta"], a["xs"], a["ys"], tf.omega, tf.bias, a["mu"],
+            a["mask"], tf.scale)
+    for g, w in zip(ops.rff_klms_bank_chunk(*args, mode="cuda"),
+                    ops.rff_klms_bank_chunk(*args, mode="ref")):
+        torch.testing.assert_close(g, w, atol=F32_TOL, rtol=F32_TOL)
+    for precision, tol in ((None, F32_TOL), ("bf16", BF16_TOL)):
+        pargs = (a["theta"], a["xs"], tf.omega, tf.bias, tf.scale)
+        torch.testing.assert_close(
+            ops.rff_bank_predict(*pargs, mode="cuda", precision=precision),
+            ops.rff_bank_predict(*pargs, mode="ref", precision=precision),
+            atol=tol, rtol=tol)
+    if dfeat <= 1024:
+        kargs = (a["theta"], a["pmat"], a["xs"], a["ys"], tf.omega, tf.bias,
+                 a["beta"], a["mask"], tf.scale)
+        _hold_krls(ops.rff_krls_bank_chunk(*kargs, mode="cuda"),
+                   ops.rff_krls_bank_chunk(*kargs, mode="ref"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["lru", "cost"])
+def test_policy_server_kernel_matches_plain(cuda_device, policy):
+    """A small policy server through the kernels (flushes, reads, blocked
+    installs through kernels 6 and 7) against the same server with
+    mode="ref": the same decisions, states within the served-stream
+    bound."""
+    fm = rff_map(torch.Generator().manual_seed(0), 8, 256, 3.0,
+                 device=cuda_device)
+    kw = dict(feature_map=fm, bank=16, chunk=8, policy=policy,
+              log_capacity=64, rebuild_mode="blocked", size_watermark=8,
+              device=cuda_device)
+    srv, ref_srv = make_server("klms", **kw), make_server("klms", mode="ref",
+                                                          **kw)
+    rng = np.random.default_rng(4)
+    probs = np.arange(1, 65, dtype=np.float64) ** -0.9
+    ids = rng.choice(64, size=1200, p=probs / probs.sum())
+    xs = rng.normal(size=(1200, 8)).astype(np.float32)
+    reads = [[], []]
+    for i, tenant in enumerate(ids.tolist()):
+        for out, s in zip(reads, (srv, ref_srv)):
+            if i % 4 == 3:
+                out.append(s.predict(tenant, xs[i]))
+            else:
+                s.submit(tenant, xs[i], float(np.sin(xs[i, 0])))
+    for s in (srv, ref_srv):
+        s.drain()
+    counters = srv.metrics.snapshot()["counters"]
+    assert counters == ref_srv.metrics.snapshot()["counters"]
+    assert counters["readmissions"] > 0 and srv.resident == ref_srv.resident
+    torch.testing.assert_close(torch.stack(reads[0]), torch.stack(reads[1]),
+                               atol=F32_TOL, rtol=F32_TOL)
+    torch.testing.assert_close(srv.queue.state.theta,
+                               ref_srv.queue.state.theta, atol=F32_TOL,
+                               rtol=F32_TOL)

@@ -374,6 +374,23 @@ def test_generate_matches_repro(arch, attn):
             assert int(toks[row, i]) == int(jtoks[row, i]), (row, i)
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_generate_returns_int32_tokens(temperature):
+    """repro's generate returns int32 tokens (serve/serve_loop.py); so does
+    the port's, greedy and sampled."""
+    jcfg, params, cfg, tparams = _model("qwen2-0.5b", "rff")
+    prompt = _tokens(4, cfg.vocab_size, 2, 3)
+    want = jax_generate(params, jcfg, jnp.asarray(prompt), steps=3,
+                        max_len=8, temperature=temperature,
+                        rng=jax.random.PRNGKey(0))
+    toks = generate(tparams, cfg, t(prompt).long(), steps=3, max_len=8,
+                    temperature=temperature,
+                    generator=torch.Generator().manual_seed(0))
+    assert np.asarray(want).dtype == np.int32
+    assert toks.dtype == torch.int32 and toks.shape == (2, 3)
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+
+
 @pytest.mark.parametrize("kind", ["prf", "trig"])
 def test_prefill_then_decode_matches_apply(kind):
     """Prefill 6 tokens as one decode block, decode 4 more one by one: the

@@ -319,7 +319,7 @@ def test_learner_server_lifecycle(learner):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(policy="lru"), dict(trace=True), dict(probe=True),
+    dict(trace=True), dict(probe=True),
     dict(recovery=True), dict(wal="wal.jsonl"),
 ])
 def test_unported_knob_raises(knob):
@@ -486,3 +486,108 @@ def test_feature_map_serves_like_trig_features():
     xq = np.stack([xs[:5]] * B)
     assert torch.equal(a.predict_block(xq), b.predict_block(xq))
     assert torch.equal(a.predict(2, xs[:5]), b.predict(2, xs[:5]))
+
+
+# repro's package-level names the port does not have yet, each with the
+# ROADMAP §1 entry that ports it.
+UNPORTED_NAMES = {
+    "serve": {
+        **dict.fromkeys(("RecoveryPolicy", "DurableLog", "save_checkpoint",
+                         "restore_checkpoint"),
+                        "ROADMAP §1 entry 5 (observability and recovery)"),
+        **dict.fromkeys((
+            "make_bank_server", "serve_bank_stream", "reset_tenants",
+            "make_krls_bank_server", "serve_krls_bank_stream",
+            "reset_krls_tenants", "make_chunked_bank_server",
+            "make_chunked_krls_bank_server", "klms_micro_batch_queue",
+            "krls_micro_batch_queue", "klms_snapshot_server",
+            "krls_snapshot_server"),
+            "ROADMAP §1 entry 8 (the deprecated serve factory names)"),
+    },
+    "core": dict.fromkeys((
+        "KRLS_SHARD_AXIS", "krls_state_specs", "krls_feature_specs",
+        "shard_krls_rff", "sharded_krls_init", "sharded_krls_run",
+        "make_sharded_krls_step", "make_sharded_krls_predict",
+        "sharded_krls_learner", "distributed"),
+        "ROADMAP §1 entry 6 (distribution)"),
+    "features": {},
+    "kernels": {},
+}
+
+
+@pytest.mark.parametrize("package", sorted(UNPORTED_NAMES))
+def test_package_exports_cover_repro(package):
+    """Every name in repro's package __all__ is on the port's package, or
+    in UNPORTED_NAMES with its ROADMAP entry (and then not on the port's
+    package). The kernels' op names shadow their submodules there, as in
+    repro."""
+    import importlib
+
+    jpkg = importlib.import_module(f"repro.{package}")
+    tpkg = importlib.import_module(f"repro_torch.{package}")
+    unported = UNPORTED_NAMES[package]
+    assert set(unported) <= set(jpkg.__all__)
+    missing = [n for n in jpkg.__all__
+               if n not in unported and not hasattr(tpkg, n)]
+    assert not missing, f"repro_torch.{package} lacks {missing}"
+    assert not [n for n in unported if hasattr(tpkg, n)]
+    assert all(n in tpkg.__all__ for n in jpkg.__all__ if n not in unported)
+    if package == "kernels":
+        from repro_torch.kernels import ops
+
+        for name in ("rff_features", "rff_attention", "flash_attention"):
+            assert getattr(tpkg, name) is getattr(ops, name)
+    if package == "serve":
+        from repro_torch.serve import reset_slots  # noqa: F401
+
+
+@pytest.mark.parametrize("learner,family", [
+    *(("klms", f) for f in ("rff", "orf", "qmc", "gq", "taylor")),
+    ("krls", "gq"), ("krls", "taylor"),
+])
+def test_feature_family_server_matches_repro(learner, family):
+    """make_server with every feature family (taylor through the generic
+    route of every tier): flushes, reads, a blocked readmit mid-stream and
+    make_tick, against repro's server on the same map and stream."""
+    from repro import features as JF
+
+    jfm = JF.make_feature_map(family, D_IN, 40, 2.0,
+                              key=jax.random.PRNGKey(0))
+    tfm = convert.feature_map(family, [np.asarray(a) for a in jfm.params],
+                              deterministic=jfm.deterministic, device="cpu")
+    hp = dict(mu=0.5) if learner == "klms" else dict(lam=1e-2, beta=0.999)
+    common = dict(bank=B, chunk=4, log_capacity=64, rebuild_mode="blocked",
+                  **hp)
+    jsrv = japi.make_server(learner, feature_map=jfm, mode="xla", **common)
+    tsrv = api.make_server(learner, feature_map=tfm, device="cpu", **common)
+    tenants, xs, ys = _stream(10, 160)
+    for i in range(160):
+        for srv in (jsrv, tsrv):
+            srv.submit(int(tenants[i]), xs[i], ys[i])
+            if i == 60:
+                srv.evict(0)
+                srv.evict(1)
+            if i == 120:
+                assert srv.readmit(0) > 0 and srv.readmit(1) > 0
+        if i % 40 == 39:
+            _flush_results_close(jsrv.flush(), tsrv.flush())
+    _flush_results_close(jsrv.drain(), tsrv.drain())
+    got, want = tsrv.snapshot.state, jsrv.snapshot.state
+    _close(got.theta, want.theta)
+    if learner == "krls":
+        p, q = convert.to_numpy(got.pmat), np.asarray(want.pmat)
+        assert np.all(np.abs(p - q).max((1, 2))
+                      <= SLICE_TOL * np.abs(q).max((1, 2)))
+    xq = np.random.default_rng(11).normal(size=(B, 5, D_IN)).astype(
+        np.float32)
+    _close(tsrv.predict_block(xq), jsrv.predict_block(xq))
+    _close(tsrv.predict(3, xq[3]), jsrv.predict(3, xq[3]))
+    tick = api.make_tick(learner, tfm, **hp)
+    jtick = japi.make_tick(learner, jfm, mode="xla", **hp)
+    x0, y0 = xq[:, 0], np.ones(B, np.float32)
+    tnext, tout = tick(got, convert.tensor(x0, device="cpu"),
+                       convert.tensor(y0, device="cpu"))
+    jnext, jout = jtick(want, x0, y0)
+    _close(tout.error, jout.error)
+    _close(tnext.theta, jnext.theta)
+
