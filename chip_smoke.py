@@ -32,8 +32,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    float64 run of the same stream measures;
 6. times each kernel, its plain version and its bound at the serving
    shapes, the KRLS kernels' streaming routes where they are picked (the
-   serving bank at D = 400), and the read kernel on its bf16 route and at
-   the KRLS read shape (d = 5, D = 300);
+   serving bank at D = 400), and the read kernel on its bf16 route, at
+   the KRLS read shape (d = 5, D = 300) and at one tenant (B = 1, the
+   policy tier's and the quarantine's reads);
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
    against their plain versions at the replay shape (T=256, d=128,
    D=2048), the read-block shape of the feature map (65536 rows), the
@@ -143,13 +144,31 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     paper's section 6 settings on 4096 writes, within the float64 budget.
     Prints, per policy, the hit rate, the counters, write and read p50/p99
     from the server's registry and the install count and install ms
-    (each install timed with a synchronize on each side). The last phase
-    line gives the whole run's seconds.
+    (each install timed with a synchronize on each side);
+19. runs the observability and recovery tier (``obs_recovery``): at the
+    KLMS serving configuration (log_capacity=256, rebuild_mode="blocked")
+    on step 3's ragged stream and at the KRLS section 6 one on step 5's, a
+    ``trace=True, probe=True, recovery=True, wal=`` server equals the bare
+    one in every leaf and read (f32 and bf16) bit for bit, raises no
+    degradation event (its healthy stats printed), and
+    ``kernel.launches{op=...}`` of ``obs.telemetry`` equals each wrapper's
+    ``.launches`` rise; flush ms with and without the tap (medians of 20);
+    ``check_read_contract`` at (1024, 64, 128) within 2e-2; the RFF rows of
+    recovery_bench's repair grid at the serving banks plus drop_flush and
+    clock_skew, each detect -> quarantine (reads equal ``predict_row`` of
+    the last healthy row) -> the expected rung -> released, against a
+    never-faulted control (a rebuilt row bit for bit the operator's
+    readmit of the same log and, for KLMS and NKLMS, within REPLAY_REL of
+    the trained row; a reset row the fresh row; resymmetrized reads within
+    5e-2), with detect, warm and cold repair microseconds; kill at a flush
+    (two cuts of phase 18's first 4096 KLMS writes, one of KRLS), restore
+    and WAL replay bit for bit, with save and restore ms and bytes. The
+    last phase line gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
 "routes", bank_predict with
-"bf16" and "krls_read" records beside its f32 serving one, rff_features
+"bf16", "krls_read" and "one_tenant" records beside its f32 serving one, rff_features
 with a "read_block" record, krls_chunk_elements with a "d2048" one); the
 last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
@@ -162,6 +181,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -958,6 +978,15 @@ def phase_times(rng, device) -> dict:
     pred["krls_read"] = {**{k_: krls_read[k_] for k_ in keys},
                          "library_ms": None,
                          "shape": [BANK, Q, K_D_IN, K_D_FEAT]}
+    # The read's most launched shape: one tenant (the policy tier's reads,
+    # the quarantine's predict_row) at the KLMS serving widths.
+    one = timed_case(
+        lambda m: ops.rff_bank_predict(a["theta"][:1], xq[:1], a["w"],
+                                       a["b"], a["s"], mode=m),
+        shared + 4 * (D_FEAT + Q * (D_IN + 1)),
+        Q * (2 * D_IN * D_FEAT + 5 * D_FEAT))
+    pred["one_tenant"] = {**{k_: one[k_] for k_ in keys}, "library_ms": None,
+                          "shape": [1, Q, D_IN, D_FEAT]}
     emit({"phase": "times", "shapes": {"B": BANK, "T": CHUNK, "d": D_IN,
                                        "D": D_FEAT, "Q": Q},
           "krls_shapes": {"B": BANK, "T": CHUNK, "d": K_D_IN, "D": K_D_FEAT},
@@ -2856,6 +2885,402 @@ def phase_policy_krls(seed, device, kernels) -> dict:
     return launches
 
 
+# Phase 19: observability and recovery. The repair grid is the RFF rows of
+# benchmarks/recovery_bench.py's REPAIR_GRID at the serving banks (log
+# length 256, not 512: the ring holds 256), plus the two kinds that
+# tests/test_chaos.py drives and the grid does not.
+REPAIR_CASES = (("klms", "nan_state", 32), ("klms", "nan_state", 128),
+                ("klms", "nan_state", LOG_CAP), ("nklms", "nan_state", 128),
+                ("klms", "log_corrupt", 128), ("krls", "nan_state", 128),
+                ("krls", "asym_pmat", 128), ("klms", "drop_flush", 128),
+                ("klms", "clock_skew", 128))
+RESYM_TOL = 5e-2  # tests/test_chaos.py _RESYM_TOL
+SKEW_S, SKEW_BOUND = 2.0, 0.25
+TARGET = 1  # the faulted tenant
+TAP_FLUSHES = 20  # flushes timed with and without the tap
+KILL_WRITES, KILL_CUTS, KRLS_KILL_CUT = 4096, (1537, 3001), 2049
+# obs.telemetry's op -> the kernel wrapper whose .launches it must equal.
+# One counted element launch is one wrapper call: kernel 7 runs the Gram,
+# the solve, T Z and the product in one C call; kernel 8 a prep launch and
+# the product tiles (four launches in two C calls); each also launches
+# the feature map (kernel 6) once, counted on rff_features.
+OP_KERNELS = {"klms_chunk": "klms_bank_chunk", "klms_step": "klms_bank_step",
+              "bank_predict": "bank_predict", "krls_chunk": "krls_bank_chunk",
+              "krls_step": "krls_bank_step",
+              "klms_elements": "klms_chunk_elements",
+              "krls_elements": "krls_chunk_elements"}
+OBS_KERNELS = ("klms_bank_chunk", "bank_predict", "krls_bank_chunk",
+               "rff_features", "klms_chunk_elements", "krls_chunk_elements")
+
+
+def rows_equal(a, b, skip=()) -> bool:
+    """Every slot but ``skip`` bit for bit, across every leaf."""
+    keep = [s for s in range(a[0].shape[0]) if s not in skip]
+    return all(torch.equal(x[keep], y[keep]) for x, y in zip(a, b))
+
+
+def flush_ms(srv, xs) -> float:
+    """Wall milliseconds of one flush after one arrival for every 16th
+    tenant (``xs (B, d)``; the launch is (B, chunk) whatever the backlog),
+    with a synchronize on each side."""
+    for t in range(0, BANK, 16):
+        srv.submit(t, xs[t], 1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.flush()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def obs_equivalence(learner, fm, d, hp, seed, device, kernels,
+                    workdir) -> dict:
+    """(a) A trace=True, probe=True, recovery=True, wal= server against the
+    bare one on a phase's ragged stream: every leaf and read bit for bit,
+    no degradation event, obs.telemetry's kernel.launches equal to the
+    wrappers' .launches rises; flush ms with and without the tap."""
+    from repro_torch.obs import probes, telemetry
+    from repro_torch.serve import make_server
+
+    kw = dict(feature_map=fm, bank=BANK, chunk=CHUNK, device=device,
+              log_capacity=LOG_CAP, rebuild_mode="blocked", **hp)
+    plain = make_server(learner, **kw)
+    obs = make_server(learner, trace=True, probe=True, recovery=True,
+                      wal=str(workdir / f"{learner}_wal.jsonl"), **kw)
+    rng = np.random.default_rng(seed + (1 if learner == "klms" else 2))
+    before = {k: v.launches for k, v in kernels.items()}
+    telemetry.reset()
+    submits = 0
+    for rnd, (tenants, xs, ys) in enumerate(ragged_stream(rng, 6, d)):
+        for srv in (plain, obs):
+            for t, x, y in zip(tenants.tolist(), xs, ys.tolist()):
+                srv.submit(t, x, y)
+            srv.drain() if rnd % 2 else srv.flush()
+        submits += len(tenants)
+    xq = torch.from_numpy(
+        rng.normal(size=(BANK, Q, d)).astype(np.float32)).to(device)
+    reads = {}
+    for prec in (None, "bf16"):
+        for srv in (plain, obs):
+            srv.snapshot_server.precision = prec
+        got, want = obs.predict_block(xq), plain.predict_block(xq)
+        check(torch.equal(got, want), f"{learner} {prec} block read differs "
+              "with trace and probe on")
+        for t in (0, TARGET, BANK - 1):
+            check(torch.equal(obs.predict(t, xq[t]), plain.predict(t, xq[t])),
+                  f"{learner} {prec} read of tenant {t} differs traced")
+        reads[prec] = got
+    for srv in (plain, obs):
+        srv.snapshot_server.precision = None
+    contract = obs.check_read_contract(xq)
+    if learner == "klms":
+        check(contract <= 2e-2, f"read contract {contract:.3g} > 2e-2")
+    check(rows_equal(obs.queue.state, plain.queue.state)
+          and rows_equal(obs.snapshot.state, plain.snapshot.state),
+          f"{learner}: a traced, probed server's state differs")
+    torch.cuda.synchronize()
+    reg = telemetry.registry()
+    counted = {}
+    for op, name in OP_KERNELS.items():
+        n = reg.count("kernel.launches", op=op)
+        rise = kernels[name].launches - before[name]
+        check(n == rise, f"kernel.launches{{op={op}}} {n} != {name}'s "
+              f".launches rise {rise}")
+        if n:
+            counted[op] = n
+    stats = obs.probe.last_stats
+    check(obs.probe.healthy(), f"{learner}: a healthy server raised "
+          f"{[e.to_dict() for e in obs.probe.events]}")
+    check(obs.recovery.history == [] and not obs.recovery.quarantined,
+          f"{learner}: recovery acted on a healthy server")
+    check(len(obs.wal.entries()) == submits, "the WAL lost arrivals")
+    spans = obs.tracer.summary()
+    tap = probes.stats_tap(obs.queue.state)
+    tap_ms = time_ms(lambda: probes.stats_tap(obs.queue.state))
+    del tap
+    timed = {"plain": [], "probed": []}
+    for _ in range(TAP_FLUSHES):
+        xs = rng.normal(size=(BANK, d)).astype(np.float32)
+        timed["plain"].append(flush_ms(plain, xs))
+        timed["probed"].append(flush_ms(obs, xs))
+    check(rows_equal(obs.queue.state, plain.queue.state),
+          f"{learner}: state differs after the timed flushes")
+    obs.wal.close()
+    return {"learner": learner, "submits": submits,
+            "flushes": obs.queue.flushes,
+            "bitwise_leaves_and_reads": True, "healthy_stats": stats,
+            "read_contract": contract,
+            "kernel_launches": counted,
+            "rff_features_launches": kernels["rff_features"].launches
+            - before["rff_features"],
+            "launch_map": "one op launch = one wrapper call; an element "
+                          "call also launches rff_features once (kernel 8: "
+                          "four launches in two C calls)",
+            "spans": {k: v["count"] + v["events"]
+                      for k, v in spans["by_name"].items()},
+            "spans_dropped": spans["dropped"],
+            "flush_ms_p50": {k: float(np.median(v)) for k, v in timed.items()},
+            "tap_ms": tap_ms}
+
+
+def repair_case(learner, kind, log_len, fm, d, hp, device) -> dict:
+    """(c) One fault at the serving bank: detect -> quarantine -> the
+    expected rung -> released, twice (cold, warm) where the fault allows,
+    against a never-faulted control fed the same arrivals."""
+    from repro_torch.core.bank import tenant_row
+    from repro_torch.obs.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.serve import make_server
+    from repro_torch.serve.snapshot import predict_row
+
+    kw = dict(feature_map=fm, bank=BANK, chunk=CHUNK, policy="lru",
+              log_capacity=LOG_CAP, rebuild_mode="blocked", device=device,
+              **hp)
+    if kind == "clock_skew":
+        srv = make_server(learner, probe={"clock_skew": SKEW_BOUND},
+                          recovery={"reference_clock": time.monotonic}, **kw)
+    else:
+        srv = make_server(learner, recovery=True, **kw)
+    ctl = make_server(learner, **kw)
+    rng = np.random.default_rng(log_len)
+    order = np.concatenate([np.full(log_len, TARGET),
+                            np.repeat(np.delete(np.arange(BANK), TARGET), 2)])
+    rng.shuffle(order)
+    warm = [(int(t), rng.normal(size=d).astype(np.float32),
+             float(rng.normal())) for t in order]
+    for s in (srv, ctl):
+        for t, x, y in warm:
+            s.submit(t, x, y)
+        s.drain()
+    fired: list = []
+    srv.probe.subscribe(lambda ev: fired.append(time.perf_counter()))
+    rec = srv.recovery
+    xq1 = torch.from_numpy(rng.normal(size=(Q, d)).astype(np.float32)).to(
+        device)
+    quarantine_reads = []  # seconds each check took (off the repair time)
+    attempt = rec._attempt
+
+    def checked_attempt(ep):
+        # While quarantined the tenant reads its last healthy row.
+        if not ep.actions:
+            h0 = time.perf_counter()
+            got = srv.predict(ep.tenant, xq1)
+            want = predict_row(rec.healthy_row(ep.tenant).theta, xq1,
+                               srv.feature_map)
+            check(torch.equal(got, want), f"{learner}/{kind}: a quarantined "
+                  "read is not predict_row of the healthy row")
+            quarantine_reads.append(time.perf_counter() - h0)
+        return attempt(ep)
+
+    rec._attempt = checked_attempt
+    episodes = 1 if kind == "log_corrupt" else 2
+    timings = []
+    for _ in range(episodes):
+        fired.clear()
+        mark, checks = len(rec.history), len(quarantine_reads)
+        inj = FaultInjector(srv, FaultPlan([Fault(
+            kind, tenant=TARGET, at_flush=0,
+            magnitude=SKEW_S if kind == "clock_skew" else 0.05)])).attach()
+        # Other tenants' arrivals drive the faulted flush (a trained row
+        # washes a poison out); a dropped flush needs the target's backlog.
+        mid = [TARGET, 2] * 4 if kind == "drop_flush" else [0, 2] * 4
+        mid = [(t, rng.normal(size=d).astype(np.float32),
+                float(rng.normal())) for t in mid]
+        for t, x, y in mid:
+            srv.submit(t, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.flush()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        srv.drain()
+        inj.detach()
+        for t, x, y in mid:
+            ctl.submit(t, x, y)
+        ctl.flush()
+        ctl.drain()
+        check(bool(fired), f"{learner}/{kind}: the fault was not detected")
+        timings.append((fired[0] - t0, t1 - fired[0]
+                        - sum(quarantine_reads[checks:])))
+        history = [(h.get("action"), h.get("verified"))
+                   for h in rec.history[mark:]]
+        want = {"clock_skew": [("reclock", None)],
+                "log_corrupt": [("rebuild", None), ("reset", True)],
+                "asym_pmat": [("resymmetrize", True)]}.get(
+                    kind, [("rebuild", True)])
+        check(history == want, f"{learner}/{kind}: ladder {history}, "
+              f"expected {want}")
+        check(not rec.quarantined, f"{learner}/{kind}: not released")
+    slot = srv.resident[TARGET]
+    check(slot == ctl.resident[TARGET] and srv.resident == ctl.resident,
+          f"{learner}/{kind}: residency differs from the control's")
+    check(rows_equal(srv.queue.state, ctl.queue.state, skip=(slot,)),
+          f"{learner}/{kind}: an untouched tenant's row changed")
+    out = {"learner": learner, "fault": kind, "log_len": log_len,
+           "action": want[-1][0], "episodes": episodes,
+           "quarantine_reads_checked": len(quarantine_reads),
+           "detect_us": timings[-1][0] * 1e6,
+           "repair_us": timings[-1][1] * 1e6,
+           "cold_repair_us": timings[0][1] * 1e6}
+    row = tenant_row(srv.queue.state, slot)
+    ctl_row = tenant_row(ctl.queue.state, slot)
+    if out["action"] == "rebuild":
+        xs, ys = ctl.log.arrays(TARGET)
+        op = tenant_row(ctl.snapshot_server._rebuild_fn(
+            ctl.queue.state, slot, xs, ys), slot)
+        check(all(torch.equal(a, b) for a, b in zip(row, op)),
+              f"{learner}/{kind}: the rebuilt row is not the operator's "
+              "readmit of the same log")
+        rel = rel_norm(row[0], ctl_row[0])
+        out["rebuilt_vs_trained_rel"] = rel
+        if learner != "krls":
+            check(rel <= REPLAY_REL, f"{learner}/{kind}: rebuilt row {rel:.3g}"
+                  f" from the never-faulted control (tol {REPLAY_REL})")
+    elif out["action"] == "reset":
+        check(all(torch.equal(a, b) for a, b in zip(row, srv._fresh_row)),
+              f"{learner}/{kind}: the reset row is not the fresh row")
+    elif out["action"] == "resymmetrize":
+        p = row.pmat
+        check(torch.equal(p, p.T), "resymmetrized P is not symmetric")
+        out["reads_vs_control_rel"] = read_gap(srv, ctl, xq1)
+        check(out["reads_vs_control_rel"] < RESYM_TOL,
+              f"krls/asym_pmat: reads {out['reads_vs_control_rel']:.3g} "
+              f"from the control (tol {RESYM_TOL})")
+        # The rung restores P's symmetry, not its value: the symmetric part
+        # of the injected delta stays and steers the tenant's next updates.
+        # Measured, not held: 2 chunks of the tenant's own arrivals.
+        tail = [(TARGET, rng.normal(size=d).astype(np.float32),
+                 float(rng.normal())) for _ in range(2 * CHUNK)]
+        for s in (srv, ctl):
+            for t, x, y in tail:
+                s.submit(t, x, y)
+            s.drain()
+        out["reads_vs_control_rel_after_32_ticks"] = read_gap(srv, ctl, xq1)
+    else:
+        check(rec.measure_skew() < SKEW_BOUND, "reclock left the skew")
+        out["skew_after_s"] = rec.measure_skew()
+    check(all(bool(torch.isfinite(a).all()) for a in srv.queue.state),
+          f"{learner}/{kind}: non-finite state after the repair")
+    return out
+
+
+def read_gap(srv, ctl, xq) -> float:
+    """Max relative gap of the target's reads from the control's."""
+    got, want = srv.predict(TARGET, xq), ctl.predict(TARGET, xq)
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def kill_case(learner, fm, writes, cut, hp, device, workdir) -> dict:
+    """(d) Kill at a flush: checkpoint at ``cut``, go on to the end; a
+    fresh server restores the generation and replays the WAL suffix. Its
+    leaves, snapshot, policy state, ledger and reads equal the
+    never-killed server's bit for bit."""
+    from repro_torch.serve import make_server, restore_checkpoint
+
+    kw = dict(feature_map=fm, bank=BANK, chunk=CHUNK, policy="lru",
+              log_capacity=LOG_CAP, size_watermark=CHUNK,
+              rebuild_mode="blocked", device=device, **hp)
+    tag = f"{learner}_{cut}"
+    wal, ckdir = workdir / f"wal_{tag}.jsonl", workdir / f"ckpt_{tag}"
+    orig = make_server(learner, wal=str(wal), **kw)
+    for _, t, x, y in writes[:cut]:
+        orig.submit(t, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = orig.checkpoint(ckdir)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    for _, t, x, y in writes[cut:]:
+        orig.submit(t, x, y)
+    orig.drain()
+    loaded = make_server(learner, **kw)  # no WAL: the load alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_checkpoint(loaded, ckdir)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del loaded
+    restored = make_server(learner, wal=str(wal), **kw)
+    t0 = time.perf_counter()
+    info = restore_checkpoint(restored, ckdir)
+    restored.drain()
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3
+    check(info["replayed"] == len(writes) - cut, "WAL suffix not replayed")
+    check(rows_equal(orig.queue.state, restored.queue.state)
+          and rows_equal(orig.snapshot.state, restored.snapshot.state),
+          f"{tag}: restored leaves differ from the never-killed server")
+    check(orig.policy.state_dict() == restored.policy.state_dict(),
+          f"{tag}: policy state differs")
+    check(orig._expected == restored._expected, f"{tag}: ledger differs")
+    xq = torch.from_numpy(np.stack([x for _, _, x, _ in writes[:Q]])).to(
+        device)
+    hot = sorted(orig.resident)[:8]
+    for t in hot:
+        check(torch.equal(orig.predict(t, xq), restored.predict(t, xq)),
+              f"{tag}: reads of tenant {t} differ")
+    nbytes = os.path.getsize(path)
+    for s in (orig, restored):
+        s.wal.close()
+    return {"learner": learner, "writes": len(writes), "cut": cut,
+            "replayed": info["replayed"], "save_ms": save_ms,
+            "restore_ms": restore_ms, "restore_and_replay_ms": replay_ms,
+            "bytes": nbytes, "bitwise": True}
+
+
+def phase_obs_recovery(seed, device, kernels) -> dict:
+    """Phase 19: the observability and recovery tier at the serving
+    configurations: (a) traced, probed, self-healing, write-ahead-logged
+    servers equal bare ones bit for bit (KLMS serving, KRLS section 6) and
+    the dispatch counters equal the kernels' launches; (b) the read
+    contract at (1024, 64, 128); (c) the repair grid; (d) kill at a
+    flush, restore and WAL replay, bit for bit."""
+    import shutil
+
+    workdir = ROOT / "build" / "obs_recovery"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    fm = family_map("rff", seed, D_IN, D_FEAT, SIGMA, device)
+    kfm = family_map("rff", seed, K_D_IN, K_D_FEAT, K_SIGMA, device)
+    klms_hp, krls_hp = dict(mu=MU), dict(lam=K_LAM, beta=K_BETA)
+    t_phase = time.perf_counter()
+    reset_launches(kernels)
+    equivalence = [
+        obs_equivalence("klms", fm, D_IN, klms_hp, seed, device, kernels,
+                        workdir),
+        obs_equivalence("krls", kfm, K_D_IN, krls_hp, seed, device, kernels,
+                        workdir)]
+    torch.cuda.empty_cache()
+    t_eq = time.perf_counter() - t_phase
+    repairs = []
+    for learner, kind, log_len in REPAIR_CASES:
+        krls = learner == "krls"
+        repairs.append(repair_case(
+            learner, kind, log_len, kfm if krls else fm,
+            K_D_IN if krls else D_IN, krls_hp if krls else klms_hp, device))
+    torch.cuda.empty_cache()
+    t_rep = time.perf_counter() - t_phase - t_eq
+    writes = [r for r in policy_requests(np.random.default_rng(seed + 5),
+                                         POLICY_WRITES, D_IN)
+              if r[0] == "write"][:KILL_WRITES]
+    k_writes = [r for r in policy_requests(np.random.default_rng(seed + 6),
+                                           KRLS_POLICY_WRITES, K_D_IN)
+                if r[0] == "write"][:KILL_WRITES]
+    kills = [kill_case("klms", fm, writes, cut, klms_hp, device, workdir)
+             for cut in KILL_CUTS]
+    kills.append(kill_case("krls", kfm, k_writes, KRLS_KILL_CUT, krls_hp,
+                           device, workdir))
+    torch.cuda.synchronize()
+    launches = path_launches(kernels, OBS_KERNELS)
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "obs_recovery", "equivalence": equivalence,
+          "repairs": repairs, "kill_restore": kills, "launches": launches,
+          "seconds": {"equivalence": t_eq, "repairs": t_rep,
+                      "kill_restore": seconds - t_eq - t_rep,
+                      "total": seconds},
+          "card": SMI})
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2963,6 +3388,9 @@ def main() -> int:
     add_launches(launches, phase_feature_families(args.seed, device, kernels))
     torch.cuda.empty_cache()
     add_launches(launches, phase_policy(args.seed, device, kernels))
+    # The observability and recovery tier, after the policy phase.
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_obs_recovery(args.seed, device, kernels))
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}
@@ -3006,7 +3434,7 @@ def main() -> int:
                        for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "shape")}}
             if name == "krls_chunk_elements" else {}),
-         **({k: times[name][k] for k in ("bf16", "krls_read")}
+         **({k: times[name][k] for k in ("bf16", "krls_read", "one_tenant")}
             if name == "bank_predict" else {}),
          **({"routes": routes[name]} if name in routes else {})}
         for name in replaces

@@ -85,6 +85,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -607,7 +608,8 @@ def ops_times(dev) -> dict:
     """The replay ops of the imported package (whichever tree is on the
     path), each timed three times (medians of 30 calls; the small calls
     are host-bound, and the host's speed wanders): the KRLS element at
-    both shapes, the feature map at 256 and 65536 rows, f32 and bf16."""
+    both shapes, the KLMS element at the replay shape, the feature map at
+    256 and 65536 rows, f32 and bf16, and the read at one tenant."""
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(0)
@@ -627,6 +629,35 @@ def ops_times(dev) -> dict:
                                          mode="cuda", precision=prec), 30)
                 for _ in range(3)]
         del a
+    a = feature_inputs(rng, LOG_CAP, D_IN, D_FEAT, dev)
+    ys = f32_tensor(rng, LOG_CAP, device=dev)
+    out["klms_chunk_elements"] = [time_ms(
+        lambda: ops.rff_klms_chunk_elements(
+            a["x"], ys, a["w"], a["b"], 0.5, a["s"], mode="cuda"), 30)
+        for _ in range(3)]
+    theta = f32_tensor(rng, 1, D_FEAT, device=dev)
+    out["bank_predict one tenant"] = [time_ms(
+        lambda: ops.rff_bank_predict(theta, a["x"][None, :Q], a["w"], a["b"],
+                                     a["s"], mode="cuda"), 30)
+        for _ in range(3)]
+    if hasattr(ops, "_dispatch"):
+        # Host µs of one dispatch record and its (untraced) span, as the
+        # read op makes it.
+        def record():
+            with ops._dispatch("bank_predict", bytes_moved=1.0,
+                               shape=[1, Q, D_IN], dfeat=D_FEAT,
+                               dtype=str(theta.dtype), mode="cuda",
+                               precision=None):
+                pass
+
+        n = 20000
+        out["dispatch_record_us"] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                record()
+            out["dispatch_record_us"].append(
+                (time.perf_counter() - t0) / n * 1e6)
     return out
 
 

@@ -42,6 +42,7 @@ from repro_torch.features.base import (
     featurize,
 )
 from repro_torch.kernels import ops, ref
+from repro_torch.obs import trace as _trace
 
 __all__ = [
     "bank_init",
@@ -580,16 +581,17 @@ def resize_bank(state, new_size: int, fresh_row=None,
         raise ValueError("bank must keep at least one slot")
     if new_size == size:
         return state
-    if new_size < size:
-        return type(state)(*(a[:new_size] for a in state))
-    if fresh_row is None:
-        fresh_row = _fresh_row(state, lam)
+    with _trace.span("bank.resize", size=size, new_size=new_size):
+        if new_size < size:
+            return type(state)(*(a[:new_size] for a in state))
+        if fresh_row is None:
+            fresh_row = _fresh_row(state, lam)
 
-    def grow(a, r):
-        r = torch.as_tensor(r, dtype=a.dtype, device=a.device)
-        return torch.cat([a, r.expand(new_size - size, *a.shape[1:])])
+        def grow(a, r):
+            r = torch.as_tensor(r, dtype=a.dtype, device=a.device)
+            return torch.cat([a, r.expand(new_size - size, *a.shape[1:])])
 
-    return type(state)(*(grow(a, r) for a, r in zip(state, fresh_row)))
+        return type(state)(*(grow(a, r) for a, r in zip(state, fresh_row)))
 
 
 def resymmetrize_tenant(state, tenant: int):
@@ -600,10 +602,11 @@ def resymmetrize_tenant(state, tenant: int):
     if not isinstance(state, RLSState):
         raise ValueError(
             "resymmetrize_tenant needs a bank state with a P leaf")
-    p = state.pmat[tenant]
-    pmat = state.pmat.clone()
-    pmat[tenant] = (p + p.T) / 2
-    return state._replace(pmat=pmat)
+    with _trace.span("bank.resymmetrize_tenant", tenant=tenant):
+        p = state.pmat[tenant]
+        pmat = state.pmat.clone()
+        pmat[tenant] = (p + p.T) / 2
+        return state._replace(pmat=pmat)
 
 
 def rebuild_tenant(state, tenant: int, rff: FeatureLike, xs, ys, *,
@@ -628,12 +631,14 @@ def rebuild_tenant(state, tenant: int, rff: FeatureLike, xs, ys, *,
     like = state[0]
     xs = torch.as_tensor(xs, dtype=like.dtype, device=like.device)
     ys = torch.as_tensor(ys, dtype=like.dtype, device=like.device)
-    if isinstance(state, RLSState):
-        row = replay_krls(rff, xs, ys, lam=_hp_row(lam, tenant),
-                          beta=_hp_row(beta, tenant), mode=mode, chunk=chunk,
-                          kernel_mode=kernel_mode)
-    else:
-        row = replay_klms(rff, xs, ys, _hp_row(mu, tenant), mode=mode,
-                          chunk=chunk, normalized=normalized, eps=eps,
-                          kernel_mode=kernel_mode)
-    return set_tenant_row(state, tenant, row)
+    with _trace.span("bank.rebuild_tenant", tenant=tenant,
+                     ticks=int(xs.shape[0]), mode=mode):
+        if isinstance(state, RLSState):
+            row = replay_krls(rff, xs, ys, lam=_hp_row(lam, tenant),
+                              beta=_hp_row(beta, tenant), mode=mode,
+                              chunk=chunk, kernel_mode=kernel_mode)
+        else:
+            row = replay_klms(rff, xs, ys, _hp_row(mu, tenant), mode=mode,
+                              chunk=chunk, normalized=normalized, eps=eps,
+                              kernel_mode=kernel_mode)
+        return set_tenant_row(state, tenant, row)

@@ -9,6 +9,13 @@
 
 There is no fallback: a kernel that fails to build or launch raises.
 
+The ops that ``repro``'s dispatch layer wraps (the bank read, the KLMS and
+KRLS step and chunk, the two replay elements, the decode block) report to
+``obs.telemetry`` and open a ``kernel.<op>`` span (:func:`_dispatch`). The
+port has no jit trace, so every call counts as live: ``kernel.launches``
+is the number of kernel launches the op makes (one a time block), which
+equals the rise of the wrapper's ``.launches`` on the card.
+
 The ops accept ``repro``'s tiling keywords (``block_m``, ``block_n``,
 ``block_k``, ``block_b``, ``block_q``) and ignore them: the CUDA kernels
 tile by their own sizes, and a tile changes no result beyond summation
@@ -45,6 +52,8 @@ from repro_torch.kernels.rff_scan import (
     rff_klms_chunk_elements_cuda,
     rff_krls_chunk_elements_cuda,
 )
+from repro_torch.obs import telemetry as _telemetry
+from repro_torch.obs import trace as _trace
 
 __all__ = [
     "MODES",
@@ -77,6 +86,23 @@ def use_kernel(mode: str, lead: torch.Tensor) -> bool:
     raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES}")
 
 
+def _dispatch(op: str, *, launches: int = 1, remainder: int = 0,
+              bytes_moved=None, **attrs):
+    """Record one call of ``op`` (``launches`` launches, ``remainder`` of
+    them a short last block) and open its ``kernel.<op>`` span (the shared
+    null context when no tracer is active)."""
+    _telemetry.record_dispatch(op, launches=launches, remainder=remainder,
+                               bytes_moved=bytes_moved)
+    return _trace.span(f"kernel.{op}", launches=launches, **attrs)
+
+
+def _blocks(tlen: int, chunk: int) -> tuple[int, int]:
+    """Launches and short last blocks of a T-tick call at ``chunk``."""
+    if tlen <= chunk:
+        return 1, 0
+    return -(-tlen // chunk), int(tlen % chunk != 0)
+
+
 def rff_features(x, w, b, s=None, *, mode: str = "auto", block_m: int = 128,
                  block_n: int = 128, block_k: int = 128, precision=None):
     """Affine-trig feature map ``s * cos(x @ w + b)`` over arbitrary leading
@@ -106,9 +132,15 @@ def rff_bank_predict(theta, xq, w, b, s=None, *, mode: str = "auto",
     the kernel's blocks own 128 (tenant, query) rows each."""
     del block_b, block_q
     precision = ref.canon_precision(precision)
-    if use_kernel(mode, theta):
-        return rff_bank_predict_cuda(theta, xq, w, b, s, precision=precision)
-    return ref.rff_bank_predict_ref(theta, xq, w, b, s, precision)
+    bank, q, d = xq.shape
+    bm = _telemetry.predict_read_bytes(bank, d, w.shape[-1], q)
+    with _dispatch("bank_predict", bytes_moved=bm["fused_bytes"],
+                   shape=[bank, q, d], dfeat=w.shape[-1],
+                   dtype=str(theta.dtype), mode=mode, precision=precision):
+        if use_kernel(mode, theta):
+            return rff_bank_predict_cuda(theta, xq, w, b, s,
+                                         precision=precision)
+        return ref.rff_bank_predict_ref(theta, xq, w, b, s, precision)
 
 
 def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto",
@@ -118,9 +150,14 @@ def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto",
     Returns (theta', predictions, prior errors). ``block_b`` is
     ``repro``'s tile, accepted and ignored (one warp holds a tenant)."""
     del block_b
-    if use_kernel(mode, theta):
-        return rff_klms_bank_step_cuda(theta, x, y, w, b, mu, s)
-    return ref.rff_klms_bank_step_ref(theta, x, y, w, b, mu, s)
+    bank, d = x.shape
+    bm = _telemetry.klms_chunk_bytes(bank, d, theta.shape[-1], 1)
+    with _dispatch("klms_step", bytes_moved=bm["bytes_per_tick_model"],
+                   shape=[bank, d], dfeat=theta.shape[-1],
+                   dtype=str(theta.dtype), mode=mode):
+        if use_kernel(mode, theta):
+            return rff_klms_bank_step_cuda(theta, x, y, w, b, mu, s)
+        return ref.rff_klms_bank_step_ref(theta, x, y, w, b, mu, s)
 
 
 def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
@@ -140,12 +177,22 @@ def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
         launch = rff_klms_bank_chunk_cuda
     else:
         launch = ref.rff_klms_bank_chunk_ref
+    bank, tlen, d = xs.shape
+    dfeat = theta.shape[-1]
     if chunk is None:
-        chunk = default_chunk_t(xs.shape[0], theta.shape[-1], xs.shape[-1])
-    return _time_blocked(
-        lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, mu, mc, s),
-        (theta,), xs, ys, mask, chunk,
-    )
+        chunk = default_chunk_t(bank, dfeat, d)
+    launches, remainder = _blocks(tlen, chunk)
+    bm = _telemetry.klms_chunk_bytes(bank, d, dfeat, min(chunk, tlen))
+    with _dispatch("klms_chunk", launches=launches, remainder=remainder,
+                   bytes_moved=bm["launch_bytes"] * launches
+                   + bm["stream_bytes_per_tick"] * tlen,
+                   shape=[bank, tlen, d], dfeat=dfeat,
+                   dtype=str(theta.dtype), mode=mode, chunk=chunk):
+        return _time_blocked(
+            lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, mu, mc,
+                                             s),
+            (theta,), xs, ys, mask, chunk,
+        )
 
 
 def _time_blocked(launch, state, xs, ys, mask, chunk):
@@ -182,9 +229,14 @@ def rff_krls_bank_step(theta, pmat, x, y, w, b, beta, s=None, *,
     """Fused featurize + predict + EW-RLS update for a bank of B tenants:
     theta (B, D), pmat (B, D, D), x (B, d), y (B,), beta scalar or (B,).
     Returns (theta', P', predictions, prior errors)."""
-    if use_kernel(mode, theta):
-        return rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s)
-    return ref.rff_krls_bank_step_ref(theta, pmat, x, y, w, b, beta, s)
+    bank, d = x.shape
+    bm = _telemetry.krls_chunk_bytes(bank, d, theta.shape[-1], 1)
+    with _dispatch("krls_step", bytes_moved=bm["bytes_per_tick_model"],
+                   shape=[bank, d], dfeat=theta.shape[-1],
+                   dtype=str(theta.dtype), mode=mode):
+        if use_kernel(mode, theta):
+            return rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s)
+        return ref.rff_krls_bank_step_ref(theta, pmat, x, y, w, b, beta, s)
 
 
 def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
@@ -200,13 +252,22 @@ def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
         launch = rff_krls_bank_chunk_cuda
     else:
         launch = ref.rff_krls_bank_chunk_ref
+    bank, tlen, d = xs.shape
+    dfeat = theta.shape[-1]
     if chunk is None:
-        chunk = default_chunk_t(xs.shape[0], theta.shape[-1], xs.shape[-1],
-                                pmat=True)
-    return _time_blocked(
-        lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, beta, mc, s),
-        (theta, pmat), xs, ys, mask, chunk,
-    )
+        chunk = default_chunk_t(bank, dfeat, d, pmat=True)
+    launches, remainder = _blocks(tlen, chunk)
+    bm = _telemetry.krls_chunk_bytes(bank, d, dfeat, min(chunk, tlen))
+    with _dispatch("krls_chunk", launches=launches, remainder=remainder,
+                   bytes_moved=bm["launch_bytes"] * launches
+                   + bm["stream_bytes_per_tick"] * tlen,
+                   shape=[bank, tlen, d], dfeat=dfeat,
+                   dtype=str(theta.dtype), mode=mode, chunk=chunk):
+        return _time_blocked(
+            lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, beta, mc,
+                                             s),
+            (theta, pmat), xs, ys, mask, chunk,
+        )
 
 
 def _element_blocks(xs, ys, dfeat, chunk):
@@ -241,13 +302,16 @@ def rff_klms_chunk_elements(xs, ys, w, b, mu, s=None, *, mode: str = "auto",
     theta + v`` element. Returns ``(a (nc, D, D), v (nc, D))``.
     """
     xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
-    if use_kernel(mode, xs):
-        return rff_klms_chunk_elements_cuda(
+    with _dispatch("klms_elements", shape=list(xs.shape), dfeat=w.shape[-1],
+                   chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
+                   chunk=xs_c.shape[1]):
+        if use_kernel(mode, xs):
+            return rff_klms_chunk_elements_cuda(
+                xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized,
+                eps=eps)
+        return ref.klms_chunk_elements_ref(
             xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized, eps=eps
         )
-    return ref.klms_chunk_elements_ref(
-        xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized, eps=eps
-    )
 
 
 def rff_krls_chunk_elements(xs, ys, w, b, beta, s=None, *,
@@ -257,9 +321,14 @@ def rff_krls_chunk_elements(xs, ys, w, b, beta, s=None, *,
     factor; masked remainder ticks compose ``(1, 0, 0)``. Returns ``(g
     (nc,), phi (nc, D, D), r (nc, D))``."""
     xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
-    if use_kernel(mode, xs):
-        return rff_krls_chunk_elements_cuda(xs_c, ys_c, w, b, beta, mask_c, s)
-    return ref.krls_chunk_elements_ref(xs_c, ys_c, w, b, beta, mask_c, s)
+    with _dispatch("krls_elements", shape=list(xs.shape), dfeat=w.shape[-1],
+                   chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
+                   chunk=xs_c.shape[1]):
+        if use_kernel(mode, xs):
+            return rff_krls_chunk_elements_cuda(xs_c, ys_c, w, b, beta,
+                                                mask_c, s)
+        return ref.krls_chunk_elements_ref(xs_c, ys_c, w, b, beta, mask_c,
+                                           s)
 
 
 def rff_attention(phi_q, phi_k, v, *, mode: str = "auto", chunk: int = 256,
@@ -320,14 +389,19 @@ def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
                       normalize=normalize, eps=eps, precision=precision)
 
     s_state, z_state = s_state.float(), z_state.float()
-    if tlen <= block_t:
-        return run(s_state, z_state, 0, tlen)
-    outs = []
-    for lo in range(0, tlen, block_t):
-        out, s_state, z_state = run(s_state, z_state, lo,
-                                    min(lo + block_t, tlen))
-        outs.append(out)
-    return torch.cat(outs, dim=1), s_state, z_state
+    launches, remainder = _blocks(tlen, block_t)
+    with _dispatch("decode_block", launches=launches, remainder=remainder,
+                   shape=[bh, tlen, dh], dfeat=dfeat, dtype=str(q.dtype),
+                   mode=mode, block_t=block_t, feature_kind=feature_kind,
+                   precision=precision):
+        if tlen <= block_t:
+            return run(s_state, z_state, 0, tlen)
+        outs = []
+        for lo in range(0, tlen, block_t):
+            out, s_state, z_state = run(s_state, z_state, lo,
+                                        min(lo + block_t, tlen))
+            outs.append(out)
+        return torch.cat(outs, dim=1), s_state, z_state
 
 
 def flash_attention(q, k, v, *, mode: str = "auto", block_q: int = 256,

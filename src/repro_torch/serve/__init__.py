@@ -1,6 +1,6 @@
 """Serving stack: the KLMS and KRLS tiers (micro-batch queue, snapshot
-server, the slot policy, the ``make_server`` facade) and the LM serving
-loop (``serve_loop``)."""
+server, the slot policy, the ``make_server`` facade, the recovery tier)
+and the LM serving loop (``serve_loop``)."""
 from repro_torch.serve.api import (
     LEARNER_FAMILIES,
     Server,
@@ -14,6 +14,12 @@ from repro_torch.serve.api import (
 from repro_torch.serve.metrics import Counter, Histogram, MetricsRegistry
 from repro_torch.serve.policy import SCORERS, AdmitDecision, SlotPolicy
 from repro_torch.serve.queue import MicroBatchQueue
+from repro_torch.serve.recovery import (
+    DurableLog,
+    RecoveryPolicy,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.serve.serve_loop import generate, path_logits, prefill_tokens
 from repro_torch.serve.snapshot import ReplayLog, SnapshotServer, StateSnapshot
 
@@ -39,4 +45,8 @@ __all__ = [
     "SnapshotServer",
     "StateSnapshot",
     "ReplayLog",
+    "RecoveryPolicy",
+    "DurableLog",
+    "save_checkpoint",
+    "restore_checkpoint",
 ]

@@ -27,8 +27,13 @@ floor) and installs it by replaying its log; a rejected arrival is logged,
 not trained; ``Server.resize`` grows and shrinks the bank in powers of
 two, surviving rows moved bit for bit.
 
-The knobs of a later slice raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Observability and recovery (``make_server(trace=, probe=, recovery=,
+wal=)``, ``repro_torch.obs`` and ``serve/recovery.py``): a tracer records
+nested ``serve.*`` / ``queue.*`` / ``snapshot.*`` / ``bank.*`` /
+``kernel.*`` spans, a probe monitor folds the queue's numerics tap at each
+flush, a recovery policy quarantines and repairs a degraded tenant, and a
+write-ahead log with ``Server.checkpoint`` and ``restore_checkpoint``
+brings a killed server back bit for bit.
 """
 from __future__ import annotations
 
@@ -70,10 +75,18 @@ from repro_torch.core.learner import (
 )
 from repro_torch.features.base import FeatureLike, as_trig_or_none, map_to
 from repro_torch.features.base import input_dim as fm_input_dim
+from repro_torch.obs import probes as _probes
+from repro_torch.obs import telemetry as _telemetry
+from repro_torch.obs import trace as _obtrace
 from repro_torch.serve.metrics import MetricsRegistry
 from repro_torch.serve.policy import SlotPolicy
 from repro_torch.serve.queue import MicroBatchQueue
-from repro_torch.serve.snapshot import ReplayLog, SnapshotServer
+from repro_torch.serve.recovery import (
+    DurableLog,
+    RecoveryPolicy,
+    save_checkpoint,
+)
+from repro_torch.serve.snapshot import ReplayLog, SnapshotServer, predict_row
 
 __all__ = [
     "LEARNER_FAMILIES",
@@ -92,14 +105,6 @@ LEARNER_FAMILIES = ("klms", "nklms", "qklms", "krls", "ald")
 # Families whose per-tenant state is a (D,) theta row sharing one feature
 # map: they ride the fused read path; the rest carry dictionaries.
 _THETA_FAMILIES = frozenset({"klms", "nklms", "krls"})
-
-# Knobs of make_server that belong to a later slice, with their items.
-_UNPORTED_KNOBS = {
-    "trace": "ROADMAP §1 item 9 (obs/trace.py)",
-    "probe": "ROADMAP §1 item 9 (obs/probes.py)",
-    "recovery": "ROADMAP §1 item 9 (serve/recovery.py)",
-    "wal": "ROADMAP §1 item 9 (serve/recovery.py)",
-}
 
 _REBUILD_MODES = ("scan", "blocked", "sequential")
 
@@ -331,7 +336,7 @@ def make_queue(learner: str = "klms", feature_map: FeatureLike = None,
 
 class Server:
     """One serving object per bank: write path, read path, lifecycle,
-    policy and metrics.
+    policy, metrics and observability.
 
     Built by :func:`make_server`. Without a policy, ``tenant`` arguments
     are bank-slot indices in ``[0, slots)``. With one (``policy=``),
@@ -353,6 +358,14 @@ class Server:
     fused predict kernel (a trig map) or ``featurize`` (taylor); the
     dictionary learners through their ``predict_fn`` on the frozen
     replica.
+
+    Observability: a tracer (``self.tracer``) is activated around every
+    public method, so the queue, snapshot, bank and kernel spans nest
+    under the request; a probe monitor (``self.probe``) folds the queue's
+    numerics tap once a flush, with the expected-ticks ledger's
+    ``ticks_lag``; a recovery policy (``self.recovery``) acts on its
+    events; a write-ahead log (``self.wal``) records every submit before
+    it is queued. :meth:`observability` exports all of it as one dict.
     """
 
     def __init__(self, inner: SnapshotServer, *, learner: str,
@@ -362,7 +375,11 @@ class Server:
                  metrics: Optional[MetricsRegistry] = None,
                  log_capacity: Optional[int] = None,
                  auto_resize: bool = False,
-                 latency_clock: Callable[[], float] = time.perf_counter):
+                 latency_clock: Callable[[], float] = time.perf_counter,
+                 tracer: Optional[_obtrace.Tracer] = None,
+                 probe=None,
+                 recovery: Optional[RecoveryPolicy] = None,
+                 wal: Optional[DurableLog] = None):
         self._inner = inner
         self.learner = learner
         self.feature_map = feature_map
@@ -373,6 +390,21 @@ class Server:
         self._theta_family = learner in _THETA_FAMILIES
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._lat = latency_clock
+        self.tracer = tracer
+        self.wal = wal
+        self._wal_suspended = False
+        # Expected-ticks ledger, slot-keyed: the observations this facade
+        # queued that the bank must train. ``ticks_lag`` compares it with
+        # the backlog plus the state's step counters.
+        self._expected: dict[int, int] = {}
+        self._probe_folded_flush = -1
+        if probe:
+            self.probe = _probes.ProbeMonitor(
+                probe if isinstance(probe, dict) else None,
+                registry=self.metrics)
+            inner.queue.attach_probe(_probes.stats_tap)
+        else:
+            self.probe = None
         if policy is not None:
             # Tenant ids are unbounded: the log is keyed by id (the inner,
             # slot-keyed one is off).
@@ -384,6 +416,9 @@ class Server:
             self.log = inner.log
         # A row captured before any training: the pad row of bank growth.
         self._fresh_row = tenant_row(inner.queue.state, 0)
+        self.recovery = recovery
+        if recovery is not None:
+            recovery.bind(self)
 
     @property
     def queue(self) -> MicroBatchQueue:
@@ -418,27 +453,121 @@ class Server:
         misses = self.metrics.count("bank.misses")
         return hits / (hits + misses) if hits + misses else 1.0
 
+    # -- observability -----------------------------------------------------
+
+    def _act(self):
+        """Activate this server's tracer (a no-op context untraced)."""
+        return _obtrace.activate(self.tracer)
+
+    def _slot_lags(self) -> list[int]:
+        """Per-slot expected minus trained ticks: the ledger against the
+        backlog plus the state's step counters. A positive entry means
+        queued observations never reached the bank (``ticks_lag``, a
+        dropped flush); a negative one (the queue fed directly) never
+        fires."""
+        step = self._inner.queue.state.step.tolist()
+        backlog = self._inner.queue.backlog()
+        return [self._expected.get(s, 0) - backlog[s] - int(step[s])
+                for s in range(self.slots)]
+
+    def _note_queued(self, slot: int) -> None:
+        self._expected[slot] = self._expected.get(slot, 0) + 1
+
+    def _probe_update(self) -> None:
+        """Fold the queue's latest tap readout into the monitor, once a
+        flush (a stale readout would fire its events again), in one
+        device-to-host copy; then let the recovery policy act."""
+        if self.probe is None:
+            return
+        queue = self._inner.queue
+        tap = queue.last_probe
+        if tap is None or queue.flushes == self._probe_folded_flush:
+            if self.recovery is not None:
+                self.recovery.process()  # backoff retries between flushes
+            return
+        self._probe_folded_flush = queue.flushes
+        stats = dict(zip(tap, torch.stack(list(tap.values())).tolist()))
+        stats["ticks_lag"] = float(max(self._slot_lags(), default=0))
+        if (self.recovery is not None
+                and self.recovery.reference_clock is not None):
+            stats["clock_skew"] = self.recovery.measure_skew()
+        self.probe.update(stats, tick=queue.ticks_served,
+                          staleness=self._inner.staleness)
+        if self.recovery is not None:
+            self.recovery.process()
+
+    def check_read_contract(self, xq) -> float:
+        """The bf16 read's relative error against the f32 read on a ``(B,
+        Q, d)`` query block over the current replica, folded into the
+        probe monitor when there is one. RFF families only."""
+        if not self._theta_family:
+            raise ValueError(
+                "bf16 read contract applies to the fused theta families")
+        with self._act(), _obtrace.span("serve.read_contract"):
+            err = _probes.bf16_read_error(
+                self._inner.snapshot.state, self.feature_map,
+                self._inner._queries(xq), mode=self._inner.mode)
+            if self.probe is not None:
+                tap = {k: v for k, v in self.probe.last_stats.items()
+                       if k not in ("staleness_ticks", "bf16_read_error",
+                                    "ticks_lag", "clock_skew")}
+                self.probe.update(tap, tick=self._inner.queue.ticks_served,
+                                  staleness=self._inner.staleness,
+                                  bf16_err=err)
+        return err
+
+    def observability(self) -> dict:
+        """Everything observable about this server as one plain dict::
+
+            {"metrics": MetricsRegistry.snapshot(),
+             "dispatch": repro_torch.obs.telemetry.snapshot(),  # process
+             "probes": ProbeMonitor.state() | None,
+             "trace": Tracer.summary() | None}
+        """
+        return {
+            "metrics": self.metrics.snapshot(),
+            "dispatch": _telemetry.snapshot(),
+            "probes": self.probe.state() if self.probe is not None else None,
+            "trace": (self.tracer.summary()
+                      if self.tracer is not None else None),
+        }
+
     # -- write path --------------------------------------------------------
 
     def submit(self, tenant: int, x, y) -> None:
         """Enqueue one observation for ``tenant`` (a watermark may flush;
-        with a policy, admitting, evicting or rejecting first)."""
+        with a policy, admitting, evicting or rejecting first). With a WAL
+        the arrival is appended before anything else happens to it."""
         t0 = self._lat()
-        self.metrics.counter("requests.write").inc()
-        if self.policy is None:
-            self._inner.submit(tenant, x, y)
-        else:
-            self._policy_submit(tenant, x, y)
-        self.metrics.set_gauge(
-            "queue.backlog", float(sum(self._inner.queue.backlog()))
-        )
-        self.metrics.histogram("latency.write_us").observe(
-            (self._lat() - t0) * 1e6
-        )
-        if self.policy is not None and self.auto_resize:
-            target = self.policy.suggest_size()
-            if target != self.slots:
-                self.resize(target)
+        with self._act(), _obtrace.span("serve.submit", tenant=tenant):
+            self.metrics.counter("requests.write").inc()
+            if self.wal is not None and not self._wal_suspended:
+                # Only an arrival the server accepts reaches the log.
+                queue = self._inner.queue
+                if self.policy is None:
+                    queue.check_arrival(tenant, x)
+                else:
+                    queue.check_x(x)
+                self.wal.append(tenant, x, y)
+            if (self.recovery is not None
+                    and tenant in self.recovery.quarantined):
+                self._quarantined_submit(tenant, x, y)
+            elif self.policy is None:
+                queued = tenant not in self._inner._evicted
+                self._inner.submit(tenant, x, y)  # checks the arrival
+                if queued:
+                    self._note_queued(tenant)
+            else:
+                self._policy_submit(tenant, x, y)
+            self._probe_update()
+            self.metrics.set_gauge(
+                "queue.backlog", float(sum(self._inner.queue.backlog())))
+            self.metrics.histogram("latency.write_us").observe(
+                (self._lat() - t0) * 1e6)
+            if self.policy is not None and self.auto_resize:
+                target = self.policy.suggest_size()
+                if target != self.slots:
+                    self.resize(target)
 
     def _policy_submit(self, tenant: int, x, y) -> None:
         x = self._inner.queue.check_x(x)
@@ -459,10 +588,22 @@ class Server:
             if decision.action == "evict":
                 self.metrics.counter("evictions").inc()
                 self._inner.release_slot(decision.slot)
+                self._expected[decision.slot] = 0
             slot = decision.slot
             self._install(tenant, slot)
         self.log.append(tenant, x, y)
+        self._note_queued(slot)
         self._inner.submit(slot, x, y)
+
+    def _quarantined_submit(self, tenant: int, x, y) -> None:
+        """A quarantined tenant's arrivals are logged, never trained: a
+        rebuild replays them, a reset forfeits them with the history. The
+        policy's clock still ticks, so admissions stay deterministic."""
+        self.metrics.counter("recovery.deferred").inc()
+        if self.policy is not None:
+            self.policy.touch(tenant)
+        if self.log is not None:
+            self.log.append(tenant, self._inner.queue.check_x(x), y)
 
     def _install(self, tenant: int, slot: int) -> int:
         """Rebuild ``tenant``'s state from its log into ``slot`` (with the
@@ -470,22 +611,35 @@ class Server:
         fresh row. Returns the ticks replayed."""
         n = self.log.size(tenant)
         if n:
-            xs, ys = self.log.arrays(tenant)
-            inner = self._inner
-            inner.queue.state = inner._rebuild_fn(inner.queue.state, slot,
-                                                  xs, ys)
-            self.metrics.counter("readmissions").inc()
-            inner.publish()
+            with _obtrace.span("serve.install", tenant=tenant, slot=slot,
+                               ticks=n):
+                xs, ys = self.log.arrays(tenant)
+                inner = self._inner
+                inner.queue.state = inner._rebuild_fn(inner.queue.state,
+                                                      slot, xs, ys)
+                self.metrics.counter("readmissions").inc()
+                inner.publish()
+        self._expected[slot] = n
         return n
 
     def flush(self) -> dict:
-        return self._inner.flush()
+        with self._act(), _obtrace.span("serve.flush"):
+            res = self._inner.flush()
+            self._probe_update()
+            return res
 
     def maybe_flush(self) -> dict:
-        return self._inner.maybe_flush()
+        with self._act():
+            res = self._inner.maybe_flush()
+            if res:
+                self._probe_update()
+            return res
 
     def drain(self) -> dict:
-        return self._inner.drain()
+        with self._act(), _obtrace.span("serve.drain"):
+            res = self._inner.drain()
+            self._probe_update()
+            return res
 
     # -- read path ---------------------------------------------------------
 
@@ -500,49 +654,80 @@ class Server:
         pred = self._lrn.predict_fn(row, xq)
         return pred[0] if single else pred
 
+    def _cold(self, xs) -> torch.Tensor:
+        """The fresh row's prediction: zeros, ``()`` or ``(Q,)``."""
+        shape = () if np.ndim(xs) == 1 else (len(xs),)
+        lead = self._inner.queue.state[0]
+        return torch.zeros(shape, dtype=lead.dtype, device=lead.device)
+
     def predict(self, tenant: int, xs) -> torch.Tensor:
         """Serve queries for one tenant from the frozen read replica:
         ``xs (d,)`` -> scalar, ``(Q, d)`` -> ``(Q,)``. With a policy, a
         tenant that is not resident gets the cold prediction (zeros) and
-        is not admitted, so a read costs the same whatever the log."""
+        is not admitted, so a read costs the same whatever the log. A
+        quarantined tenant is served from its last healthy row."""
         t0 = self._lat()
-        self.metrics.counter("requests.read").inc()
-        if self.policy is None:
-            pred = self._slot_predict(tenant, xs)
-        else:
-            self.policy.touch(tenant)
-            slot = self.policy.lookup(tenant)
-            if slot is None:
-                self.metrics.counter("bank.misses").inc()
-                self.metrics.counter("read.cold").inc()
-                xq = np.asarray(xs)
-                shape = () if xq.ndim == 1 else (xq.shape[0],)
-                lead = self._inner.queue.state[0]
-                pred = torch.zeros(shape, dtype=lead.dtype,
-                                   device=lead.device)
+        with self._act(), _obtrace.span("serve.predict", tenant=tenant):
+            self.metrics.counter("requests.read").inc()
+            if (self.recovery is not None
+                    and tenant in self.recovery.quarantined):
+                pred = self._quarantined_predict(tenant, xs)
+            elif self.policy is None:
+                pred = self._slot_predict(tenant, xs)
             else:
-                self.metrics.counter("bank.hits").inc()
-                pred = self._slot_predict(slot, xs)
-        self.metrics.histogram("latency.read_us").observe(
-            (self._lat() - t0) * 1e6
-        )
-        return pred
+                self.policy.touch(tenant)
+                slot = self.policy.lookup(tenant)
+                if slot is None:
+                    self.metrics.counter("bank.misses").inc()
+                    self.metrics.counter("read.cold").inc()
+                    pred = self._cold(xs)
+                else:
+                    self.metrics.counter("bank.hits").inc()
+                    pred = self._slot_predict(slot, xs)
+            self.metrics.histogram("latency.read_us").observe(
+                (self._lat() - t0) * 1e6)
+            return pred
+
+    def _quarantined_predict(self, tenant: int, xs) -> torch.Tensor:
+        """A quarantined tenant's reads, from the captured last-healthy
+        replica row (cold zeros if it was never seen healthy): the
+        degraded slot is never read. RFF rows go through
+        :func:`~repro_torch.serve.snapshot.predict_row`, one read launch
+        at B = 1."""
+        self.metrics.counter("read.quarantined").inc()
+        if self.policy is not None:
+            self.policy.touch(tenant)
+        row = self.recovery.healthy_row(tenant)
+        if row is None:
+            return self._cold(xs)
+        xq = self._inner._queries(xs)
+        single = xq.ndim == 1
+        if single:
+            xq = xq[None]
+        if self._theta_family:
+            pred = predict_row(row.theta, xq, self._inner.rff,
+                               mode=self._inner.mode,
+                               precision=self._inner.precision)
+        else:
+            pred = self._lrn.predict_fn(row, xq)
+        return pred[0] if single else pred
 
     def predict_block(self, xq) -> torch.Tensor:
         """Serve a ``(B, Q, d)`` query block over the whole bank (slot
         space) from the frozen replica -> ``(B, Q)`` (one launch for the
         RFF families with a trig map)."""
         t0 = self._lat()
-        self.metrics.counter("requests.read").inc()
-        if self._theta_family:
-            pred = self._inner.predict_block(xq)
-        else:
-            pred = self._lrn.predict_fn(per_query(self._inner.snapshot.state),
-                                        self._inner._queries(xq))
-        self.metrics.histogram("latency.read_us").observe(
-            (self._lat() - t0) * 1e6
-        )
-        return pred
+        with self._act(), _obtrace.span("serve.predict_block"):
+            self.metrics.counter("requests.read").inc()
+            if self._theta_family:
+                pred = self._inner.predict_block(xq)
+            else:
+                pred = self._lrn.predict_fn(
+                    per_query(self._inner.snapshot.state),
+                    self._inner._queries(xq))
+            self.metrics.histogram("latency.read_us").observe(
+                (self._lat() - t0) * 1e6)
+            return pred
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -556,15 +741,18 @@ class Server:
         """Release ``tenant``'s slot (a fresh row is parked there). Without
         a policy its later arrivals are only logged; with one the slot is
         free for the next admission. Returns the dropped pending count."""
-        if self.policy is None:
-            dropped = self._inner.evict(tenant)
-        else:
-            slot = self.policy.release(tenant)
-            if slot is None:
-                return 0
-            dropped = self._inner.release_slot(slot)
-        self.metrics.counter("evictions").inc()
-        return dropped
+        with self._act(), _obtrace.span("serve.evict", tenant=tenant):
+            if self.policy is None:
+                dropped = self._inner.evict(tenant)
+                self._expected[tenant] = 0
+            else:
+                slot = self.policy.release(tenant)
+                if slot is None:
+                    return 0
+                dropped = self._inner.release_slot(slot)
+                self._expected[slot] = 0
+            self.metrics.counter("evictions").inc()
+            return dropped
 
     def readmit(self, tenant: int) -> int:
         """Re-admit ``tenant``, rebuilding its slot from the replay log with
@@ -572,47 +760,61 @@ class Server:
         sequentially). With a policy this bypasses the admission floor (an
         operator's decision), evicting the coldest incumbent of a full
         bank. Returns the ticks replayed."""
-        if self.policy is None:
-            n = self._inner.readmit(tenant)
-            self.metrics.counter("readmissions").inc()
-            return n
-        pol = self.policy
-        if pol.lookup(tenant) is not None:
-            return 0
-        pol.touch(tenant)
-        decision = pol.admit(tenant, force=True)
-        if decision.action == "evict":
-            self.metrics.counter("evictions").inc()
-            self._inner.release_slot(decision.slot)
-        return self._install(tenant, decision.slot)
+        with self._act(), _obtrace.span("serve.readmit", tenant=tenant):
+            if self.policy is None:
+                n = self._inner.readmit(tenant)
+                self._expected[tenant] = n
+                self.metrics.counter("readmissions").inc()
+                return n
+            pol = self.policy
+            if pol.lookup(tenant) is not None:
+                return 0
+            pol.touch(tenant)
+            decision = pol.admit(tenant, force=True)
+            if decision.action == "evict":
+                self.metrics.counter("evictions").inc()
+                self._inner.release_slot(decision.slot)
+                self._expected[decision.slot] = 0
+            return self._install(tenant, decision.slot)
 
     def reset_tenant(self, tenant: int) -> int:
         """Reset one tenant to a fresh row and forget its replay history
-        (with a policy, a resident tenant keeps its slot). Returns the
-        dropped pending count."""
-        self.metrics.counter("resets").inc()
-        if self.policy is None:
-            return self._inner.reset_tenant(tenant)
-        self.log.clear(tenant)
-        slot = self.policy.lookup(tenant)
-        if slot is None:
-            return 0
-        inner = self._inner
-        dropped = inner.queue.drop_pending(slot)
-        inner._arrival_times[slot].clear()
-        inner.queue.state = inner._evict_fn(inner.queue.state, slot)
-        inner.publish()
-        return dropped
+        (with a policy, a resident tenant keeps its slot): the last rung of
+        the recovery ladder. Returns the dropped pending count."""
+        with self._act(), _obtrace.span("serve.reset_tenant", tenant=tenant):
+            self.metrics.counter("resets").inc()
+            if self.policy is None:
+                dropped = self._inner.reset_tenant(tenant)
+                self._expected[tenant] = 0
+                return dropped
+            self.log.clear(tenant)
+            slot = self.policy.lookup(tenant)
+            if slot is None:
+                return 0
+            inner = self._inner
+            dropped = inner.queue.drop_pending(slot)
+            inner._arrival_times[slot].clear()
+            inner.queue.state = inner._evict_fn(inner.queue.state, slot)
+            inner.publish()
+            self._expected[slot] = 0
+            return dropped
+
+    def checkpoint(self, directory, *, keep: int = 3) -> str:
+        """Write one durable checkpoint generation of this server
+        (serve/recovery.py); returns its path."""
+        with self._act():
+            return save_checkpoint(self, directory, keep=keep)
 
     def reset(self, state=None) -> None:
         """Restart on a fresh bank state (every slot the fresh row by
-        default): queue, replica, logs, residency and the policy's clocks
-        drop to zero. Drain pending observations first."""
+        default): queue, replica, logs, ledger, residency and the policy's
+        clocks drop to zero. Drain pending observations first."""
         if state is None:
             state = type(self._fresh_row)(*(
                 r.expand(self.slots, *r.shape).clone()
                 for r in self._fresh_row))
         self._inner.reset(state)
+        self._expected.clear()
         if self.policy is not None:
             self.log.clear()
             pol = self.policy
@@ -639,30 +841,35 @@ class Server:
                 f"new_slots must be a power of two, got {new_slots}")
         if new_slots == self.slots:
             return
-        self.metrics.counter("resizes").inc()
-        pol, inner = self.policy, self._inner
-        if new_slots < self.slots:
-            while pol.occupancy > new_slots:
-                self.evict(pol.victim())
-            used = set(pol.resident.values())
-            free_low = [s for s in range(new_slots) if s not in used]
-            moves = [(tenant, slot, free_low.pop(0)) for tenant, slot in
-                     sorted(pol.resident.items(), key=lambda kv: kv[1])
-                     if slot >= new_slots]
-            if moves:
-                dev = inner.queue.device
-                src = torch.tensor([m[1] for m in moves], device=dev)
-                dst = torch.tensor([m[2] for m in moves], device=dev)
-                leaves = [a.clone() for a in inner.queue.state]
-                for a in leaves:
-                    a[dst] = a[src]
-                inner.queue.state = type(inner.queue.state)(*leaves)
-            for tenant, slot, dst_slot in moves:
-                inner.move_slot(slot, dst_slot)
-                pol.move(tenant, dst_slot)
-        inner.adopt_resized(resize_bank(inner.queue.state, new_slots,
-                                        fresh_row=self._fresh_row))
-        pol.set_slots(new_slots)
+        with self._act(), _obtrace.span("serve.resize", slots=self.slots,
+                                        new_slots=new_slots):
+            self.metrics.counter("resizes").inc()
+            pol, inner = self.policy, self._inner
+            if new_slots < self.slots:
+                while pol.occupancy > new_slots:
+                    self.evict(pol.victim())
+                used = set(pol.resident.values())
+                free_low = [s for s in range(new_slots) if s not in used]
+                moves = [(tenant, slot, free_low.pop(0)) for tenant, slot in
+                         sorted(pol.resident.items(), key=lambda kv: kv[1])
+                         if slot >= new_slots]
+                if moves:
+                    dev = inner.queue.device
+                    src = torch.tensor([m[1] for m in moves], device=dev)
+                    dst = torch.tensor([m[2] for m in moves], device=dev)
+                    leaves = [a.clone() for a in inner.queue.state]
+                    for a in leaves:
+                        a[dst] = a[src]
+                    inner.queue.state = type(inner.queue.state)(*leaves)
+                for tenant, slot, dst_slot in moves:
+                    inner.move_slot(slot, dst_slot)
+                    self._expected[dst_slot] = self._expected.pop(slot, 0)
+                    pol.move(tenant, dst_slot)
+            inner.adopt_resized(resize_bank(inner.queue.state, new_slots,
+                                            fresh_row=self._fresh_row))
+            self._expected = {s: v for s, v in self._expected.items()
+                              if s < new_slots}
+            pol.set_slots(new_slots)
 
     def _rebuild_cost(self, tenant: int) -> float:
         """Rebuild-cost estimate for the ``cost`` scorer (``repro``'s):
@@ -719,6 +926,10 @@ def make_server(
     rebuild_mode: str = "scan",
     policy=None,
     auto_resize: bool = False,
+    trace=None,
+    probe=None,
+    recovery=None,
+    wal=None,
     **kw,
 ) -> Server:
     """The serving facade: one :class:`Server` for any learner family.
@@ -754,19 +965,26 @@ def make_server(
         managing ``bank`` slots.
       auto_resize: after each submit, apply the policy's power-of-two
         ``suggest_size``.
+      trace: request tracing — ``True`` for a fresh
+        :class:`~repro_torch.obs.trace.Tracer`, an int for one of that
+        ring capacity, or a ready (possibly shared) instance; it lands on
+        ``server.tracer``.
+      probe: numerics probes — ``True`` runs
+        :func:`~repro_torch.obs.probes.stats_tap` after every flush's
+        chunk step and monitors it against ``DEFAULT_THRESHOLDS``; a dict
+        overrides thresholds (``{"name": value}`` or ``{"name":
+        ("min"|"max", value)}``). The monitor lands on ``server.probe``.
+      recovery: probe-triggered repair (serve/recovery.py) — ``True`` for
+        a default :class:`~repro_torch.serve.recovery.RecoveryPolicy`, a
+        kwargs dict, or a ready instance; implies ``probe=True``.
+      wal: a durable write-ahead log — a JSONL path or a ready
+        :class:`~repro_torch.serve.recovery.DurableLog`; every accepted
+        submit is appended before it is queued, and
+        ``restore_checkpoint`` replays the suffix after a checkpoint.
       **kw: family hyperparameters, ``repro``'s table: ``mu``, ``eps``,
         ``lam``, ``beta``, ``sigma``, ``quant_eps``, ``nu``, ``capacity``.
-        The knobs of a later slice (``trace``, ``probe``, ``recovery``,
-        ``wal``) raise ``NotImplementedError``.
     """
     _check_learner(learner)
-    for knob in _UNPORTED_KNOBS:
-        if kw.get(knob) not in (None, False):
-            raise NotImplementedError(
-                f"make_server({knob}=...) is not ported yet: "
-                f"{_UNPORTED_KNOBS[knob]}"
-            )
-        kw.pop(knob, None)
     h = _resolve_hp(kw)
     if rebuild_mode not in _REBUILD_MODES:
         raise ValueError(
@@ -803,6 +1021,24 @@ def make_server(
             return set_tenant_row(bank_state, slot,
                                   type(fresh)(*map(torch.zeros_like, fresh)))
 
+    rec: Optional[RecoveryPolicy] = None
+    if recovery:
+        if isinstance(recovery, RecoveryPolicy):
+            rec = recovery
+        elif isinstance(recovery, dict):
+            rec = RecoveryPolicy(**recovery)
+        else:
+            rec = RecoveryPolicy()
+        if not probe:
+            probe = True
+    wal_log = wal if wal is None or isinstance(wal, DurableLog) else (
+        DurableLog(wal))
+    if isinstance(trace, _obtrace.Tracer):
+        tracer = trace
+    elif isinstance(trace, bool) or trace is None:
+        tracer = _obtrace.Tracer() if trace else None
+    else:
+        tracer = _obtrace.Tracer(capacity=int(trace))
     pol = _resolve_policy(policy, bank)
     inner = SnapshotServer(
         queue, fm, publish_every, mode=mode, precision=precision,
@@ -812,4 +1048,5 @@ def make_server(
     )
     return Server(inner, learner=learner, feature_map=fm, hp=h, lrn=lrn,
                   policy=pol, metrics=metrics, log_capacity=log_capacity,
-                  auto_resize=auto_resize)
+                  auto_resize=auto_resize, tracer=tracer, probe=probe,
+                  recovery=rec, wal=wal_log)

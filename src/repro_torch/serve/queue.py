@@ -10,7 +10,10 @@ no-ops.
 
 Host-side and synchronous (submit / flush). The batch is assembled in
 numpy, copied to the state's device in one transfer, and the chunk step
-runs there (the CUDA chunk kernel on the card).
+runs there (the CUDA chunk kernel on the card). An attached probe
+(:meth:`MicroBatchQueue.attach_probe`) runs right after the chunk step;
+each flush opens a ``queue.flush`` span and counts
+``dispatch.launches{site=queue.flush}`` in ``obs.telemetry``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bank import set_tenant_row
+from repro_torch.obs import telemetry as _telemetry
+from repro_torch.obs import trace as _trace
 
 __all__ = ["MicroBatchQueue"]
 
@@ -72,6 +77,17 @@ class MicroBatchQueue:
         self.ticks_served = 0
         self.flushes = 0
         self.stale_flushes = 0
+        self._probe: Optional[Callable] = None
+        self.last_probe: Optional[dict] = None
+
+    def attach_probe(self, probe_fn: Optional[Callable]) -> None:
+        """Run ``probe_fn(state) -> {name: 0-d tensor}`` after every chunk
+        step (obs/probes.py ``stats_tap``). The latest readout lands in
+        ``last_probe`` as tensors on the state's device; the serve facade
+        copies it to the host at flush boundaries. ``None`` detaches it."""
+        self._probe = probe_fn
+        if probe_fn is None:
+            self.last_probe = None
 
     def check_arrival(self, tenant: int, x) -> np.ndarray:
         """``x`` as this queue's dtype; raises for a tenant outside the bank
@@ -175,41 +191,54 @@ class MicroBatchQueue:
         if not self.has_stale():
             return {}
         self.stale_flushes += 1
+        _telemetry.registry().counter("queue.stale_flush").inc()
         return self.flush()
 
     def flush(self) -> dict:
         """One chunked launch over up to T queued ticks per tenant."""
         bsz, tlen, d = self.num_tenants, self._flush_chunk(), self.input_dim
         if not any(self._pending):
+            _trace.instant("queue.flush.skip", tenants=bsz)
             return {}
-        xs = np.zeros((bsz, tlen, d), self._dtype)
-        ys = np.zeros((bsz, tlen), self._dtype)
-        mask = np.zeros((bsz, tlen), self._dtype)
-        counts = []
-        for b, q in enumerate(self._pending):
-            take = min(len(q), tlen)
-            for t in range(take):
-                xs[b, t], ys[b, t] = q.popleft()
-            mask[b, :take] = 1.0
-            counts.append(take)
-            if not q:
-                self._first_pending_at[b] = None
-        dev = self.device
-        self.state, out = self._chunk_step(
-            self.state,
-            torch.from_numpy(xs).to(dev),
-            torch.from_numpy(ys).to(dev),
-            torch.from_numpy(mask).to(dev),
-        )
-        preds = out.prediction.cpu().numpy()
-        errs = out.error.cpu().numpy()
-        self.flushes += 1
-        self.ticks_served += sum(counts)
-        return {
-            b: [(float(preds[b, t]), float(errs[b, t])) for t in range(c)]
-            for b, c in enumerate(counts)
-            if c
-        }
+        with _trace.span("queue.flush", tenants=bsz, chunk=tlen,
+                         adaptive=self.adaptive) as sp:
+            xs = np.zeros((bsz, tlen, d), self._dtype)
+            ys = np.zeros((bsz, tlen), self._dtype)
+            mask = np.zeros((bsz, tlen), self._dtype)
+            counts = []
+            for b, q in enumerate(self._pending):
+                take = min(len(q), tlen)
+                for t in range(take):
+                    xs[b, t], ys[b, t] = q.popleft()
+                mask[b, :take] = 1.0
+                counts.append(take)
+                if not q:
+                    self._first_pending_at[b] = None
+            dev = self.device
+            self.state, out = self._chunk_step(
+                self.state,
+                torch.from_numpy(xs).to(dev),
+                torch.from_numpy(ys).to(dev),
+                torch.from_numpy(mask).to(dev),
+            )
+            if self._probe is not None:
+                self.last_probe = self._probe(self.state)
+            preds = out.prediction.cpu().numpy()
+            errs = out.error.cpu().numpy()
+            self.flushes += 1
+            served = sum(counts)
+            self.ticks_served += served
+            _telemetry.registry().counter(
+                "dispatch.launches", site="queue.flush").inc()
+            if sp is not None:
+                sp.attrs["ticks"] = served
+                sp.attrs["active"] = sum(1 for c in counts if c)
+                sp.attrs["residual_backlog"] = sum(self.backlog())
+            return {
+                b: [(float(preds[b, t]), float(errs[b, t])) for t in range(c)]
+                for b, c in enumerate(counts)
+                if c
+            }
 
     def drain(self) -> dict:
         """Flush until all backlogs are empty; merge per-tenant results."""

@@ -35,9 +35,10 @@ import torch
 
 from repro_torch.core.bank import bank_predict_block, evict_tenant
 from repro_torch.features.base import FeatureLike
+from repro_torch.obs import trace as _trace
 from repro_torch.serve.queue import MicroBatchQueue
 
-__all__ = ["ReplayLog", "StateSnapshot", "SnapshotServer"]
+__all__ = ["ReplayLog", "StateSnapshot", "SnapshotServer", "predict_row"]
 
 
 class ReplayLog:
@@ -126,6 +127,19 @@ class _Row(NamedTuple):
     same row serves a KLMS and a KRLS replica."""
 
     theta: torch.Tensor
+
+
+def predict_row(theta, xq, rff, *, mode: str = "auto",
+                precision: Optional[str] = None) -> torch.Tensor:
+    """Fused predict from one bare ``(D,)`` theta row: ``xq (Q, d)`` ->
+    ``(Q,)``, one read launch at B = 1. The quarantine read path
+    (serve/recovery.py) serves a tenant's captured last-healthy row through
+    it, outside any bank."""
+    theta = torch.as_tensor(theta)
+    xq = torch.as_tensor(xq, dtype=theta.dtype, device=theta.device)
+    return bank_predict_block(_Row(theta=theta[None]),
+                              xq.contiguous()[None], rff, mode=mode,
+                              precision=precision)[0]
 
 
 class StateSnapshot(NamedTuple):
@@ -326,8 +340,11 @@ class SnapshotServer:
                     "(make_server wires one)"
                 )
             xs, ys = self.log.arrays(tenant)
-            self.queue.state = self._rebuild_fn(self.queue.state, tenant, xs,
-                                                ys)
+            with _trace.span("snapshot.rebuild", tenant=tenant,
+                             ticks=len(ys),
+                             complete=self.log.complete(tenant)):
+                self.queue.state = self._rebuild_fn(self.queue.state, tenant,
+                                                    xs, ys)
             replayed = len(ys)
         self._evicted.discard(tenant)
         self.publish()
@@ -419,4 +436,6 @@ class SnapshotServer:
             version=self._snapshot.version + 1,
             tick=self.queue.ticks_served,
         )
+        _trace.instant("snapshot.publish", version=self._snapshot.version,
+                       tick=self._snapshot.tick)
         return self._snapshot

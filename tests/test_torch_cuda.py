@@ -1343,3 +1343,160 @@ def test_policy_server_kernel_matches_plain(cuda_device, policy):
     torch.testing.assert_close(srv.queue.state.theta,
                                ref_srv.queue.state.theta, atol=F32_TOL,
                                rtol=F32_TOL)
+
+
+def _obs_traffic(n, d, tenants, seed):
+    rng = np.random.default_rng(seed)
+    return [(int(rng.integers(0, tenants)),
+             rng.normal(size=d).astype(np.float32), float(rng.normal()))
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_traced_probed_server_is_bitwise_untraced_on_card(cuda_device,
+                                                          learner, tmp_path):
+    """trace, probe, recovery and a WAL change no bit of the state or the
+    reads on the card, and obs.telemetry's kernel.launches equals each
+    wrapper's .launches rise."""
+    from repro_torch.obs import telemetry
+
+    d, dfeat = (16, 256) if learner == "klms" else (5, 300)
+    fm = rff_map(torch.Generator().manual_seed(0), d, dfeat, float(np.sqrt(d)),
+                 device=cuda_device)
+    hp = dict(mu=0.5) if learner == "klms" else dict(lam=1e-4, beta=0.9995)
+    kw = dict(feature_map=fm, bank=64, chunk=8, log_capacity=64,
+              rebuild_mode="blocked", device=cuda_device, **hp)
+    plain = make_server(learner, **kw)
+    obs = make_server(learner, trace=True, probe=True, recovery=True,
+                      wal=str(tmp_path / "wal.jsonl"), **kw)
+    wrapper = (rff_klms_bank_chunk_cuda if learner == "klms"
+               else rff_krls_bank_chunk_cuda)
+    before = wrapper.launches
+    telemetry.reset()
+    for t, x, y in _obs_traffic(700, d, 64, 1):
+        plain.submit(t, x, y)
+        obs.submit(t, x, y)
+    plain.drain()
+    obs.drain()
+    assert all(torch.equal(a, b) for a, b in
+               zip(plain.queue.state, obs.queue.state))
+    xq = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(64, 8, d)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(plain.predict_block(xq), obs.predict_block(xq))
+    op = "klms_chunk" if learner == "klms" else "krls_chunk"
+    assert telemetry.registry().count("kernel.launches", op=op) == (
+        wrapper.launches - before) > 0
+    assert obs.probe.healthy() and not obs.recovery.history
+    assert obs.check_read_contract(xq) <= 2e-2
+    obs.wal.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner,kind,action", [
+    ("klms", "nan_state", "rebuild"), ("klms", "log_corrupt", "reset"),
+    ("krls", "asym_pmat", "resymmetrize"), ("klms", "drop_flush", "rebuild")])
+def test_fault_repair_on_card(cuda_device, learner, kind, action):
+    """A fault on the card: detected, quarantined (reads from the healthy
+    row through predict_row), repaired on the expected rung and released;
+    a rebuilt row equals the operator's readmit of the same log bit for
+    bit, a reset row the fresh row, every other row the control's."""
+    from repro_torch.core.bank import tenant_row
+    from repro_torch.obs.faults import Fault, FaultInjector, FaultPlan
+    from repro_torch.serve.snapshot import predict_row
+
+    d, dfeat = (16, 256) if learner == "klms" else (5, 300)
+    fm = rff_map(torch.Generator().manual_seed(0), d, dfeat, float(np.sqrt(d)),
+                 device=cuda_device)
+    hp = dict(mu=0.5) if learner == "klms" else dict(lam=1e-4, beta=0.9995)
+    kw = dict(feature_map=fm, bank=16, chunk=8, policy="lru",
+              log_capacity=256, rebuild_mode="blocked", device=cuda_device,
+              **hp)
+    srv, ctl = make_server(learner, recovery=True, **kw), make_server(
+        learner, **kw)
+    warm = _obs_traffic(400, d, 16, 3)
+    for s in (srv, ctl):
+        for t, x, y in warm:
+            s.submit(t, x, y)
+        s.drain()
+    rec = srv.recovery
+    xq = torch.ones(4, d, device=cuda_device)
+    reads = []
+    attempt = rec._attempt
+
+    def checked(ep):
+        if not ep.actions:
+            reads.append(torch.equal(srv.predict(1, xq), predict_row(
+                rec.healthy_row(1).theta, xq, srv.feature_map)))
+        return attempt(ep)
+
+    rec._attempt = checked
+    inj = FaultInjector(srv, FaultPlan([Fault(kind, 1, 0)])).attach()
+    # Other tenants' arrivals drive the faulted flush; a dropped flush
+    # needs the target's backlog beside them.
+    mid = [((1 if kind == "drop_flush" else 0) if i % 2 else 2, x, y)
+           for i, (_, x, y) in enumerate(_obs_traffic(8, d, 16, 4))]
+    for s in (srv, ctl):
+        for t, x, y in mid:
+            s.submit(t, x, y)
+        s.flush()
+        s.drain()
+    inj.detach()
+    assert reads == [True]
+    assert [h.get("verified") for h in rec.history][-1] is True
+    assert rec.history[-1]["action"] == action and not rec.quarantined
+    slot = srv.resident[1]
+    keep = [s for s in range(16) if s != slot]
+    assert all(torch.equal(a[keep], b[keep])
+               for a, b in zip(srv.queue.state, ctl.queue.state))
+    row = tenant_row(srv.queue.state, slot)
+    if action == "rebuild":
+        xs, ys = ctl.log.arrays(1)
+        op = tenant_row(ctl.snapshot_server._rebuild_fn(
+            ctl.queue.state, slot, xs, ys), slot)
+        assert all(torch.equal(a, b) for a, b in zip(row, op))
+    elif action == "reset":
+        assert all(torch.equal(a, b) for a, b in zip(row, srv._fresh_row))
+    else:
+        assert torch.equal(row.pmat, row.pmat.T)
+        assert torch.equal(srv.predict(1, xq), ctl.predict(1, xq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_kill_restore_bitwise_on_card(cuda_device, learner, tmp_path):
+    """Kill at a flush, restore on the card and replay the WAL: equal to
+    the never-killed server bit for bit (leaves, snapshot, policy, ledger,
+    reads)."""
+    from repro_torch.serve import restore_checkpoint
+
+    d, dfeat = (16, 256) if learner == "klms" else (5, 300)
+    fm = rff_map(torch.Generator().manual_seed(0), d, dfeat, float(np.sqrt(d)),
+                 device=cuda_device)
+    hp = dict(mu=0.5) if learner == "klms" else dict(lam=1e-4, beta=0.9995)
+    kw = dict(feature_map=fm, bank=16, chunk=8, policy="lru",
+              log_capacity=256, size_watermark=8, rebuild_mode="blocked",
+              device=cuda_device, **hp)
+    wal = str(tmp_path / "wal.jsonl")
+    traffic = _obs_traffic(600, d, 48, 5)
+    orig = make_server(learner, wal=wal, **kw)
+    for t, x, y in traffic[:233]:
+        orig.submit(t, x, y)
+    orig.checkpoint(tmp_path / "ckpt")
+    for t, x, y in traffic[233:]:
+        orig.submit(t, x, y)
+    orig.drain()
+    restored = make_server(learner, wal=wal, **kw)
+    assert restore_checkpoint(restored, tmp_path / "ckpt")["replayed"] == 367
+    restored.drain()
+    for a, b in ((orig.queue.state, restored.queue.state),
+                 (orig.snapshot.state, restored.snapshot.state)):
+        assert all(x.device.type == cuda_device.type and torch.equal(x, y)
+                   for x, y in zip(a, b))
+    assert orig.policy.state_dict() == restored.policy.state_dict()
+    assert orig._expected == restored._expected
+    xq = torch.ones(4, d, device=cuda_device)
+    for t in sorted(orig.resident)[:4]:
+        assert torch.equal(orig.predict(t, xq), restored.predict(t, xq))
+    orig.wal.close()
+    restored.wal.close()

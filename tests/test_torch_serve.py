@@ -322,10 +322,24 @@ def test_learner_server_lifecycle(learner):
     dict(trace=True), dict(probe=True),
     dict(recovery=True), dict(wal="wal.jsonl"),
 ])
-def test_unported_knob_raises(knob):
+def test_unported_knob_raises(knob, tmp_path, monkeypatch):
+    """These knobs raised until ROADMAP §1 entry 5 ported them (the name is
+    kept): each now builds a server in repro's form that serves."""
+    monkeypatch.chdir(tmp_path)
     _, ttf = _maps()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.make_server("klms", feature_map=ttf, device="cpu", **knob)
+    srv = api.make_server("klms", feature_map=ttf, device="cpu", **knob)
+    rng = np.random.default_rng(1)
+    for t in range(4):
+        srv.submit(t, rng.normal(size=D_IN).astype(np.float32), 1.0)
+    srv.drain()
+    assert srv.queue.ticks_served == 4
+    name = next(iter(knob))
+    attr = {"trace": "tracer", "probe": "probe", "recovery": "recovery",
+            "wal": "wal"}[name]
+    assert getattr(srv, attr) is not None
+    if name == "wal":
+        assert len(srv.wal.entries()) == 4
+        srv.wal.close()
 
 
 def test_unported_lifecycle_and_unknown_names():
@@ -492,9 +506,6 @@ def test_feature_map_serves_like_trig_features():
 # ROADMAP §1 entry that ports it.
 UNPORTED_NAMES = {
     "serve": {
-        **dict.fromkeys(("RecoveryPolicy", "DurableLog", "save_checkpoint",
-                         "restore_checkpoint"),
-                        "ROADMAP §1 entry 5 (observability and recovery)"),
         **dict.fromkeys((
             "make_bank_server", "serve_bank_stream", "reset_tenants",
             "make_krls_bank_server", "serve_krls_bank_stream",
@@ -512,6 +523,7 @@ UNPORTED_NAMES = {
         "ROADMAP §1 entry 6 (distribution)"),
     "features": {},
     "kernels": {},
+    "obs": {},
 }
 
 
