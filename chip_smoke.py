@@ -162,8 +162,29 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     the trained row; a reset row the fresh row; resymmetrized reads within
     5e-2), with detect, warm and cold repair microseconds; kill at a flush
     (two cuts of phase 18's first 4096 KLMS writes, one of KRLS), restore
-    and WAL replay bit for bit, with save and restore ms and bytes. The
-    last phase line gives the whole run's seconds.
+    and WAL replay bit for bit, with save and restore ms and bytes;
+20. runs the distribution tier (``distribution``): four ranks spawned on
+    the card in one gloo process group (CUDA tensors; NCCL refuses two
+    ranks on one card; ``dist_smoke.py`` runs the same rank body under
+    NCCL, one rank a card) run (a) sharded KRLS at
+    tests/test_krls_sharded.py's shape (d = 5, D = 256, sigma = 5, lam =
+    1e-2, 600 ticks) per tick and in blocks of 8 and 32, within 1e-5
+    (blocks 5e-5) of the dense plain run, one all_reduce a tick and one a
+    block, P gathered bitwise symmetric, a predict through kernel 3; (b)
+    the README memory model's full width, D = 32768, 256 ticks at lam =
+    1e-2 (within 1e-4 of dense) and 1e-4 (within twice the dense f32
+    run's distance from a float64 dense run), with ms a tick, all_reduce
+    ms a tick and peak bytes a rank against ``krls_shard_bytes``; (c)
+    krls_shard_bench's grid, D in 256, 512, 1024 (d = 8), sharded against
+    dense ms a tick; (d) diffusion KLMS at four nodes, the reference
+    configuration (combine every tick, never, int8) and example 1's width
+    (D = 1000, mu = 1.0, 5000 samples a node, combining every 10 ticks),
+    each node's ticks between combines one kernel-1 call, held within 1e-4
+    of a plain
+    single-process run (the int8 run by its tail MSE); (e) each of the
+    twelve deprecated serve names once, bit for bit its facade call. The
+    dense and plain controls run after the ranks have exited. The last
+    phase line gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
@@ -3281,6 +3302,666 @@ def phase_obs_recovery(seed, device, kernels) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: distribution. Sharded KRLS and diffusion KLMS on
+# torch.distributed: ranks spawned as processes (gloo with CUDA tensors, all
+# on the one card here; dist_smoke.py runs the same rank body under NCCL,
+# one rank a card), the dense and plain controls in this process after the
+# ranks have exited.
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4
+# (a) tests/test_krls_sharded.py's shape and tests/test_chunked.py's blocks
+DIST_D_IN, DIST_D_FEAT, DIST_SIGMA, DIST_TICKS = 5, 256, 5.0, 600
+DIST_LAM, DIST_BETA, DIST_KS = 1e-2, 0.9995, (1, 8, 32)
+DIST_STEP_TOL, DIST_BLOCK_TOL = 1e-5, 5e-5  # the reference tests' bounds
+# (b) README's "Sharded KRLS memory model" at full width: d = 5, sigma = 5
+WIDE_D_FEAT, WIDE_TICKS, WIDE_LAMS = 32768, 256, (1e-2, 1e-4)
+# (c) benchmarks/krls_shard_bench.py's grid (d = 8, sigma = 2)
+GRID_D_IN, GRID_SIGMA, GRID_D_FEATS, GRID_TICKS = 8, 2.0, (256, 512, 1024), 32
+GRID_WARM = 2  # untimed ticks first
+# (d) diffusion at four nodes: tests/test_distributed.py's configuration
+# (D = 100, mu = 0.5, 600 a node; combine every tick, never, int8) and
+# example 1's width (configs/paper_rff.py:28: D = 1000, mu = 1.0, 5000
+# samples a node of model (7)), combining every 50 ticks (a gloo round of
+# four ranks on one host costs 6-10 ms there); (combine_every, compress)
+# runs.
+DIFFUSION = {
+    "reference": dict(dfeat=100, mu=0.5, ticks=600, data="wiener",
+                      runs=((1, 0), (10**9, 0), (1, 1))),
+    "example1": dict(dfeat=1000, mu=1.0, ticks=5000, data="expansion",
+                     runs=((50, 0),)),
+}
+DIFF_SIGMA, DIFF_TOL = 5.0, 1e-4
+# An int8 run is held tick by tick over its first DIFF_HEAD combines (a
+# prefix run's theta, and the errors that read them): past those, a message
+# one ulp apart can round one int8 level apart and the runs part.
+DIFF_HEAD = 3
+DIST_DIR = ROOT / "build" / "dist"
+DIST_KERNELS = ("rff_features", "bank_predict", "klms_bank_chunk")
+
+
+def dist_inputs(seed: int) -> dict:
+    """Every part's feature maps and streams as numpy arrays, drawn on the
+    CPU from ``seed`` (the ranks and the controls read the same file)."""
+    from repro_torch.core.rff import sample_rff
+    from repro_torch.data.synthetic import (
+        gen_kernel_expansion,
+        gen_nonlinear_wiener,
+    )
+
+    g = torch.Generator().manual_seed(seed + 20)
+    out = {}
+
+    def draw(key, d, dfeat, sigma):
+        rff = sample_rff(g, d, dfeat, sigma, device="cpu")
+        out[f"{key}_omega"] = rff.omega.numpy()
+        out[f"{key}_bias"] = rff.bias.numpy()
+
+    def stream(key, n, d, shape):
+        xs, ys = gen_nonlinear_wiener(g, num_samples=n, input_dim=d)
+        out[f"{key}_xs"] = xs.numpy().reshape(*shape, d)
+        out[f"{key}_ys"] = ys.numpy().reshape(shape)
+
+    draw("small", DIST_D_IN, DIST_D_FEAT, DIST_SIGMA)
+    stream("small", DIST_TICKS, DIST_D_IN, (DIST_TICKS,))
+    out["small_xq"] = np.random.default_rng(seed + 21).normal(
+        size=(8, DIST_D_IN)).astype(np.float32)
+    draw("wide", DIST_D_IN, WIDE_D_FEAT, DIST_SIGMA)
+    stream("wide", WIDE_TICKS, DIST_D_IN, (WIDE_TICKS,))
+    for dfeat in GRID_D_FEATS:
+        draw(f"grid{dfeat}", GRID_D_IN, dfeat, GRID_SIGMA)
+        stream(f"grid{dfeat}", GRID_TICKS + GRID_WARM, GRID_D_IN,
+               (GRID_TICKS + GRID_WARM,))
+    for name, cfg in DIFFUSION.items():
+        draw(f"diff_{name}", DIST_D_IN, cfg["dfeat"], DIFF_SIGMA)
+        n, key = cfg["ticks"] * DIST_WORLD, f"diff_{name}"
+        if cfg["data"] == "wiener":
+            stream(key, n, DIST_D_IN, (DIST_WORLD, cfg["ticks"]))
+        else:
+            data = gen_kernel_expansion(g, num_samples=n, sigma=DIFF_SIGMA)
+            out[f"{key}_xs"] = data.xs.numpy().reshape(
+                DIST_WORLD, cfg["ticks"], DIST_D_IN)
+            out[f"{key}_ys"] = data.ys.numpy().reshape(
+                DIST_WORLD, cfg["ticks"])
+    return out
+
+
+def _sync_s(t0: float) -> float:
+    """Seconds since ``t0`` once the card has finished."""
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def dist_work(inp: dict, parts: str, cpu_group=None) -> dict:
+    """One rank's share of phase 20 (every rank calls it, SPMD) on the
+    initialized process group, on this rank's current card. ``parts``:
+    "a" sharded KRLS at the test shape (per tick and blocks of 8 and 32, a
+    predict), "b" at D = 32768 (lam 1e-2 and 1e-4; ms a tick, all_reduce
+    ms a tick, peak bytes a rank), "c" the shard bench's grid, "d"
+    diffusion. Host copies cross ranks on ``cpu_group`` (None: the default
+    group, which must then be gloo). Returns the results, the same on
+    every rank."""
+    t_enter = time.perf_counter()
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.core.distributed import diffusion_klms_run
+    from repro_torch.core.krls import (
+        make_sharded_krls_predict,
+        sharded_krls_run,
+    )
+    from repro_torch.kernels.rff_features import rff_features_cuda
+    from repro_torch.kernels.rff_klms_step import rff_klms_bank_chunk_cuda
+    from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
+    from repro_torch.launch.mesh import make_krls_mesh
+
+    wrappers = dict(zip(DIST_KERNELS, (rff_features_cuda,
+                                       rff_bank_predict_cuda,
+                                       rff_klms_bank_chunk_cuda)))
+    mesh = make_krls_mesh(device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    calls, timed, ar_s = [0], [False], [0.0]
+    inner = dist.all_reduce
+
+    def all_reduce(*args, **kw):
+        calls[0] += 1
+        if not timed[0]:
+            return inner(*args, **kw)
+        _sync_s(0.0)  # the card idle when the collective starts
+        t0 = time.perf_counter()
+        res = inner(*args, **kw)
+        ar_s[0] += _sync_s(t0)
+        return res
+
+    def tf(key):
+        return convert.trig_features(inp[f"{key}_omega"], inp[f"{key}_bias"],
+                                     device=dev)
+
+    def stream(key):
+        return (torch.from_numpy(inp[f"{key}_xs"]).to(dev),
+                torch.from_numpy(inp[f"{key}_ys"]).to(dev))
+
+    out, per_rank, seconds = {}, {}, {}
+    # one collective before any timing: NCCL sets up its communicator on
+    # the first call (seconds), which no tick should be charged
+    inner(torch.zeros(1, device=dev), group=mesh.get_group(0))
+    seconds["setup"] = _sync_s(t_enter)
+    dist.all_reduce = all_reduce
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        if "a" in parts:
+            t_part = time.perf_counter()
+            fm, (xs, ys) = tf("small"), stream("small")
+            for k in DIST_KS[:2]:  # warm-up: the first launches and rounds
+                sharded_krls_run(mesh, fm, xs[:8], ys[:8], lam=DIST_LAM,
+                                 beta=DIST_BETA, combine_every=k)
+            for k in DIST_KS:
+                before, t0 = calls[0], time.perf_counter()
+                state, o = sharded_krls_run(mesh, fm, xs, ys, lam=DIST_LAM,
+                                            beta=DIST_BETA, combine_every=k)
+                out[f"a_ms_tick_k{k}"] = _sync_s(t0) / DIST_TICKS * 1e3
+                out[f"a_calls_k{k}"] = calls[0] - before
+                out[f"a_pred_k{k}"] = o.prediction.cpu().numpy()
+                if k == 1:
+                    predict = make_sharded_krls_predict(mesh, fm)
+                    out["a_predict"] = predict(
+                        state, torch.from_numpy(inp["small_xq"]).to(dev)
+                    ).cpu().numpy()
+                    theta, pmat, step = convert.gather_rls_state(state,
+                                                                 cpu_group)
+                    out["a_theta"], out["a_step"] = theta, int(step)
+                    out["a_p_symmetric"] = bool(np.array_equal(pmat, pmat.T))
+                del state
+            seconds["a"] = time.perf_counter() - t_part
+        if "b" in parts:
+            t_part = time.perf_counter()
+            fm, (xs, ys) = tf("wide"), stream("wide")
+            for i, lam in enumerate(WIDE_LAMS):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                timed[0], ar_s[0] = i == 1, 0.0
+                before, t0 = calls[0], time.perf_counter()
+                state, o = sharded_krls_run(mesh, fm, xs, ys, lam=lam,
+                                            beta=DIST_BETA)
+                out[f"b_ms_tick_lam{i}"] = _sync_s(t0) / WIDE_TICKS * 1e3
+                timed[0] = False
+                out[f"b_calls_lam{i}"] = calls[0] - before
+                out[f"b_pred_lam{i}"] = o.prediction.cpu().numpy()
+                per_rank[f"b_peak_bytes_lam{i}"] = (
+                    torch.cuda.max_memory_allocated() - base)
+                del state, o
+            out["b_all_reduce_ms_tick"] = ar_s[0] / WIDE_TICKS * 1e3
+            torch.cuda.empty_cache()
+            seconds["b"] = time.perf_counter() - t_part
+        if "c" in parts:
+            t_part = time.perf_counter()
+            for dfeat in GRID_D_FEATS:
+                fm, (xs, ys) = tf(f"grid{dfeat}"), stream(f"grid{dfeat}")
+                sharded_krls_run(mesh, fm, xs[:GRID_WARM], ys[:GRID_WARM],
+                                 lam=DIST_LAM, beta=DIST_BETA)
+                t0 = time.perf_counter()
+                sharded_krls_run(mesh, fm, xs[GRID_WARM:], ys[GRID_WARM:],
+                                 lam=DIST_LAM, beta=DIST_BETA)
+                out[f"c_ms_tick_{dfeat}"] = _sync_s(t0) / GRID_TICKS * 1e3
+            seconds["c"] = time.perf_counter() - t_part
+        if "d" in parts:
+            t_part = time.perf_counter()
+            for name, cfg in DIFFUSION.items():
+                fm = tf(f"diff_{name}")
+                xs, ys = stream(f"diff_{name}")
+                for j, (every, compress) in enumerate(cfg["runs"]):
+                    before, t0 = calls[0], time.perf_counter()
+                    theta, errs = diffusion_klms_run(
+                        mesh, "shard", fm, xs, ys, cfg["mu"], every,
+                        bool(compress))
+                    key = f"d_{name}_{j}"
+                    out[f"{key}_ms_tick"] = (_sync_s(t0) / cfg["ticks"]
+                                             * 1e3)
+                    out[f"{key}_calls"] = calls[0] - before
+                    out[f"{key}_theta"] = convert.gather(theta, cpu_group)
+                    out[f"{key}_errs"] = convert.gather(errs, cpu_group)
+                    if compress:  # the combines before the first level flip
+                        theta, _ = diffusion_klms_run(
+                            mesh, "shard", fm, xs[:, :DIFF_HEAD],
+                            ys[:, :DIFF_HEAD], cfg["mu"], every, True)
+                        out[f"{key}_head_theta"] = convert.gather(theta,
+                                                                  cpu_group)
+            seconds["d"] = time.perf_counter() - t_part
+    finally:
+        dist.all_reduce = inner
+    per_rank.update({f"launches_{n}": w.launches
+                     for n, w in wrappers.items()})
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, per_rank, group=cpu_group)
+    for key in per_rank:
+        out[key] = [r[key] for r in gathered]
+    out["world"], out["backend"] = dist.get_world_size(), dist.get_backend()
+    out["seconds"] = seconds
+    return out
+
+
+def dist_rank(rank: int, world: int, init_method: str, parts: str,
+              inp_path: str, out_path: str) -> None:
+    """A spawned rank of phase 20: gloo with CUDA tensors, every rank on
+    the one card; rank 0 saves the results and when it entered and left."""
+    entered = time.time()
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        out = dist_work(dict(np.load(inp_path)), parts)
+        out["stamps"] = (entered, time.time())
+        if rank == 0:
+            torch.save(out, out_path)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def diffusion_plain(fm, xs, ys, mu, every, compress):
+    """Diffusion as one process's plain PyTorch: the nodes as a bank
+    through the chunk's plain version, the combine a mean over rows."""
+    from repro_torch.core.distributed import dequantize_int8, quantize_int8
+    from repro_torch.kernels import ref
+
+    nodes, n, _ = xs.shape
+    theta = xs.new_zeros((nodes, fm.num_features))
+    comp = torch.zeros_like(theta)
+    errs = []
+    for start in range(0, n, every):
+        stop = min(start + every, n)
+        theta, _, e = ref.rff_klms_bank_chunk_ref(
+            theta, xs[:, start:stop], ys[:, start:stop], fm.omega, fm.bias,
+            mu, None, fm.scale)
+        errs.append(e)
+        if stop % every:
+            continue
+        if compress:
+            msg = theta + comp
+            deq = torch.stack([dequantize_int8(*quantize_int8(m))
+                               for m in msg])
+            comp = msg - deq
+            theta = deq
+        theta = (theta.sum(0, keepdim=True) / nodes).expand(nodes, -1)
+        theta = theta.contiguous()
+    return theta, torch.cat(errs, 1)
+
+
+def _tail_mse(errs) -> float:
+    return float(np.mean(np.asarray(errs)[:, -100:] ** 2))
+
+
+def dist_controls(inp: dict, res: dict, device, parts: str) -> dict:
+    """Hold the ranks' results (``dist_work``) against dense and plain
+    runs on ``device``, after the ranks have exited. Returns the figures
+    to print; any miss fails."""
+    from repro_torch import convert
+    from repro_torch.core.krls import rff_krls_run
+    from repro_torch.launch.sharding import krls_shard_bytes
+
+    def tf(key, dtype=torch.float32):
+        fm = convert.trig_features(inp[f"{key}_omega"], inp[f"{key}_bias"],
+                                   device=device)
+        return type(fm)(*(a.to(dtype) for a in fm))
+
+    def stream(key, dtype=torch.float32):
+        return (torch.from_numpy(inp[f"{key}_xs"]).to(device, dtype),
+                torch.from_numpy(inp[f"{key}_ys"]).to(device, dtype))
+
+    def dense(key, lam, dtype=torch.float32):
+        state, o = rff_krls_run(tf(key, dtype), *stream(key, dtype),
+                                lam=lam, beta=DIST_BETA)
+        return state, o.prediction.double().cpu().numpy()
+
+    def dense_exact(key, lam):
+        """The float64 dense filter, plain and in place: one product and
+        one ``P <- (P - inv pz pz^T) / beta`` pass a tick (rff_krls_run's
+        allocating, symmetrizing passes are ~4x the traffic at D = 32768,
+        where P is 8 GiB)."""
+        fm = tf(key, torch.float64)
+        xs, ys = stream(key, torch.float64)
+        zs = torch.cos(xs @ fm.omega + fm.bias) * fm.scale
+        pmat = torch.eye(fm.num_features, dtype=torch.float64,
+                         device=device).div_(lam)
+        theta = torch.zeros_like(zs[0])
+        preds = []
+        for z, y in zip(zs, ys):
+            pz = torch.mv(pmat, z)
+            y_hat = theta @ z
+            inv = 1.0 / (DIST_BETA + z @ pz)
+            theta += ((y - y_hat) * inv) * pz
+            pmat.addr_(pz * (-inv / DIST_BETA), pz, beta=1.0 / DIST_BETA)
+            preds.append(y_hat)
+        del pmat
+        return torch.stack(preds).cpu().numpy()
+
+    def diff(a, b) -> float:
+        return float(np.max(np.abs(np.asarray(a, np.float64)
+                                    - np.asarray(b, np.float64))))
+
+    figures, seconds = {}, {}
+    t_part = time.perf_counter()
+    if "a" in parts:
+        state, want = dense("small", DIST_LAM)
+        got = {k: res[f"a_pred_k{k}"] for k in DIST_KS}
+        errs = {f"k{k}_vs_dense": diff(got[k], want) for k in DIST_KS}
+        errs.update({f"k{k}_vs_per_tick": diff(got[k], got[1])
+                     for k in DIST_KS[1:]})
+        check(errs["k1_vs_dense"] <= DIST_STEP_TOL,
+              f"sharded krls per tick {errs['k1_vs_dense']:.3g} from dense")
+        for k in DIST_KS[1:]:
+            for key in (f"k{k}_vs_dense", f"k{k}_vs_per_tick"):
+                check(errs[key] <= DIST_BLOCK_TOL,
+                      f"sharded krls {key} {errs[key]:.3g}")
+        calls = {k: res[f"a_calls_k{k}"] for k in DIST_KS}
+        check(calls == {k: -(-DIST_TICKS // k) for k in DIST_KS},
+              f"all_reduces a run: {calls} (one a tick, one a block)")
+        check(res["a_p_symmetric"] and res["a_step"] == DIST_TICKS,
+              "the gathered P is not bitwise symmetric, or the step is off")
+        z = convert.trig_features(inp["small_omega"], inp["small_bias"],
+                                  device=device)
+        xq = torch.from_numpy(inp["small_xq"]).to(device)
+        read = (torch.cos(xq @ z.omega + z.bias) * z.scale) @ state.theta
+        errs["predict_vs_dense"] = diff(res["a_predict"], read.cpu())
+        errs["theta_vs_dense"] = diff(res["a_theta"], state.theta.cpu())
+        check(errs["predict_vs_dense"] <= SERVER_TOL,
+              f"sharded predict {errs['predict_vs_dense']:.3g} from dense")
+        seconds["a"] = time.perf_counter() - t_part
+        figures["a"] = {"errors": errs, "all_reduces": calls,
+                        "ms_tick": {k: res[f"a_ms_tick_k{k}"]
+                                    for k in DIST_KS}}
+        del state
+    t_part = time.perf_counter()
+    if "b" in parts:
+        model = krls_shard_bytes(WIDE_D_FEAT, res["world"], DIST_D_IN)
+        b = {"bytes_model": model}
+        for i, lam in enumerate(WIDE_LAMS):
+            torch.cuda.empty_cache()
+            exact = dense_exact("wide", lam)
+            got = res[f"b_pred_lam{i}"]
+            check(bool(np.isfinite(got).all()) and got.shape == exact.shape,
+                  f"sharded krls at D = {WIDE_D_FEAT}: output not finite")
+            rec = {"vs_dense_f64": diff(got, exact),
+                   "ms_tick": res[f"b_ms_tick_lam{i}"],
+                   "all_reduces": res[f"b_calls_lam{i}"],
+                   "peak_bytes_a_rank": res[f"b_peak_bytes_lam{i}"]}
+            check(rec["all_reduces"] == WIDE_TICKS,
+                  f"{rec['all_reduces']} all_reduces in {WIDE_TICKS} ticks")
+            # the state's P_l and one P_l-sized scratch, nothing else big
+            check(max(rec["peak_bytes_a_rank"])
+                  <= 2 * model["p_block_bytes"] + 2 ** 24,
+                  f"peak bytes a rank {rec['peak_bytes_a_rank']}, P block "
+                  f"{model['p_block_bytes']}")
+            if lam == 1e-4:
+                torch.cuda.empty_cache()
+                _, want = dense("wide", lam)
+                eps = diff(want, exact)
+                rec.update(vs_dense_f32=diff(got, want), dense_f32_vs_f64=eps)
+                check(rec["vs_dense_f64"] <= BUDGET * eps + BUDGET_FLOOR,
+                      f"sharded krls at lam = 1e-4: {rec['vs_dense_f64']:.3g} "
+                      f"from float64, dense f32 {eps:.3g} (budget x{BUDGET})")
+            else:
+                check(rec["vs_dense_f64"] <= SERVER_TOL,
+                      f"sharded krls at D = {WIDE_D_FEAT}, lam = {lam}: "
+                      f"{rec['vs_dense_f64']:.3g} from float64 dense")
+            b[f"lam{lam:g}"] = rec
+        b["all_reduce_ms_tick"] = res["b_all_reduce_ms_tick"]
+        seconds["b"] = time.perf_counter() - t_part
+        figures["b"] = b
+        torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    if "c" in parts:
+        grid = {}
+        for dfeat in GRID_D_FEATS:
+            fm, (xs, ys) = tf(f"grid{dfeat}"), stream(f"grid{dfeat}")
+            rff_krls_run(fm, xs[:GRID_WARM], ys[:GRID_WARM], lam=DIST_LAM,
+                         beta=DIST_BETA)
+            t0 = time.perf_counter()
+            rff_krls_run(fm, xs[GRID_WARM:], ys[GRID_WARM:], lam=DIST_LAM,
+                         beta=DIST_BETA)
+            grid[dfeat] = {"sharded_ms_tick": res[f"c_ms_tick_{dfeat}"],
+                           "dense_ms_tick": _sync_s(t0)
+                           / GRID_TICKS * 1e3}
+        seconds["c"] = time.perf_counter() - t_part
+        figures["c"] = grid
+    t_part = time.perf_counter()
+    if "d" in parts:
+        d = {}
+        for name, cfg in DIFFUSION.items():
+            fm = tf(f"diff_{name}")
+            xs, ys = stream(f"diff_{name}")
+            mse, uncompressed = [], {}
+            for j, (every, compress) in enumerate(cfg["runs"]):
+                key = f"d_{name}_{j}"
+                theta, errs = res[f"{key}_theta"], res[f"{key}_errs"]
+                p_theta, p_errs = diffusion_plain(fm, xs, ys, cfg["mu"],
+                                                  every, compress)
+                p_theta, p_errs = p_theta.cpu().numpy(), p_errs.cpu().numpy()
+                check(theta.shape == p_theta.shape
+                      and errs.shape == p_errs.shape
+                      and bool(np.isfinite(errs).all()),
+                      f"diffusion {key}: shapes or non-finite errors")
+                rec = {"first_tick": diff(errs[:, 0], p_errs[:, 0]),
+                       "errs": diff(errs, p_errs),
+                       "theta": diff(theta, p_theta),
+                       "spread": diff(theta, theta[0:1]),
+                       "tail_mse": _tail_mse(errs),
+                       "plain_tail_mse": _tail_mse(p_errs),
+                       "ms_tick": res[f"{key}_ms_tick"],
+                       "all_reduces": res[f"{key}_calls"]}
+                mse.append(rec["tail_mse"])
+                check(rec["first_tick"] <= DIST_STEP_TOL,
+                      f"diffusion {key}: first tick {rec['first_tick']:.3g}")
+                if compress:
+                    # tick by tick over the first DIFF_HEAD combines (past
+                    # them an int8 level can flip), apart from the same run
+                    # uncompressed, and by the tail MSE over the stream
+                    head = DIFF_HEAD + 1  # tick DIFF_HEAD reads the last
+                    p_head, _ = diffusion_plain(
+                        fm, xs[:, :DIFF_HEAD], ys[:, :DIFF_HEAD], cfg["mu"],
+                        every, compress)
+                    rec.update(
+                        head_errs=diff(errs[:, :head], p_errs[:, :head]),
+                        head_theta=diff(res[f"{key}_head_theta"],
+                                        p_head.cpu()),
+                        head_vs_uncompressed=diff(
+                            errs[:, :head], uncompressed[every][:, :head]))
+                    check(rec["head_errs"] <= DIST_STEP_TOL
+                          and rec["head_theta"] <= DIST_STEP_TOL,
+                          f"diffusion {key}: first {DIFF_HEAD} combines {rec}")
+                    check(rec["head_vs_uncompressed"] > 10 * DIST_STEP_TOL,
+                          f"diffusion {key}: int8 run as the uncompressed "
+                          f"one {rec}")
+                    check(abs(rec["tail_mse"] / rec["plain_tail_mse"] - 1)
+                          <= 1e-2, f"diffusion {key}: tail MSE {rec}")
+                else:
+                    uncompressed[every] = errs
+                    check(rec["errs"] <= DIFF_TOL and rec["theta"] <= DIFF_TOL,
+                          f"diffusion {key}: {rec} (tol {DIFF_TOL})")
+                if cfg["ticks"] % every == 0:
+                    check(rec["spread"] == 0.0,
+                          f"diffusion {key}: nodes apart by {rec['spread']}")
+                check(rec["all_reduces"] == cfg["ticks"] // every,
+                      f"diffusion {key}: {rec['all_reduces']} all_reduces")
+                d[key] = rec
+            if len(mse) == 3:
+                check(mse[0] <= mse[1] * 1.05 and mse[2] <= mse[0] * 1.5,
+                      f"diffusion tail MSEs every/never/int8 {mse}")
+        seconds["d"] = time.perf_counter() - t_part
+        figures["d"] = d
+    figures["seconds"] = seconds
+    return figures
+
+
+SHIM_NAMES = (
+    "make_bank_server", "serve_bank_stream", "reset_tenants",
+    "make_krls_bank_server", "serve_krls_bank_stream", "reset_krls_tenants",
+    "make_chunked_bank_server", "make_chunked_krls_bank_server",
+    "klms_micro_batch_queue", "krls_micro_batch_queue",
+    "klms_snapshot_server", "krls_snapshot_server",
+)
+SHIM_BANK, SHIM_TICKS = 64, 9
+
+
+def _leaves(obj) -> list:
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _leaves(o)]
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in _leaves(obj[k])]
+    if isinstance(obj, (float, int, np.floating)):
+        return [torch.tensor(float(obj), dtype=torch.float64)]
+    return []
+
+
+def shim_case(name: str, seed: int, device) -> tuple:
+    """``name`` and the facade call it wraps, once each on the same
+    inputs: the KLMS serving map (d = 128, D = 2048) for the KLMS names,
+    the paper's section 6 map for the KRLS ones, a bank of 64."""
+    import warnings
+
+    from repro_torch.core.bank import klms_bank_init, krls_bank_init
+    from repro_torch.serve import api, bank_loop, queue, snapshot
+
+    krls = "krls" in name
+    d, dfeat, sigma = ((K_D_IN, K_D_FEAT, K_SIGMA) if krls
+                       else (D_IN, D_FEAT, SIGMA))
+    fm = family_map("rff", seed, d, dfeat, sigma, device)
+    hp = dict(lam=K_LAM, beta=K_BETA) if krls else dict(mu=MU)
+    rng = np.random.default_rng(seed + 30)
+    xs = torch.tensor(rng.normal(size=(SHIM_BANK, SHIM_TICKS, d)),
+                      dtype=torch.float32, device=device)
+    ys = torch.sin(xs[..., 0])
+    x0, y0 = xs[:, 0].contiguous(), ys[:, 0].contiguous()
+    mask = torch.tensor(rng.random((SHIM_BANK, SHIM_TICKS)) < 0.7,
+                        dtype=torch.float32, device=device)
+    state = krls_bank_init(fm, SHIM_BANK, K_LAM) if krls else (
+        klms_bank_init(fm, SHIM_BANK))
+    tenants = rng.integers(0, SHIM_BANK, size=256)
+    sx = rng.normal(size=(256, d)).astype(np.float32)
+    sy = np.sin(sx[:, 0]).astype(np.float32)
+    learner = "krls" if krls else "klms"
+    rate = {"beta": K_BETA} if krls else {"mu": MU}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        if name in ("make_bank_server", "make_krls_bank_server"):
+            return (getattr(bank_loop, name)(fm, *rate.values())(
+                        state, x0, y0),
+                    api.make_tick(learner, fm, **rate)(state, x0, y0))
+        if name in ("serve_bank_stream", "serve_krls_bank_stream"):
+            args = (K_LAM, K_BETA) if krls else (MU,)
+            return (getattr(bank_loop, name)(fm, xs, ys, *args, chunk=4),
+                    api.run_stream(learner, fm, xs, ys, chunk=4, **hp))
+        if name in ("reset_tenants", "reset_krls_tenants"):
+            state, _ = api.run_stream(learner, fm, xs, ys, **hp)
+            args = (K_LAM,) if krls else ()
+            return (getattr(bank_loop, name)(state, [1, 3], *args),
+                    api.reset_slots(state, [1, 3], learner=learner,
+                                    **({"lam": K_LAM} if krls else {})))
+        if name.startswith("make_chunked"):
+            return (getattr(queue, name)(fm, *rate.values())(
+                        state, xs, ys, mask),
+                    api.make_chunk_step(learner, fm, **rate)(
+                        state, xs, ys, mask))
+        if name.endswith("micro_batch_queue"):
+            shim = getattr(queue, name)(fm, SHIM_BANK, chunk=4,
+                                        device=device, **hp)
+            facade = api.make_queue(learner, fm, SHIM_BANK, chunk=4,
+                                    device=device, **hp)
+            return tuple((_serve(q, tenants, sx, sy), q.state)
+                         for q in (shim, facade))
+        shim = getattr(snapshot, name)(fm, SHIM_BANK, chunk=4, device=device,
+                                       log_capacity=64, **hp)
+        facade = api.make_server(learner, feature_map=fm, bank=SHIM_BANK,
+                                 chunk=4, device=device, log_capacity=64,
+                                 **hp)
+        out = []
+        for srv in (shim, facade):
+            drained = _serve(srv, tenants, sx, sy)
+            srv.evict(0)
+            _serve(srv, tenants[:16], sx[:16], sy[:16])
+            srv.readmit(0)
+            out.append((drained, srv.snapshot.state,
+                        srv.predict_block(xs[:, :3].cpu().numpy())))
+        return tuple(out)
+
+
+def _serve(srv, tenants, xs, ys):
+    for t, x, y in zip(tenants.tolist(), xs, ys.tolist()):
+        srv.submit(t, x, y)
+    return srv.drain()
+
+
+def phase_shims(seed, device, kernels) -> dict:
+    """Phase 20 (e): each deprecated serve name once on the card, its
+    result bit for bit its facade call's."""
+    reset_launches(kernels)
+    for name in SHIM_NAMES:
+        shim, facade = shim_case(name, seed, device)
+        got, want = _leaves(shim), _leaves(facade)
+        check(bool(got) and len(got) == len(want)
+              and all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"deprecated {name} differs from its facade call")
+    torch.cuda.synchronize()
+    return path_launches(kernels, ("klms_bank_chunk", "klms_bank_step",
+                                   "bank_predict", "krls_bank_chunk",
+                                   "krls_bank_step"))
+
+
+def phase_distribution(seed, device, kernels) -> dict:
+    """Phase 20: (a)-(d) on DIST_WORLD gloo ranks spawned on the card,
+    held here against dense and plain runs; (e) the deprecated serve
+    names. Returns the path's launches (the ranks' summed)."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    inp = dist_inputs(seed)
+    inp_path, out_path = DIST_DIR / "inputs.npz", DIST_DIR / "results.pt"
+    init = DIST_DIR / f"init-{os.getpid()}"
+    for stale in (out_path, init):
+        stale.unlink(missing_ok=True)
+    np.savez(inp_path, **inp)
+    torch.cuda.empty_cache()
+    t0, t_spawn = time.perf_counter(), time.time()
+    mp.start_processes(dist_rank, args=(DIST_WORLD, f"file://{init}",
+                                        "abcd", str(inp_path),
+                                        str(out_path)),
+                       nprocs=DIST_WORLD, join=True, start_method="spawn")
+    ranks_s, t_joined = time.perf_counter() - t0, time.time()
+    res = torch.load(out_path, weights_only=False)
+    entered, left = res.pop("stamps")  # rank 0's
+    rank_parts = {"start": entered - t_spawn, **res["seconds"],
+                  "stop": t_joined - left}
+    launches = {n: int(sum(res[f"launches_{n}"])) for n in DIST_KERNELS}
+    for n, count in launches.items():
+        check(count > 0, f"kernel {n} was not launched by the ranks")
+    t0 = time.perf_counter()
+    figures = dist_controls(inp, res, device, "abcd")
+    controls_s = time.perf_counter() - t0
+    control_parts = figures.pop("seconds")
+    t0 = time.perf_counter()
+    shims = phase_shims(seed, device, kernels)
+    shims_s = time.perf_counter() - t0
+    for path in (inp_path, out_path, init):
+        path.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "distribution", "world": res["world"],
+          "backend": res["backend"], "ranks_on_one_card": True,
+          **figures, "launches": {"ranks": launches, "shims": shims},
+          "seconds": {"ranks": ranks_s, "rank_parts": rank_parts,
+                      "controls": controls_s, "control_parts": control_parts,
+                      "shims": shims_s, "total": seconds},
+          "card": SMI})
+    return add_launches(launches, shims)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3391,6 +4072,9 @@ def main() -> int:
     # The observability and recovery tier, after the policy phase.
     torch.cuda.empty_cache()
     add_launches(launches, phase_obs_recovery(args.seed, device, kernels))
+    # The distribution tier and the deprecated serve names, after phase 19.
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_distribution(args.seed, device, kernels))
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}

@@ -11,11 +11,19 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Shard
 
 from repro_torch import resolve_device
 from repro_torch.core.bank import BankHParams
 from repro_torch.core.klms import LMSState
-from repro_torch.core.krls import RLSState
+from repro_torch.core.krls import (
+    KRLS_SHARD_AXIS,
+    RLSState,
+    _place,
+    _rows,
+    krls_state_specs,
+)
 from repro_torch.features.base import (
     FeatureMap,
     TrigFeatures,
@@ -36,6 +44,9 @@ __all__ = [
     "policy_state",
     "lms_state",
     "rls_state",
+    "sharded_rls_state",
+    "gather",
+    "gather_rls_state",
     "lm_params",
     "rff_state",
     "kv_cache",
@@ -106,6 +117,51 @@ def rls_state(theta, pmat, step, *, device="cuda") -> RLSState:
     return RLSState(theta=tensor(theta, device=device),
                     pmat=tensor(pmat, device=device),
                     step=tensor(step, device=device, dtype=torch.int32))
+
+
+def sharded_rls_state(theta, pmat, step, mesh,
+                      axis: str = KRLS_SHARD_AXIS) -> RLSState:
+    """``repro``'s single-filter ``RLSState`` (global numpy leaves, as
+    ``np.asarray`` of its sharded arrays gives them) placed on ``mesh`` as
+    the port's row-sharded state: each rank keeps its rows of theta and P
+    (``core.krls.krls_state_specs``)."""
+    theta, pmat = np.asarray(theta), np.asarray(pmat)
+    dfull = theta.shape[0]
+    lo, dn = _rows(mesh, axis, dfull)
+    dev = resolve_device(mesh.device_type)
+    specs = krls_state_specs(axis)
+    return RLSState(
+        theta=_place(tensor(theta[lo:lo + dn], device=dev), mesh,
+                     specs.theta, (dfull,)),
+        pmat=_place(tensor(pmat[lo:lo + dn], device=dev), mesh, specs.pmat,
+                    (dfull, dfull)),
+        step=_place(tensor(step, device=dev, dtype=torch.int32), mesh,
+                    specs.step, ()),
+    )
+
+
+def gather(t, group=None) -> np.ndarray:
+    """A ``Shard(0)`` (or replicated) DTensor as its global numpy array on
+    every rank, by one ``all_gather`` of host copies on ``group`` (default:
+    the mesh's group). With NCCL ranks, pass a gloo group: host tensors
+    need one, and this function picks no backend itself."""
+    local = t.to_local().detach().cpu().contiguous()
+    if not isinstance(t.placements[0], Shard):
+        return local.numpy()
+    if t.placements[0].dim != 0:
+        raise ValueError(f"gather takes Shard(0) rows, not {t.placements}")
+    if group is None:
+        group = t.device_mesh.get_group(0)
+    parts = [torch.empty_like(local)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts).numpy()
+
+
+def gather_rls_state(state: RLSState, group=None) -> tuple:
+    """The reverse of :func:`sharded_rls_state`: global numpy ``(theta,
+    pmat, step)`` on every rank (see :func:`gather` for ``group``)."""
+    return tuple(gather(a, group) for a in state)
 
 
 def _tree(node, dev, layer=None):

@@ -3,9 +3,10 @@
 RFF feature maps (``rff``), RFF-KLMS (``klms``), RFF-KRLS (``krls``), the
 paper's baselines QKLMS (``qklms``) and Engel's ALD-KRLS (``krls_ald``),
 the convergence theory oracles (``theory``), the Monte-Carlo drivers
-(``adaptive``), the ``OnlineLearner`` interface (``learner``) and the
-filter bank with its generic and fused tiers (``bank``). The sharded KRLS
-and the diffusion variants are ROADMAP §1 item 10.
+(``adaptive``), the diffusion-distributed variant (``distributed``), the
+``OnlineLearner`` interface (``learner``), the filter bank with its
+generic and fused tiers (``bank``), and RFF-KRLS with P row-sharded over a
+``torch.distributed`` mesh (``krls``'s second half).
 """
 from repro_torch.core.rff import (
     RFF,
@@ -25,10 +26,18 @@ from repro_torch.core.klms import (
     rff_klms_batch_step,
 )
 from repro_torch.core.krls import (
+    KRLS_SHARD_AXIS,
     RLSState,
+    krls_feature_specs,
+    krls_state_specs,
+    make_sharded_krls_predict,
+    make_sharded_krls_step,
     rff_krls_init,
-    rff_krls_step,
     rff_krls_run,
+    rff_krls_step,
+    shard_krls_rff,
+    sharded_krls_init,
+    sharded_krls_run,
 )
 from repro_torch.core.qklms import (
     QKLMSState,
@@ -47,6 +56,7 @@ from repro_torch.core.learner import (
     klms_learner,
     nklms_learner,
     krls_learner,
+    sharded_krls_learner,
     qklms_learner,
     ald_krls_learner,
 )
@@ -65,7 +75,7 @@ from repro_torch.core.bank import (
     mixed_krls_bank_run,
     stack_feature_maps,
 )
-from repro_torch.core import theory, adaptive
+from repro_torch.core import theory, adaptive, distributed
 
 __all__ = [
     "OnlineLearner",
@@ -104,6 +114,15 @@ __all__ = [
     "rff_krls_init",
     "rff_krls_step",
     "rff_krls_run",
+    "KRLS_SHARD_AXIS",
+    "krls_state_specs",
+    "krls_feature_specs",
+    "shard_krls_rff",
+    "sharded_krls_init",
+    "sharded_krls_run",
+    "make_sharded_krls_step",
+    "make_sharded_krls_predict",
+    "sharded_krls_learner",
     "QKLMSState",
     "qklms_init",
     "qklms_step",
@@ -114,4 +133,5 @@ __all__ = [
     "ald_krls_run",
     "theory",
     "adaptive",
+    "distributed",
 ]

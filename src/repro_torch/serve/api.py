@@ -38,6 +38,7 @@ brings a killed server back bit for bit.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -120,6 +121,31 @@ _HP_DEFAULTS = dict(
     nu=5e-4,       # ald novelty threshold
     capacity=256,  # qklms / ald dictionary capacity
 )
+
+
+# ---------------------------------------------------------------------------
+# Deprecation shims: the pre-facade factory names (serve/bank_loop.py,
+# serve/queue.py, serve/snapshot.py) wrap this helper, as in repro.
+# ---------------------------------------------------------------------------
+
+_DEPRECATION_FIRED: set[str] = set()
+
+
+def _deprecated(name: str, replacement: str) -> None:
+    """Emit one DeprecationWarning per old factory name per process."""
+    if name in _DEPRECATION_FIRED:
+        return
+    _DEPRECATION_FIRED.add(name)
+    warnings.warn(
+        f"repro_torch.serve.{name} is deprecated; use {replacement}",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def _reset_deprecation_state() -> None:
+    """Testing hook: re-arm the once-per-name deprecation latches."""
+    _DEPRECATION_FIRED.clear()
 
 
 def _check_learner(learner: str) -> None:

@@ -19,16 +19,45 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.bank import set_tenant_row
+from repro_torch.features.base import FeatureLike
 from repro_torch.obs import telemetry as _telemetry
 from repro_torch.obs import trace as _trace
 
-__all__ = ["MicroBatchQueue"]
+__all__ = [
+    "MicroBatchQueue",
+    "make_chunked_bank_server",
+    "make_chunked_krls_bank_server",
+    "klms_micro_batch_queue",
+    "krls_micro_batch_queue",
+]
+
+
+def make_chunked_bank_server(rff: FeatureLike,
+                             mu: Union[float, torch.Tensor],
+                             mode: str = "auto") -> Callable:
+    """Deprecated: use ``repro_torch.serve.make_chunk_step("klms", ...)``."""
+    from repro_torch.serve import api
+
+    api._deprecated("make_chunked_bank_server",
+                    'make_chunk_step("klms", ...)')
+    return api.make_chunk_step("klms", rff, mode=mode, mu=mu)
+
+
+def make_chunked_krls_bank_server(rff: FeatureLike,
+                                  beta: Union[float, torch.Tensor] = 0.9995,
+                                  mode: str = "auto") -> Callable:
+    """Deprecated: use ``repro_torch.serve.make_chunk_step("krls", ...)``."""
+    from repro_torch.serve import api
+
+    api._deprecated("make_chunked_krls_bank_server",
+                    'make_chunk_step("krls", ...)')
+    return api.make_chunk_step("krls", rff, mode=mode, beta=beta)
 
 
 class MicroBatchQueue:
@@ -247,3 +276,34 @@ class MicroBatchQueue:
             for b, res in self.flush().items():
                 merged.setdefault(b, []).extend(res)
         return merged
+
+
+def klms_micro_batch_queue(rff: FeatureLike, num_tenants: int,
+                           mu: Union[float, torch.Tensor] = 0.5,
+                           chunk: int = 16, mode: str = "auto", state=None,
+                           adaptive: bool = False,
+                           device="cuda") -> MicroBatchQueue:
+    """Deprecated: use ``repro_torch.serve.make_queue("klms", ...)``
+    (``device`` as there: the card by default)."""
+    from repro_torch.serve import api
+
+    api._deprecated("klms_micro_batch_queue", 'make_queue("klms", ...)')
+    return api.make_queue("klms", rff, num_tenants, chunk=chunk, mode=mode,
+                          state=state, adaptive=adaptive, device=device,
+                          mu=mu)
+
+
+def krls_micro_batch_queue(rff: FeatureLike, num_tenants: int,
+                           lam: Union[float, torch.Tensor] = 1e-4,
+                           beta: Union[float, torch.Tensor] = 0.9995,
+                           chunk: int = 16, mode: str = "auto", state=None,
+                           adaptive: bool = False,
+                           device="cuda") -> MicroBatchQueue:
+    """Deprecated: use ``repro_torch.serve.make_queue("krls", ...)``
+    (``device`` as there: the card by default)."""
+    from repro_torch.serve import api
+
+    api._deprecated("krls_micro_batch_queue", 'make_queue("krls", ...)')
+    return api.make_queue("krls", rff, num_tenants, chunk=chunk, mode=mode,
+                          state=state, adaptive=adaptive, device=device,
+                          lam=lam, beta=beta)

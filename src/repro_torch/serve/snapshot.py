@@ -28,17 +28,29 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.bank import bank_predict_block, evict_tenant
-from repro_torch.features.base import FeatureLike
+from repro_torch import resolve_device
+from repro_torch.core.bank import (
+    bank_predict_block,
+    evict_tenant,
+    rebuild_tenant,
+)
+from repro_torch.features.base import FeatureLike, map_to
 from repro_torch.obs import trace as _trace
 from repro_torch.serve.queue import MicroBatchQueue
 
-__all__ = ["ReplayLog", "StateSnapshot", "SnapshotServer", "predict_row"]
+__all__ = [
+    "ReplayLog",
+    "StateSnapshot",
+    "SnapshotServer",
+    "predict_row",
+    "klms_snapshot_server",
+    "krls_snapshot_server",
+]
 
 
 class ReplayLog:
@@ -439,3 +451,70 @@ class SnapshotServer:
         _trace.instant("snapshot.publish", version=self._snapshot.version,
                        tick=self._snapshot.tick)
         return self._snapshot
+
+
+def klms_snapshot_server(rff: FeatureLike, num_tenants: int,
+                         mu: Union[float, torch.Tensor] = 0.5,
+                         chunk: int = 16, publish_every: int = 1,
+                         mode: str = "auto",
+                         precision: Optional[str] = None,
+                         adaptive: bool = False, rebuild_mode: str = "scan",
+                         device="cuda", **kw) -> SnapshotServer:
+    """Deprecated: use ``repro_torch.serve.make_server(learner="klms",
+    ...)``.
+
+    Thin shim preserving the historical contract (returns the bare
+    :class:`SnapshotServer`; per-tenant ``(B,)`` ``mu`` honored); the map
+    and the state live on ``device``, the card by default."""
+    from repro_torch.serve import api
+
+    api._deprecated("klms_snapshot_server",
+                    'make_server(learner="klms", ...)')
+    fm = map_to(rff, resolve_device(device))
+    queue = api.make_queue("klms", fm, num_tenants, chunk=chunk, mode=mode,
+                           adaptive=adaptive, device=device, mu=mu)
+    kw.setdefault(
+        "rebuild_fn",
+        lambda state, tenant, xs, ys: rebuild_tenant(
+            state, tenant, fm, xs, ys, mu=mu, mode=rebuild_mode,
+            kernel_mode=mode),
+    )
+    return SnapshotServer(queue, fm, publish_every, mode=mode,
+                          precision=precision, **kw)
+
+
+def krls_snapshot_server(rff: FeatureLike, num_tenants: int,
+                         lam: Union[float, torch.Tensor] = 1e-4,
+                         beta: Union[float, torch.Tensor] = 0.9995,
+                         chunk: int = 16, publish_every: int = 1,
+                         mode: str = "auto",
+                         precision: Optional[str] = None,
+                         adaptive: bool = False, rebuild_mode: str = "scan",
+                         device="cuda", **kw) -> SnapshotServer:
+    """Deprecated: use ``repro_torch.serve.make_server(learner="krls",
+    ...)``.
+
+    Thin shim preserving the historical contract (returns the bare
+    :class:`SnapshotServer`; per-tenant ``(B,)`` ``lam``/``beta``
+    honored); the map and the state live on ``device``, the card by
+    default."""
+    from repro_torch.serve import api
+
+    api._deprecated("krls_snapshot_server",
+                    'make_server(learner="krls", ...)')
+    fm = map_to(rff, resolve_device(device))
+    queue = api.make_queue("krls", fm, num_tenants, chunk=chunk, mode=mode,
+                           adaptive=adaptive, device=device, lam=lam,
+                           beta=beta)
+    kw.setdefault(
+        "evict_fn",
+        lambda state, tenant: evict_tenant(state, tenant, lam=lam),
+    )
+    kw.setdefault(
+        "rebuild_fn",
+        lambda state, tenant, xs, ys: rebuild_tenant(
+            state, tenant, fm, xs, ys, lam=lam, beta=beta, mode=rebuild_mode,
+            kernel_mode=mode),
+    )
+    return SnapshotServer(queue, fm, publish_every, mode=mode,
+                          precision=precision, **kw)

@@ -40,8 +40,19 @@ attention runs bf16 on the tensor cores and f32 on the CUDA cores, and the
 KRLS chunk keeps P resident in shared memory up to D = 335 at d = 5 and
 streams it beyond, both routes equal to T step launches bit for bit; the
 KRLS step takes the same route (the resident chunk kernel at T = 1, or
-the streaming step), and both step routes agree bit for bit.
+the streaming step), and both step routes agree bit for bit. The
+distribution tier runs four gloo ranks on the card (``tests/
+torch_dist_ranks.py``; NCCL refuses two ranks on one card): sharded KRLS
+within 1e-5 of the dense plain run per tick and 5e-5 in blocks (the
+reference tests' bounds), at D = 32768 and lam = 1e-4 within twice the
+dense f32 run's own distance from a float64 run, and diffusion within
+1e-4 of a plain single-process run.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1500,3 +1511,129 @@ def test_kill_restore_bitwise_on_card(cuda_device, learner, tmp_path):
         assert torch.equal(orig.predict(t, xq), restored.predict(t, xq))
     orig.wal.close()
     restored.wal.close()
+
+
+# ---------------------------------------------------------------------------
+# The distribution tier: four gloo ranks on the card.
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _dist_run(tmp_path, world, job, **inputs) -> dict:
+    """``tests/torch_dist_ranks.py`` at ``world`` ranks on the card."""
+    np.savez(tmp_path / "in.npz", **inputs)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_dist_ranks.py"),
+         str(world), "cuda", job, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npz")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=900,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return dict(np.load(tmp_path / "out.npz"))
+
+
+def _dist_stream(d, dfeat, sigma, n, seed=0, nodes=None):
+    """A map (numpy leaves) and model (9)'s stream, drawn on the CPU."""
+    from repro_torch.core.rff import sample_rff
+    from repro_torch.data.synthetic import gen_nonlinear_wiener
+
+    g = torch.Generator().manual_seed(seed)
+    rff = sample_rff(g, d, dfeat, sigma, device="cpu")
+    xs, ys = gen_nonlinear_wiener(g, num_samples=n * (nodes or 1),
+                                  input_dim=d)
+    shape = (nodes, n) if nodes else (n,)
+    return (rff.omega.numpy(), rff.bias.numpy(),
+            xs.numpy().reshape(*shape, d), ys.numpy().reshape(shape))
+
+
+def _dense_preds(omega, bias, xs, ys, lam, device, dtype=torch.float32):
+    from repro_torch.core.krls import rff_krls_run
+
+    tf = convert.trig_features(omega, bias, device=device)
+    tf = type(tf)(*(a.to(dtype) for a in tf))
+    _, out = rff_krls_run(tf, torch.from_numpy(xs).to(device, dtype),
+                          torch.from_numpy(ys).to(device, dtype), lam=lam,
+                          beta=0.9995)
+    return out.prediction.double().cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_sharded_krls_on_card_matches_dense(cuda_device, tmp_path):
+    """tests/test_krls_sharded.py's shape (d = 5, D = 256, sigma = 5, lam =
+    1e-2, 600 ticks) on four ranks: per tick within 1e-5 of the dense plain
+    run, blocks of 8 and 32 within 5e-5, one all_reduce a tick and one a
+    block, P gathered bitwise symmetric."""
+    omega, bias, xs, ys = _dist_stream(5, 256, 5.0, 600)
+    out = _dist_run(tmp_path, 4, "krls", omega=omega, bias=bias, xs=xs,
+                    ys=ys, beta=0.9995, lams=np.array([1e-2]),
+                    ks=np.array([1, 8, 32]), gather_p=1)
+    want = _dense_preds(omega, bias, xs, ys, 1e-2, cuda_device)
+    assert np.max(np.abs(out["pred_lam0_k1"] - want)) < 1e-5
+    for k in (8, 32):
+        pred = out[f"pred_lam0_k{k}"]
+        assert np.max(np.abs(pred - want)) < 5e-5
+        assert np.max(np.abs(pred - out["pred_lam0_k1"])) < 5e-5
+        assert int(out[f"count_lam0_k{k}"]) == -(-600 // k)
+    assert int(out["count_lam0_k1"]) == 600
+    for k in (1, 8, 32):
+        pmat = out[f"pmat_lam0_k{k}"]
+        assert np.array_equal(pmat, pmat.T)
+
+
+@pytest.mark.cuda
+def test_sharded_krls_full_width_on_card(cuda_device, tmp_path):
+    """The README memory model's width, D = 32768 (4 GiB of dense P), over
+    four ranks for 256 ticks: lam = 1e-2 within 1e-4 of the dense f32 run,
+    lam = 1e-4 within twice the dense f32 run's own distance from a float64
+    run (plus 1e-5)."""
+    omega, bias, xs, ys = _dist_stream(5, 32768, 5.0, 256, seed=1)
+    out = _dist_run(tmp_path, 4, "krls", omega=omega, bias=bias, xs=xs,
+                    ys=ys, beta=0.9995, lams=np.array([1e-2, 1e-4]),
+                    ks=np.array([1]))
+    torch.cuda.empty_cache()
+    want = _dense_preds(omega, bias, xs, ys, 1e-2, cuda_device)
+    assert np.max(np.abs(out["pred_lam0_k1"] - want)) < 1e-4
+    want = _dense_preds(omega, bias, xs, ys, 1e-4, cuda_device)
+    torch.cuda.empty_cache()
+    exact = _dense_preds(omega, bias, xs, ys, 1e-4, cuda_device,
+                         torch.float64)
+    eps = np.max(np.abs(want - exact))
+    assert np.max(np.abs(out["pred_lam1_k1"] - exact)) <= 2 * eps + 1e-5
+    assert int(out["count_lam1_k1"]) == 256
+
+
+@pytest.mark.cuda
+def test_diffusion_on_card_matches_plain(cuda_device, tmp_path):
+    """tests/test_distributed.py's configuration (four nodes, D = 100, mu
+    = 0.5, 600 ticks a node), combining every tick and never: each node's
+    ticks between combines through kernel 1, within 1e-4 of the nodes run
+    as one plain bank with a mean over rows; combining every tick keeps
+    the nodes equal bit for bit."""
+    from repro_torch.kernels import ref
+
+    omega, bias, xs, ys = _dist_stream(5, 100, 5.0, 600, seed=2, nodes=4)
+    runs = [(1, 0), (10**9, 0)]
+    out = _dist_run(tmp_path, 4, "diffusion", d_omega=omega, d_bias=bias,
+                    d_xs=xs, d_ys=ys, mu=0.5, runs=np.array(runs))
+    tf = convert.trig_features(omega, bias, device=cuda_device)
+    xt = torch.from_numpy(xs).to(cuda_device)
+    yt = torch.from_numpy(ys).to(cuda_device)
+    for i, (every, _) in enumerate(runs):
+        theta = torch.zeros(4, 100, device=cuda_device)
+        errs = []
+        for start in range(0, 600, every):
+            stop = min(start + every, 600)
+            theta, _, e = ref.rff_klms_bank_chunk_ref(
+                theta, xt[:, start:stop], yt[:, start:stop], tf.omega,
+                tf.bias, 0.5, None, tf.scale)
+            errs.append(e)
+            if stop % every == 0:
+                theta = (theta.sum(0, keepdim=True) / 4).expand(4, -1)
+                theta = theta.contiguous()
+        want = torch.cat(errs, 1).cpu().numpy()
+        assert np.max(np.abs(out[f"errs_run{i}"] - want)) < 1e-4
+        assert np.max(np.abs(out[f"theta_run{i}"] - theta.cpu().numpy())) < 1e-4
+    assert np.array_equal(out["theta_run0"], np.broadcast_to(
+        out["theta_run0"][0], out["theta_run0"].shape))

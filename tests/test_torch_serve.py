@@ -375,7 +375,8 @@ def test_histogram_matches_repro():
 
 
 def test_import_hygiene():
-    """repro_torch and chip_smoke.py import neither jax nor repro."""
+    """repro_torch, chip_smoke.py and dist_smoke.py import neither jax nor
+    repro."""
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -389,11 +390,12 @@ def test_import_hygiene():
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    text = (ROOT / "chip_smoke.py").read_text()
-    imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)", text, re.M)
-    assert imports, "chip_smoke.py has no imports?"
-    assert not [m for m in imports if m.split(".")[0] in ("jax", "repro")]
-    assert not re.search(r"\bjax\b", text)
+    for script in ("chip_smoke.py", "dist_smoke.py"):
+        text = (ROOT / script).read_text()
+        imports = re.findall(r"^\s*(?:import|from)\s+([\w.]+)", text, re.M)
+        assert imports, f"{script} has no imports?"
+        assert not [m for m in imports if m.split(".")[0] in ("jax", "repro")]
+        assert not re.search(r"\bjax\b", text)
 
 
 def _serve_same_stream(*servers, seed=7, n=120):
@@ -503,24 +505,10 @@ def test_feature_map_serves_like_trig_features():
 
 
 # repro's package-level names the port does not have yet, each with the
-# ROADMAP §1 entry that ports it.
+# ROADMAP §1 entry that ports it: none is left in these packages.
 UNPORTED_NAMES = {
-    "serve": {
-        **dict.fromkeys((
-            "make_bank_server", "serve_bank_stream", "reset_tenants",
-            "make_krls_bank_server", "serve_krls_bank_stream",
-            "reset_krls_tenants", "make_chunked_bank_server",
-            "make_chunked_krls_bank_server", "klms_micro_batch_queue",
-            "krls_micro_batch_queue", "klms_snapshot_server",
-            "krls_snapshot_server"),
-            "ROADMAP §1 entry 8 (the deprecated serve factory names)"),
-    },
-    "core": dict.fromkeys((
-        "KRLS_SHARD_AXIS", "krls_state_specs", "krls_feature_specs",
-        "shard_krls_rff", "sharded_krls_init", "sharded_krls_run",
-        "make_sharded_krls_step", "make_sharded_krls_predict",
-        "sharded_krls_learner", "distributed"),
-        "ROADMAP §1 entry 6 (distribution)"),
+    "serve": {},
+    "core": {},
     "features": {},
     "kernels": {},
     "obs": {},
@@ -603,3 +591,131 @@ def test_feature_family_server_matches_repro(learner, family):
     _close(tout.error, jout.error)
     _close(tnext.theta, jnext.theta)
 
+
+
+def _leaves(obj) -> list:
+    """The tensors of a shim's or a facade's result, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (tuple, list)):
+        return [t for o in obj for t in _leaves(o)]
+    if isinstance(obj, dict):
+        return [t for k in sorted(obj) for t in _leaves(obj[k])]
+    if isinstance(obj, (float, int, np.floating)):  # a drained (pred, err)
+        return [torch.tensor(float(obj), dtype=torch.float64)]
+    return []
+
+
+def _drive(srv, tenants, xs, ys):
+    for t, x, y in zip(tenants, xs, ys):
+        srv.submit(int(t), x, float(y))
+    return srv.drain()
+
+
+def _shim_and_facade(name: str) -> tuple:
+    """Results of ``name`` and of the facade call it wraps on the same
+    inputs (the CPU, repro's signature)."""
+    from repro_torch.core.bank import klms_bank_init, krls_bank_init
+    from repro_torch.serve import bank_loop, queue, snapshot
+
+    _, ttf = _maps()
+    mu, lam, beta, k = 0.4, 1e-2, 0.99, 4
+    rng = np.random.default_rng(11)
+    xs = torch.tensor(rng.normal(size=(B, 9, D_IN)), dtype=torch.float32)
+    ys = torch.tensor(rng.normal(size=(B, 9)), dtype=torch.float32)
+    mask = torch.tensor(rng.random((B, 9)) < 0.7, dtype=torch.float32)
+    kstate = klms_bank_init(ttf, B)
+    kstate = kstate._replace(theta=torch.tensor(
+        rng.normal(size=(B, D_FEAT)), dtype=torch.float32))
+    rstate = krls_bank_init(ttf, B, lam)
+    tenants, sx, sy = _stream(12, 60)
+    if name == "make_bank_server":
+        return (bank_loop.make_bank_server(ttf, mu)(kstate, xs[:, 0], ys[:, 0]),
+                api.make_tick("klms", ttf, mu=mu)(kstate, xs[:, 0], ys[:, 0]))
+    if name == "make_krls_bank_server":
+        return (bank_loop.make_krls_bank_server(ttf, beta)(
+                    rstate, xs[:, 0], ys[:, 0]),
+                api.make_tick("krls", ttf, beta=beta)(
+                    rstate, xs[:, 0], ys[:, 0]))
+    if name == "serve_bank_stream":
+        return (bank_loop.serve_bank_stream(ttf, xs, ys, mu, chunk=k),
+                api.run_stream("klms", ttf, xs, ys, chunk=k, mu=mu))
+    if name == "serve_krls_bank_stream":
+        return (bank_loop.serve_krls_bank_stream(ttf, xs, ys, lam, beta,
+                                                 chunk=k),
+                api.run_stream("krls", ttf, xs, ys, chunk=k, lam=lam,
+                               beta=beta))
+    if name == "reset_tenants":
+        return (bank_loop.reset_tenants(kstate, [1, 3]),
+                api.reset_slots(kstate, [1, 3], learner="klms"))
+    if name == "reset_krls_tenants":
+        state, _ = api.run_stream("krls", ttf, xs, ys, lam=lam, beta=beta)
+        return (bank_loop.reset_krls_tenants(state, [0, 5], lam),
+                api.reset_slots(state, [0, 5], learner="krls", lam=lam))
+    if name == "make_chunked_bank_server":
+        return (queue.make_chunked_bank_server(ttf, mu)(kstate, xs, ys, mask),
+                api.make_chunk_step("klms", ttf, mu=mu)(kstate, xs, ys,
+                                                        mask))
+    if name == "make_chunked_krls_bank_server":
+        return (queue.make_chunked_krls_bank_server(ttf, beta)(
+                    rstate, xs, ys, mask),
+                api.make_chunk_step("krls", ttf, beta=beta)(
+                    rstate, xs, ys, mask))
+    if name in ("klms_micro_batch_queue", "krls_micro_batch_queue"):
+        learner = name[:4]
+        hp = dict(mu=mu) if learner == "klms" else dict(lam=lam, beta=beta)
+        shim = getattr(queue, name)(ttf, B, chunk=k, device="cpu", **hp)
+        facade = api.make_queue(learner, ttf, B, chunk=k, device="cpu", **hp)
+        return ((_drive(shim, tenants, sx, sy), shim.state),
+                (_drive(facade, tenants, sx, sy), facade.state))
+    learner = name[:4]
+    hp = dict(mu=mu) if learner == "klms" else dict(lam=lam, beta=beta)
+    shim = getattr(snapshot, name)(ttf, B, chunk=k, device="cpu",
+                                   log_capacity=64, **hp)
+    facade = api.make_server(learner, feature_map=ttf, bank=B, chunk=k,
+                             device="cpu", log_capacity=64, **hp)
+    results = []
+    for srv in (shim, facade):
+        drained = _drive(srv, tenants, sx, sy)
+        srv.evict(0)
+        _drive(srv, tenants[:9], sx[:9], sy[:9])
+        srv.readmit(0)
+        results.append((drained, srv.snapshot.state,
+                        srv.predict_block(np.asarray(xs[:, :3]))))
+    assert isinstance(shim, type(facade.snapshot_server))
+    return tuple(results)
+
+
+SHIM_NAMES = (
+    "make_bank_server", "serve_bank_stream", "reset_tenants",
+    "make_krls_bank_server", "serve_krls_bank_stream", "reset_krls_tenants",
+    "make_chunked_bank_server", "make_chunked_krls_bank_server",
+    "klms_micro_batch_queue", "krls_micro_batch_queue",
+    "klms_snapshot_server", "krls_snapshot_server",
+)
+
+
+@pytest.mark.parametrize("name", SHIM_NAMES)
+def test_deprecated_factory_warns_once_and_equals_its_facade(name):
+    """Each of repro's twelve deprecated serve names: one
+    DeprecationWarning per process (re-armed by
+    ``api._reset_deprecation_state``), and its result bit for bit the
+    facade call it wraps (a served stream, an evict and a readmit for the
+    snapshot servers)."""
+    import warnings
+
+    import repro_torch.serve as tserve
+    from repro.serve import __all__ as repro_serve
+
+    assert name in repro_serve and name in tserve.__all__
+    api._reset_deprecation_state()
+    with pytest.warns(DeprecationWarning, match=name):
+        shim, facade = _shim_and_facade(name)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _shim_and_facade(name)
+    assert not [w for w in caught if name in str(w.message)]
+    got, want = _leaves(shim), _leaves(facade)
+    assert got and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
