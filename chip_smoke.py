@@ -183,15 +183,36 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     of a plain
     single-process run (the int8 run by its tail MSE); (e) each of the
     twelve deprecated serve names once, bit for bit its facade call. The
-    dense and plain controls run after the ranks have exited. The last
-    phase line gives the whole run's seconds.
+    dense and plain controls run after the ranks have exited;
+21. serves every remaining arch of repro at published width in bf16
+    (``lm_families``, run after step 14 with the rest of the LM slice),
+    random weights from --seed: (a) deepseek-v2-lite-16b
+    at all 27 layers (MLA + a 64-expert top-6 MoE with 2 shared experts,
+    30.2 GiB): ``make_prefill_step`` at B = 4, S = 2048 (kernel 11 once a
+    layer at BH = 64, q/k 192, v 128), every layer's attention held against
+    ``kernel_mode="ref"`` on its own input at 2e-2 of max|plain|, the
+    logits' distance and the share of (token, layer) expert choices that
+    differ from a ``kernel_mode="ref"`` run, the PR 14 budget rule against
+    an f32 copy of its first 8 layers, ``generate`` of 16 greedy tokens
+    after a 16-token prompt (the MLA latent cache, no kernel), kernel 11
+    at the MLA shape against its plain version, SDPA and its bound, the
+    prefill's tokens per second and profile (kernel 11 once a layer, no
+    plain op) and decode ms a step; then the same weights with RFF
+    attention (kernel 10 once a layer in prefill, kernel 9 in decode); (b)
+    minicpm3-4b, command-r-35b, arctic-480b (cut to 2 of 35 layers),
+    mamba2-130m, recurrentgemma-2b, internvl2-2b and musicgen-large (the
+    last two prefilled through stub embeddings), each prefilled at B = 2,
+    S = 2048 and generating 8 tokens, held the same way, and for the
+    non-MoE families an f32 copy's decode against its forward (command-r
+    at 4 layers). The phase must end within 90 s. The last phase line
+    gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
-"routes", bank_predict with
-"bf16", "krls_read" and "one_tenant" records beside its f32 serving one, rff_features
-with a "read_block" record, krls_chunk_elements with a "d2048" one); the
-last is
+"routes", flash_attention with an "mla" record of phase 21's MLA shape,
+bank_predict with "bf16", "krls_read" and "one_tenant" records beside
+its f32 serving one, rff_features with a "read_block" record,
+krls_chunk_elements with a "d2048" one); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
 result.
@@ -199,6 +220,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2019,7 +2041,8 @@ def device_busy(fn, top: int = 6, named: str = "flash", expect=None) -> dict:
     chip_smoke run on the H100, though the wrappers' launch counts and the
     outputs show that every layer ran: a profile that ``expect`` refuses
     is taken again, up to PROFILE_TRIES times, and the caller checks the
-    last one (``profiles`` says how many were taken)."""
+    last one (``profiles`` says how many were taken); so is a profile with
+    no CUDA kernel record at all, and the run fails if the last has none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2032,10 +2055,11 @@ def device_busy(fn, top: int = 6, named: str = "flash", expect=None) -> dict:
             torch.cuda.synchronize()
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
-        check(bool(kern), "torch.profiler recorded no CUDA kernel")
         names = {e.key: e.count for e in kern}
-        if expect is None or expect(names):
+        if kern and (expect is None or expect(names)):
             break
+    check(bool(kern), f"torch.profiler recorded no CUDA kernel in {tries} "
+          "profiles")
     dev = [e.self_device_time_total / 1e3 for e in kern]
     order = sorted(range(len(kern)), key=lambda i: -dev[i])[:top]
     return {"device_ms": sum(dev), "kernel_launches": sum(e.count for e in kern),
@@ -3962,6 +3986,488 @@ def phase_distribution(seed, device, kernels) -> dict:
     return add_launches(launches, shims)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21 (lm_families): every remaining arch of repro at published width
+# ---------------------------------------------------------------------------
+
+# (a) deepseek-v2-lite-16b (src/repro/configs/deepseek_v2_lite_16b.py) as
+# published: 27 layers, d_model 2048, MLA with 16 heads (q/k 128 + 64, v
+# 128, kv_lora_rank 512), a 64-expert top-6 MoE with 2 shared experts,
+# vocab 102400; bf16 (30.2 GiB). make_prefill_step at B = 4, S = 2048 (kernel
+# 11 once a layer at BH = 64, q/k 192, v 128), then generate after a
+# 16-token prompt, then the same weights with RFF attention (kernels 10 and
+# 9) beside the MoE FFN.
+FAM_ARCH, FAM_B, FAM_S, FAM_PROMPT, FAM_NEW, FAM_RFF_NEW = (
+    "deepseek-v2-lite-16b", 4, 2048, 16, 16, 8)
+# The f32 copy of deepseek (60 GiB) does not fit beside the bf16 model: the
+# PR 14 budget rule runs on its first FAM_F32_LAYERS layers (a cut).
+FAM_F32_LAYERS = 8
+# (b) the other seven archs at published width: a prefill at B = 2, S =
+# 2048 and OTHER_NEW greedy tokens after an OTHER_PROMPT-token prompt.
+# Depth is cut only where the weights and the plain run's peak pass 75 GiB
+# (arctic: 25.4 GiB a layer).
+OTHER_ARCHS = ("minicpm3-4b", "command-r-35b", "arctic-480b", "mamba2-130m",
+               "recurrentgemma-2b", "internvl2-2b", "musicgen-large")
+OTHER_B, OTHER_S, OTHER_PROMPT, OTHER_NEW = 2, 2048, 8, 8
+OTHER_LAYERS = {"arctic-480b": 2}  # arch -> layers run (a cut)
+# Decode against forward (tests/test_models.py's rule, atol = rtol = 2e-3)
+# on an f32 copy of the weights over DVF_TOKENS tokens, for the non-MoE
+# families; at DVF_LAYERS where the f32 copy does not fit at full depth.
+DVF_TOKENS, DVF_TOL = 8, 2e-3
+DVF_LAYERS = {"command-r-35b": 4}
+FAM_SECONDS = 90.0
+# Kernel 11 at deepseek's MLA prefill: (BH, S, q/k head, v head).
+MLA_FLASH = (FAM_B * 16, FAM_S, 192, 128)
+
+
+@contextlib.contextmanager
+def attention_holds(records: list):
+    """While active, every full-sequence attention call of the model (MLA,
+    GQA, RFF) also runs with kernel_mode="ref" on the same input and is
+    held at ATTN_BF16_TOL; ``records`` gets (max abs err, its tolerance,
+    share of max|plain|) per call. The model goes on with the call's own
+    output."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import rff_attention as rff_mod
+
+    saved = [(attn_mod, "mla_apply"), (attn_mod, "gqa_apply"),
+             (rff_mod, "rff_attn_apply")]
+    originals = [getattr(mod, name) for mod, name in saved]
+
+    def wrap(fn, name):
+        def call(p, cfg, x, *args, kernel_mode="auto", **kw):
+            out = fn(p, cfg, x, *args, kernel_mode=kernel_mode, **kw)
+            plain = fn(p, cfg, x, *args, kernel_mode="ref", **kw)
+            records.append(hold_rel(f"{cfg.name} {name} layer {len(records)}",
+                                    [out], [plain], ATTN_BF16_TOL))
+            return out
+        return call
+
+    for (mod, name), fn in zip(saved, originals):
+        setattr(mod, name, wrap(fn, name))
+    try:
+        yield records
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def route_log(experts: list):
+    """While active, each MoE layer's chosen experts (B, S, k) are
+    appended to ``experts``."""
+    from repro_torch.models import moe as moe_mod
+
+    original = moe_mod.route
+
+    def route(*args, **kw):
+        out = original(*args, **kw)
+        experts.append(out[0])
+        return out
+
+    moe_mod.route = route
+    try:
+        yield experts
+    finally:
+        moe_mod.route = original
+
+
+def route_flips(a: list, b: list) -> float:
+    """The share of (token, layer) pairs whose set of chosen experts
+    differs between two runs."""
+    check(len(a) == len(b) > 0, f"routes logged {len(a)} vs {len(b)}")
+    differ = total = 0
+    for x, y in zip(a, b):
+        x, y = x.sort(dim=-1).values, y.sort(dim=-1).values
+        differ += int((x != y).any(dim=-1).sum())
+        total += x.shape[0] * x.shape[1]
+    return differ / total
+
+
+def family_kernels(cfg) -> tuple:
+    """The kernels a prefill of ``cfg`` launches (once a layer)."""
+    if cfg.mixer != "attention":
+        return ()
+    if cfg.attention == "rff":
+        return ("rff_linear_attention",)
+    return ("flash_attention",)
+
+
+def mla_prefill_profile(layers: int, names: dict) -> bool:
+    """Whether an MLA + MoE prefill's profile shows the tensor-core flash
+    kernel once a layer and no op of its plain version: the only softmax
+    kernels are the router's, one a layer (the plain attention would add
+    one a layer)."""
+    softmax = sum(n for key, n in names.items() if "softmax" in key.lower())
+    return gqa_prefill_profile(layers, names) and softmax == layers
+
+
+def prefill_inputs(cfg, gen, batch, slen, device) -> dict:
+    """A prefill batch: token ids, or stub embeddings for the frontend
+    archs."""
+    from repro_torch.models.frontend import stub_embeddings
+
+    if cfg.frontend is not None:
+        return {"embeds": stub_embeddings(gen, cfg, batch, slen,
+                                          device=device)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, slen),
+                                    generator=gen, device=device)}
+
+
+def serve_family(cfg, params, gen, device, kernels, batch, slen, prompt_len,
+                 new) -> tuple[dict, dict]:
+    """One arch's serving path on the card: make_prefill_step (launches
+    counted over this call alone), the same prefill with every attention
+    call held against kernel_mode="ref" on its input, a kernel_mode="ref"
+    prefill (logits distance; MoE: the share of expert choices that differ),
+    then ``generate`` of ``new`` greedy tokens. Returns (report, the
+    prefill's and decode's launches)."""
+    from repro_torch.serve.serve_loop import generate, path_logits
+    from repro_torch.train.steps import make_prefill_step
+
+    layers = cfg.num_layers
+    names = family_kernels(cfg)
+    batch_in = prefill_inputs(cfg, gen, batch, slen, device)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        logits = make_prefill_step(cfg)(params, batch_in)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = path_launches(kernels, names)
+        for name in names:
+            check(launches[name] == layers,
+                  f"{cfg.name} prefill launches {launches}: {layers} expected")
+        quiet = [n for n in kernels if n not in names and kernels[n].launches]
+        check(not quiet, f"{cfg.name} prefill launched {quiet}")
+        t0 = time.perf_counter()
+        holds, k_routes, p_routes = [], [], []
+        with attention_holds(holds), route_log(k_routes):
+            held = make_prefill_step(cfg)(params, batch_in)
+        with route_log(p_routes):
+            plain = make_prefill_step(cfg, kernel_mode="ref")(params, batch_in)
+        check(bool(torch.isfinite(logits[:, :v]).all()),
+              f"{cfg.name}: non-finite prefill logits")
+        check(torch.equal(held, logits), f"{cfg.name}: two prefills differ")
+        if not names:  # no kernel on the path: both modes are one program
+            check(torch.equal(plain, logits),
+                  f"{cfg.name}: kernel_mode changed a kernel-free prefill")
+        held_s = time.perf_counter() - t0
+        report = {
+            "prefill_seconds": prefill_s,
+            "held_and_plain_prefill_seconds": held_s,
+            "attention_calls_held": len(holds),
+            "attention_max_err_of_max_plain": max((h[2] for h in holds),
+                                                  default=0.0),
+            "logits_kernel_vs_plain": max_err(logits[:, :v], plain[:, :v]),
+            "max_abs_logit": float(plain[:, :v].float().abs().max()),
+        }
+        if cfg.mixer == "attention":
+            check(len(holds) == layers, f"{cfg.name}: {len(holds)} attention "
+                  f"calls held, {layers} layers")
+        if cfg.moe is not None:
+            report["expert_choices_differ"] = route_flips(k_routes, p_routes)
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        toks = generate(params, cfg, prompt, steps=new,
+                        max_len=prompt_len + new)
+        torch.cuda.synchronize()
+        report["generate_seconds"] = time.perf_counter() - t0
+        steps = prompt_len + new - 1
+        decode = {n: k.launches - before[n] for n, k in kernels.items()
+                  if k.launches != before[n]}
+        want = ({"rff_decode_block": steps * layers}
+                if cfg.mixer == "attention" and cfg.attention == "rff" else {})
+        check(decode == want, f"{cfg.name} decode launches {decode}, "
+              f"expected {want}")
+        for name, n in decode.items():
+            launches[name] = launches.get(name, 0) + n
+        t0 = time.perf_counter()
+        seen = path_logits(params, cfg, prompt, toks,
+                           max_len=prompt_len + new)
+        check(tuple(toks.shape) == (batch, new)
+              and bool(((toks >= 0) & (toks < v)).all()),
+              f"{cfg.name}: generated tokens")
+        check(torch.equal(toks.long(), seen.argmax(-1)),
+              f"{cfg.name}: greedy tokens vs their logits")
+        if names and "rff_decode_block" in want:
+            plain_seen = path_logits(params, cfg, prompt, toks,
+                                     max_len=prompt_len + new,
+                                     kernel_mode="ref")
+            report["decode_logits_kernel_vs_plain"] = max_err(
+                seen[..., :v], plain_seen[..., :v])
+        report["path_logits_seconds"] = time.perf_counter() - t0
+        report["sample"] = toks[0].tolist()
+    return report, launches
+
+
+def decode_vs_forward(cfg, params, gen, device, layers=None) -> dict:
+    """Token-by-token decode against the full-sequence forward on an f32
+    copy of the weights (the first ``layers`` layers where given), the rule
+    of tests/test_models.py (|dec - full| <= 2e-3 + 2e-3 |full|)."""
+    from dataclasses import replace
+
+    from repro_torch.models import decode_state_init, decode_step, forward
+
+    if layers is not None:
+        cfg = replace(cfg, num_layers=layers)
+        params = dict(params, blocks=params["blocks"][:layers])
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = as_f32(params)
+    inputs = prefill_inputs(cfg, gen, OTHER_B, DVF_TOKENS, device)
+    with torch.inference_mode():
+        full = forward(p32, cfg32, inputs.get("tokens"), inputs.get("embeds"))
+        state = decode_state_init(cfg32, OTHER_B, 2 * DVF_TOKENS,
+                                  device=device)
+        outs = []
+        for i in range(DVF_TOKENS):
+            if "tokens" in inputs:
+                lg, state = decode_step(p32, cfg32, state,
+                                        inputs["tokens"][:, i])
+            else:
+                lg, state = decode_step(p32, cfg32, state,
+                                        embed_in=inputs["embeds"][:, i:i + 1])
+            outs.append(lg)
+        dec = torch.stack(outs, 1)[..., :cfg.vocab_size]
+        full = full[..., :cfg.vocab_size]
+        excess = float((dec - full).abs().sub(
+            DVF_TOL + DVF_TOL * full.abs()).max())
+    check(bool(torch.isfinite(dec).all()) and excess <= 0,
+          f"{cfg.name}: f32 decode vs forward exceeds {DVF_TOL} (abs + rel) "
+          f"by {excess:.3g}")
+    del p32
+    return {"layers": cfg.num_layers, "max_abs_err": max_err(dec, full),
+            "max_abs_logit": float(full.abs().max()), "excess": excess}
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The SDPA backend torch picks for a causal call on these inputs
+    (``torch._fused_sdp_choice``, the dispatcher's own choice)."""
+    from torch.nn.attention import SDPBackend
+
+    choice = torch._fused_sdp_choice(q, k, v, is_causal=True)
+    return next(name for name, b in SDPBackend.__members__.items()
+                if int(b.value) == choice)
+
+
+def family_times(cfg, params, gen, device) -> dict:
+    """deepseek's serving figures: kernel 11 at the MLA shape against its
+    plain version, SDPA (the backend torch picks named) and the bound;
+    prefill tokens per second with its device-busy profile (kernel 11 once
+    a layer and no plain op); decode ms a step with its device-busy share.
+
+    Flash's bound: 2 (dh + dv) operations per kept (query, key) pair (Q K^T
+    and P V) and 3 more (subtract, exp, add), at the bf16 tensor-core
+    rate; bytes: q, k, v and the output, once each."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_state_init, decode_step
+    from repro_torch.serve.serve_loop import prefill_tokens
+    from repro_torch.train.steps import make_prefill_step
+
+    bh, slen, dh, dv = MLA_FLASH
+    q, k = (torch.randn(bh, slen, dh, generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn(bh, slen, dv, generator=gen, device=device).to(
+        torch.bfloat16)
+    pairs = bh * slen * (slen + 1) // 2
+    nops = pairs * (2 * dh + 2 * dv + 3)
+    nbytes = 2 * bh * slen * (2 * dh + 2 * dv)
+    case = timed_case(lambda m: ops.flash_attention(q, k, v, mode=m),
+                      nbytes, 0.0, plain_reps=5)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+    case.update(bound_ms=max(t_bytes, t_ops) * 1e3, ops=nops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=list(MLA_FLASH))
+    q4, k4, v4 = (x.view(FAM_B, bh // FAM_B, slen, x.shape[-1])
+                  for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    case["library_ms"] = time_ms(sdpa)
+    case["library_backend"] = sdpa_backend(q4, k4, v4)
+    del q, k, v, q4, k4, v4
+
+    def wall_ms(fn, reps=3) -> float:
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S), generator=gen,
+                           device=device)
+    with torch.inference_mode():
+        step = make_prefill_step(cfg)
+        prefill = wall_ms(lambda: step(params, {"tokens": tokens}))
+        expect = functools.partial(mla_prefill_profile, cfg.num_layers)
+        busy = device_busy(lambda: step(params, {"tokens": tokens}),
+                           expect=expect)
+        names = busy.pop("names")
+        shown = {key[:60]: n for key, n in names.items()
+                 if any(w in key.lower() for w in ("flash", "softmax"))}
+        check(expect(names), f"{cfg.name} prefill profile: kernels {shown}")
+        busy["flash_and_softmax_launches"] = shown
+        state = decode_state_init(cfg, FAM_B, FAM_NEW + 8, device=device)
+        state, logits = prefill_tokens(params, cfg, state, tokens[:, :2])
+        tok = logits.argmax(-1)
+        for _ in range(2):  # warm-up
+            logits, state = decode_step(params, cfg, state, tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FAM_NEW):
+            logits, state = decode_step(params, cfg, state, tok)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / FAM_NEW
+        dbusy = device_busy(lambda: decode_step(params, cfg, state, tok))
+        dbusy.pop("names")
+    busy["busy_share"] = busy["device_ms"] / prefill
+    dbusy["busy_share"] = dbusy["device_ms"] / decode_ms
+    return {"flash_mla": case,
+            "prefill_ms": prefill,
+            "prefill_tokens_per_s": FAM_B * FAM_S / prefill * 1e3,
+            "decode_ms_per_step": decode_ms,
+            "decode_tokens_per_s": FAM_B / decode_ms * 1e3,
+            "profile": {"prefill": busy, "decode_step": dbusy}}
+
+
+def phase_lm_families(seed, device, kernels) -> tuple[dict, dict]:
+    """Phase 21: (a) deepseek-v2-lite-16b at all 27 layers, MLA + MoE
+    (kernel 11), its f32 budget at FAM_F32_LAYERS, its times, then with RFF
+    attention (kernels 10 and 9); (b) the other seven archs. Each model is
+    freed before the next. Returns (the path's launches, deepseek's
+    times)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rff_attention as rff_mod
+    from repro_torch.models import with_rff_attention
+    from repro_torch.train.steps import make_prefill_step
+
+    t_phase = time.perf_counter()
+    total = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(FAM_ARCH)
+    t0 = time.perf_counter()
+    params, gen = lm_model(cfg, seed + 21, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    report, launches = serve_family(cfg, params, gen, device, kernels, FAM_B,
+                                    FAM_S, FAM_PROMPT, FAM_NEW)
+    add_launches(total, launches)
+    report.update(init_seconds=init_s, layers=cfg.num_layers,
+                  params=cfg.param_count(),
+                  weight_gib=sum(t.numel() * t.element_size()
+                                 for t in _leaves(params)) / 2 ** 30)
+    parts = {"init": init_s, "serve": time.perf_counter() - t_phase - init_s}
+    t0 = time.perf_counter()
+    # The PR 14 budget rule at the depth where the f32 copy fits.
+    cut = replace(cfg, num_layers=FAM_F32_LAYERS)
+    pcut = dict(params, blocks=params["blocks"][:FAM_F32_LAYERS])
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S), generator=gen,
+                           device=device)
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        kern = make_prefill_step(cut)(pcut, {"tokens": tokens})
+        plain = make_prefill_step(cut, kernel_mode="ref")(pcut,
+                                                         {"tokens": tokens})
+        cut32, p32 = replace(cut, dtype="float32"), as_f32(pcut)
+        exact = make_prefill_step(cut32, kernel_mode="ref")(p32,
+                                                           {"tokens": tokens})
+        report["f32_budget"] = {"layers": FAM_F32_LAYERS, **lm_budget(
+            f"{FAM_ARCH} {FAM_F32_LAYERS}-layer prefill", kern[:, :v],
+            plain[:, :v], exact[:, :v])}
+    del pcut, p32, kern, plain, exact
+    torch.cuda.empty_cache()
+    parts["f32_budget"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    times = family_times(cfg, params, gen, device)
+    parts["times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # The same weights with RFF attention beside the MoE FFN.
+    rcfg = with_rff_attention(cfg)
+    rparams = dict(params, blocks=[
+        dict(b, attn=rff_mod.rff_attn_init(gen, rcfg, rcfg.activation_dtype,
+                                           device=device))
+        for b in params["blocks"]])
+    del params
+    rreport, rlaunches = serve_family(rcfg, rparams, gen, device, kernels,
+                                      FAM_B, FAM_S, FAM_PROMPT, FAM_RFF_NEW)
+    add_launches(total, rlaunches)
+    with torch.inference_mode():
+        tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S),
+                               generator=gen, device=device)
+        busy = device_busy(
+            lambda: make_prefill_step(rcfg)(rparams, {"tokens": tokens}),
+            expect=functools.partial(rff_prefill_profile, cfg.num_layers))
+    check(rff_prefill_profile(cfg.num_layers, busy["names"]),
+          f"{FAM_ARCH} rff prefill profile")
+    rreport["prefill_linear_attention_launches"] = {
+        phase: sum(n for key, n in busy["names"].items() if phase in key)
+        for phase in LINEAR_PHASE_KERNELS}
+    del rparams
+    torch.cuda.empty_cache()
+    parts["rff"] = time.perf_counter() - t0
+    emit({"phase": "lm_families", "arch": FAM_ARCH, "B": FAM_B,
+          "prefill_S": FAM_S, "prompt": FAM_PROMPT, "new_tokens": FAM_NEW,
+          "mla": report, "rff": rreport, "times": times,
+          "seconds": parts,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "tolerance": {"attention_of_max_plain": ATTN_BF16_TOL,
+                        "bf16_budget": {
+                            "factor": LM_BUDGET,
+                            "floor_of_max_logit": LM_BUDGET_FLOOR}},
+          "card": SMI})
+    # (b) the other archs.
+    for i, arch in enumerate(OTHER_ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        published = cfg.num_layers
+        if arch in OTHER_LAYERS:
+            cfg = replace(cfg, num_layers=OTHER_LAYERS[arch])
+        torch.cuda.reset_peak_memory_stats()
+        params, gen = lm_model(cfg, seed + 22 + i, device)
+        report, launches = serve_family(cfg, params, gen, device, kernels,
+                                        OTHER_B, OTHER_S, OTHER_PROMPT,
+                                        OTHER_NEW)
+        add_launches(total, launches)
+        report.update(layers=cfg.num_layers, published_layers=published,
+                      weight_gib=sum(t.numel() * t.element_size()
+                                     for t in _leaves(params)) / 2 ** 30,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if cfg.moe is None:
+            layers = DVF_LAYERS.get(arch)
+            if layers is not None:  # free the layers the f32 check skips
+                params["blocks"] = params["blocks"][:layers]
+                torch.cuda.empty_cache()
+            report["f32_decode_vs_forward"] = decode_vs_forward(
+                cfg, params, gen, device, layers)
+        del params
+        torch.cuda.empty_cache()
+        report["seconds"] = time.perf_counter() - t0
+        emit({"phase": "lm_families", "arch": arch, "mixer": cfg.mixer,
+              "attention": cfg.attention, "frontend": cfg.frontend,
+              "B": OTHER_B, "prefill_S": OTHER_S, "prompt": OTHER_PROMPT,
+              "new_tokens": OTHER_NEW, **report, "card": SMI})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_families_total", "seconds": seconds,
+          "limit_seconds": FAM_SECONDS, "launches": total, "card": SMI})
+    check(seconds < FAM_SECONDS,
+          f"phase lm_families took {seconds:.1f} s, over {FAM_SECONDS} s")
+    return total, times
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4052,6 +4558,10 @@ def main() -> int:
     launches.update(phase_lm_server(args.seed, device, kernels))
     launches.update(phase_lm_gqa_server(args.seed, device, kernels))
     times.update(phase_lm_times(lrng, device))
+    # Every remaining LM arch (phase 21), with the LM slice.
+    torch.cuda.empty_cache()
+    fam_launches, fam_times = phase_lm_families(args.seed, device, kernels)
+    add_launches(launches, fam_launches)
     # The remaining learners and the paper's experiments, after the LM
     # slice.
     nklms_launches, flush_ms = phase_nklms_server(args.seed, device, kernels)
@@ -4120,6 +4630,10 @@ def main() -> int:
             if name == "krls_chunk_elements" else {}),
          **({k: times[name][k] for k in ("bf16", "krls_read", "one_tenant")}
             if name == "bank_predict" else {}),
+         **({"mla": {k: fam_times["flash_mla"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library_backend", "shape")}}
+            if name == "flash_attention" else {}),
          **({"routes": routes[name]} if name in routes else {})}
         for name in replaces
     ]})

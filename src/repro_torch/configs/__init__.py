@@ -1,10 +1,7 @@
-"""Architecture registry: ``get_config(arch_id)`` for the archs whose model
-the port runs.
+"""Architecture registry: ``get_config(arch_id)`` for all ten archs.
 
-Counterpart of ``repro/configs/__init__.py``. The port runs dense
-attention-mixer models (gqa or rff attention), so the registry names
-qwen2-0.5b and llama3-8b; the other archs of ``repro`` wait for MLA, MoE,
-mamba2 and rglru (ROADMAP §1 item 11).
+Counterpart of ``repro/configs/__init__.py``: the same names, each config
+field for field ``repro``'s (shapes only; no weights are loaded).
 """
 from __future__ import annotations
 
@@ -19,8 +16,16 @@ from repro_torch.configs.base import (
 )
 
 _ARCHS = {
+    "internvl2-2b": "internvl2_2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "arctic-480b": "arctic_480b",
+    "mamba2-130m": "mamba2_130m",
+    "command-r-35b": "command_r_35b",
+    "minicpm3-4b": "minicpm3_4b",
     "llama3-8b": "llama3_8b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_IDS = tuple(_ARCHS)
@@ -28,10 +33,7 @@ ARCH_IDS = tuple(_ARCHS)
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _ARCHS:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported to repro_torch (ROADMAP §1 item "
-            f"11: MLA, MoE, mamba2 and rglru wait); ported: {sorted(_ARCHS)}"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch_id]}")
     return mod.CONFIG
 

@@ -50,6 +50,10 @@ __all__ = [
     "lm_params",
     "rff_state",
     "kv_cache",
+    "mla_cache",
+    "mamba2_state",
+    "rglru_state",
+    "decode_state",
     "to_numpy",
 ]
 
@@ -177,19 +181,23 @@ def _tree(node, dev, layer=None):
 
 def lm_params(params_np: dict, cfg, *, device="cuda") -> dict:
     """``repro``'s LM parameter tree (numpy leaves, ``jax.tree.map(np.asarray,
-    params)``) as the port's: the same nested dicts, with the layers as a
-    list under ``"blocks"``. Takes either of ``repro``'s layouts: the
-    stacked ``"blocks"`` (``scan_layers=True``, a leading layer axis on
+    params)``) as the port's: the same nested dicts, with the layers (the
+    hybrid's groups) as a list under ``"blocks"`` and the hybrid's extra
+    recurrent blocks under ``"extra"``. Takes either of ``repro``'s layouts:
+    the stacked ``"blocks"`` (``scan_layers=True``, a leading layer axis on
     every leaf) or ``"blocks_list"``. Leaf dtypes are kept."""
+    from repro_torch.models.transformer import num_scan_layers
+
     dev = resolve_device(device)
+    n_scan, n_extra = num_scan_layers(cfg)
     if "blocks" in params_np:
-        layers = [_tree(params_np["blocks"], dev, i)
-                  for i in range(cfg.num_layers)]
+        layers = [_tree(params_np["blocks"], dev, i) for i in range(n_scan)]
     else:
         layers = _tree(params_np["blocks_list"], dev)
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers for a {cfg.num_layers}-layer "
-                         "config")
+    extra = params_np.get("extra", [])
+    if len(layers) != n_scan or len(extra) != n_extra:
+        raise ValueError(f"{len(layers)} layers and {len(extra)} extra blocks "
+                         f"for a config of {n_scan} and {n_extra}")
     out = {k: _tree(v, dev) for k, v in params_np.items()
            if k not in ("blocks", "blocks_list")}
     out["blocks"] = layers
@@ -207,11 +215,80 @@ def rff_state(s, z, pos, *, device="cuda"):
 
 def kv_cache(k, v, pos, *, device="cuda"):
     """``repro``'s ``KVCache`` (one layer: k, v (B, S_max, Hkv, dh)) as the
-    port's."""
+    port's. The hybrid's ring cache is the same type: its k and v hold
+    ``min(local_window, max_len)`` slots and ``pos`` counts every token
+    seen, the next write going to slot ``pos % slots``."""
     from repro_torch.models.attention import KVCache
 
     return KVCache(k=tensor(k, device=device), v=tensor(v, device=device),
                    pos=int(pos))
+
+
+def mla_cache(c_kv, k_rope, pos, *, device="cuda"):
+    """``repro``'s ``MLACache`` (one layer: c_kv (B, S_max, r), k_rope
+    (B, S_max, dr)) as the port's."""
+    from repro_torch.models.attention import MLACache
+
+    return MLACache(c_kv=tensor(c_kv, device=device),
+                    k_rope=tensor(k_rope, device=device), pos=int(pos))
+
+
+def mamba2_state(h, conv, pos, *, device="cuda"):
+    """``repro``'s ``Mamba2State`` (one layer: h (B, H, dh, N), conv (B,
+    W-1, conv_dim)) as the port's."""
+    from repro_torch.models.ssm import Mamba2State
+
+    return Mamba2State(h=tensor(h, device=device),
+                       conv=tensor(conv, device=device), pos=int(pos))
+
+
+def rglru_state(h, conv, pos, *, device="cuda"):
+    """``repro``'s ``RGLRUState`` (one block: h (B, Hp, hd), conv (B, W-1,
+    Hp, hd)) as the port's."""
+    from repro_torch.models.rglru import RGLRUState
+
+    return RGLRUState(h=tensor(h, device=device),
+                      conv=tensor(conv, device=device), pos=int(pos))
+
+
+def _block_state(node, cfg, dev):
+    """One entry of ``repro``'s state stack (numpy leaves) as the port's."""
+    if cfg.mixer == "mamba2":
+        return mamba2_state(*node, device=dev)
+    if cfg.mixer == "rglru_hybrid":
+        return {"rec1": rglru_state(*node["rec1"], device=dev),
+                "rec2": rglru_state(*node["rec2"], device=dev),
+                "attn": kv_cache(*node["attn"], device=dev)}
+    if cfg.attention == "rff":
+        return rff_state(*node, device=dev)
+    if cfg.attention == "mla":
+        return mla_cache(*node, device=dev)
+    return kv_cache(*node, device=dev)
+
+
+def _layer(node, i):
+    """Entry ``i`` of a stacked state tree (every array sliced on its
+    leading axis; a tuple keeps its type)."""
+    if isinstance(node, dict):
+        return {k: _layer(v, i) for k, v in node.items()}
+    if isinstance(node, tuple):
+        return type(node)(*(_layer(v, i) for v in node))
+    return np.asarray(node)[i]
+
+
+def decode_state(state_np: dict, cfg, *, device="cuda") -> dict:
+    """``repro``'s whole decode state (``decode_state_init`` or a later
+    state, numpy leaves) as the port's ``{"stack", "extra"}``. Takes the
+    stacked layout (``scan_layers=True``) or the list."""
+    from repro_torch.models.transformer import num_scan_layers
+
+    dev = resolve_device(device)
+    stack = state_np["stack"]
+    if not isinstance(stack, list):
+        stack = [_layer(stack, i) for i in range(num_scan_layers(cfg)[0])]
+    return {"stack": [_block_state(node, cfg, dev) for node in stack],
+            "extra": [rglru_state(*node, device=dev)
+                      for node in state_np["extra"]]}
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

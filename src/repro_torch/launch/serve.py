@@ -4,7 +4,8 @@
         --full --rff --batch 4 --prompt-len 16 --tokens 32
 
 The flags of ``repro.launch.serve``, plus ``--device`` (default ``cuda``;
-``--device cpu`` runs the plain PyTorch path). ``--rff`` switches the arch
+``--device cpu`` runs the plain PyTorch path). ``--arch`` takes any of the
+ten archs of ``repro_torch.configs.ARCH_IDS``. ``--rff`` switches the arch
 to the paper's fixed-size-state attention. Weights and prompt are random
 from seed 0, the sampler from seed 1.
 """
@@ -54,7 +55,8 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} attention={cfg.attention} device={device}")
+    print(f"arch={cfg.name} mixer={cfg.mixer} attention={cfg.attention} "
+          f"device={device}")
     print(f"{args.batch}x{args.tokens} tokens in {dt:.2f}s "
           f"({args.batch * args.tokens / dt:.1f} tok/s)")
     print("sample:", out[0][:16].tolist())

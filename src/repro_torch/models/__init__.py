@@ -1,6 +1,13 @@
-"""LM substrate: the decoder for dense attention-mixer archs (gqa or rff
-attention)."""
-from repro_torch.models import attention, layers, rff_attention
+"""LM substrate: the unified decoder covering all ten archs (``repro``'s
+exports but ``lm_loss``, the training half; ROADMAP §1 entry 7)."""
+from repro_torch.models import (
+    attention,
+    layers,
+    moe,
+    rff_attention,
+    rglru,
+    ssm,
+)
 from repro_torch.models.transformer import (
     decode_state_init,
     decode_step,
@@ -12,7 +19,10 @@ from repro_torch.models.transformer import (
 __all__ = [
     "attention",
     "layers",
+    "moe",
     "rff_attention",
+    "rglru",
+    "ssm",
     "decode_state_init",
     "decode_step",
     "forward",

@@ -1,10 +1,10 @@
-"""Attention blocks: GQA with the softmax-attention dispatcher and
-cache-based decode.
+"""Attention blocks: GQA (optionally windowed) and MLA with the
+softmax-attention dispatcher, and cache-based decode.
 
-Counterpart of ``repro/models/attention.py`` for GQA (MLA waits, ROADMAP
-§1 item 11). Projections are head-structured, ``(d, H, dh)`` and ``(H, dh,
-d)``, as in ``repro``. The dispatcher's CUDA branch takes the place of
-``repro``'s TPU branch under the same conditions and runs the flash kernel
+Counterpart of ``repro/models/attention.py``. Projections are
+head-structured, ``(d, H, dh)`` and ``(H, dh, d)``, as in ``repro``. The
+dispatcher's CUDA branch takes the place of ``repro``'s TPU branch under
+the same conditions and runs the flash kernel
 (``kernels/ops.flash_attention``); every other case takes the dense path,
 or the blocked online-softmax loop above 8192 keys.
 """
@@ -15,10 +15,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.models.layers import apply_rope, normal, rope_freqs
+from repro_torch.models.layers import (
+    apply_rope,
+    dense,
+    dense_init,
+    normal,
+    rope_freqs,
+)
 
 __all__ = [
     "KVCache",
@@ -34,6 +40,11 @@ __all__ = [
     "gqa_init",
     "gqa_apply",
     "gqa_decode",
+    "ring_gqa_decode",
+    "MLACache",
+    "mla_init",
+    "mla_apply",
+    "mla_decode",
 ]
 
 
@@ -224,32 +235,157 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
 
 
 def gqa_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              window: int = 0, block_k: int = 1024,
               kernel_mode: str = "auto"):
-    """Full-sequence causal GQA. x: (B, S, d). (``repro``'s ``window`` and
-    ``block_k`` serve only its rglru hybrid, which is not ported.)"""
+    """Full-sequence causal (optionally windowed) GQA. x: (B, S, d)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     k = repeat_kv(k, cfg.padded_heads)
     v = repeat_kv(v, cfg.padded_heads)
-    out = flash_attention(q, k, v, causal=True, kernel_mode=kernel_mode)
+    out = flash_attention(q, k, v, causal=True, window=window,
+                          block_k=block_k, kernel_mode=kernel_mode)
     return head_out(p["wo"], apply_head_mask(out, head_mask(cfg)))
 
 
-def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: KVCache):
-    """One-token decode against a KV cache stored unrepeated. x: (B, 1, d).
-
-    The new key and value are written into ``cache.k``/``cache.v`` in
-    place (``repro`` returns new arrays): a copy per token would move the
-    whole (B, S_max, Hkv, dh) cache of every layer. Returns (out, the
-    cache advanced by one position)."""
+def _cached_decode(p, cfg: ModelConfig, x, cache: KVCache, slot: int,
+                   kv_len: int, window: int = 0):
+    """One token against a KV cache stored unrepeated: its key and value
+    are written to ``slot`` in place and the query attends to the first
+    ``kv_len`` slots; the padded heads are masked before the output
+    projection. Returns (out, the cache advanced by one position)."""
     b = x.shape[0]
     positions = torch.full((b, 1), cache.pos, dtype=torch.long,
                            device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    cache.k[:, cache.pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, cache.pos] = v_new[:, 0].to(cache.v.dtype)
-    out = dense_attention(q, cache.k, cache.v, causal=False,
-                          kv_len=cache.pos + 1)
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    out = dense_attention(q, cache.k, cache.v, causal=False, window=window,
+                          kv_len=kv_len)
     new_cache = KVCache(k=cache.k, v=cache.v, pos=cache.pos + 1)
+    return head_out(p["wo"], apply_head_mask(out, head_mask(cfg))), new_cache
+
+
+def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: KVCache,
+               *, window: int = 0):
+    """One-token decode against a KV cache stored unrepeated. x: (B, 1, d).
+
+    The new key and value are written into ``cache.k``/``cache.v`` in
+    place (``repro`` returns new arrays): a copy per token would move the
+    whole (B, S_max, Hkv, dh) cache of every layer. ``window`` masks as
+    ``repro``'s does (the query sits at offset 0, so it keeps every valid
+    key). Returns (out, the cache advanced by one position)."""
+    return _cached_decode(p, cfg, x, cache, cache.pos, cache.pos + 1,
+                          window)
+
+
+def ring_gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache: KVCache):
+    """Sliding-window decode with a ring-buffer cache of ``win`` slots
+    (``repro``'s ``transformer._ring_gqa_decode``): the token goes to slot
+    ``pos % win``, in place, and attends to every valid slot, all of which
+    lie within the window by construction. The padded heads are masked
+    before the output projection, as in ``gqa_decode`` (``repro``'s ring
+    decode leaves them out of the mask; ROADMAP §3)."""
+    win = cache.k.shape[1]
+    return _cached_decode(p, cfg, x, cache, cache.pos % win,
+                          min(cache.pos + 1, win))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 / MiniCPM3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    """Latent cache: a compressed KV row (r) and the rope key (dr) per
+    token, instead of 2 H dh."""
+
+    c_kv: torch.Tensor  # (B, S_max, r)
+    k_rope: torch.Tensor  # (B, S_max, dr)
+    pos: int  # next write position
+
+
+def mla_init(gen, cfg: ModelConfig, dtype=torch.float32,
+             device="cuda") -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.padded_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dtype, device=resolve_device(device))
+    p = {
+        "w_dkv": dense_init(gen, d, m.kv_lora_rank, **kw),
+        "w_kr": dense_init(gen, d, m.qk_rope_head_dim, **kw),
+        "w_ukv": head_proj_init(gen, m.kv_lora_rank, h,
+                                m.qk_nope_head_dim + m.v_head_dim, **kw),
+        "wo": head_out_init(gen, h, m.v_head_dim, d, **kw),
+    }
+    if m.q_lora_rank:
+        p["w_dq"] = dense_init(gen, d, m.q_lora_rank, **kw)
+        p["w_uq"] = head_proj_init(gen, m.q_lora_rank, h, qk, **kw)
+    else:
+        p["wq"] = head_proj_init(gen, d, h, qk, **kw)
+    return p
+
+
+def _mla_query(p, cfg: ModelConfig, x, cos, sin):
+    """(q_nope, roped q_rope), each (B, S, H, .)."""
+    dn = cfg.mla.qk_nope_head_dim
+    if cfg.mla.q_lora_rank:
+        q = head_proj(p["w_uq"], dense(p["w_dq"], x))
+    else:
+        q = head_proj(p["wq"], x)
+    return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+
+def _mla_keys(p, cfg: ModelConfig, c_kv, k_rope):
+    """Expand latents (B, S, r) and rope keys (B, S, dr) into full keys
+    (B, S, H, dn + dr) and values (B, S, H, dv)."""
+    dn = cfg.mla.qk_nope_head_dim
+    b, s, _ = c_kv.shape
+    kv = head_proj(p["w_ukv"], c_kv)  # (B, S, H, dn + dv)
+    k_rope = k_rope[:, :, None, :].expand(b, s, cfg.padded_heads,
+                                         k_rope.shape[-1])
+    return torch.cat([kv[..., :dn], k_rope], dim=-1), kv[..., dn:]
+
+
+def mla_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+              block_k: int = 1024, kernel_mode: str = "auto"):
+    """Full-sequence causal MLA. x: (B, S, d). q and k have the same shape
+    (H heads of dn + dr), so the dispatcher takes the flash kernel."""
+    b, s, _ = x.shape
+    dr = cfg.mla.qk_rope_head_dim
+    positions = torch.arange(s, device=x.device)[None, :]
+    cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
+    q_nope, q_rope = _mla_query(p, cfg, x, cos, sin)
+    k_rope = apply_rope(dense(p["w_kr"], x).reshape(b, s, 1, dr), cos, sin)
+    k_full, v = _mla_keys(p, cfg, dense(p["w_dkv"], x), k_rope[:, :, 0])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(q_full, k_full, v, causal=True, block_k=block_k,
+                          kernel_mode=kernel_mode)
+    return head_out(p["wo"], apply_head_mask(out, head_mask(cfg)))
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: MLACache):
+    """One-token MLA decode from the latent cache. x: (B, 1, d).
+
+    The new latent and rope key are written into the cache in place, as
+    ``gqa_decode`` writes its KV cache. The latents are expanded, then
+    dotted, as in ``repro`` (no weight absorption); only the ``pos + 1``
+    valid rows are expanded, where ``repro`` expands all S_max and masks
+    the rest (the same keys and values). Returns (out, the cache advanced
+    by one position)."""
+    b = x.shape[0]
+    dr = cfg.mla.qk_rope_head_dim
+    positions = torch.full((b, 1), cache.pos, dtype=torch.long,
+                           device=x.device)
+    cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
+    q_nope, q_rope = _mla_query(p, cfg, x, cos, sin)
+    kr_new = apply_rope(dense(p["w_kr"], x)[:, :, None, :], cos, sin)[:, :, 0]
+    cache.c_kv[:, cache.pos] = dense(p["w_dkv"], x)[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, cache.pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+    n = cache.pos + 1
+    k_full, v = _mla_keys(p, cfg, cache.c_kv[:, :n], cache.k_rope[:, :n])
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = dense_attention(q_full, k_full, v, causal=False)
+    new_cache = MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope, pos=n)
     return head_out(p["wo"], apply_head_mask(out, head_mask(cfg))), new_cache

@@ -26,11 +26,11 @@ __all__ = [
 
 
 def normal(gen: torch.Generator, shape, scale: float, dtype, device):
-    """``scale * N(0, 1)`` drawn in f32 on the generator's device, then
-    cast and moved to ``device`` (a CUDA generator keeps a full-size init
-    on the card)."""
+    """``scale * N(0, 1)`` drawn in f32 on the generator's device, scaled
+    in place, then cast and moved to ``device`` (a CUDA generator keeps a
+    full-size init on the card; its peak is one f32 copy of the tensor)."""
     x = torch.randn(shape, generator=gen, device=gen.device)
-    return (scale * x).to(device=device, dtype=dtype)
+    return x.mul_(scale).to(device=device, dtype=dtype)
 
 
 def dense_init(gen, d_in: int, d_out: int, *, bias: bool = False,

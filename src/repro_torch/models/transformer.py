@@ -1,13 +1,19 @@
 """Decoder-only LM assembled from a ModelConfig.
 
-Counterpart of ``repro/models/transformer.py`` for ``mixer="attention"``
-with a dense (SwiGLU) FFN and gqa or rff attention: qwen2-0.5b and
-llama3-8b, as published or switched to RFF attention by
-:func:`with_rff_attention`. The layers are a Python loop over a list of
-per-layer dicts (``params["blocks"]``); ``repro`` scans stacked layers
-under jit. MoE, MLA, mamba2 and the rglru hybrid raise
-``NotImplementedError`` (ROADMAP §1 item 11).
+Counterpart of ``repro/models/transformer.py``; one model covers all ten
+archs:
 
+* ``mixer="attention"``: a dense or MoE FFN under gqa, mla or rff
+  attention (qwen2, llama3, command-r, deepseek, minicpm3, arctic,
+  internvl2, musicgen);
+* ``mixer="mamba2"``: SSD blocks with no FFN (mamba2);
+* ``mixer="rglru_hybrid"``: groups of (recurrent, recurrent,
+  local-attention) blocks with MLPs, then ``num_layers % 3`` more
+  recurrent blocks (recurrentgemma).
+
+The layers are a Python loop over a list of per-layer dicts
+(``params["blocks"]``, one group a layer for the hybrid, its remainder
+under ``params["extra"]``); ``repro`` scans stacked layers under jit.
 ``forward`` and ``decode_step`` take ``kernel_mode`` ("auto", "cuda" or
 "ref") and pass it to the attention kernels, so the same model can run the
 kernels or their plain versions on the card.
@@ -15,13 +21,17 @@ kernels or their plain versions on the card.
 from __future__ import annotations
 
 from dataclasses import replace
+from typing import Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rff_attention as rff_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dense,
     dense_init,
@@ -34,9 +44,11 @@ from repro_torch.models.layers import (
 
 __all__ = [
     "with_rff_attention",
+    "num_scan_layers",
     "init_params",
     "apply_stack",
     "head_logits",
+    "embed_inputs",
     "forward",
     "decode_state_init",
     "decode_step",
@@ -49,33 +61,112 @@ def with_rff_attention(cfg: ModelConfig) -> ModelConfig:
     return replace(cfg, attention="rff")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of ``repro``'s model the port does not run."""
-    missing = None
-    if cfg.mixer != "attention":
-        missing = f"mixer {cfg.mixer!r}"
-    elif cfg.moe is not None:
-        missing = "the MoE FFN"
-    elif cfg.attention not in ("gqa", "rff"):
-        missing = f"attention {cfg.attention!r}"
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {missing} is not ported to repro_torch (ROADMAP §1 "
-            "item 11: MLA, MoE, mamba2 and rglru wait)"
-        )
+def num_scan_layers(cfg: ModelConfig) -> tuple[int, int]:
+    """(entries of ``params["blocks"]``, extra recurrent blocks): the
+    hybrid groups its layers by 3."""
+    if cfg.mixer == "rglru_hybrid":
+        return cfg.num_layers // 3, cfg.num_layers % 3
+    return cfg.num_layers, 0
 
 
-def _block_init(gen, cfg: ModelConfig, dtype, device) -> dict:
-    if cfg.attention == "rff":
+# ---------------------------------------------------------------------------
+# Blocks (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _attn_block_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    if cfg.attention == "mla":
+        attn = attn_mod.mla_init(gen, cfg, dtype, device=device)
+    elif cfg.attention == "rff":
         attn = rff_mod.rff_attn_init(gen, cfg, dtype, device=device)
     else:
         attn = attn_mod.gqa_init(gen, cfg, dtype, device=device)
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, dtype, device),
-        "attn": attn,
-        "ln2": rmsnorm_init(cfg.d_model, dtype, device),
-        "ffn": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    if cfg.moe is not None:
+        ffn = moe_mod.moe_init(gen, cfg, dtype, device=device)
+    else:
+        ffn = glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype, device), "attn": attn,
+            "ln2": rmsnorm_init(cfg.d_model, dtype, device), "ffn": ffn}
+
+
+def _ffn(p, cfg: ModelConfig, h):
+    if cfg.moe is not None:
+        return moe_mod.moe_apply(p, cfg, h)
+    return glu_mlp(p, h)
+
+
+def _attn_block_apply(p, cfg: ModelConfig, x, kernel_mode):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.attention == "mla":
+        a = attn_mod.mla_apply(p["attn"], cfg, h, kernel_mode=kernel_mode)
+    elif cfg.attention == "rff":
+        a = rff_mod.rff_attn_apply(p["attn"], cfg, h, kernel_mode=kernel_mode)
+    else:
+        a = attn_mod.gqa_apply(p["attn"], cfg, h, kernel_mode=kernel_mode)
+    x = x + a
+    return x + _ffn(p["ffn"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _mamba_block_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
+            "mixer": ssm_mod.mamba2_init(gen, cfg, dtype, device=device)}
+
+
+def _mamba_block_apply(p, cfg: ModelConfig, x, kernel_mode):
+    return x + ssm_mod.mamba2_apply(p["mixer"], cfg,
+                                    rmsnorm(p["ln1"], x, cfg.norm_eps))
+
+
+def _rec_block_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
+            "temporal": rglru_mod.rglru_init(gen, cfg, dtype, device=device),
+            "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+            "mlp": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+
+
+def _rec_block_apply(p, cfg: ModelConfig, x):
+    x = x + rglru_mod.rglru_apply(p["temporal"], cfg,
+                                  rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return x + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _local_attn_block_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
+            "attn": attn_mod.gqa_init(gen, cfg, dtype, device=device),
+            "ln2": rmsnorm_init(cfg.d_model, dtype, device),
+            "mlp": glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+
+
+def _local_attn_block_apply(p, cfg: ModelConfig, x, kernel_mode):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attn_mod.gqa_apply(p["attn"], cfg, h, window=cfg.local_window,
+                               kernel_mode=kernel_mode)
+    return x + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps))
+
+
+def _hybrid_group_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    """(recurrent, recurrent, local-attention) group."""
+    return {"rec1": _rec_block_init(gen, cfg, dtype, device),
+            "rec2": _rec_block_init(gen, cfg, dtype, device),
+            "attn": _local_attn_block_init(gen, cfg, dtype, device)}
+
+
+def _hybrid_group_apply(p, cfg: ModelConfig, x, kernel_mode):
+    x = _rec_block_apply(p["rec1"], cfg, x)
+    x = _rec_block_apply(p["rec2"], cfg, x)
+    return _local_attn_block_apply(p["attn"], cfg, x, kernel_mode)
+
+
+_BLOCKS = {  # mixer -> (init, apply)
+    "attention": (_attn_block_init, _attn_block_apply),
+    "mamba2": (_mamba_block_init, _mamba_block_apply),
+    "rglru_hybrid": (_hybrid_group_init, _hybrid_group_apply),
+}
+
+
+# ---------------------------------------------------------------------------
+# Model init / forward
+# ---------------------------------------------------------------------------
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *,
@@ -83,37 +174,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     """Random parameters in ``cfg.activation_dtype`` on ``device``, drawn
     from ``gen`` on its own device (pass a CUDA generator for a full-size
     model on the card). Weights are random: configurations are shapes."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = cfg.activation_dtype
+    n_scan, n_extra = num_scan_layers(cfg)
+    layer_init = _BLOCKS[cfg.mixer][0]
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
-        "blocks": [_block_init(gen, cfg, dtype, dev)
-                   for _ in range(cfg.num_layers)],
+        "blocks": [layer_init(gen, cfg, dtype, dev) for _ in range(n_scan)],
     }
+    if n_extra:  # hybrid remainder: recurrent blocks
+        params["extra"] = [_rec_block_init(gen, cfg, dtype, dev)
+                           for _ in range(n_extra)]
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                     dtype=dtype, device=dev)
     return params
 
 
-def _block_apply(p, cfg: ModelConfig, x, kernel_mode):
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if cfg.attention == "rff":
-        a = rff_mod.rff_attn_apply(p["attn"], cfg, h, kernel_mode=kernel_mode)
-    else:
-        a = attn_mod.gqa_apply(p["attn"], cfg, h, kernel_mode=kernel_mode)
-    x = x + a
-    return x + glu_mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps))
-
-
 def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 kernel_mode: str = "auto") -> torch.Tensor:
     """The layer stack over hidden states x (B, S, d)."""
-    check_supported(cfg)
+    apply = _BLOCKS[cfg.mixer][1]
     for layer_p in params["blocks"]:
-        x = _block_apply(layer_p, cfg, x, kernel_mode)
+        x = apply(layer_p, cfg, x, kernel_mode)
+    for extra_p in params.get("extra", []):
+        x = _rec_block_apply(extra_p, cfg, x)
     return x
 
 
@@ -137,55 +223,129 @@ def head_logits(params: dict, cfg: ModelConfig, h: torch.Tensor):
     return _mask_vocab(cfg, logits)
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+def embed_inputs(params: dict, cfg: ModelConfig,
+                 tokens: Optional[torch.Tensor],
+                 embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token ids (B, S) through the embedding table, or precomputed
+    frontend embeddings (B, S, d) cast to the activation dtype."""
+    if embeds is None:
+        return params["embed"]["table"][tokens]
+    return embeds.to(cfg.activation_dtype)
+
+
+def forward(params: dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None, *,
             kernel_mode: str = "auto") -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) int -> logits (B, S,
-    V_padded). (``repro``'s ``embeds`` input serves its frontend archs,
-    which are not ported.)"""
-    x = apply_stack(params, cfg, params["embed"]["table"][tokens],
+    """Full-sequence forward: tokens (B, S) int, or for the frontend
+    archs embeds (B, S, d) -> logits (B, S, V_padded)."""
+    x = apply_stack(params, cfg, embed_inputs(params, cfg, tokens, embeds),
                     kernel_mode=kernel_mode)
     return head_logits(params, cfg, x)
 
 
-def _block_state_init(cfg: ModelConfig, batch: int, max_len: int, device):
-    if cfg.attention == "rff":
-        return rff_mod.rff_state_init(cfg, batch, device=device)
-    dh = cfg.resolved_head_dim
-    shape = (batch, max_len, cfg.num_kv_heads, dh)
+# ---------------------------------------------------------------------------
+# Decode (serve step)
+# ---------------------------------------------------------------------------
+
+
+def _kv_cache(cfg: ModelConfig, batch: int, slots: int, device):
+    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = cfg.activation_dtype
     return attn_mod.KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                             v=torch.zeros(shape, dtype=dtype, device=device),
                             pos=0)
 
 
+def _block_state_init(cfg: ModelConfig, batch: int, max_len: int, device):
+    if cfg.mixer == "mamba2":
+        return ssm_mod.mamba2_state_init(cfg, batch, device=device)
+    if cfg.mixer == "rglru_hybrid":
+        return {
+            "rec1": rglru_mod.rglru_state_init(cfg, batch, device=device),
+            "rec2": rglru_mod.rglru_state_init(cfg, batch, device=device),
+            # ring buffer of the window's size
+            "attn": _kv_cache(cfg, batch, min(cfg.local_window, max_len),
+                              device),
+        }
+    if cfg.attention == "rff":
+        return rff_mod.rff_state_init(cfg, batch, device=device)
+    if cfg.attention == "mla":
+        m, dtype = cfg.mla, cfg.activation_dtype
+        return attn_mod.MLACache(
+            c_kv=torch.zeros(batch, max_len, m.kv_lora_rank, dtype=dtype,
+                             device=device),
+            k_rope=torch.zeros(batch, max_len, m.qk_rope_head_dim,
+                               dtype=dtype, device=device),
+            pos=0)
+    return _kv_cache(cfg, batch, max_len, device)
+
+
 def decode_state_init(cfg: ModelConfig, batch: int, max_len: int, *,
                       device="cuda") -> dict:
-    """Per-layer decode state: ``{"stack": [one per layer]}``, an
-    :class:`RFFState` (fixed size) or a :class:`KVCache` of ``max_len``."""
-    check_supported(cfg)
+    """Per-layer decode state ``{"stack": [one per entry of
+    params["blocks"]], "extra": [one per extra recurrent block]}``: a KV
+    cache of ``max_len``, an MLA latent cache of ``max_len``, the
+    fixed-size RFF or mamba2 state, or the hybrid's two RG-LRU states and
+    a ring KV cache of ``min(local_window, max_len)`` slots."""
     dev = resolve_device(device)
+    n_scan, n_extra = num_scan_layers(cfg)
     return {"stack": [_block_state_init(cfg, batch, max_len, dev)
-                      for _ in range(cfg.num_layers)]}
+                      for _ in range(n_scan)],
+            "extra": [rglru_mod.rglru_state_init(cfg, batch, device=dev)
+                      for _ in range(n_extra)]}
+
+
+def _rec_block_decode(p, cfg: ModelConfig, x, state):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    out, state = rglru_mod.rglru_decode(p["temporal"], cfg, h, state)
+    x = x + out
+    return x + glu_mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps)), state
 
 
 def _block_decode(p, cfg: ModelConfig, x, state, kernel_mode):
+    if cfg.mixer == "mamba2":
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        out, new_state = ssm_mod.mamba2_decode(p["mixer"], cfg, h, state)
+        return x + out, new_state
+    if cfg.mixer == "rglru_hybrid":
+        x, s1 = _rec_block_decode(p["rec1"], cfg, x, state["rec1"])
+        x, s2 = _rec_block_decode(p["rec2"], cfg, x, state["rec2"])
+        pa = p["attn"]
+        h = rmsnorm(pa["ln1"], x, cfg.norm_eps)
+        out, s3 = attn_mod.ring_gqa_decode(pa["attn"], cfg, h, state["attn"])
+        x = x + out
+        x = x + glu_mlp(pa["mlp"], rmsnorm(pa["ln2"], x, cfg.norm_eps))
+        return x, {"rec1": s1, "rec2": s2, "attn": s3}
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attention == "rff":
         out, new_state = rff_mod.rff_attn_decode(p["attn"], cfg, h, state,
                                                  kernel_mode=kernel_mode)
+    elif cfg.attention == "mla":
+        out, new_state = attn_mod.mla_decode(p["attn"], cfg, h, state)
     else:
         out, new_state = attn_mod.gqa_decode(p["attn"], cfg, h, state)
     x = x + out
-    return x + glu_mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps)), new_state
+    return (x + _ffn(p["ffn"], cfg, rmsnorm(p["ln2"], x, cfg.norm_eps)),
+            new_state)
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
-                token: torch.Tensor, *, kernel_mode: str = "auto"):
-    """One serving step: token (B,) int -> (logits (B, V_padded), the new
-    state). A KV cache is written in place (``attention.gqa_decode``)."""
-    x = params["embed"]["table"][token[:, None]]
+                token: Optional[torch.Tensor] = None,
+                embed_in: Optional[torch.Tensor] = None, *,
+                kernel_mode: str = "auto"):
+    """One serving step: token (B,) int, or for the frontend archs
+    embed_in (B, 1, d) -> (logits (B, V_padded), the new state). KV and
+    MLA caches are written in place."""
+    x = embed_inputs(params, cfg,
+                     None if token is None else token[:, None], embed_in)
     new_stack = []
     for layer_p, layer_s in zip(params["blocks"], state["stack"]):
         x, s = _block_decode(layer_p, cfg, x, layer_s, kernel_mode)
         new_stack.append(s)
-    return head_logits(params, cfg, x)[:, 0], {"stack": new_stack}
+    new_extra = []
+    for extra_p, extra_s in zip(params.get("extra", []), state["extra"]):
+        x, s = _rec_block_decode(extra_p, cfg, x, extra_s)
+        new_extra.append(s)
+    return (head_logits(params, cfg, x)[:, 0],
+            {"stack": new_stack, "extra": new_extra})

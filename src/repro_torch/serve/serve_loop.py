@@ -4,7 +4,8 @@ Counterpart of ``repro/serve/serve_loop.py``: the prompt is fed token by
 token through ``models.decode_step`` (state warm-up), then ``generate``
 decodes greedily or samples at a temperature from an explicit
 ``torch.Generator``. The decode state is whatever the arch provides (a KV
-cache, or the fixed-size RFF state) and threads through ``decode_step``
+cache, an MLA latent cache, the fixed-size RFF or mamba2 state, the
+hybrid's RG-LRU states and ring cache) and threads through ``decode_step``
 the same way. ``repro`` runs the loop as a ``lax.scan`` under one jit; here
 it is a Python loop.
 """
@@ -17,7 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode_state_init, decode_step
 
-__all__ = ["prefill_tokens", "generate", "path_logits"]
+__all__ = ["prefill_tokens", "generate", "path_logits", "cache_grows"]
 
 
 def prefill_tokens(params: dict, cfg: ModelConfig, state, tokens, *,
@@ -31,14 +32,21 @@ def prefill_tokens(params: dict, cfg: ModelConfig, state, tokens, *,
     return state, logits
 
 
+def cache_grows(cfg: ModelConfig) -> bool:
+    """Whether the decode state is a cache of ``max_len`` positions (a GQA
+    KV cache or an MLA latent cache). The RFF and mamba2 states are fixed
+    in size, and the hybrid's ring cache wraps at its window."""
+    return cfg.mixer == "attention" and cfg.attention in ("gqa", "mla")
+
+
 def _decode(params, cfg, prompt, steps, max_len, kernel_mode, pick):
     """Prefill ``prompt``, then ``steps`` tokens chosen by ``pick(i,
     logits)``. Returns (tokens (B, steps), the logits each token was chosen
     from (B, steps, V))."""
-    if cfg.attention != "rff" and prompt.shape[1] + steps - 1 > max_len:
+    if cache_grows(cfg) and prompt.shape[1] + steps - 1 > max_len:
         raise ValueError(
-            f"prompt {prompt.shape[1]} + {steps} steps exceeds the KV cache's "
-            f"max_len {max_len}"
+            f"prompt {prompt.shape[1]} + {steps} steps exceeds the "
+            f"{cfg.attention} cache's max_len {max_len}"
         )
     state = decode_state_init(cfg, prompt.shape[0], max_len,
                               device=prompt.device)

@@ -1637,3 +1637,159 @@ def test_diffusion_on_card_matches_plain(cuda_device, tmp_path):
         assert np.max(np.abs(out[f"theta_run{i}"] - theta.cpu().numpy())) < 1e-4
     assert np.array_equal(out["theta_run0"], np.broadcast_to(
         out["theta_run0"][0], out["theta_run0"].shape))
+
+
+# ---------------------------------------------------------------------------
+# The remaining LM families (MLA, MoE, mamba2, the RG-LRU hybrid, frontends)
+# ---------------------------------------------------------------------------
+
+
+def _lax_top_k_route(gates, k, capacity):
+    """jax.lax.top_k's order (the lower index first among equal gates) and
+    repro's slot fill (token order, one k-slice at a time, the fill carried
+    across slices), in numpy: (expert, slot, keep)."""
+    g = gates.float().cpu().numpy()
+    b, s, e = g.shape
+    idx = np.argsort(-g, axis=-1, kind="stable")[..., :k]
+    slot = np.zeros((b, s, k), np.int64)
+    for bi in range(b):
+        fill = np.zeros(e, np.int64)
+        for j in range(k):
+            for si in range(s):
+                slot[bi, si, j] = fill[idx[bi, si, j]]
+                fill[idx[bi, si, j]] += 1
+    return idx, slot, slot < capacity
+
+
+@pytest.mark.cuda
+def test_moe_routing_bf16_ties_are_lax_top_k(cuda_device):
+    """deepseek's routing (64 experts, top 6) on bf16 gates on the card,
+    with forced ties and with the ties bf16 rounding makes, is bit for bit
+    repro's rule."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    levels = torch.randint(0, 4, (2, 96, 64), generator=gen,
+                           device=cuda_device).float() / 8
+    soft = torch.softmax(torch.randn(2, 512, 64, generator=gen,
+                                     device=cuda_device) * 0.3, dim=-1)
+    for gates in (levels.to(torch.bfloat16), soft.to(torch.bfloat16)):
+        capacity = max(1, int(6 * gates.shape[1] * 1.25 / 64))
+        expert, slot, keep, gate = moe.route(gates, 6, capacity)
+        want = _lax_top_k_route(gates, 6, capacity)
+        assert np.array_equal(expert.cpu().numpy(), want[0])
+        assert np.array_equal(slot.cpu().numpy(), want[1])
+        assert np.array_equal(keep.cpu().numpy(), want[2])
+        assert gate.dtype == torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_mla_layer_runs_flash_at_published_heads(cuda_device, arch):
+    """One MLA layer at published width in bf16 (deepseek: q/k heads of
+    192, v 128; minicpm3: 96 and 64, 40 heads padded to 48): the prefill
+    launches kernel 11 once, within 2e-2 of max|plain| of the plain path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    p = attention.mla_init(gen, cfg, cfg.activation_dtype, device=cuda_device)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    before = flash_attention_cuda.launches
+    got = attention.mla_apply(p, cfg, x)
+    assert flash_attention_cuda.launches == before + 1
+    want = attention.mla_apply(p, cfg, x, kernel_mode="ref")
+    _hold_rel(got, want, 2e-2, f"{arch} MLA layer")
+
+
+_FAMILY_DEPTH = {"minicpm3-4b": 2, "command-r-35b": 2, "arctic-480b": 1,
+                 "mamba2-130m": 2, "recurrentgemma-2b": 4,
+                 "internvl2-2b": 2, "musicgen-large": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(_FAMILY_DEPTH))
+def test_lm_archs_at_published_width(cuda_device, arch):
+    """chip_smoke.py phase 21 (b) at a cut depth: each arch at published
+    width in bf16 (the hybrid as one group and one extra recurrent block):
+    a prefill through kernel 11 once a layer where the arch has attention
+    (the first layer's attention within 2e-2 of max|plain| of its plain
+    version on the same input), none for mamba2 and the hybrid (the two
+    modes the same bits), frontend archs through stub embeddings; a short
+    generate; and, for the non-MoE families, an f32 copy's decode against
+    its forward (tests/test_models.py's 2e-3)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.frontend import stub_embeddings
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.serve.serve_loop import generate
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = replace(get_config(arch), num_layers=_FAMILY_DEPTH[arch])
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    params = transformer.init_params(gen, cfg, device=cuda_device)
+    if cfg.frontend is not None:
+        x = stub_embeddings(gen, cfg, 1, 256, device=cuda_device)
+        batch = {"embeds": x}
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                             device=cuda_device)
+        batch = {"tokens": toks}
+    before = flash_attention_cuda.launches
+    got = make_prefill_step(cfg)(params, batch)
+    launched = flash_attention_cuda.launches - before
+    want = make_prefill_step(cfg, kernel_mode="ref")(params, batch)
+    assert bool(torch.isfinite(got[:, :cfg.vocab_size]).all())
+    if cfg.mixer == "attention":
+        assert launched == cfg.num_layers
+        h = rmsnorm(params["blocks"][0]["ln1"],
+                    transformer.embed_inputs(params, cfg, batch.get("tokens"),
+                                             batch.get("embeds")),
+                    cfg.norm_eps)
+        fn = {"mla": attention.mla_apply}.get(cfg.attention,
+                                             attention.gqa_apply)
+        _hold_rel(fn(params["blocks"][0]["attn"], cfg, h),
+                  fn(params["blocks"][0]["attn"], cfg, h, kernel_mode="ref"),
+                  2e-2, f"{arch} layer 0 attention")
+    else:
+        assert launched == 0 and torch.equal(got, want)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 4), generator=gen,
+                           device=cuda_device)
+    before = flash_attention_cuda.launches
+    out = generate(params, cfg, prompt, steps=4, max_len=8)
+    assert flash_attention_cuda.launches == before  # decode: no kernel
+    assert out.shape == (1, 4) and bool((out < cfg.vocab_size).all())
+    if cfg.moe is not None:
+        return
+    cfg32 = replace(cfg, dtype="float32")
+    p32 = _as_f32(params)
+    del params
+    small = {k: v[:, :8] for k, v in batch.items()}
+    full = transformer.forward(p32, cfg32, small.get("tokens"),
+                               small.get("embeds"))[..., :cfg.vocab_size]
+    state = transformer.decode_state_init(cfg32, 1, 16, device=cuda_device)
+    outs = []
+    for i in range(8):
+        if "tokens" in small:
+            lg, state = transformer.decode_step(p32, cfg32, state,
+                                                small["tokens"][:, i])
+        else:
+            lg, state = transformer.decode_step(
+                p32, cfg32, state, embed_in=small["embeds"][:, i:i + 1])
+        outs.append(lg[:, :cfg.vocab_size])
+    dec = torch.stack(outs, 1)
+    assert bool(((dec - full).abs() <= 2e-3 + 2e-3 * full.abs()).all())
+
+
+def _as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_f32(v) for v in tree]
+    return tree.float()

@@ -1,5 +1,6 @@
-"""The port's LM serving slice (RFF linear attention, GQA, the decoder, the
-serving loop) held against ``repro`` on the CPU.
+"""The port's LM serving slice (RFF linear attention, flash attention, the
+decoder of all ten archs, the serving loop) held against ``repro`` on the
+CPU.
 
 Inputs come from ``np.random.default_rng(seed)``; model parameters come
 from ``repro``'s ``init_params`` and are carried over by
@@ -53,8 +54,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.rff import positive_random_features, sample_prf
 from repro_torch.core.rff import RFF
 from repro_torch.kernels import chunking, ops, ref
-from repro_torch.models import attention, layers, transformer
+from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models import rff_attention as trff
+from repro_torch.models import transformer
+from repro_torch.models.frontend import stub_embeddings
 from repro_torch.serve.serve_loop import generate, path_logits
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
@@ -263,18 +266,32 @@ def test_prf_features_match_repro():
 
 
 # ---------------------------------------------------------------------------
-# The model: reduced qwen2-0.5b and llama3-8b, gqa and rff, f32
+# The model: every arch reduced, as published and with RFF attention, f32
 # ---------------------------------------------------------------------------
 
-CASES = [(arch, attn) for arch in ("qwen2-0.5b", "llama3-8b")
-         for attn in ("gqa", "rff")]
+# (arch, attention): each arch's own attention ("none" for mamba2), and
+# "rff" for each attention-mixer arch (the hybrid's local attention stays
+# GQA under with_rff_attention, as in repro).
+CASES = ([(arch, get_config(arch).attention) for arch in ARCH_IDS]
+         + [(arch, "rff") for arch in ARCH_IDS
+            if get_config(arch).mixer == "attention"])
+
+
+def _reduced(arch, get):
+    """The arch's reduced config; the hybrid keeps two extra recurrent
+    blocks after its group (recurrentgemma's 26 layers are 8 groups and
+    2 extra)."""
+    cfg = get(arch).reduced()
+    if cfg.mixer == "rglru_hybrid":
+        cfg = replace(cfg, num_layers=5)
+    return cfg
 
 
 @functools.lru_cache(maxsize=None)
 def _model(arch, attn):
     """(repro cfg, repro params, port cfg, port params)."""
-    jcfg = jax_get_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    jcfg = _reduced(arch, jax_get_config)
+    cfg = _reduced(arch, get_config)
     if attn == "rff":
         jcfg = jt.with_rff_attention(jcfg)
         cfg = transformer.with_rff_attention(cfg)
@@ -289,16 +306,36 @@ def _jax_decode(jcfg):
     return jax.jit(jt.decode_step, static_argnums=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_forward(jcfg):
+    return jax.jit(jt.forward, static_argnums=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_prefill(jcfg):
+    return jax.jit(jax_make_prefill_step(jcfg))
+
+
 def _tokens(seed, vocab, *shape):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(
         np.int32)
+
+
+def _state_leaves(state):
+    """A decode state's arrays in order (dicts by key, tuples by field,
+    positions left out): the port's and repro's line up."""
+    if isinstance(state, dict):  # jit returns dicts in key order
+        return [a for k in sorted(state) for a in _state_leaves(state[k])]
+    if isinstance(state, list):
+        return [a for s in state for a in _state_leaves(s)]
+    return [a for a in state[:-1]]
 
 
 @pytest.mark.parametrize("arch,attn", CASES)
 def test_forward_matches_repro(arch, attn):
     jcfg, params, cfg, tparams = _model(arch, attn)
     toks = _tokens(0, cfg.vocab_size, 2, 32)
-    want = jt.forward(params, jcfg, jnp.asarray(toks))
+    want = _jax_forward(jcfg)(params, jcfg, jnp.asarray(toks))
     got = transformer.forward(tparams, cfg, t(toks).long())
     close(got[..., :cfg.vocab_size], np.asarray(want)[..., :cfg.vocab_size],
           F32, "logits")
@@ -309,7 +346,7 @@ def test_forward_matches_repro(arch, attn):
 def test_prefill_step_matches_repro(arch, attn):
     jcfg, params, cfg, tparams = _model(arch, attn)
     toks = _tokens(1, cfg.vocab_size, 2, 32)
-    want = jax_make_prefill_step(jcfg)(params, {"tokens": jnp.asarray(toks)})
+    want = _jax_prefill(jcfg)(params, {"tokens": jnp.asarray(toks)})
     got = make_prefill_step(cfg)(tparams, {"tokens": t(toks).long()})
     close(got, want, F32, "prefill logits")
 
@@ -328,13 +365,10 @@ def test_decode_steps_match_repro(arch, attn):
         want, jstate = jstep(params, jcfg, jstate, jnp.asarray(toks[:, i]))
         got, state = step(tparams, state, {"token": t(toks[:, i]).long()})
         close(got, want, F32, f"step {i}")
-    if attn == "rff":
-        js = jstate["stack"][0]
-        close(state["stack"][0].s, js.s, F32, "RFF state S")
-        close(state["stack"][0].z, js.z, F32, "RFF state z")
-    else:
-        close(state["stack"][-1].k[:, :12], jstate["stack"][-1].k[:, :12],
-              F32, "KV cache")
+    mine, theirs = _state_leaves(state), _state_leaves(jstate)
+    assert len(mine) == len(theirs) > 0
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        close(a, b, F32, f"state leaf {i}")
 
 
 @pytest.mark.parametrize("arch,attn", CASES)
@@ -450,22 +484,33 @@ def test_rff_attn_feature_map_matches_repro():
 
 def test_lm_params_stacked_and_list_layouts_agree():
     """repro's stacked "blocks" (scan_layers=True) and "blocks_list"
-    layouts of the same weights give the same port model."""
-    jcfg, params, cfg, tparams = _model("qwen2-0.5b", "rff")
-    stacked = {k: v for k, v in params.items() if k != "blocks_list"}
-    stacked["blocks"] = jax.tree.map(lambda *xs: jnp.stack(xs),
-                                     *params["blocks_list"])
-    got = convert.lm_params(jax.tree.map(np.asarray, stacked), cfg,
-                            device="cpu")
-    toks = t(_tokens(5, cfg.vocab_size, 1, 16)).long()
-    close(transformer.forward(got, cfg, toks),
-          transformer.forward(tparams, cfg, toks), 0.0, "layouts")
-    want = jt.forward(stacked, replace(jcfg, scan_layers=True),
-                      jnp.asarray(toks.numpy()))
-    close(transformer.forward(got, cfg, toks), want, F32, "stacked vs repro")
+    layouts of the same weights give the same port model, for a layer
+    stack and for the hybrid's groups with their extra blocks; a tree of
+    the wrong depth is refused."""
+    for arch, attn in (("qwen2-0.5b", "rff"), ("recurrentgemma-2b", "gqa")):
+        jcfg, params, cfg, tparams = _model(arch, attn)
+        stacked = {k: v for k, v in params.items() if k != "blocks_list"}
+        stacked["blocks"] = jax.tree.map(lambda *xs: jnp.stack(xs),
+                                         *params["blocks_list"])
+        got = convert.lm_params(jax.tree.map(np.asarray, stacked), cfg,
+                                device="cpu")
+        assert len(got.get("extra", [])) == transformer.num_scan_layers(cfg)[1]
+        toks = t(_tokens(5, cfg.vocab_size, 1, 16)).long()
+        close(transformer.forward(got, cfg, toks),
+              transformer.forward(tparams, cfg, toks), 0.0, f"{arch} layouts")
+        want = jt.forward(stacked, replace(jcfg, scan_layers=True),
+                          jnp.asarray(toks.numpy()))
+        close(transformer.forward(got, cfg, toks), want, F32,
+              f"{arch} stacked vs repro")
+    hybrid = jax.tree.map(np.asarray, params)
+    with pytest.raises(ValueError, match="extra"):
+        convert.lm_params(dict(hybrid, extra=hybrid["extra"][:1]), cfg,
+                          device="cpu")
 
 
 def test_kv_cache_and_rff_state_converters():
+    """Each state type of repro as the port's, leaf for leaf, and whole
+    decode states (the list and the stacked layouts)."""
     jcfg, params, cfg, tparams = _model("qwen2-0.5b", "gqa")
     rng = np.random.default_rng(6)
     k, v = f32(rng, 2, 8, 2, 16), f32(rng, 2, 8, 2, 16)
@@ -474,6 +519,38 @@ def test_kv_cache_and_rff_state_converters():
     s, z = f32(rng, 2, 4, 32, 16), f32(rng, 2, 4, 32)
     st = convert.rff_state(s, z, np.int32(5), device="cpu")
     assert st.pos == 5 and np.array_equal(st.z.numpy(), z)
+    c, r = f32(rng, 2, 8, 32), f32(rng, 2, 8, 8)
+    mc = convert.mla_cache(c, r, np.int32(2), device="cpu")
+    assert mc.pos == 2 and np.array_equal(mc.k_rope.numpy(), r)
+    h, conv = f32(rng, 2, 8, 16, 16), f32(rng, 2, 3, 160)
+    ms = convert.mamba2_state(h, conv, np.int32(4), device="cpu")
+    assert ms.pos == 4 and np.array_equal(ms.conv.numpy(), conv)
+    h, conv = f32(rng, 2, 4, 16), f32(rng, 2, 3, 4, 16)
+    rs = convert.rglru_state(h, conv, np.int32(1), device="cpu")
+    assert rs.pos == 1 and np.array_equal(rs.h.numpy(), h)
+    for arch, attn in (("recurrentgemma-2b", "gqa"),
+                       ("deepseek-v2-lite-16b", "mla"),
+                       ("mamba2-130m", "none"), ("llama3-8b", "rff")):
+        jcfg, params, cfg, tparams = _model(arch, attn)
+        js = jt.decode_state_init(jcfg, 2, max_len=8)
+        toks = _tokens(9, cfg.vocab_size, 2, 3)
+        for i in range(3):
+            _, js = _jax_decode(jcfg)(params, jcfg, js,
+                                      jnp.asarray(toks[:, i]))
+        stacked = dict(js, stack=jax.tree.map(lambda *xs: jnp.stack(xs),
+                                              *js["stack"]))
+        for tree in (js, stacked):
+            got = convert.decode_state(jax.tree.map(np.asarray, tree), cfg,
+                                       device="cpu")
+            mine, theirs = _state_leaves(got), _state_leaves(js)
+            assert len(mine) == len(theirs) > 0
+            for a, b in zip(mine, theirs):
+                assert np.array_equal(a.numpy(), np.asarray(b))
+        # The converted state decodes on as repro's does.
+        want, _ = _jax_decode(jcfg)(params, jcfg, js, jnp.asarray(toks[:, 0]))
+        lg, _ = transformer.decode_step(tparams, cfg, got,
+                                        t(toks[:, 0]).long())
+        close(lg, want, F32, f"{arch} decode from a converted state")
 
 
 # ---------------------------------------------------------------------------
@@ -534,20 +611,26 @@ def test_decode_block_tile_smem():
     assert not chunking.decode_fits(1024, 128, 128)
 
 
-def test_registry_names_only_ported_archs():
-    """The port's configs are repro's, field for field; other archs and
-    unported mixers raise, naming ROADMAP."""
-    assert set(ARCH_IDS) == {"qwen2-0.5b", "llama3-8b"}
+def test_registry_matches_repro():
+    """The port's registry names repro's ten archs, each config field for
+    field repro's and with its param_count."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+
+    assert ARCH_IDS == JAX_ARCH_IDS and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         assert asdict(get_config(arch)) == asdict(jax_get_config(arch))
         assert (get_config(arch).param_count()
                 == jax_get_config(arch).param_count())
+        assert (get_config(arch).active_param_count()
+                == jax_get_config(arch).active_param_count())
     assert get_config("qwen2-0.5b").activation_dtype == torch.bfloat16
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2-130m")
-    ssm = replace(get_config("qwen2-0.5b").reduced(), mixer="mamba2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(torch.Generator(), ssm, device="cpu")
+
+
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+    with pytest.raises(KeyError):
+        jax_get_config("gpt-5")
 
 
 def test_entry_points_raise_without_a_card():
@@ -587,7 +670,35 @@ _INIT_HELPERS = {
     "rff_attn_init": lambda cfg, **kw: trff.rff_attn_init(
         torch.Generator(), cfg, **kw),
     "rff_state_init": lambda cfg, **kw: trff.rff_state_init(cfg, 1, **kw),
+    "mla_init": lambda cfg, **kw: attention.mla_init(
+        torch.Generator(), get_config("minicpm3-4b").reduced(), **kw),
+    "moe_init": lambda cfg, **kw: moe.moe_init(
+        torch.Generator(), get_config("deepseek-v2-lite-16b").reduced(),
+        **kw),
+    "mamba2_init": lambda cfg, **kw: ssm.mamba2_init(
+        torch.Generator(), get_config("mamba2-130m").reduced(), **kw),
+    "mamba2_state_init": lambda cfg, **kw: ssm.mamba2_state_init(
+        get_config("mamba2-130m").reduced(), 1, **kw),
+    "rglru_init": lambda cfg, **kw: rglru.rglru_init(
+        torch.Generator(), get_config("recurrentgemma-2b").reduced(), **kw),
+    "rglru_state_init": lambda cfg, **kw: rglru.rglru_state_init(
+        get_config("recurrentgemma-2b").reduced(), 1, **kw),
+    "stub_embeddings": lambda cfg, **kw: stub_embeddings(
+        torch.Generator(), get_config("internvl2-2b").reduced(), 1, 4, **kw),
+    "decode_state_init": lambda cfg, **kw: transformer.decode_state_init(
+        _reduced("recurrentgemma-2b", get_config), 1, 8, **kw),
 }
+
+
+def _leaves(x):
+    """Every tensor in a nested dict, list or tuple."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return []
 
 
 @pytest.mark.parametrize("helper", sorted(_INIT_HELPERS))
@@ -601,12 +712,10 @@ def test_model_init_helpers_default_to_cuda(helper):
     make = _INIT_HELPERS[helper]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make(cfg)
-    out = make(cfg, device="cpu")
-    tensors = out if isinstance(out, tuple) else list(out.values())
-    for x in tensors:
-        for leaf in (x.values() if isinstance(x, dict) else [x]):
-            if isinstance(leaf, torch.Tensor):
-                assert leaf.device.type == "cpu"
+    leaves = _leaves(make(cfg, device="cpu"))
+    assert leaves
+    for leaf in leaves:
+        assert leaf.device.type == "cpu"
 
 
 @pytest.mark.parametrize("dtype,dh,route,source,entry,width", [
