@@ -204,8 +204,31 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     last two prefilled through stub embeddings), each prefilled at B = 2,
     S = 2048 and generating 8 tokens, held the same way, and for the
     non-MoE families an f32 copy's decode against its forward (command-r
-    at 4 layers). The phase must end within 90 s. The last phase line
-    gives the whole run's seconds.
+    at 4 layers). The phase must end within 90 s;
+22. trains (``lm_train``, after step 21), random weights from --seed,
+    bf16 weights and f32 moments: (a) qwen2-0.5b as published through
+    ``make_train_step`` (2 microbatches of a 8 x 2048 batch from
+    ``data.lm_data``, warmup_cosine): kernel 11 once a layer a
+    microbatch in the forward (48 launches a step, none in the backward,
+    which differentiates the plain version), the loss within 1e-2 of
+    ``kernel_mode="ref"``'s, each leaf's gradient on the first 4 layers
+    (one microbatch) within the bf16 budget of the plain path's distance
+    from an f32 run and, at f32 through the CUDA-core flash route, within
+    1e-4 of each leaf's norm of the plain gradient; step ms, tokens per
+    second, peak GiB, the device's busy share, kernel 11's share of it
+    and the backward recompute's share; a ``Trainer`` run of 4 steps
+    equal bit for bit to 2 steps, a new ``Trainer``, a resume from its
+    checkpoint and 2 more (under ``torch.use_deterministic_algorithms``,
+    with ``CUBLAS_WORKSPACE_CONFIG`` set before torch starts); (b) the
+    same with RFF attention (kernel 10), whose feature buffers' omega
+    decays by AdamW's lr * 0.1 exactly on both paths; (c)
+    deepseek-v2-lite-16b cut to 2 of 27 layers: two steps (MLA through
+    kernel 11, the MoE's backward), finite losses, the gradient holds
+    with the kernel run's MoE routes replayed in the others (the flips
+    counted and printed); (d) ``repro_torch.launch.train --arch
+    qwen2-0.5b --steps 200 --batch 8 --seq 64`` (reduced; kernel 11 at S
+    = 64 on the f32 route), the mean loss of the last 20 steps below the
+    first 20's. The last phase line gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
@@ -230,8 +253,12 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only
+# with a fixed workspace, read when torch starts (phase 22's resume).
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -4468,6 +4495,537 @@ def phase_lm_families(seed, device, kernels) -> tuple[dict, dict]:
     return total, times
 
 
+# ---------------------------------------------------------------------------
+# Phase 22 (lm_train): the LM training half
+# ---------------------------------------------------------------------------
+
+# (a) qwen2-0.5b as published (src/repro/configs/qwen2_0_5b.py), bf16
+# weights and f32 moments: make_train_step with TRAIN_MICRO microbatches
+# of a TRAIN_B x TRAIN_S global batch under warmup_cosine; kernel 11 runs
+# at (56, 2048, 64) once a layer a microbatch in the forward, none in the
+# backward (the plain version's gradient). (b) the same with RFF attention
+# (D = 256, kernel 10). (c) deepseek-v2-lite-16b cut to TRAIN_DS_LAYERS of
+# its 27 layers (MLA through kernel 11, the MoE's backward). (d) the
+# launcher, reduced (kernel 11 at S = 64 on the f32 route).
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_MICRO = "qwen2-0.5b", 8, 2048, 2
+TRAIN_LR = dict(peak_lr=3e-4, warmup_steps=1, total_steps=100)
+TRAIN_TIMED = 3  # timed steps after a warm-up one
+# The gradient holds run on the first TRAIN_GRAD_LAYERS layers (a cut, as
+# phase 21's f32 budget: the f32 copy and its gradients beside the bf16 model)
+# on one microbatch: at f32 the kernel path within TRAIN_F32_TOL of each
+# leaf's norm of the plain path; at bf16 each leaf no farther from the f32
+# plain gradient than LM_BUDGET times the bf16 plain path's distance plus
+# LM_BUDGET_FLOOR of its norm.
+TRAIN_GRAD_LAYERS, TRAIN_F32_TOL = 4, 1e-4
+TRAIN_LOSS_TOL = 1e-2  # kernel vs plain loss, absolute, near ln V ~ 11.9
+TRAIN_RESUME = (4, 2)  # steps straight, and where the second run resumes
+TRAIN_DS_LAYERS, TRAIN_DS_B = 2, 4
+TRAIN_LAUNCH = ["--arch", "qwen2-0.5b", "--steps", "200", "--batch", "8",
+                "--seq", "64"]
+TRAIN_WINDOW = 20  # (d): mean loss over the first and the last 20 steps
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms while active (CUBLAS_WORKSPACE_
+    CONFIG is set before torch starts), without its NaN fill of fresh
+    allocations (a cost, not a change of any result): the probes of
+    ``nondeterministic_ops`` say which ops of the path need it."""
+    from torch.utils import deterministic as det
+
+    was, fill = (torch.are_deterministic_algorithms_enabled(),
+                 det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        det.fill_uninitialized_memory = fill
+
+
+def nondeterministic_ops(cfg, device) -> dict:
+    """Each backward of the GQA training path that accumulates into shared
+    rows, run twice on the same inputs at the path's shapes (one
+    microbatch, bf16), outside deterministic mode: True where the two
+    gradients differ in any bit. The KV heads' repeat_interleave (7 query
+    heads a KV head), the embedding lookup (repeated token ids) and the
+    loss's gather of the gold logit (one element a row)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    mb, dtype = TRAIN_B // TRAIN_MICRO, cfg.activation_dtype
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    kv = torch.randn(mb, TRAIN_S, hkv, dh, generator=gen, device=device)
+    table = torch.randn(cfg.padded_vocab, cfg.d_model, generator=gen,
+                        device=device)
+    tokens = torch.randint(0, 64, (mb, TRAIN_S), generator=gen,
+                           device=device)
+    logits = torch.randn(mb, TRAIN_S, 4096, generator=gen, device=device)
+    cases = {
+        "repeat_interleave (GQA)": (kv.to(dtype), lambda x: torch.
+                                    repeat_interleave(x, cfg.padded_heads
+                                                      // hkv, dim=2)),
+        "index (embedding)": (table.to(dtype), lambda x: x[tokens]),
+        "gather (loss)": (logits, lambda x: torch.gather(
+            x, -1, tokens[..., None].long())),
+    }
+    out = {}
+    for name, (x, fn) in cases.items():
+        x = x.requires_grad_()
+        y = fn(x)
+        g = torch.randn(y.shape, generator=gen, device=device).to(y.dtype)
+        a, = torch.autograd.grad(fn(x), x, g)
+        b, = torch.autograd.grad(fn(x), x, g)
+        out[name] = not torch.equal(a, b)
+    return out
+
+
+def leaf_grads(cfg, params, tokens, mode):
+    """(loss, each leaf's gradient) of lm_loss on ``tokens``."""
+    from repro_torch.models import lm_loss
+    from repro_torch.optim.tree import leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = lm_loss(live, cfg, tokens=tokens, kernel_mode=mode)
+    flat = leaves(live)
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(flat, got)]
+
+
+@contextlib.contextmanager
+def route_replay(log: dict):
+    """The first run under it records each MoE layer's routing; later runs
+    take those routes (their own gates gathered at the recorded experts and
+    renormalized, so the router keeps its gradient) and count the (token,
+    layer) pairs whose own choice differs in ``log["flips"]``."""
+    from repro_torch.models import moe as moe_mod
+
+    original = moe_mod.route
+    log.setdefault("routes", [])
+    log.setdefault("flips", 0)
+    log.setdefault("pairs", 0)
+    calls = iter(()) if not log["routes"] else iter(list(log["routes"]))
+
+    def route(gates, top_k, capacity):
+        own = original(gates, top_k, capacity)
+        rec = next(calls, None)
+        if rec is None:
+            log["routes"].append(own[:3])
+            return own
+        expert, slot, keep = rec
+        a, b = own[0].sort(dim=-1).values, expert.sort(dim=-1).values
+        log["flips"] += int((a != b).any(dim=-1).sum())
+        log["pairs"] += a.shape[0] * a.shape[1]
+        topv = gates.gather(-1, expert)
+        topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+        return expert, slot, keep, topv
+
+    moe_mod.route = route
+    try:
+        yield log
+    finally:
+        moe_mod.route = original
+
+
+def grad_budget(name, cfg, params, tokens, replay=None) -> dict:
+    """The gradient holds on ``params`` (already cut): f32 kernel vs f32
+    plain within TRAIN_F32_TOL of each leaf's norm; bf16 kernel within the
+    budget of the bf16 plain path's distance from the f32 plain path. With
+    ``replay`` (a dict) the MoE routes of the bf16 kernel run are replayed
+    in the others and their flips counted."""
+    from dataclasses import replace
+
+    ctx = (lambda: route_replay(replay)) if replay is not None else (
+        contextlib.nullcontext)
+    tokens = tokens.contiguous()
+    with ctx():
+        loss_k, kern = leaf_grads(cfg, params, tokens, "auto")
+    with ctx():
+        _, plain = leaf_grads(cfg, params, tokens, "ref")
+    cfg32, p32 = replace(cfg, dtype="float32"), as_f32(params)
+    with ctx():
+        _, exact = leaf_grads(cfg32, p32, tokens, "ref")
+    out = {"loss_kernel": loss_k, "leaves": len(kern)}
+    worst_budget = worst_f32 = 0.0
+    for i, (k, p, e) in enumerate(zip(kern, plain, exact)):
+        check(bool(torch.isfinite(k).all()), f"{name}: leaf {i} non-finite")
+        norm = float(e.norm())
+        d_k, d_p = float((k.float() - e).norm()), float((p.float() - e).norm())
+        allowed = LM_BUDGET * d_p + LM_BUDGET_FLOOR * norm
+        check(d_k <= allowed, f"{name}: bf16 leaf {i} {tuple(k.shape)} "
+              f"kernel {d_k:.3g} from f32, plain {d_p:.3g}")
+        worst_budget = max(worst_budget, d_k / allowed if allowed else 0.0)
+    del kern, plain
+    with ctx():
+        _, kern32 = leaf_grads(cfg32, p32, tokens, "auto")
+    for i, (k, e) in enumerate(zip(kern32, exact)):
+        norm, err = float(e.norm()), float((k - e).norm())
+        check(err <= TRAIN_F32_TOL * norm, f"{name}: f32 leaf {i} "
+              f"{tuple(k.shape)} {err:.3g} of norm {norm:.3g}")
+        worst_f32 = max(worst_f32, err / norm if norm else 0.0)
+    out.update(bf16_worst_share_of_budget=worst_budget,
+               f32_worst_err_of_norm=worst_f32)
+    if replay is not None:
+        out.update(route_flips=replay["flips"], route_pairs=replay["pairs"])
+    return out
+
+
+def train_timing(step, state, batch, layers, kernels, kernel,
+                 profile: bool) -> dict:
+    """Wall ms of TRAIN_TIMED synchronized steps after a warm-up (each from
+    the same state), launches of ``kernel`` over them, the peak and, with
+    ``profile``, a profile of one step: the device's busy share and
+    ``kernel``'s share. The RFF step, whose 37k launches cost the profiler
+    42-47 s on the H100, is not profiled."""
+    t_start = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(kernels)
+    wall = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = path_launches(kernels, (kernel,))[kernel]
+    check(launches == layers * TRAIN_MICRO * TRAIN_TIMED,
+          f"{kernel}: {launches} launches in {TRAIN_TIMED} steps, not "
+          f"{layers} x {TRAIN_MICRO} x {TRAIN_TIMED}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(wall))
+    out = {"step_ms": ms, "step_ms_runs": wall,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (ms / 1e3),
+           "peak_gib": peak, "launches": launches,
+           "seconds": {"steps": time.perf_counter() - t_start}}
+    if not profile:
+        return out
+    t_prof = time.perf_counter()
+    busy = device_busy(lambda: step(state, batch), named="flash")
+    out["seconds"]["profile"] = time.perf_counter() - t_prof
+    return {**out, "device_ms": busy["device_ms"],
+            "busy_share": busy["device_ms"] / ms,
+            "kernel_device_ms": sum(d for _, d, _ in busy["named"]),
+            "kernel_share_of_busy": sum(d for _, d, _ in busy["named"])
+            / busy["device_ms"],
+            "kernel_launches_in_profile": sum(n for _, _, n in busy["named"]),
+            "device_launches": busy["kernel_launches"], "top": busy["top"]}
+
+
+def recompute_ms(op, shape, dtype, device) -> float:
+    """ms of one backward of the kernel's autograd Function (the plain
+    version's recompute and its gradient) at ``shape``: the time of a
+    forward and backward less the forward's."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    bh, slen, dh, dv = shape
+    xs = [torch.randn(bh, slen, w, generator=gen, device=device)
+          for w in (dh, dh, dv)]
+    if op == "rff":
+        xs[0], xs[1] = xs[0].abs() * 0.1, xs[1].abs() * 0.1
+    xs = [x.to(dtype).requires_grad_() for x in xs]
+    g = torch.randn(bh, slen, dv, generator=gen, device=device).to(dtype)
+    call = ops.flash_attention if op == "flash" else ops.rff_attention
+
+    def both():
+        torch.autograd.grad(call(*xs, mode="cuda"), xs, g)
+
+    with torch.no_grad():
+        fwd = time_ms(lambda: call(*xs, mode="cuda"), reps=10)
+    return time_ms(both, reps=10) - fwd
+
+
+def train_resume(name, cfg, step_fn, batch_fn, device) -> dict:
+    """A Trainer of TRAIN_RESUME[0] steps straight against one of
+    TRAIN_RESUME[1] steps, a new Trainer resuming from its checkpoint and
+    the rest: every leaf bit for bit, under deterministic()."""
+    import shutil
+
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    from repro_torch.train import checkpoint as ckpt_lib
+
+    total, cut = TRAIN_RESUME
+    shutil.rmtree(TRAIN_DIR / name, ignore_errors=True)
+    io = {"save": [], "restore": []}
+    originals = {k: getattr(ckpt_lib, k) for k in io}
+
+    def timed(kind):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            out = originals[kind](*args, **kw)
+            io[kind].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def trainer(steps, run):
+        return Trainer(cfg, TrainerConfig(
+            total_steps=steps, ckpt_every=10 ** 6,
+            ckpt_dir=str(TRAIN_DIR / name / run),
+            num_microbatches=TRAIN_MICRO, log_every=10 ** 6),
+            batch_fn, step_fn=step_fn, device=device)
+
+    t0 = time.perf_counter()
+    for kind in io:
+        setattr(ckpt_lib, kind, timed(kind))
+    try:
+        with deterministic():
+            straight = trainer(total, "a")
+            last = straight.run()
+            state_a = straight.state
+            del straight
+            trainer(cut, "b").run()
+            resumed = trainer(total, "b")
+            resumed.run()
+            check(len(resumed.step_times) == total - cut,
+                  f"{name}: the resumed run took {len(resumed.step_times)} "
+                  f"steps, not {total - cut}")
+    finally:
+        for kind, fn in originals.items():
+            setattr(ckpt_lib, kind, fn)
+    ckpt_bytes = sum(p.stat().st_size for p in (TRAIN_DIR / name / "a")
+                     .glob("step_*.ckpt"))
+    same = all(torch.equal(a, b) for a, b in zip(leaves(state_a),
+                                                  leaves(resumed.state)))
+    check(same, f"{name}: {total} steps straight differ from {cut} + resume "
+          f"+ {total - cut}")
+    shutil.rmtree(TRAIN_DIR / name, ignore_errors=True)
+    return {"bitwise": same, "steps": total, "resumed_at": cut,
+            "final_loss": last["loss"], "checkpoint_bytes": ckpt_bytes,
+            "save_seconds": io["save"], "restore_seconds": io["restore"],
+            "seconds": time.perf_counter() - t0}
+
+
+def train_model(name, cfg, seed, device, kernels, kernel) -> dict:
+    """(a) or (b): the loss hold, the gradient holds, timing, the RFF
+    buffers' decay (b), and the resume."""
+    from dataclasses import replace
+
+    from repro_torch.data.lm_data import batch_at_step
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import schedules
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    lr = functools.partial(schedules.warmup_cosine, **TRAIN_LR)
+
+    def batch_fn(step):
+        return {"tokens": batch_at_step(seed, step, global_batch=TRAIN_B,
+                                        seq_len=TRAIN_S,
+                                        vocab=cfg.vocab_size, device=device)}
+
+    report = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, cfg, device=device)
+    batch = batch_fn(0)
+    step = make_train_step(cfg, num_microbatches=TRAIN_MICRO,
+                           lr_schedule=lr)
+    reset_launches(kernels)
+    state1, metrics = step(state, batch)
+    launched = path_launches(kernels, (kernel,))
+    check(launched[kernel] == cfg.num_layers * TRAIN_MICRO,
+          f"{name}: {launched[kernel]} launches in a step")
+    loss_k = float(metrics["loss"])
+    with torch.no_grad():
+        mb = TRAIN_B // TRAIN_MICRO
+        loss_p = sum(float(lm_loss(state["params"], cfg,
+                                   tokens=batch["tokens"][i * mb:(i + 1) * mb],
+                                   kernel_mode="ref"))
+                     for i in range(TRAIN_MICRO)) / TRAIN_MICRO
+    check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          f"{name}: kernel loss {loss_k} vs plain {loss_p}")
+    report.update(loss_kernel=loss_k, loss_plain=loss_p,
+                  grad_norm=float(metrics["grad_norm"]),
+                  launches_first_step=launched[kernel])
+    if cfg.attention == "rff":
+        # The feature buffers: zero gradient, AdamW's decay only, the same
+        # bits on both paths (from state1, where lr > 0).
+        new_k, m_k = step(state1, batch_fn(1))
+        new_p, _ = make_train_step(cfg, num_microbatches=TRAIN_MICRO,
+                                   lr_schedule=lr, kernel_mode="ref")(
+            state1, batch_fn(1))
+        rate = float(m_k["lr"])
+        for old, got, plain in zip(state1["params"]["blocks"],
+                                   new_k["params"]["blocks"],
+                                   new_p["params"]["blocks"]):
+            p = old["attn"]["omega"]
+            want = p - m_k["lr"] * (torch.zeros_like(p) + 0.1 * p)
+            check(torch.equal(got["attn"]["omega"], want)
+                  and torch.equal(plain["attn"]["omega"], want),
+                  f"{name}: omega did not decay by lr * 0.1 exactly")
+            check(torch.equal(got["attn"]["bias"], old["attn"]["bias"]),
+                  f"{name}: the feature bias moved")
+        report["omega_decay"] = {"lr": rate, "factor": 1 - rate * 0.1,
+                                 "bitwise_both_paths": True}
+        del new_k, new_p
+    del state1
+    report["seconds_holds_loss"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cut = replace(cfg, num_layers=TRAIN_GRAD_LAYERS)
+    pcut = dict(state["params"],
+                blocks=state["params"]["blocks"][:TRAIN_GRAD_LAYERS])
+    report["grads"] = {"layers": TRAIN_GRAD_LAYERS, **grad_budget(
+        name, cut, pcut, batch["tokens"][:TRAIN_B // TRAIN_MICRO])}
+    del pcut
+    torch.cuda.empty_cache()
+    report["seconds_holds_grads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["timing"] = train_timing(step, state, batch, cfg.num_layers,
+                                    kernels, kernel,
+                                    profile=kernel == "flash_attention")
+    bh = TRAIN_B // TRAIN_MICRO * cfg.padded_heads
+    dh = cfg.resolved_head_dim
+    shape = ((bh, TRAIN_S, dh, dh) if kernel == "flash_attention"
+             else (bh, TRAIN_S, cfg.rff_num_features, dh))
+    back = recompute_ms("flash" if kernel == "flash_attention" else "rff",
+                        shape, cfg.activation_dtype
+                        if kernel == "flash_attention" else torch.float32,
+                        device)
+    per_step = back * cfg.num_layers * TRAIN_MICRO
+    report["timing"].update(recompute_ms_per_call=back,
+                            recompute_shape=list(shape),
+                            recompute_share_of_step=per_step
+                            / report["timing"]["step_ms"])
+    report["seconds_timing"] = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    if kernel == "flash_attention":
+        report["nondeterministic_backward"] = nondeterministic_ops(cfg,
+                                                                   device)
+    report["resume"] = train_resume(name, cfg, step, batch_fn, device)
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_deepseek(seed, device, kernels) -> dict:
+    """(c): deepseek-v2-lite-16b cut to TRAIN_DS_LAYERS layers, two train
+    steps (MLA through kernel 11, the MoE's backward) and its gradient
+    holds with the kernel run's routes replayed."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import batch_at_step
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = replace(get_config("deepseek-v2-lite-16b"),
+                  num_layers=TRAIN_DS_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_train_state(gen, cfg, device=device)
+    step = make_train_step(cfg, num_microbatches=TRAIN_MICRO,
+                           peak_lr=TRAIN_LR["peak_lr"])
+    losses = []
+    reset_launches(kernels)
+    for i in range(2):
+        batch = {"tokens": batch_at_step(seed, i, global_batch=TRAIN_DS_B,
+                                         seq_len=TRAIN_S,
+                                         vocab=cfg.vocab_size,
+                                         device=device)}
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        check(np.isfinite(losses[-1]), f"deepseek step {i}: loss "
+              f"{losses[-1]}")
+    launched = path_launches(kernels, ("flash_attention",))
+    check(launched["flash_attention"] == TRAIN_DS_LAYERS * TRAIN_MICRO * 2,
+          f"deepseek: {launched} in 2 steps")
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    grads = grad_budget("deepseek", cfg, params,
+                        batch["tokens"][:TRAIN_DS_B // TRAIN_MICRO],
+                        replay={})
+    return {"layers": TRAIN_DS_LAYERS, "published_layers": 27,
+            "B": TRAIN_DS_B, "S": TRAIN_S, "losses": losses,
+            "launches": launched["flash_attention"], "grads": grads}
+
+
+def train_launcher(kernels) -> dict:
+    """(d): ``python -m repro_torch.launch.train`` with TRAIN_LAUNCH (run
+    through its ``main``), each step's loss recorded by wrapping the
+    trainer's step."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer as trainer_mod
+
+    ckpt_dir = TRAIN_DIR / "launch"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    losses = []
+    original = trainer_mod.make_train_step
+
+    def recording(*args, **kw):
+        inner = original(*args, **kw)
+
+        def step(state, batch):
+            new, metrics = inner(state, batch)
+            losses.append(float(metrics["loss"]))
+            return new, metrics
+        return step
+
+    trainer_mod.make_train_step = recording
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    try:
+        launch_train.main(TRAIN_LAUNCH + ["--ckpt-dir", str(ckpt_dir)])
+    finally:
+        trainer_mod.make_train_step = original
+    seconds = time.perf_counter() - t0
+    launched = path_launches(kernels, ("flash_attention",))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    first = float(np.mean(losses[:TRAIN_WINDOW]))
+    last = float(np.mean(losses[-TRAIN_WINDOW:]))
+    check(len(losses) == 200 and last < first,
+          f"launcher: mean loss first {first}, last {last} over "
+          f"{len(losses)} steps")
+    return {"argv": TRAIN_LAUNCH, "steps": len(losses),
+            "mean_loss_first_20": first, "mean_loss_last_20": last,
+            "seconds": seconds, "launches": launched["flash_attention"]}
+
+
+def phase_lm_train(seed, device, kernels) -> dict:
+    """Phase 22: (a) qwen2-0.5b as published, (b) with RFF attention, (c)
+    deepseek at TRAIN_DS_LAYERS layers, (d) the launcher. Returns the
+    path's launches."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import with_rff_attention
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    cfg = get_config(TRAIN_ARCH)
+    for name, model, kernel in (
+            ("gqa", cfg, "flash_attention"),
+            ("rff", with_rff_attention(cfg), "rff_linear_attention")):
+        t0 = time.perf_counter()
+        report = train_model(f"{TRAIN_ARCH} {name}", model, seed + 25, device,
+                             kernels, kernel)
+        add_launches(total, {kernel: report["launches_first_step"]
+                             + report["timing"]["launches"]})
+        emit({"phase": "lm_train", "arch": TRAIN_ARCH, "attention": name,
+              "B": TRAIN_B, "S": TRAIN_S, "microbatches": TRAIN_MICRO,
+              "lr": TRAIN_LR, **report,
+              "seconds": time.perf_counter() - t0, "card": SMI})
+    t0 = time.perf_counter()
+    ds = train_deepseek(seed + 26, device, kernels)
+    add_launches(total, {"flash_attention": ds["launches"]})
+    emit({"phase": "lm_train", "arch": "deepseek-v2-lite-16b", **ds,
+          "seconds": time.perf_counter() - t0, "card": SMI})
+    torch.cuda.empty_cache()
+    launcher = train_launcher(kernels)
+    add_launches(total, {"flash_attention": launcher["launches"]})
+    emit({"phase": "lm_train", "launcher": launcher, "card": SMI})
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_train_total", "seconds": seconds, "launches": total,
+          "card": SMI})
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4562,6 +5120,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam_launches, fam_times = phase_lm_families(args.seed, device, kernels)
     add_launches(launches, fam_launches)
+    # The LM training half (phase 22), after the serving archs.
+    torch.cuda.empty_cache()
+    add_launches(launches, phase_lm_train(args.seed, device, kernels))
     # The remaining learners and the paper's experiments, after the LM
     # slice.
     nklms_launches, flush_ms = phase_nklms_server(args.seed, device, kernels)

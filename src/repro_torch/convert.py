@@ -48,6 +48,8 @@ __all__ = [
     "gather",
     "gather_rls_state",
     "lm_params",
+    "train_state",
+    "train_state_to_numpy",
     "rff_state",
     "kv_cache",
     "mla_cache",
@@ -59,9 +61,12 @@ __all__ = [
 
 
 def tensor(a, *, device="cuda", dtype=None) -> torch.Tensor:
-    """A contiguous copy of numpy ``a`` on ``device`` (dtype kept unless
-    given)."""
-    t = torch.from_numpy(np.array(a, copy=True))
+    """A contiguous copy of numpy ``a`` (or of a tensor) on ``device``
+    (dtype kept unless given)."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().clone()
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
     if dtype is not None:
         t = t.to(dtype)
     return t.to(resolve_device(device)).contiguous()
@@ -175,8 +180,9 @@ def _tree(node, dev, layer=None):
         return {k: _tree(v, dev, layer) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_tree(v, dev, layer) for v in node]
-    a = np.asarray(node)
-    return tensor(a if layer is None else a[layer], device=dev)
+    if not isinstance(node, torch.Tensor):
+        node = np.asarray(node)
+    return tensor(node if layer is None else node[layer], device=dev)
 
 
 def lm_params(params_np: dict, cfg, *, device="cuda") -> dict:
@@ -185,12 +191,15 @@ def lm_params(params_np: dict, cfg, *, device="cuda") -> dict:
     hybrid's groups) as a list under ``"blocks"`` and the hybrid's extra
     recurrent blocks under ``"extra"``. Takes either of ``repro``'s layouts:
     the stacked ``"blocks"`` (``scan_layers=True``, a leading layer axis on
-    every leaf) or ``"blocks_list"``. Leaf dtypes are kept."""
+    every leaf) or ``"blocks_list"``, or the port's own (``"blocks"`` a
+    list); leaves may be tensors. Leaf dtypes are kept."""
     from repro_torch.models.transformer import num_scan_layers
 
     dev = resolve_device(device)
     n_scan, n_extra = num_scan_layers(cfg)
-    if "blocks" in params_np:
+    if isinstance(params_np.get("blocks"), list):  # the port's own layout
+        layers = _tree(params_np["blocks"], dev)
+    elif "blocks" in params_np:
         layers = [_tree(params_np["blocks"], dev, i) for i in range(n_scan)]
     else:
         layers = _tree(params_np["blocks_list"], dev)
@@ -202,6 +211,64 @@ def lm_params(params_np: dict, cfg, *, device="cuda") -> dict:
            if k not in ("blocks", "blocks_list")}
     out["blocks"] = layers
     return out
+
+
+def train_state(state_np: dict, cfg, *, device="cuda") -> dict:
+    """``repro``'s train state ``{"params", "opt": AdamWState(m, v, count),
+    "step"}`` (numpy leaves; either of its layouts, or the port's) as the
+    port's: the params and both moments through :func:`lm_params`, the
+    count and step as 0-d int32 tensors. Leaf dtypes are kept."""
+    from repro_torch.optim.optimizers import AdamWState
+
+    dev = resolve_device(device)
+    m, v, count = state_np["opt"]
+    return {"params": lm_params(state_np["params"], cfg, device=dev),
+            "opt": AdamWState(m=lm_params(m, cfg, device=dev),
+                              v=lm_params(v, cfg, device=dev),
+                              count=tensor(count, device=dev,
+                                           dtype=torch.int32)),
+            "step": tensor(state_np["step"], device=dev, dtype=torch.int32)}
+
+
+def _host(tree):
+    """A tree of tensors as numpy leaves (bf16 widened to f32, exactly)."""
+    from repro_torch.optim.tree import tree_map
+
+    return tree_map(lambda t: to_numpy(
+        t.float() if t.dtype == torch.bfloat16 else t), tree)
+
+
+def _repro_params(params: dict, cfg) -> dict:
+    """The port's params in ``repro``'s layout for ``cfg``: the layers
+    stacked under ``"blocks"`` when ``cfg.scan_layers``, else listed under
+    ``"blocks_list"``; numpy leaves."""
+    out = {k: _host(v) for k, v in params.items() if k != "blocks"}
+    layers = [_host(b) for b in params["blocks"]]
+    if not cfg.scan_layers:
+        out["blocks_list"] = layers
+        return out
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    out["blocks"] = stack(*layers)
+    return out
+
+
+def train_state_to_numpy(state: dict, cfg) -> dict:
+    """The reverse of :func:`train_state`: the port's train state in
+    ``repro``'s layout with numpy leaves (bf16 leaves widened to f32, which
+    is exact), ``opt`` the port's ``AdamWState``."""
+    from repro_torch.optim.optimizers import AdamWState
+
+    opt = state["opt"]
+    return {"params": _repro_params(state["params"], cfg),
+            "opt": AdamWState(m=_repro_params(opt.m, cfg),
+                              v=_repro_params(opt.v, cfg),
+                              count=to_numpy(opt.count)),
+            "step": to_numpy(state["step"])}
 
 
 def rff_state(s, z, pos, *, device="cuda"):

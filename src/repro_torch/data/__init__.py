@@ -1,1 +1,2 @@
-"""Data generators: the paper's experiment streams (``synthetic``)."""
+"""Data generators: the paper's experiment streams (``synthetic``) and the
+seekable LM token stream (``lm_data``)."""

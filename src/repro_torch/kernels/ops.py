@@ -96,6 +96,48 @@ def _dispatch(op: str, *, launches: int = 1, remainder: int = 0,
     return _trace.span(f"kernel.{op}", launches=launches, **attrs)
 
 
+def _tracks_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# Kernels 10 and 11 under autograd: (the kernel's wrapper, its plain
+# version), each named by the op's module attribute so that a test can
+# swap the kernel for its plain version.
+_RFF_ATTENTION = ("rff_attention_cuda", "chunked_linear_attention_ref")
+_FLASH_ATTENTION = ("flash_attention_cuda", "flash_attention_ref")
+
+
+class _KernelWithPlainGrad(torch.autograd.Function):
+    """An attention kernel's forward with its plain version's gradient.
+
+    The forward launches the CUDA kernel (the serving path's bits) and
+    saves the inputs; the backward recomputes the plain version
+    (``kernels/ref.py``) under autograd and returns ``torch.autograd.grad``
+    of its output against the incoming gradient. ``repro`` has no backward
+    Pallas kernel and no ``custom_vjp`` for these kernels. The recompute
+    holds one call's plain intermediates at a time (flash's (BH, S, S) f32
+    scores)."""
+
+    @staticmethod
+    def forward(ctx, names, kw, *inputs):
+        kernel, plain = names
+        ctx.plain, ctx.kw = plain, kw
+        ctx.save_for_backward(*inputs)
+        return globals()[kernel](*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, need)]
+            out = getattr(ref, ctx.plain)(*xs, **ctx.kw)
+            wanted = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (None, None, *(next(got) if n else None for n in need))
+
+
 def _blocks(tlen: int, chunk: int) -> tuple[int, int]:
     """Launches and short last blocks of a T-tick call at ``chunk``."""
     if tlen <= chunk:
@@ -338,11 +380,13 @@ def rff_attention(phi_q, phi_k, v, *, mode: str = "auto", chunk: int = 256,
     ``min(chunk, S)``. The plain version is the chunked form
     (``ref.chunked_linear_attention_ref``, O(S C D)), as ``repro``'s XLA
     path."""
-    if use_kernel(mode, phi_q):
-        return rff_attention_cuda(phi_q, phi_k, v, chunk=chunk,
-                                  normalize=normalize, eps=eps)
-    return ref.chunked_linear_attention_ref(phi_q, phi_k, v, chunk=chunk,
-                                            normalize=normalize, eps=eps)
+    kw = dict(chunk=chunk, normalize=normalize, eps=eps)
+    if not use_kernel(mode, phi_q):
+        return ref.chunked_linear_attention_ref(phi_q, phi_k, v, **kw)
+    if _tracks_grad(phi_q, phi_k, v):
+        return _KernelWithPlainGrad.apply(_RFF_ATTENTION, kw, phi_q, phi_k,
+                                          v)
+    return rff_attention_cuda(phi_q, phi_k, v, **kw)
 
 
 def rff_attention_decode(s_state, z_state, phi_q, phi_k, v, *,
@@ -412,6 +456,9 @@ def flash_attention(q, k, v, *, mode: str = "auto", block_q: int = 256,
     kernels tile by their own sizes (``kernels.flash_attention.flash_plan``),
     and tiles only order the online softmax's sums."""
     del block_q, block_k
-    if use_kernel(mode, q):
-        return flash_attention_cuda(q, k, v, causal=causal)
-    return ref.flash_attention_ref(q, k, v, causal=causal)
+    if not use_kernel(mode, q):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if _tracks_grad(q, k, v):
+        return _KernelWithPlainGrad.apply(_FLASH_ATTENTION,
+                                          dict(causal=causal), q, k, v)
+    return flash_attention_cuda(q, k, v, causal=causal)

@@ -1,5 +1,5 @@
-"""LM substrate: the unified decoder covering all ten archs (``repro``'s
-exports but ``lm_loss``, the training half; ROADMAP §1 entry 7)."""
+"""LM substrate: the unified decoder covering all ten archs and its loss
+(``repro.models``' exports)."""
 from repro_torch.models import (
     attention,
     layers,
@@ -13,6 +13,7 @@ from repro_torch.models.transformer import (
     decode_step,
     forward,
     init_params,
+    lm_loss,
     with_rff_attention,
 )
 
@@ -27,5 +28,6 @@ __all__ = [
     "decode_step",
     "forward",
     "init_params",
+    "lm_loss",
     "with_rff_attention",
 ]

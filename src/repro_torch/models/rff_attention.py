@@ -95,8 +95,12 @@ def rff_attn_init(gen, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _trig_buffers(p: dict) -> TrigFeatures:
-    return TrigFeatures(omega=p["omega"].float(), bias=p["bias"].float(),
-                        scale=p["scale"].float())
+    """The fixed feature buffers, cut from the gradient (``repro``'s
+    ``stop_gradient``): they stay leaves of the params, whose gradient is
+    zero and which AdamW still decays."""
+    return TrigFeatures(omega=p["omega"].detach().float(),
+                        bias=p["bias"].detach().float(),
+                        scale=p["scale"].detach().float())
 
 
 def _feature(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -25,6 +25,8 @@ from typing import Optional
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -50,6 +52,7 @@ __all__ = [
     "head_logits",
     "embed_inputs",
     "forward",
+    "lm_loss",
     "decode_state_init",
     "decode_step",
 ]
@@ -242,6 +245,58 @@ def forward(params: dict, cfg: ModelConfig,
     x = apply_stack(params, cfg, embed_inputs(params, cfg, tokens, embeds),
                     kernel_mode=kernel_mode)
     return head_logits(params, cfg, x)
+
+
+def lm_loss(params: dict, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            labels: Optional[torch.Tensor] = None, *,
+            kernel_mode: str = "auto") -> torch.Tensor:
+    """Next-token cross entropy (f32 logsumexp), the mean over the labelled
+    tokens: a 0-d f32 tensor.
+
+    The labels are ``tokens`` shifted by one (the last position masked),
+    or ``labels`` with -1 masked (the frontend archs, which pass
+    ``embeds``). ``cfg.loss_vocab_chunks = nc > 1`` streams the logsumexp
+    over nc vocab chunks when nc divides the padded vocab (a running max
+    from -1e30 and a rescaled sum; the gold logit taken from the chunk that
+    holds it), so no f32 copy of the full-vocab logits is made; otherwise
+    the plain route, as in ``repro``."""
+    logits = forward(params, cfg, tokens=tokens, embeds=embeds,
+                     kernel_mode=kernel_mode)
+    if labels is None:
+        labels = F.pad(tokens[:, 1:], (0, 1))
+        mask = torch.ones_like(labels)
+        mask[:, -1] = 0
+    else:
+        mask = (labels >= 0).to(torch.int32)
+        labels = torch.clamp(labels, min=0)
+    labels = labels.long()
+    nc = max(int(cfg.loss_vocab_chunks), 1)
+    vp = logits.shape[-1]
+    if nc > 1 and vp % nc == 0:
+        vc = vp // nc
+        m = torch.full(labels.shape, -1e30, dtype=torch.float32,
+                       device=logits.device)
+        s = torch.zeros_like(m)
+        gold = torch.zeros_like(m)
+        for idx in range(nc):
+            c32 = logits[..., idx * vc:(idx + 1) * vc].float()
+            m_new = torch.maximum(m, c32.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(
+                c32 - m_new[..., None]).sum(dim=-1)
+            local = labels - idx * vc
+            hit = (local >= 0) & (local < vc)
+            g = torch.gather(c32, -1, local.clamp(0, vc - 1)[..., None])
+            gold = torch.where(hit, g[..., 0], gold)
+            m = m_new
+        lse = m + torch.log(s)
+    else:
+        lg = logits.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

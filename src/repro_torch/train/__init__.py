@@ -1,2 +1,2 @@
-"""Step functions. The port has the two serving steps (prefill, decode);
-the training steps wait (ROADMAP §1 entry 7)."""
+"""Training and serving steps, the trainer with checkpoint/restart and a
+straggler watchdog, and elastic re-placement (``repro.train``)."""

@@ -1793,3 +1793,167 @@ def _as_f32(tree):
     if isinstance(tree, list):
         return [_as_f32(v) for v in tree]
     return tree.float()
+
+
+# ---------------------------------------------------------------------------
+# Training: kernels 10 and 11 under autograd, and the resume
+# ---------------------------------------------------------------------------
+
+
+def _attention_case(op, dtype, device, seed=0):
+    """(inputs requiring grad, the incoming gradient) at qwen2-0.5b's
+    training shape, one microbatch of 4 x 2048 (kernel 11: 56 heads of 64;
+    kernel 10: D = 256 positive features)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if op == "flash":
+        shapes = [(56, 2048, 64)] * 3
+    else:
+        shapes = [(56, 2048, 256), (56, 2048, 256), (56, 2048, 64)]
+    xs = [torch.randn(s, generator=gen, device=device) for s in shapes]
+    if op == "rff":
+        xs[0], xs[1] = xs[0].abs() * 0.1, xs[1].abs() * 0.1
+    xs = [x.to(dtype).requires_grad_() for x in xs]
+    g = torch.randn(shapes[2], generator=gen, device=device).to(dtype)
+    return xs, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", [("flash", torch.float32),
+                                      ("flash", torch.bfloat16),
+                                      ("rff", torch.float32)])
+def test_attention_kernel_grad_is_plain_grad(cuda_device, op, dtype):
+    """Under autograd the kernel's forward (within 1e-4 of max|plain| at
+    f32, 2e-2 at bf16), launched once and never in the backward; the
+    backward recomputes the plain version, so the gradients equal plain
+    autograd's on the same inputs bit for bit. Kernel 10 takes f32 (the
+    model casts its features to f32)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rff_attention import rff_attention_cuda
+
+    xs, g = _attention_case(op, dtype, cuda_device)
+    wrapper = flash_attention_cuda if op == "flash" else rff_attention_cuda
+
+    def call(mode, *args):
+        if op == "flash":
+            return ops.flash_attention(*args, mode=mode)
+        return ops.rff_attention(*args, mode=mode)
+
+    before = wrapper.launches
+    out = call("cuda", *xs)
+    assert out.grad_fn is not None and wrapper.launches == before + 1
+    got = torch.autograd.grad(out, xs, g)
+    assert wrapper.launches == before + 1
+    plain_in = [x.detach().clone().requires_grad_() for x in xs]
+    want_out = call("ref", *plain_in)
+    _hold_rel(out, want_out, 1e-4 if dtype == torch.float32 else 2e-2,
+              f"{op} forward")
+    want = torch.autograd.grad(want_out, plain_in, g)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _train_cfg(attention, layers, dtype):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config("qwen2-0.5b"), num_layers=layers,
+                   attention=attention, dtype=dtype)
+
+
+def _model_grads(cfg, params, tokens, mode):
+    from repro_torch.models import lm_loss
+    from repro_torch.optim.tree import leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = lm_loss(live, cfg, tokens=tokens, kernel_mode=mode)
+    flat = leaves(live)
+    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if x is None else x
+                           for p, x in zip(flat, got)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention", ["gqa", "rff"])
+def test_model_grads_through_kernels_within_budget(cuda_device, attention):
+    """qwen2-0.5b at published width, 2 layers, B = 2, S = 1024: at f32 the
+    kernel path's loss gradients (kernel 11 on the CUDA cores, or kernel
+    10) within 1e-4 of each leaf's norm of the plain path's; at bf16 each
+    leaf's kernel-path gradient no farther from the f32 plain one than
+    twice the bf16 plain path's distance plus 1e-3 of its norm (the budget
+    rule of the logits)."""
+    from repro_torch.models import init_params
+
+    cfg32 = _train_cfg(attention, 2, "float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    p32 = init_params(gen, cfg32, device=cuda_device)
+    tokens = torch.randint(0, cfg32.vocab_size, (2, 1024), generator=gen,
+                           device=cuda_device)
+    _, exact = _model_grads(cfg32, p32, tokens, "ref")
+    _, kern32 = _model_grads(cfg32, p32, tokens, "cuda")
+    for i, (a, b) in enumerate(zip(kern32, exact)):
+        err, norm = float((a - b).norm()), float(b.norm())
+        assert err <= 1e-4 * norm, f"f32 leaf {i}: {err:.3g} of {norm:.3g}"
+    cfg16 = _train_cfg(attention, 2, "bfloat16")
+    p16 = _as_bf16(p32)
+    _, kern = _model_grads(cfg16, p16, tokens, "cuda")
+    _, plain = _model_grads(cfg16, p16, tokens, "ref")
+    for i, (k, p, e) in enumerate(zip(kern, plain, exact)):
+        d_k, d_p = float((k.float() - e).norm()), float((p.float() - e).norm())
+        assert d_k <= 2 * d_p + 1e-3 * float(e.norm()), (
+            f"bf16 leaf {i}: kernel {d_k:.3g}, plain {d_p:.3g}")
+
+
+def _as_bf16(tree):
+    """An f32 model's weights in bf16, the RFF feature buffers kept f32 as
+    the model's init keeps them."""
+    if isinstance(tree, dict):
+        return {k: v if k in ("omega", "bias", "scale") and "wq" in tree
+                else _as_bf16(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_bf16(v) for v in tree]
+    return tree.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_bit_exact_on_card(cuda_device, tmp_path,
+                                          monkeypatch):
+    """qwen2-0.5b at published width, 2 layers, bf16: 4 steps straight
+    equal 2 steps, a new Trainer, a resume and 2 more, bit for bit, under
+    torch.use_deterministic_algorithms (the embedding's and the loss
+    gather's backward accumulate with atomics otherwise); kernel 11 runs
+    once a layer a microbatch."""
+    from repro_torch.data.lm_data import batch_at_step
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _train_cfg("gqa", 2, "bfloat16")
+
+    def batch_fn(step):
+        return {"tokens": batch_at_step(0, step, global_batch=4, seq_len=512,
+                                        vocab=cfg.vocab_size,
+                                        device=cuda_device)}
+
+    def trainer(total, name):
+        return Trainer(cfg, TrainerConfig(total_steps=total, ckpt_every=100,
+                                          ckpt_dir=str(tmp_path / name),
+                                          num_microbatches=2,
+                                          log_every=100),
+                       batch_fn, device=cuda_device)
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = flash_attention_cuda.launches
+        ta = trainer(4, "a")
+        ta.run()
+        assert flash_attention_cuda.launches - before == 2 * 2 * 4
+        trainer(2, "b").run()
+        tb = trainer(4, "b")
+        tb.run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for a, b in zip(leaves(ta.state), leaves(tb.state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

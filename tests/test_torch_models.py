@@ -395,15 +395,14 @@ def test_launch_serve_takes_every_family(arch):
 
 
 def test_model_and_config_exports_are_repros():
-    """repro_torch.models exports repro.models' names but lm_loss (the
-    training half, ROADMAP §1 entry 7); repro_torch.configs all of
-    repro.configs'."""
+    """repro_torch.models exports all of repro.models' names (lm_loss among
+    them); repro_torch.configs all of repro.configs'."""
     import repro.configs as jconfigs
     import repro.models as jmodels
     import repro_torch.configs as tconfigs
     import repro_torch.models as tmodels
 
-    assert set(tmodels.__all__) == set(jmodels.__all__) - {"lm_loss"}
+    assert set(tmodels.__all__) == set(jmodels.__all__)
     assert all(hasattr(tmodels, n) for n in tmodels.__all__)
     assert set(tconfigs.__all__) == set(jconfigs.__all__)
     assert all(hasattr(tconfigs, n) for n in tconfigs.__all__)

@@ -374,17 +374,27 @@ def test_histogram_matches_repro():
     assert ours.summary() == theirs.summary()
 
 
+# The training half's modules, which the walk below must reach.
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.optimizers",
+                    "repro_torch.optim.schedules",
+                    "repro_torch.optim.compression", "repro_torch.optim.tree",
+                    "repro_torch.train.steps", "repro_torch.train.trainer",
+                    "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+                    "repro_torch.data.lm_data", "repro_torch.launch.train")
+
+
 def test_import_hygiene():
-    """repro_torch, chip_smoke.py and dist_smoke.py import neither jax nor
-    repro."""
+    """repro_torch (the training half's modules among the ones imported),
+    chip_smoke.py and dist_smoke.py import neither jax nor repro."""
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [n for n in {TRAINING_MODULES!r} if n not in sys.modules]\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
