@@ -228,7 +228,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     counted and printed); (d) ``repro_torch.launch.train --arch
     qwen2-0.5b --steps 200 --batch 8 --seq 64`` (reduced; kernel 11 at S
     = 64 on the f32 route), the mean loss of the last 20 steps below the
-    first 20's. The last phase line gives the whole run's seconds.
+    first 20's;
+23. runs the launch layer (``launch``): (a) inside step 22, its
+    qwen2-0.5b GQA step with the state as DTensors on a one-rank ("data",
+    "model") = (1, 1) NCCL mesh (params and moments placed by
+    ``param_specs``/``moment_specs`` of train_4k, ``batch_axes`` from
+    ``train_batch_axes``, ``grad_specs`` the param placements), bit for bit
+    the plain step under deterministic algorithms, kernel 11 launched on
+    the local shards once a layer a microbatch; (b) inside step 21, the
+    deepseek prefill at B = 4, S = 2048 on DTensor weights under
+    prefill_32k's layout, bit for bit the plain prefill, kernel 11 once a
+    layer; (c) ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b and
+    deepseek-v2-lite-16b (each of the four shapes, 16 x 16 fake ranks) on
+    the host's CPU while step 22 runs, each cell's per-rank bytes against
+    the card's memory and its dominant roofline term (``roofline.HW()``,
+    the H100's rates). The phase's target is 30 s. The last phase line
+    gives the whole run's seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
@@ -4421,6 +4436,9 @@ def phase_lm_families(seed, device, kernels) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     times = family_times(cfg, params, gen, device)
     parts["times"] = time.perf_counter() - t0
+    # Phase 23 (b) on these weights.
+    LAUNCH["prefill"] = launch_prefill_hold(cfg, params, seed + 23, kernels,
+                                            device)
     t0 = time.perf_counter()
     # The same weights with RFF attention beside the MoE FFN.
     rcfg = with_rff_attention(cfg)
@@ -4891,6 +4909,9 @@ def train_model(name, cfg, seed, device, kernels, kernel) -> dict:
                             recompute_share_of_step=per_step
                             / report["timing"]["step_ms"])
     report["seconds_timing"] = time.perf_counter() - t0
+    if kernel == "flash_attention":  # phase 23 (a) on this state
+        LAUNCH["train"] = launch_train_hold(cfg, state, batch, lr, kernels,
+                                            device)
     del state
     torch.cuda.empty_cache()
     if kernel == "flash_attention":
@@ -5025,6 +5046,250 @@ def phase_lm_train(seed, device, kernels) -> dict:
           "card": SMI})
     return total
 
+# ---------------------------------------------------------------------------
+# Phase 23 (launch): the launch layer on the card
+# ---------------------------------------------------------------------------
+
+# (a) runs inside phase 22 on its qwen2-0.5b GQA state and batch, (b) inside
+# phase 21 on its deepseek-v2-lite-16b weights (no second 30 GiB model),
+# each on a one-rank ("data", "model") = (1, 1) DeviceMesh over NCCL whose
+# group is destroyed after it; (c) the dry-run of LAUNCH_ARCHS' four shapes
+# on the single-pod mesh runs in subprocesses on the host's CPU (a fake
+# process group of 256 ranks, no card), started when phase 22 starts and
+# read after it. The phase states LAUNCH_SECONDS as its target (not a
+# limit): the seconds of (a), (b) and the wait for (c).
+LAUNCH_ARCHS = ("qwen2-0.5b", "deepseek-v2-lite-16b")
+LAUNCH_SECONDS = 30.0
+LAUNCH_DIR = ROOT / "build" / "launch_dryrun"
+LAUNCH: dict = {}  # the records (a) and (b) leave for phase_launch
+
+
+@contextlib.contextmanager
+def one_rank_mesh(device):
+    """A ("data", "model") = (1, 1) DeviceMesh on a one-rank process group
+    (NCCL on the card, gloo on the CPU) at a free localhost port, destroyed
+    on exit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type=device.type)
+    finally:
+        dist.destroy_process_group()
+
+
+def _full(t):
+    """A DTensor's whole tensor; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def launch_train_hold(cfg, state, batch, lr, kernels, device) -> dict:
+    """(a) The train step with the state as DTensors on the (1, 1) mesh,
+    params placed by param_specs and moments by moment_specs of the
+    train_4k cell, batch_axes from train_batch_axes and grad_specs the
+    param placements, against the same step on the plain state, both under
+    deterministic(): every leaf and metric bit for bit, kernel 11 launched
+    through the DTensor boundary once a layer a microbatch."""
+    from dataclasses import replace
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding, specs
+    from repro_torch.optim.optimizers import AdamWState
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    rcfg, note = specs.resolve_cell(cfg, SHAPES["train_4k"])
+    cell = ShapeSpec("train", TRAIN_S, TRAIN_B, "train")
+    with one_rank_mesh(device) as mesh:
+        baxes = specs.train_batch_axes(rcfg, cell, mesh)
+        pinned = replace(rcfg, activation_batch_axes=baxes)
+        pspec = sharding.param_specs(pinned, mesh, state["params"])
+        mspec = sharding.moment_specs(pinned, mesh, state["params"])
+        dstate = {"params": sharding.distribute(state["params"], mesh, pspec),
+                  "opt": AdamWState(
+                      m=sharding.distribute(state["opt"].m, mesh, mspec),
+                      v=sharding.distribute(state["opt"].v, mesh, mspec),
+                      count=state["opt"].count),
+                  "step": state["step"]}
+        sharded = sum(any(type(p).__name__ != "Replicate"
+                          for p in t.placements)
+                      for t in leaves(dstate["opt"].m))
+        step = make_train_step(pinned, num_microbatches=TRAIN_MICRO,
+                               lr_schedule=lr, batch_axes=baxes,
+                               grad_specs=pspec)
+        with deterministic():
+            reset_launches(kernels)
+            t1 = time.perf_counter()
+            new, metrics = step(dstate, batch)
+            got = [_full(t) for t in leaves(new)]
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t1
+            launched = path_launches(kernels, ("flash_attention",))
+            del dstate, new
+            t1 = time.perf_counter()
+            want_state, want_m = make_train_step(
+                cfg, num_microbatches=TRAIN_MICRO, lr_schedule=lr)(state,
+                                                                   batch)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+        want = leaves(want_state)
+        same = len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(got, want))
+        same_m = all(torch.equal(_full(metrics[k]), want_m[k])
+                     for k in want_m)
+    check(same and same_m, "launch (a): the DTensor train step differs from "
+          "the plain step")
+    check(launched["flash_attention"] == cfg.num_layers * TRAIN_MICRO,
+          f"launch (a): {launched} kernel 11 launches through the DTensor "
+          f"boundary, not {cfg.num_layers} x {TRAIN_MICRO}")
+    return {"arch": cfg.name, "policy": note, "mesh": [1, 1],
+            "batch_axes": list(baxes), "bitwise": True,
+            "leaves": len(got), "launches": launched["flash_attention"],
+            "step_ms_dtensor": sharded_s * 1e3, "step_ms_plain": plain_s * 1e3,
+            "seconds": time.perf_counter() - t0,
+            "sharded_moment_leaves": sharded}
+
+
+def launch_prefill_hold(cfg, params, seed, kernels, device) -> dict:
+    """(b) The prefill at FAM_B x FAM_S with the weights as DTensors on the
+    (1, 1) mesh under the prefill_32k cell's layout, against the same
+    prefill on the plain weights: the logits bit for bit, kernel 11 (the
+    MLA shape) launched through the DTensor boundary once a layer. Both
+    run under no_grad: under inference_mode DTensor decomposes the MoE's
+    one_hot into an op it has no rule for (aten._assert_async.msg)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import sharding, specs
+    from repro_torch.train.steps import make_prefill_step
+
+    t0 = time.perf_counter()
+    rcfg, note = specs.resolve_cell(cfg, SHAPES["prefill_32k"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (FAM_B, FAM_S), generator=gen,
+                           device=device)
+    with torch.no_grad():
+        want = make_prefill_step(rcfg)(params, {"tokens": tokens})
+    with one_rank_mesh(device) as mesh:
+        dparams = sharding.distribute(params, mesh,
+                                      sharding.param_specs(rcfg, mesh,
+                                                           params))
+        reset_launches(kernels)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            got = _full(make_prefill_step(rcfg)(dparams,
+                                                {"tokens": tokens}))
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t1
+        launched = path_launches(kernels, ("flash_attention",))
+        del dparams
+    check(torch.equal(got, want), "launch (b): the DTensor prefill differs "
+          f"from the plain prefill by {max_err(got, want):.3g}")
+    check(launched["flash_attention"] == cfg.num_layers,
+          f"launch (b): {launched} kernel 11 launches, not {cfg.num_layers}")
+    return {"arch": cfg.name, "policy": note, "mesh": [1, 1], "B": FAM_B,
+            "S": FAM_S, "bitwise": True, "launches":
+            launched["flash_attention"], "prefill_ms_dtensor": sharded_s * 1e3,
+            "seconds": time.perf_counter() - t0}
+
+
+def launch_dryrun_start() -> list:
+    """(c) Start ``python -m repro_torch.launch.dryrun`` for each of
+    LAUNCH_ARCHS (its four shapes, the single-pod mesh) on the CPU, one
+    process an arch at low priority, the card hidden from them."""
+    import shutil
+
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    LAUNCH_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch in LAUNCH_ARCHS:
+        log = open(LAUNCH_DIR / f"{arch}.log", "w")
+        procs.append((arch, log, time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--out", str(LAUNCH_DIR)], cwd=str(ROOT), env=env,
+            stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10))))
+    return procs
+
+
+def launch_dryrun_read(procs) -> tuple[list, dict, float]:
+    """(c) Wait for the dry-run processes; each cell's per-rank bytes
+    against the card's memory and its dominant roofline term. Returns
+    (cells, each process's seconds, the wait's seconds)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.roofline import HW
+
+    t0 = time.perf_counter()
+    card = torch.cuda.get_device_properties(0).total_memory
+    run_s = {}
+    for arch, log, started, proc in procs:
+        rc = proc.wait(timeout=900)
+        run_s[arch] = time.perf_counter() - started
+        log.close()
+        tail = (LAUNCH_DIR / f"{arch}.log").read_text()[-3000:]
+        check(rc == 0, f"launch (c): the dry-run of {arch} failed:\n{tail}")
+    wait_s = time.perf_counter() - t0
+    cells = []
+    for arch in LAUNCH_ARCHS:
+        for shape in SHAPES:
+            rec = json.loads((LAUNCH_DIR / f"{arch}__{shape}__single.json")
+                             .read_text())
+            mem, roof = rec["memory"], rec["roofline"]
+            cells.append({
+                "arch": arch, "shape": shape, "policy": rec["policy"],
+                "mesh": rec["mesh"], "run_s": rec["run_s"],
+                "argument_gib": mem["argument_bytes"] / 2 ** 30,
+                "output_gib": mem["output_bytes"] / 2 ** 30,
+                "peak_gib": mem["peak_bytes"] / 2 ** 30,
+                "card_gib": card / 2 ** 30,
+                "fits": mem["peak_bytes"] <= card,
+                "dominant": roof["dominant"], "compute_s": roof["compute_s"],
+                "memory_s": roof["memory_s"],
+                "collective_s": roof["collective_s"],
+                "roofline_fraction": roof["roofline_fraction"],
+                "collective_breakdown": rec["cost"]["collective_breakdown"],
+                "flops_per_rank": rec["cost"]["flops_per_device"]})
+            c = cells[-1]
+            print(f"launch dryrun {arch} {shape} (16x16, 256 ranks): peak "
+                  f"{c['peak_gib']:.2f} GiB a rank of {c['card_gib']:.1f} "
+                  f"({'fits' if c['fits'] else 'does not fit'}), dominant "
+                  f"{c['dominant']} (compute {c['compute_s']:.3e} s, memory "
+                  f"{c['memory_s']:.3e} s, collective "
+                  f"{c['collective_s']:.3e} s); HW {HW()} for {SMI}")
+    return cells, run_s, wait_s
+
+
+def phase_launch(procs) -> dict:
+    """Phase 23: reads (c) and prints the phase's line with (a) and (b).
+    Returns the path's launches (kernel 11 through the DTensor
+    boundary)."""
+    from repro_torch.roofline import HW
+
+    check("train" in LAUNCH and "prefill" in LAUNCH,
+          "launch: phases 21 and 22 did not run (a) and (b)")
+    cells, run_s, wait_s = launch_dryrun_read(procs)
+    seconds = {"a_train": LAUNCH["train"]["seconds"],
+               "b_prefill": LAUNCH["prefill"]["seconds"],
+               "c_wait": wait_s, "c_processes": run_s}
+    total = seconds["a_train"] + seconds["b_prefill"] + wait_s
+    emit({"phase": "launch", "a_train": LAUNCH["train"],
+          "b_prefill": LAUNCH["prefill"],
+          "c_dryrun": {"cells": cells, "hw": dataclasses.asdict(HW())},
+          "seconds": {**seconds, "total": total},
+          "target_seconds": LAUNCH_SECONDS, "card": SMI})
+    return {"flash_attention": LAUNCH["train"]["launches"]
+            + LAUNCH["prefill"]["launches"]}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5120,9 +5385,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam_launches, fam_times = phase_lm_families(args.seed, device, kernels)
     add_launches(launches, fam_launches)
-    # The LM training half (phase 22), after the serving archs.
+    # The LM training half (phase 22), after the serving archs, with the
+    # launch layer's dry-run (phase 23 (c)) on the host meanwhile.
     torch.cuda.empty_cache()
+    dryrun_procs = launch_dryrun_start()
     add_launches(launches, phase_lm_train(args.seed, device, kernels))
+    # The launch layer (phase 23): (a) and (b) ran in phases 22 and 21.
+    add_launches(launches, phase_launch(dryrun_procs))
     # The remaining learners and the paper's experiments, after the LM
     # slice.
     nklms_launches, flush_ms = phase_nklms_server(args.seed, device, kernels)

@@ -7,7 +7,23 @@
 * ``"cuda"`` — force the kernel; a CPU tensor raises;
 * ``"ref"`` — force the plain version, on whatever device the tensors are.
 
+``repro``'s own mode names are taken as aliases (:data:`MODE_ALIASES`):
+``"xla"`` and ``"twopass"`` are ``"ref"``, ``"pallas"`` and ``"fused"`` are
+``"cuda"`` (a CPU tensor raises, as under ``"cuda"``). ``"interpret"``
+raises: it runs a Pallas kernel in the TPU interpreter, and a CUDA kernel
+has no interpreter.
+
 There is no fallback: a kernel that fails to build or launch raises.
+
+DTensor inputs (a sharded model, ``launch.sharding``): the attention
+kernels (9, 10, 11) are local per row of their (batch x heads) leading dim,
+so on the kernel route they run on each rank's local shards and the output
+is rewrapped with the inputs' placements (:func:`on_local_shards`; the
+models call it on their (B, S, H, e) tensors, batch and heads the rows). A
+placement that shards what a kernel reduces over (the sequence, the
+features), or a pending sum, is redistributed to ``Replicate()`` first;
+inputs whose rows are placed unlike raise.
+The plain route runs the plain version through DTensor's own ops.
 
 The ops that ``repro``'s dispatch layer wraps (the bank read, the KLMS and
 KRLS step and chunk, the two replay elements, the decode block) report to
@@ -24,6 +40,8 @@ order.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunking import (
@@ -57,7 +75,10 @@ from repro_torch.obs import trace as _trace
 
 __all__ = [
     "MODES",
+    "MODE_ALIASES",
+    "default_backend",
     "use_kernel",
+    "on_local_shards",
     "rff_features",
     "rff_bank_predict",
     "rff_klms_bank_step",
@@ -73,17 +94,34 @@ __all__ = [
 ]
 
 MODES = ("auto", "cuda", "ref")
+MODE_ALIASES = {"xla": "ref", "twopass": "ref", "pallas": "cuda",
+                "fused": "cuda"}
+
+
+def default_backend() -> str:
+    """The backend the ``"auto"`` mode launches kernels on: ``"cuda"`` when
+    a CUDA device is visible, else ``"cpu"`` (the plain versions).
+    ``repro``'s returns JAX's backend name."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 def use_kernel(mode: str, lead: torch.Tensor) -> bool:
-    """Resolve ``mode`` for the op whose leading tensor is ``lead``."""
+    """Resolve ``mode`` (or a ``repro`` alias of it) for the op whose
+    leading tensor is ``lead``."""
+    if mode == "interpret":
+        raise ValueError(
+            'kernel mode "interpret" runs a Pallas kernel in the TPU '
+            'interpreter; the CUDA kernels have none: use "ref" for the '
+            'plain version or "cuda" for the kernel')
+    mode = MODE_ALIASES.get(mode, mode)
     if mode == "auto":
         return lead.device.type == "cuda"
     if mode == "cuda":
         return True
     if mode == "ref":
         return False
-    raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES}")
+    raise ValueError(f"unknown kernel mode {mode!r}; pick from {MODES} "
+                     f"or {tuple(MODE_ALIASES)}")
 
 
 def _dispatch(op: str, *, launches: int = 1, remainder: int = 0,
@@ -136,6 +174,105 @@ class _KernelWithPlainGrad(torch.autograd.Function):
             wanted = [x for x in xs if x.requires_grad]
             got = iter(torch.autograd.grad(out, wanted, grad_out))
         return (None, None, *(next(got) if n else None for n in need))
+
+
+def on_local_shards(fn, tensors, layouts, *, shared=(), outs=(0,), **kw):
+    """``fn(*tensors, *shared, **kw)`` on the local shards of DTensor inputs:
+    the attention kernels' boundary.
+
+    ``layouts[i]`` is ``(row_dims, reduced_dims)`` of ``tensors[i]``: its
+    row dims are independent rows of the kernel (batch, heads), taken as
+    they are sharded; a shard of a reduced dim (a sequence the kernel walks,
+    a feature dim it contracts) and a pending sum are redistributed to
+    ``Replicate()`` first; a shard of any other dim raises. The tensors'
+    rows are placed alike: where one input splits its k-th row dim on a
+    mesh dim, the others are cut the same way (a local slice for a whole
+    input: a GQA key's replicated heads; a reduction for a pending sum);
+    two inputs splitting rows differently raise. ``shared`` tensors (feature weights) are read whole by
+    every row and must be replicated. Output j (of a tensor or a tuple) has
+    the layout of ``tensors[outs[j]]``: it keeps the kernel's row split,
+    and where that input had a shard of a reduced dim (a decode state's
+    features) it is put back on it (a local cut). With
+    plain tensors ``fn`` runs directly."""
+    if not any(isinstance(t, DTensor) for t in (*tensors, *shared)
+               if t is not None):
+        return fn(*tensors, *shared, **kw)
+    if not all(isinstance(t, DTensor) for t in (*tensors, *shared)
+               if t is not None):
+        raise TypeError("a kernel takes all DTensors or all plain tensors")
+    mesh = tensors[0].device_mesh
+    given = [tuple(t.placements) for t in tensors]
+    # Each mesh dim splits the k-th row dim of every input (a row's shard
+    # on one input is the same rows' on the others), or nothing.
+    signature, owner = [None] * mesh.ndim, [None] * mesh.ndim
+    for i, (t, (rows, reduced)) in enumerate(zip(tensors, layouts)):
+        if t.device_mesh != mesh:
+            raise ValueError("a kernel's inputs must share one mesh")
+        for m, p in enumerate(t.placements):
+            sharded = isinstance(p, (Shard, _StridedShard))
+            if not sharded or p.dim in reduced:
+                continue
+            if p.dim not in rows:
+                raise ValueError(
+                    f"a kernel cannot take placement {p} of {t.placements}:"
+                    f" it runs on whole rows (dims {rows} may be sharded, "
+                    f"dims {reduced} are made whole)")
+            sig = (rows.index(p.dim), getattr(p, "split_factor", 1))
+            if signature[m] is None:
+                signature[m], owner[m] = sig, i
+            elif signature[m] != sig:
+                raise ValueError(
+                    f"kernel inputs on placements {given[owner[m]]} and "
+                    f"{given[i]}: the rows must be placed alike")
+    local, wants = [], []
+    for t, (rows, _) in zip(tensors, layouts):
+        want = []
+        for m, sig in enumerate(signature):
+            if sig is None:
+                want.append(Replicate())
+                continue
+            r, split = sig
+            lead = tensors[owner[m]]
+            if t.shape[rows[r]] != lead.shape[layouts[owner[m]][0][r]]:
+                raise ValueError(
+                    f"kernel inputs on placements {given[owner[m]]} and "
+                    f"{tuple(t.placements)}: the rows must be placed alike")
+            want.append(Shard(rows[r]) if split == 1 else
+                        _StridedShard(rows[r], split_factor=split))
+        wants.append(tuple(want))
+        if tuple(want) != tuple(t.placements):
+            t = t.redistribute(mesh, want)
+        local.append(t.to_local())
+    for t in shared:
+        if t is not None and not all(type(p) is Replicate
+                                     for p in t.placements):
+            raise ValueError(f"a kernel's weights must be replicated, not "
+                             f"{t.placements}")
+    # A shared weight's gradient on a rank is its rows' part of the sum.
+    partial = [Replicate() if s is None else Partial() for s in signature]
+    out = fn(*local, *(None if t is None else t.to_local(
+        grad_placements=partial) for t in shared), **kw)
+
+    def wrap(o, i):
+        rows = layouts[i][0]
+        shape = torch.Size(tensors[i].shape[d] if d in rows else n
+                           for d, n in enumerate(o.shape))
+        places = wants[i]
+        o = DTensor.from_local(o.contiguous(), mesh, places, run_check=False,
+                               shape=shape, stride=torch.empty(
+                                   shape, device="meta").stride())
+        back = tuple(g if isinstance(g, (Shard, _StridedShard)) else p
+                     for g, p in zip(given[i], places))
+        return o if places == back else o.redistribute(mesh, back)
+
+    if not isinstance(out, tuple):
+        return wrap(out, outs[0])
+    return tuple(wrap(o, i) for o, i in zip(out, outs))
+
+
+# (BH, S, e) inputs of kernels 10 and 11: rows dim 0, the sequence and the
+# features whole.
+_BH_LAYOUT = ((0,), (1, 2))
 
 
 def _blocks(tlen: int, chunk: int) -> tuple[int, int]:
@@ -383,6 +520,11 @@ def rff_attention(phi_q, phi_k, v, *, mode: str = "auto", chunk: int = 256,
     kw = dict(chunk=chunk, normalize=normalize, eps=eps)
     if not use_kernel(mode, phi_q):
         return ref.chunked_linear_attention_ref(phi_q, phi_k, v, **kw)
+    return on_local_shards(_rff_attention_kernel, (phi_q, phi_k, v),
+                           (_BH_LAYOUT,) * 3, **kw)
+
+
+def _rff_attention_kernel(phi_q, phi_k, v, **kw):
     if _tracks_grad(phi_q, phi_k, v):
         return _KernelWithPlainGrad.apply(_RFF_ATTENTION, kw, phi_q, phi_k,
                                           v)
@@ -422,7 +564,12 @@ def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
     if block_t is None:
         block_t = default_decode_block_t(dfeat, dv, dh)
     if use_kernel(mode, q):
-        launch = rff_attention_decode_block_cuda
+        def launch(sm, zv, qb, kb, vb, w, b, s, **kw):
+            return on_local_shards(rff_attention_decode_block_cuda,
+                                   (sm, zv, qb, kb, vb),
+                                   (_BH_LAYOUT, ((0,), (1,)),
+                                    *(_BH_LAYOUT,) * 3),
+                                   shared=(w, b, s), outs=(2, 0, 1), **kw)
     else:
         launch = ref.rff_attention_decode_block_ref
 
@@ -458,6 +605,11 @@ def flash_attention(q, k, v, *, mode: str = "auto", block_q: int = 256,
     del block_q, block_k
     if not use_kernel(mode, q):
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    return on_local_shards(_flash_attention_kernel, (q, k, v),
+                           (_BH_LAYOUT,) * 3, causal=causal)
+
+
+def _flash_attention_kernel(q, k, v, *, causal):
     if _tracks_grad(q, k, v):
         return _KernelWithPlainGrad.apply(_FLASH_ATTENTION,
                                           dict(causal=causal), q, k, v)

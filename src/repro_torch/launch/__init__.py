@@ -1,1 +1,5 @@
-"""Command-line launchers of the port."""
+"""Launchers: production meshes, sharding rules, the dry-run, the train and
+serve command lines."""
+from repro_torch.launch.mesh import data_axes, make_production_mesh
+
+__all__ = ["make_production_mesh", "data_axes"]

@@ -10,9 +10,13 @@ or the blocked online-softmax loop above 8192 keys.
 """
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import MLAConfig, ModelConfig
@@ -65,8 +69,17 @@ def head_proj_init(gen, d: int, heads: int, head_dim: int, *,
 
 
 def head_proj(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """(..., d) -> (..., H, dh)."""
-    y = torch.einsum("...d,dhe->...he", x, p["w"])
+    """(..., d) -> (..., H, dh). A DTensor weight sharded on d (fsdp,
+    ZeRO-3) is gathered on it at use, as fsdp does: the product then splits
+    its output by x's rows, never by its (H dh) columns, which a head count
+    the mesh does not divide (8 KV heads over 16) could not unflatten."""
+    w = p["w"]
+    if isinstance(w, DTensor):
+        whole = tuple(Replicate() if isinstance(q, (Shard, _StridedShard))
+                      and q.dim == 0 else q for q in w.placements)
+        if whole != tuple(w.placements):
+            w = w.redistribute(w.device_mesh, whole)
+    y = torch.einsum("...d,dhe->...he", x, w)
     if "b" in p:
         y = y + p["b"]
     return y
@@ -81,7 +94,10 @@ def head_out_init(gen, heads: int, head_dim: int, d: int,
 
 def head_out(p: dict, x: torch.Tensor) -> torch.Tensor:
     """(..., H, dh) -> (..., d)."""
-    return torch.einsum("...he,hed->...d", x, p["w"])
+    # One product over (H, dh) flattened with the heads outer: a DTensor
+    # sharded by heads flattens so without a redistribution.
+    w = p["w"]
+    return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
 
 
 def repeat_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -111,6 +127,26 @@ def apply_head_mask(x: torch.Tensor, mask: Optional[torch.Tensor]):
     return x * mask.to(device=x.device, dtype=x.dtype)
 
 
+def _on_local_rows(fn):
+    """``fn(q, k, v, **kw)`` of (B, S, H, e) tensors on DTensors' local
+    shards (``ops.on_local_shards``): batch rows and heads are independent
+    (heads only where k has q's, not a GQA group's), the sequences and
+    head dims are made whole. Its products would
+    otherwise flatten sharded batch and head dims, which some DTensor
+    versions refuse."""
+    @functools.wraps(fn)
+    def run(q, k, v, **kw):
+        if not isinstance(q, DTensor):
+            return fn(q, k, v, **kw)
+        # Grouped keys (fewer heads than q) are read whole by every head.
+        rows = (0, 2) if k.shape[2] == q.shape[2] else (0,)
+        reduced = tuple(d for d in range(4) if d not in rows)
+        return ops.on_local_shards(functools.partial(fn, **kw), (q, k, v),
+                                   ((rows, reduced),) * 3)
+    return run
+
+
+@_on_local_rows
 def dense_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, kv_len: Optional[int] = None):
     """Masked softmax attention with the scores materialized once, in f32.
@@ -142,6 +178,17 @@ def _keep_mask(sq, kpos, *, causal, window, q_offset, kv_len):
     return keep
 
 
+def _flash_kernel(q, k, v, *, mode):
+    """Kernel 11 on (B, S, H, e) tensors through its (B H, S, e) layout."""
+    b, s, h, _ = q.shape
+
+    def bh(x):
+        return x.transpose(1, 2).reshape(b * h, s, x.shape[-1]).contiguous()
+
+    out = ops.flash_attention(bh(q), bh(k), bh(v), mode=mode)
+    return out.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     block_k: int = 1024, q_offset: int = 0,
                     kv_len: Optional[int] = None,
@@ -158,15 +205,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """
     if (causal and not window and kv_len is None and q_offset == 0
             and q.shape == k.shape and ops.use_kernel(kernel_mode, q)):
-        b, s, h, _ = q.shape
-        bq = min(512, s)
-        if s % bq == 0:
-            def bh(x):
-                return x.transpose(1, 2).reshape(b * h, s, x.shape[-1])
-
-            out = ops.flash_attention(bh(q).contiguous(), bh(k).contiguous(),
-                                      bh(v).contiguous(), mode=kernel_mode)
-            return out.reshape(b, h, s, v.shape[-1]).transpose(1, 2)
+        s = q.shape[1]
+        if s % min(512, s) == 0:
+            # DTensors: batch and heads are the kernel's rows, so it runs
+            # on each rank's local (B, S, H, e) shards.
+            return ops.on_local_shards(
+                functools.partial(_flash_kernel, mode=kernel_mode),
+                (q, k, v), (((0, 2), (1, 3)),) * 3)
 
     if k.shape[1] <= dense_threshold:
         return dense_attention(q, k, v, causal=causal, window=window,
@@ -176,6 +221,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                               kv_len=kv_len)
 
 
+@_on_local_rows
 def _blocked_attention(q, k, v, *, causal, window, block_k, q_offset, kv_len):
     """Online-softmax attention over key blocks of ``block_k`` (long
     forward-only contexts): O(Sq * block_k) scores at a time."""

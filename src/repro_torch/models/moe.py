@@ -18,11 +18,20 @@ Two things differ in form, not in result:
   token gathers its k experts' rows back, weighted by its gates and summed
   in f32 in a fixed order. ``repro`` forms the same slots with one-hot
   einsums, which multiply by zero at (B, S, E, C) scale.
+
+On DTensors (a sharded model) each rank routes and dispatches its own
+batch rows (the capacity is per row, so rows are independent), with every
+MoE weight gathered whole at use, as fsdp gathers weights; the sequence and
+hidden dims are made whole first. DTensor has no rule for the dispatch's
+indexed write (``aten.index_put_``) on every version, and the rows' own
+dispatch moves no token between ranks.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, MoEConfig
@@ -96,8 +105,31 @@ def route(gates: torch.Tensor, top_k: int, capacity: int):
     return topi, slot, slot < capacity, topv
 
 
+def _moe_on_local_rows(p: dict, cfg: ModelConfig, x: DTensor) -> DTensor:
+    """:func:`moe_apply` on each rank's batch rows of a DTensor ``x``, the
+    weights gathered whole (their gradient a partial sum over the mesh dims
+    that split the rows)."""
+    from repro_torch.optim.tree import tree_map
+
+    mesh = x.device_mesh
+    rows = tuple(q if isinstance(q, (Shard, _StridedShard)) and q.dim == 0
+                 else Replicate() for q in x.placements)
+    if rows != tuple(x.placements):
+        x = x.redistribute(mesh, rows)
+    grads = [Replicate() if isinstance(q, Replicate) else Partial()
+             for q in rows]
+    whole = tree_map(lambda w: w.full_tensor(grad_placements=grads)
+                     if isinstance(w, DTensor) else w, p)
+    out = moe_apply(whole, cfg, x.to_local())
+    return DTensor.from_local(out, mesh, rows, run_check=False,
+                              shape=x.shape, stride=torch.empty(
+                                  x.shape, device="meta").stride())
+
+
 def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """MoE FFN. x: (B, S, d) -> (B, S, d)."""
+    if isinstance(x, DTensor):
+        return _moe_on_local_rows(p, cfg, x)
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     n_exp = m.num_experts

@@ -16,6 +16,8 @@ bias)``, any :class:`repro_torch.features.TrigFeatures`, via
 """
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple, Optional
 
 import torch
@@ -127,6 +129,15 @@ def _heads_first(t: torch.Tensor) -> torch.Tensor:
     return t.float().transpose(1, 2).reshape(b * h, s, e).contiguous()
 
 
+def _linear_attention(phi_q, phi_k, v, **kw):
+    """Kernel 10 (or its plain version) on (B, S, H, e) tensors through
+    its (B H, S, e) layout; (B, S, H, dh) out."""
+    b, s, h, dh = v.shape
+    out = ops.rff_attention(_heads_first(phi_q), _heads_first(phi_k),
+                            _heads_first(v), **kw)
+    return out.reshape(b, h, s, dh).transpose(1, 2)
+
+
 def rff_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                    feature_kind: str = "prf", kernel_mode: str = "auto"):
     """Full-sequence causal RFF linear attention. x: (B, S, d)."""
@@ -137,12 +148,14 @@ def rff_attn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     scale = dh ** -0.25  # split the 1/sqrt(dh) between q and k
     phi_q = _feature(p, q * scale, feature_kind)  # (B, S, H, D)
     phi_k = _feature(p, k * scale, feature_kind)
-    out = ops.rff_attention(
-        _heads_first(phi_q), _heads_first(phi_k), _heads_first(v),
-        mode=kernel_mode, chunk=min(cfg.rff_chunk, s),
-        normalize=feature_kind == "prf",
-    )
-    out = out.reshape(b, h, s, dh).transpose(1, 2)  # (B, S, H, dh)
+    run = functools.partial(_linear_attention, mode=kernel_mode,
+                            chunk=min(cfg.rff_chunk, s),
+                            normalize=feature_kind == "prf")
+    if ops.use_kernel(kernel_mode, x):  # DTensors: batch and heads are rows
+        out = ops.on_local_shards(run, (phi_q, phi_k, v),
+                                  (((0, 2), (1, 3)),) * 3)
+    else:
+        out = run(phi_q, phi_k, v)
     out = apply_head_mask(out, head_mask(cfg))
     return head_out(p["wo"], out.to(x.dtype))
 
@@ -157,6 +170,21 @@ def rff_state_init(cfg: ModelConfig, batch: int, dtype=torch.float32,
         z=torch.zeros(batch, h, dfeat, dtype=dtype, device=device),
         pos=0,
     )
+
+
+def _decode_block(s_state, z_state, q, k, v, w, b, s, **kw):
+    """Kernel 9 (or its plain version) on the (B, H, D, dv) state and (B,
+    T, H, e) tokens through its (B H, ...) layout: (out (B, T, H, dh), S'
+    (B, H, D, dv), z' (B, H, D))."""
+    bsz, heads, dfeat, dv = s_state.shape
+    t = q.shape[1]
+    out, s_new, z_new = ops.rff_attention_decode_block(
+        s_state.reshape(bsz * heads, dfeat, dv),
+        z_state.reshape(bsz * heads, dfeat),
+        _heads_first(q), _heads_first(k), _heads_first(v), w, b, s, **kw)
+    return (out.reshape(bsz, heads, t, dv).transpose(1, 2),
+            s_new.reshape(bsz, heads, dfeat, dv),
+            z_new.reshape(bsz, heads, dfeat))
 
 
 def rff_attn_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -180,21 +208,22 @@ def rff_attn_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     scale = dh ** -0.25
     tf = _trig_buffers(p)
     dfeat = tf.num_features
-    out, s_new, z_new = ops.rff_attention_decode_block(
-        state.s.float().reshape(b * h, dfeat, dh),
-        state.z.float().reshape(b * h, dfeat),
-        _heads_first(q * scale), _heads_first(k * scale), _heads_first(v),
-        tf.omega, tf.bias,
-        tf.scale if feature_kind == "trig" else None,
-        feature_kind=feature_kind, mode=kernel_mode, block_t=block_t,
-        normalize=feature_kind == "prf", precision=precision,
-    )
-    new_state = RFFState(
-        s=s_new.reshape(b, h, dfeat, dh).to(state.s.dtype),
-        z=z_new.reshape(b, h, dfeat).to(state.z.dtype),
-        pos=state.pos + t,
-    )
-    out = out.reshape(b, h, t, dh).transpose(1, 2).to(x.dtype)
+    run = functools.partial(
+        _decode_block, feature_kind=feature_kind, mode=kernel_mode,
+        block_t=block_t, normalize=feature_kind == "prf",
+        precision=precision)
+    args = (state.s.float(), state.z.float(), q * scale, k * scale, v)
+    shared = (tf.omega, tf.bias, tf.scale if feature_kind == "trig" else None)
+    if ops.use_kernel(kernel_mode, x):  # DTensors: batch and heads are rows
+        seq = ((0, 2), (1, 3))
+        out, s_new, z_new = ops.on_local_shards(
+            run, args, (((0, 1), (2, 3)), ((0, 1), (2,)), seq, seq, seq),
+            shared=shared, outs=(2, 0, 1))
+    else:
+        out, s_new, z_new = run(*args, *shared)
+    new_state = RFFState(s=s_new.to(state.s.dtype), z=z_new.to(state.z.dtype),
+                         pos=state.pos + t)
+    out = out.to(x.dtype)
     out = apply_head_mask(out, head_mask(cfg))
     return head_out(p["wo"], out), new_state
 

@@ -17,15 +17,25 @@ under ``params["extra"]``); ``repro`` scans stacked layers under jit.
 ``forward`` and ``decode_step`` take ``kernel_mode`` ("auto", "cuda" or
 "ref") and pass it to the attention kernels, so the same model can run the
 kernels or their plain versions on the card.
+
+The parameters may be ``DTensor``s (``launch.sharding``'s placements). The
+model makes plain tensors inside (masks, rope tables, constants), which
+are the same on every rank, so the entry points run under DTensor's
+``implicit_replication`` when a parameter or an input is a DTensor, and
+``apply_stack`` pins the activations' batch sharding to
+``cfg.activation_batch_axes`` (:func:`_constrain_batch`, ``repro``'s).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace
 from typing import Optional
 
 import torch
-
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -34,6 +44,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rff_attention as rff_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.optim.tree import leaves
 from repro_torch.models.layers import (
     dense,
     dense_init,
@@ -195,12 +206,47 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
     return params
 
 
+def dtensor_scope(*trees):
+    """``implicit_replication()`` when a leaf of ``trees`` is a DTensor
+    (plain tensors made inside the model then act as replicated), else a
+    null context. Nested scopes keep the outer one's setting (DTensor's
+    context turns it off on exit)."""
+    if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
+        return contextlib.nullcontext()
+    for tree in trees:
+        if any(isinstance(t, DTensor) for t in leaves(tree)):
+            return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _constrain_batch(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Pin the activation batch sharding through the layer stack
+    (``cfg.activation_batch_axes``): a DTensor is redistributed to
+    ``Shard(0)`` on the mesh dims of those axes and ``Replicate()`` on the
+    others, ``repro``'s ``with_sharding_constraint`` of ``P(axes, None,
+    ...)``. A plain tensor, or an empty ``activation_batch_axes``, passes
+    through."""
+    axes = cfg.activation_batch_axes
+    if not axes or not isinstance(x, DTensor):
+        return x
+    names = x.device_mesh.mesh_dim_names
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"activation_batch_axes {axes}: {missing} not on "
+                         f"the mesh {names}")
+    want = tuple(Shard(0) if n in axes else Replicate() for n in names)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def apply_stack(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 kernel_mode: str = "auto") -> torch.Tensor:
     """The layer stack over hidden states x (B, S, d)."""
     apply = _BLOCKS[cfg.mixer][1]
+    x = _constrain_batch(cfg, x)
     for layer_p in params["blocks"]:
-        x = apply(layer_p, cfg, x, kernel_mode)
+        x = _constrain_batch(cfg, apply(layer_p, cfg, x, kernel_mode))
     for extra_p in params.get("extra", []):
         x = _rec_block_apply(extra_p, cfg, x)
     return x
@@ -226,13 +272,52 @@ def head_logits(params: dict, cfg: ModelConfig, h: torch.Tensor):
     return _mask_vocab(cfg, logits)
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Token rows of ``table`` (V, d). A DTensor table sharded by vocab is
+    looked up vocab-parallel: each rank takes the tokens that fall in its
+    rows (zeros elsewhere) and the rows sum over the vocab's mesh dims
+    (``Partial``), with no masked-partial placement (whose mask buffer some
+    DTensor versions lose). Where the tokens are split on a mesh dim that
+    also splits the vocab, the table is gathered on that dim first."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    rows = (tokens.placements if isinstance(tokens, DTensor)
+            else (Replicate(),) * mesh.ndim)
+    vocab = tuple(type(p) is Shard and p.dim == 0
+                  and type(r) is Replicate
+                  for p, r in zip(table.placements, rows))
+    want = tuple(Shard(0) if v else Replicate() for v in vocab)
+    if want != tuple(table.placements):
+        table = table.redistribute(mesh, want)
+    if not any(vocab):
+        return F.embedding(tokens, table)
+    # This rank's rows [lo, lo + n): Shard(0) cuts in mesh order, chunks of
+    # ceil(rows / ranks) (torch.chunk's, DTensor's).
+    lo, n = 0, table.shape[0]
+    for v, k, c in zip(vocab, mesh.shape, mesh.get_coordinate()):
+        if v:
+            step = -(-n // k)
+            lo, n = lo + min(c * step, n), max(0, min(step, n - c * step))
+    local = tokens.to_local() if isinstance(tokens, DTensor) else tokens
+    idx = local - lo
+    inside = (idx >= 0) & (idx < n)
+    out = F.embedding(idx.clamp(0, max(n - 1, 0)), table.to_local())
+    out = out * inside[..., None].to(out.dtype)
+    places = tuple(Partial() if v else r for v, r in zip(vocab, rows))
+    shape = torch.Size((*tokens.shape, table.shape[1]))
+    return DTensor.from_local(out, mesh, places, run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def embed_inputs(params: dict, cfg: ModelConfig,
                  tokens: Optional[torch.Tensor],
                  embeds: Optional[torch.Tensor]) -> torch.Tensor:
     """Token ids (B, S) through the embedding table, or precomputed
     frontend embeddings (B, S, d) cast to the activation dtype."""
     if embeds is None:
-        return params["embed"]["table"][tokens]
+        return _embed(params["embed"]["table"], tokens)
     return embeds.to(cfg.activation_dtype)
 
 
@@ -242,9 +327,11 @@ def forward(params: dict, cfg: ModelConfig,
             kernel_mode: str = "auto") -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) int, or for the frontend
     archs embeds (B, S, d) -> logits (B, S, V_padded)."""
-    x = apply_stack(params, cfg, embed_inputs(params, cfg, tokens, embeds),
-                    kernel_mode=kernel_mode)
-    return head_logits(params, cfg, x)
+    with dtensor_scope(params, tokens, embeds):
+        x = apply_stack(params, cfg, embed_inputs(params, cfg, tokens,
+                                                  embeds),
+                        kernel_mode=kernel_mode)
+        return head_logits(params, cfg, x)
 
 
 def lm_loss(params: dict, cfg: ModelConfig,
@@ -262,12 +349,19 @@ def lm_loss(params: dict, cfg: ModelConfig,
     from -1e30 and a rescaled sum; the gold logit taken from the chunk that
     holds it), so no f32 copy of the full-vocab logits is made; otherwise
     the plain route, as in ``repro``."""
+    with dtensor_scope(params, tokens, embeds, labels):
+        return _lm_loss(params, cfg, tokens, embeds, labels, kernel_mode)
+
+
+def _lm_loss(params, cfg, tokens, embeds, labels, kernel_mode):
     logits = forward(params, cfg, tokens=tokens, embeds=embeds,
                      kernel_mode=kernel_mode)
     if labels is None:
-        labels = F.pad(tokens[:, 1:], (0, 1))
-        mask = torch.ones_like(labels)
-        mask[:, -1] = 0
+        # The next token, and a mask of ones but the last position: joined
+        # rather than padded or filled, ops DTensor places on any mesh.
+        last = torch.zeros_like(tokens[:, :1])
+        labels = torch.cat((tokens[:, 1:], last), dim=1)
+        mask = torch.cat((torch.ones_like(tokens[:, 1:]), last), dim=1)
     else:
         mask = (labels >= 0).to(torch.int32)
         labels = torch.clamp(labels, min=0)
@@ -287,16 +381,63 @@ def lm_loss(params: dict, cfg: ModelConfig,
                 c32 - m_new[..., None]).sum(dim=-1)
             local = labels - idx * vc
             hit = (local >= 0) & (local < vc)
-            g = torch.gather(c32, -1, local.clamp(0, vc - 1)[..., None])
-            gold = torch.where(hit, g[..., 0], gold)
+            g = _gather_last(c32, local.clamp(0, vc - 1))
+            gold = torch.where(hit, g, gold)
             m = m_new
         lse = m + torch.log(s)
     else:
-        lg = logits.float()
+        lg = _rows_like(logits.float(), labels)
         lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+        gold = _gather_last(lg, labels)
     nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return _total(nll) / torch.clamp(_total(mask), min=1)
+
+
+def _total(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every element of ``x``, a 0-d tensor. For a DTensor a
+    plain one: each rank sums its local shard and one all-reduce (under
+    autograd) adds the shards. DTensor's own sum makes a 0-d DTensor, whose
+    gradient's expand some DTensor versions cannot place on a mesh of two or
+    more dims."""
+    if not isinstance(x, DTensor):
+        return x.sum()
+    mesh = x.device_mesh
+    parts = [Partial() if p.is_partial() or isinstance(p, (Shard,
+                                                           _StridedShard))
+             else Replicate() for p in x.placements]
+    local = DTensor.from_local(x.to_local().sum().reshape(1), mesh, parts,
+                               run_check=False)
+    return local.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+    ).reshape(())
+
+
+def _rows_like(x: torch.Tensor, index) -> torch.Tensor:
+    """A DTensor ``x`` (..., V) placed as ``index`` (...) is, its last dim
+    whole on each rank; a plain ``x`` as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    places = (index.placements if isinstance(index, DTensor)
+              else (Replicate(),) * x.device_mesh.ndim)
+    if tuple(x.placements) == tuple(places):
+        return x
+    return x.redistribute(x.device_mesh, places)
+
+
+def _gather_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[..., index]`` along the last dim (``torch.gather``). On DTensors
+    the gather runs on each rank's rows (``x`` placed as ``index`` first),
+    so its gradient stays there too: DTensor's own gather backward fills a
+    zero tensor of the global shape on every rank."""
+    if not isinstance(x, DTensor):
+        return torch.gather(x, -1, index[..., None])[..., 0]
+    x = _rows_like(x, index)
+    local = index.to_local() if isinstance(index, DTensor) else index
+    out = torch.gather(x.to_local(), -1, local[..., None])[..., 0]
+    shape = torch.Size(x.shape[:-1])
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +533,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     """One serving step: token (B,) int, or for the frontend archs
     embed_in (B, 1, d) -> (logits (B, V_padded), the new state). KV and
     MLA caches are written in place."""
+    with dtensor_scope(params, token, embed_in):
+        return _decode_step(params, cfg, state, token, embed_in, kernel_mode)
+
+
+def _decode_step(params, cfg, state, token, embed_in, kernel_mode):
     x = embed_inputs(params, cfg,
                      None if token is None else token[:, None], embed_in)
     new_stack = []

@@ -13,15 +13,25 @@ Restore never trusts ``LATEST`` blindly: when the marked file is missing
 or torn it falls back to the newest readable checkpoint.
 
 The payload is ``repro``'s, ``{"step": n, "state": tree}``, with numpy
-leaves on disk. numpy has no bfloat16: a bf16 tensor is written as its
-bits, an array of one int16 field named ``"bfloat16"``, which restore
-views as bf16 again. A payload is read by the serving checkpoints'
-unpickler (``serve/recovery.py``: numpy and builtins) extended by one
-class, ``AdamWState``, under ``repro``'s module name or the port's, mapped
-to the port's class without importing ``repro``.
-So a ``repro`` training checkpoint restores into the port leaf for leaf
-(its ``ml_dtypes`` bf16 leaves excepted: they name a module that is not
-numpy, and such a file is unreadable here).
+leaves on disk. numpy has no bfloat16, and ``repro``'s bf16 leaves are
+``ml_dtypes`` arrays, whose pickle names the global ``ml_dtypes.bfloat16``.
+The port needs no ``ml_dtypes`` either way:
+
+* it writes a bf16 tensor's bits as an ``ml_dtypes`` array pickles, its
+  dtype ``numpy.dtype(ml_dtypes.bfloat16)`` named by a hand-written global
+  (``pickle`` would import the module to save a class of it), so
+  ``repro``'s plain ``pickle.load`` gives an ``ml_dtypes`` bf16 leaf;
+* it reads that global as a stand-in whose numpy dtype is the bits, an
+  array of one int16 field named ``"bfloat16"``, which restore views as
+  bf16 again. Older port checkpoints hold that structured array itself and
+  restore the same way.
+
+A payload is read by the serving checkpoints' unpickler
+(``serve/recovery.py``: numpy and builtins) extended by ``AdamWState``,
+under ``repro``'s module name or the port's, mapped to the port's class
+without importing ``repro``, and by ``ml_dtypes.bfloat16`` and nothing
+else of that module. So a ``repro`` training checkpoint restores into the
+port leaf for leaf, bf16 ones too, and the reverse.
 """
 from __future__ import annotations
 
@@ -49,8 +59,56 @@ _FROMBUFFER = {("numpy._core.numeric", "_frombuffer"),
                ("numpy.core.numeric", "_frombuffer")}
 
 
-# A bf16 tensor's bits on disk: numpy has no bfloat16.
+# A bf16 tensor's bits in numpy, which has no bfloat16.
 _BF16_BITS = np.dtype([("bfloat16", "<i2")])
+_ML_DTYPES_BF16 = ("ml_dtypes", "bfloat16")
+# ml_dtypes.bfloat16's dtype state, as numpy pickles it (ml_dtypes 0.5).
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)
+
+
+class _MLBfloat16Global:
+    """Pickles as the global ``ml_dtypes.bfloat16`` (see ``_Pickler``)."""
+
+
+class _MLBfloat16Dtype:
+    """Pickles as ``numpy.dtype(ml_dtypes.bfloat16, False, True)``."""
+
+
+_ML_BF16 = _MLBfloat16Global()
+_ML_BF16_DTYPE = _MLBfloat16Dtype()
+
+
+class _Pickler(pickle._Pickler):
+    """A pickler that writes a bf16-bits array as ``repro``'s ``ml_dtypes``
+    bf16 array pickles (``_reconstruct`` and a BUILD of its raw bytes, the
+    dtype ``ml_dtypes.bfloat16``'s), without importing ``ml_dtypes``."""
+
+    def save(self, obj, save_persistent_id=True):
+        if obj is _ML_BF16:
+            memo = self.memo.get(id(obj))
+            if memo is not None:
+                self.write(self.get(memo[0]))
+                return
+            self.write(pickle.GLOBAL + b"ml_dtypes\nbfloat16\n")
+            self.memoize(obj)
+            return
+        super().save(obj, save_persistent_id)
+
+    def reducer_override(self, obj):
+        if obj is _ML_BF16_DTYPE:
+            return np.dtype, (_ML_BF16, False, True), _BF16_DTYPE_STATE
+        if isinstance(obj, np.ndarray) and obj.dtype == _BF16_BITS:
+            fn, args, state = obj.__reduce__()
+            return fn, args, (*state[:2], _ML_BF16_DTYPE, *state[3:])
+        return NotImplemented
+
+
+class _BF16Bits:
+    """``ml_dtypes.bfloat16`` read without ``ml_dtypes``: numpy takes a
+    class's ``dtype`` attribute, so ``numpy.dtype(_BF16Bits, ...)`` is the
+    bits dtype."""
+
+    dtype = _BF16_BITS
 
 
 def _to_host(leaf) -> np.ndarray:
@@ -70,7 +128,7 @@ def save(ckpt_dir: str, step: int, state: Any, *, keep: int = 3) -> str:
     tmp = os.path.join(ckpt_dir, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(ckpt_dir, f"step_{step}.ckpt")
     with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+        _Pickler(f, protocol=pickle.HIGHEST_PROTOCOL).dump(payload)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, final)
@@ -110,6 +168,8 @@ class _TrainUnpickler(_SafeUnpickler):
     def find_class(self, module, name):
         if (module, name) in _STATE_CLASSES:
             return AdamWState
+        if (module, name) == _ML_DTYPES_BF16:
+            return _BF16Bits
         if (module, name) in _FROMBUFFER:
             return pickle.Unpickler.find_class(self, module, name)
         return super().find_class(module, name)

@@ -1957,3 +1957,155 @@ def test_trainer_resume_bit_exact_on_card(cuda_device, tmp_path,
         torch.use_deterministic_algorithms(was)
     for a, b in zip(leaves(ta.state), leaves(tb.state)):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The launch layer: DTensors on a one-rank mesh (chip_smoke.py phase 23)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_rank_mesh(cuda_device):
+    """A ("data", "model") = (1, 1) DeviceMesh on a one-rank NCCL group,
+    destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype,seq", [("flash", torch.bfloat16, False),
+                                          ("flash", torch.bfloat16, True),
+                                          ("rff", torch.float32, False)])
+def test_attention_kernels_through_the_dtensor_boundary(one_rank_mesh, op,
+                                                        dtype, seq):
+    """Kernels 11 and 10 on DTensor inputs (rows Shard(0), or the sequence
+    Shard(1), which is made whole first) launch once on the local shards:
+    the output, and under autograd the gradients, bit for bit the
+    plain-tensor call's."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rff_attention import rff_attention_cuda
+
+    xs, g = _attention_case(op, dtype, one_rank_mesh.device_type)
+    wrapper = flash_attention_cuda if op == "flash" else rff_attention_cuda
+    call = ops.flash_attention if op == "flash" else ops.rff_attention
+    places = (Shard(1) if seq else Shard(0), Replicate())
+
+    def placed(x):
+        return DTensor.from_local(x, one_rank_mesh, places, run_check=False)
+
+    want = call(*xs, mode="cuda")
+    want_g = torch.autograd.grad(want, xs, g)
+    dx = [x.detach().clone().requires_grad_() for x in xs]
+    before = wrapper.launches
+    got = call(*[placed(x) for x in dx], mode="cuda")
+    assert isinstance(got, DTensor) and wrapper.launches == before + 1
+    got_g = torch.autograd.grad(got, dx, placed(g))
+    assert torch.equal(got.full_tensor(), want)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dtensor_train_step_bitwise_on_one_rank_mesh(one_rank_mesh,
+                                                     monkeypatch):
+    """qwen2-0.5b at published width, 2 layers, bf16: the train step on its
+    state as DTensors (param_specs, moment_specs of train_4k, batch_axes
+    from train_batch_axes, grad_specs the param placements) equals the
+    plain step in every leaf and metric, under deterministic algorithms;
+    kernel 11 runs once a layer a microbatch through the boundary."""
+    from dataclasses import replace
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import sharding, specs
+    from repro_torch.optim.optimizers import AdamWState
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg, _ = specs.resolve_cell(_train_cfg("gqa", 2, "bfloat16"),
+                                SHAPES["train_4k"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    state = init_train_state(gen, cfg, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 512),
+                                     generator=gen, device=dev)}
+    baxes = specs.train_batch_axes(cfg, ShapeSpec("train", 512, 4, "train"),
+                                   one_rank_mesh)
+    pinned = replace(cfg, activation_batch_axes=baxes)
+    pspec = sharding.param_specs(pinned, one_rank_mesh, state["params"])
+    mspec = sharding.moment_specs(pinned, one_rank_mesh, state["params"])
+    dstate = {"params": sharding.distribute(state["params"], one_rank_mesh,
+                                            pspec),
+              "opt": AdamWState(
+                  m=sharding.distribute(state["opt"].m, one_rank_mesh, mspec),
+                  v=sharding.distribute(state["opt"].v, one_rank_mesh, mspec),
+                  count=state["opt"].count),
+              "step": state["step"]}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = flash_attention_cuda.launches
+        got, got_m = make_train_step(pinned, num_microbatches=2,
+                                     batch_axes=baxes, grad_specs=pspec)(
+            dstate, batch)
+        assert flash_attention_cuda.launches - before == 2 * 2
+        want, want_m = make_train_step(cfg, num_microbatches=2)(state, batch)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    for a, b in zip(leaves(got), leaves(want)):
+        assert torch.equal(whole(a), b)
+    for k in want_m:
+        assert torch.equal(whole(got_m[k]), want_m[k])
+
+
+@pytest.mark.cuda
+def test_dtensor_prefill_bitwise_on_one_rank_mesh(one_rank_mesh):
+    """deepseek-v2-lite-16b at published width, 2 layers: the prefill with
+    its weights as DTensors under prefill_32k's layout equals the plain
+    prefill bit for bit, kernel 11 (the MLA shape) once a layer through the
+    boundary."""
+    from dataclasses import replace
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import sharding, specs
+    from repro_torch.models import init_params
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg, _ = specs.resolve_cell(replace(get_config("deepseek-v2-lite-16b"),
+                                        num_layers=2), SHAPES["prefill_32k"])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = init_params(gen, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        want = make_prefill_step(cfg)(params, {"tokens": tokens})
+        dparams = sharding.distribute(
+            params, one_rank_mesh,
+            sharding.param_specs(cfg, one_rank_mesh, params))
+        before = flash_attention_cuda.launches
+        got = make_prefill_step(cfg)(dparams, {"tokens": tokens})
+        assert flash_attention_cuda.launches - before == 2
+    assert torch.equal(got.full_tensor(), want)

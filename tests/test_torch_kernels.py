@@ -340,8 +340,10 @@ def test_mode_dispatch():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.rff_klms_bank_chunk(args[0], args[1], _t(a["ys"]), *args[2:],
                                 0.5, mode="cuda")
-    with pytest.raises(ValueError, match="unknown kernel mode"):
+    with pytest.raises(ValueError, match="CUDA tensors"):  # repro's alias
         ops.rff_bank_predict(*args, mode="pallas")
+    with pytest.raises(ValueError, match="unknown kernel mode"):
+        ops.rff_bank_predict(*args, mode="tpu")
     with pytest.raises(ValueError, match="unknown precision"):
         ops.rff_bank_predict(*args, precision="fp8")
     torch.testing.assert_close(

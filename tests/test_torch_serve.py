@@ -522,7 +522,44 @@ UNPORTED_NAMES = {
     "features": {},
     "kernels": {},
     "obs": {},
+    "launch": {},
+    "roofline": {},
 }
+
+
+def _repro_modules() -> list:
+    """Every module of repro (found without importing the modules)."""
+    import pkgutil
+
+    import repro
+
+    return sorted(m.name for m in pkgutil.walk_packages(repro.__path__,
+                                                         "repro."))
+
+
+def _import_repro(name):
+    """Import a repro module; repro.launch.dryrun sets XLA_FLAGS for 512
+    host devices when imported, which is put back so that JAX in this
+    process keeps its one device."""
+    import importlib
+    import os
+
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+
+
+def _replaced_by_csrc(module: str, name: str) -> bool:
+    """The Pallas entry points of repro/kernels/*.py (``*_pallas`` and the
+    kernel bodies ``*_kernel``), which the CUDA sources under
+    src/repro_torch/csrc/ replace."""
+    return module.startswith("repro.kernels.") and name.endswith(
+        ("_pallas", "_kernel"))
 
 
 @pytest.mark.parametrize("package", sorted(UNPORTED_NAMES))
@@ -549,6 +586,26 @@ def test_package_exports_cover_repro(package):
             assert getattr(tpkg, name) is getattr(ops, name)
     if package == "serve":
         from repro_torch.serve import reset_slots  # noqa: F401
+
+
+@pytest.mark.parametrize("module", _repro_modules())
+def test_module_exports_cover_repro(module):
+    """Every name in a repro module's __all__ is in the port module of the
+    same path, but the Pallas entry points that csrc/ replaces (which the
+    port does not have)."""
+    import importlib
+
+    jmod = _import_repro(module)
+    names = getattr(jmod, "__all__", None)
+    if names is None:
+        names = []
+    tmod = importlib.import_module("repro_torch" + module[len("repro"):])
+    replaced = [n for n in names if _replaced_by_csrc(module, n)]
+    missing = [n for n in names if n not in replaced and not hasattr(tmod, n)]
+    assert not missing, f"{tmod.__name__} lacks {missing}"
+    assert not [n for n in replaced if hasattr(tmod, n)]
+    if hasattr(tmod, "__all__"):
+        assert all(n in tmod.__all__ for n in names if n not in replaced)
 
 
 @pytest.mark.parametrize("learner,family", [

@@ -447,7 +447,9 @@ def test_restore_refuses_other_globals(tmp_path):
 def test_repro_checkpoint_restores_into_the_port(tmp_path):
     """repro's training checkpoint (its AdamWState pickled by name) restores
     into the port's layout with every leaf exact, and the port's state goes
-    back to repro's layout leaf for leaf."""
+    back to repro's layout leaf for leaf. At bf16 (ml_dtypes leaves) both
+    ways: repro's checkpoint restores into the port bit for bit, and the
+    port's checkpoint restores into repro with ml_dtypes bf16 leaves."""
     jcfg = jax_get_config("deepseek-v2-lite-16b").reduced()
     cfg = get_config("deepseek-v2-lite-16b").reduced()
     jstate = jax_init_train_state(jax.random.PRNGKey(6), jcfg)
@@ -463,6 +465,34 @@ def test_repro_checkpoint_restores_into_the_port(tmp_path):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+    bf16 = np.dtype(jnp.bfloat16)
+    jstate = jax_init_train_state(jax.random.PRNGKey(7),
+                                  replace(jcfg, dtype="bfloat16"))
+    want = jax.tree.leaves(jax.tree.map(np.asarray, jstate))
+    assert {a.dtype for a in want} >= {bf16, np.dtype(np.float32)}
+
+    def bits(a):
+        if isinstance(a, torch.Tensor):
+            a = (a.view(torch.int16) if a.dtype == torch.bfloat16
+                 else a).numpy()
+        return a.view(np.int16) if a.dtype == bf16 else a
+
+    jckpt.save(str(tmp_path / "bf16"), 4, jstate)
+    restored, step = ckpt.restore(str(tmp_path / "bf16"), device="cpu")
+    got = jax.tree.leaves(restored)
+    assert step == 4 and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == (torch.bfloat16 if b.dtype == bf16 else
+                           torch.from_numpy(b).dtype)
+        np.testing.assert_array_equal(bits(a), bits(b))
+    ckpt.save(str(tmp_path / "back"), 5, restored)
+    back, step = jckpt.restore(str(tmp_path / "back"))
+    got = jax.tree.leaves(back)
+    assert step == 5 and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(bits(a), bits(b))
 
 
 # ---------------------------------------------------------------------------

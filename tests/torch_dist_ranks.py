@@ -18,7 +18,14 @@ runs JOB; rank 0 writes the results to OUT (``.npz``). Jobs:
   raises;
 * ``diffusion``: ``diffusion_klms_run`` for each ``(combine_every,
   compress)`` of ``runs``, and with ``head`` an int8 run, combining every
-  tick, of the streams' first ``head`` ticks.
+  tick, of the streams' first ``head`` ticks;
+* ``train``: for each arch of ``archs`` (reduced, under ``train_4k``'s
+  mapping), one train step on a ``mesh`` (data, model) mesh with params
+  and moments placed by ``param_specs``/``moment_specs``, ``batch_axes``
+  from ``train_batch_axes`` and ``grad_specs`` the param placements, beside
+  the same step on plain tensors; with ``kernel`` the attention kernels'
+  wrappers are their plain versions and the model runs
+  ``kernel_mode="cuda"`` (the DTensor kernel boundary on the CPU).
 
 The file imports neither JAX nor ``repro``: the card tests
 (``tests/test_torch_cuda.py``) run it too.
@@ -217,6 +224,99 @@ def _parity(mesh, inp, device, out, calls):
         torch.zeros(8, 3, device=device), 0.5))
 
 
+def _train(inp, device, out):
+    """The ``train`` job (module docstring): rank 0 keeps each arch's
+    gathered new params, loss and grad norm beside the plain step's."""
+    from dataclasses import replace
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import sharding, specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.optimizers import AdamWState
+    from repro_torch.optim.tree import leaves
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    shape = tuple(int(n) for n in inp["mesh"])
+    mesh = make_mesh(shape, ("data", "model"), device_type=device)
+    cell = ShapeSpec("train_4k", int(inp["seq"]), int(inp["batch"]),
+                     "train")
+    mode = "auto"
+    if int(inp.get("kernel", 0)):
+        ops.flash_attention_cuda = ref.flash_attention_ref
+        ops.rff_attention_cuda = ref.chunked_linear_attention_ref
+        mode = "cuda"
+    for arch in [str(a) for a in inp["archs"]]:
+        cfg, _ = specs.resolve_cell(get_config(arch).reduced(),
+                                    SHAPES["train_4k"])
+        baxes = specs.train_batch_axes(cfg, cell, mesh)
+        cfg = replace(cfg, activation_batch_axes=baxes)
+        gen = torch.Generator().manual_seed(int(inp["seed"]))
+        state = init_train_state(gen, cfg, device=device)
+        tokens = torch.randint(0, cfg.vocab_size, (cell.global_batch,
+                                                   cell.seq_len),
+                               generator=gen).to(device)
+        micro = int(inp["micro"])
+        plain, pm = make_train_step(cfg, num_microbatches=micro,
+                                    kernel_mode=mode)(state,
+                                                      {"tokens": tokens})
+        pspec = sharding.param_specs(cfg, mesh, state["params"])
+        mspec = sharding.moment_specs(cfg, mesh, state["params"])
+        dstate = {"params": sharding.distribute(state["params"], mesh,
+                                                pspec),
+                  "opt": AdamWState(
+                      m=sharding.distribute(state["opt"].m, mesh, mspec),
+                      v=sharding.distribute(state["opt"].v, mesh, mspec),
+                      count=state["opt"].count),
+                  "step": state["step"]}
+        step = make_train_step(cfg, num_microbatches=micro,
+                               batch_axes=baxes, grad_specs=pspec,
+                               kernel_mode=mode)
+        new, metrics = step(dstate, {"tokens": tokens})
+        got = [p.full_tensor() for p in leaves(new["params"])]
+        kept = [tuple(p.placements) for p in leaves(new["params"])]
+        want = [tuple(p.placements) for p in leaves(dstate["params"])]
+        out[f"{arch}_layout_kept"] = np.asarray(kept == want)
+        out[f"{arch}_sharded_leaves"] = np.asarray(sum(
+            any(type(x).__name__ != "Replicate" for x in pl) for pl in want))
+        out[f"{arch}_batch_axes"] = np.asarray(baxes)
+        for i, (a, b) in enumerate(zip(got, leaves(plain["params"]))):
+            out[f"{arch}_got{i}"] = a.float().cpu().numpy()
+            out[f"{arch}_want{i}"] = b.float().cpu().numpy()
+        grads = [g.float().cpu().numpy() for g in leaves(
+            tree_grads(cfg, state["params"], tokens, micro, mode))]
+        for i, g in enumerate(grads):
+            out[f"{arch}_grad{i}"] = g
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"{arch}_{k}"] = np.asarray(float(metrics[k].full_tensor()
+                                                  if hasattr(metrics[k],
+                                                             "full_tensor")
+                                                  else metrics[k]))
+            out[f"{arch}_plain_{k}"] = np.asarray(float(pm[k]))
+
+
+def tree_grads(cfg, params, tokens, micro, mode):
+    """The plain step's averaged gradients (the AdamW sign rule's
+    reference)."""
+    from repro_torch.models import lm_loss
+    from repro_torch.train.steps import _value_and_grad
+
+    rows = tokens.shape[0] // micro
+    total = None
+    for i in range(micro):
+        _, g = _value_and_grad(
+            lambda p, mb: lm_loss(p, cfg, tokens=mb["tokens"],
+                                  kernel_mode=mode),
+            params, {"tokens": tokens[i * rows:(i + 1) * rows]})
+        from repro_torch.optim.tree import tree_map
+
+        total = g if total is None else tree_map(torch.add, total, g)
+    from repro_torch.optim.tree import tree_map
+
+    return tree_map(lambda x: x / micro, total)
+
+
 def _rank(rank: int, world: int, device: str, job: str, inp_path: str,
           out_path: str, init_file: str) -> None:
     torch.set_num_threads(1)
@@ -225,9 +325,15 @@ def _rank(rank: int, world: int, device: str, job: str, inp_path: str,
     try:
         from repro_torch.launch.mesh import make_krls_mesh
 
-        mesh = make_krls_mesh(device_type=device)
         inp = dict(np.load(inp_path, allow_pickle=False))
         out: dict = {}
+        if job == "train":
+            _train(inp, device, out)
+            if rank == 0:
+                np.savez(out_path, **out)
+            dist.barrier()
+            return
+        mesh = make_krls_mesh(device_type=device)
         calls = _count_all_reduce()
         if job == "krls":
             _krls(mesh, inp, device, out, calls)
