@@ -77,7 +77,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     linear-attention launches; flash attention at f32 (the CUDA-core kernel)
     and bf16 (the tensor-core kernel), also at the config heads whose q/k
     and v widths differ or pass 128 ((192, 128), (96, 64), (256, 256)),
-    each route's error reported;
+    at the edges of the f32 route's tiles (S = 127, 128, 129, 2049) and at
+    the launcher's (32, 64, 16), each route's error reported; on the f32
+    route, at every shape, bit for bit two calls, and a call on two of the
+    heads against those heads of the full call;
 12. serves qwen2-0.5b at full width with RFF attention, bf16, random
     weights from --seed: ``make_prefill_step`` at B=4, S=2048 (the linear
     attention kernel, once a layer) and ``generate`` of 32 greedy tokens
@@ -88,8 +91,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     path) and the f32 copy, then generates a few tokens (no kernel on that
     path);
 14. times kernels 9-11, their plain versions, their bounds and SDPA (flash
-    on both routes; kernel 9 and its plain version by torch.profiler
-    device time, since a one-token call's event time is the host's), the
+    on both routes, SDPA's backend and kernels named; the f32 route also
+    at deepseek's MLA head (64, 2048, 192 -> 128) and the launcher's (32,
+    64, 16), the latter by call and device time beside SDPA's; kernel 9 and its plain version by
+    torch.profiler device time, since a one-token call's event time is
+    the host's), the
     prefill and decode tokens per second of both models (the GQA prefill's
     profile must show the tensor-core flash kernel once a layer, the RFF
     prefill's both launches of the linear-attention kernel once a layer
@@ -247,7 +253,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
-"routes", flash_attention with an "mla" record of phase 21's MLA shape,
+"routes", flash_attention with an "mla" record of phase 21's MLA shape
+and its f32 route with "mla" and "launcher" records of step 14's,
 bank_predict with "bf16", "krls_read" and "one_tenant" records beside
 its f32 serving one, rff_features with a "read_block" record,
 krls_chunk_elements with a "d2048" one); the last is
@@ -1729,9 +1736,13 @@ LINEAR_SHAPES = [(56, LM_S, 256, 64, 256), (8, 512, 256, 128, 256),
 # (BH, S, dh, dv): qwen2-0.5b's, llama3-8b's and a padded head, then the
 # heads of src/repro/configs whose q/k and v widths differ or pass 128:
 # deepseek-v2-lite's MLA (192, 128), minicpm3's (96, 64), recurrentgemma's
-# 256 (two V passes on the bf16 route).
+# 256 (two V passes on the bf16 route); then the edges of the f32 route's
+# 128-row and 64-key tiles (S = 127, 128, 129, 2049) and the launcher's
+# reduced qwen2 (batch 8, 4 heads of 16, S = 64: one 64-row tile).
 FLASH_SHAPES = [(56, LM_S, 64, 64), (32, 1024, 128, 128), (3, 100, 24, 24),
-                (8, 512, 192, 128), (8, 512, 96, 64), (4, 512, 256, 256)]
+                (8, 512, 192, 128), (8, 512, 96, 64), (4, 512, 256, 256),
+                (2, 127, 64, 64), (2, 128, 64, 64), (2, 129, 64, 64),
+                (1, 2049, 64, 64), (32, 64, 16, 16)]
 DECODE_CALLS = 20  # one-token decode calls per profiled timing
 PROFILE_TRIES = 3  # profiles of a prefill until one shows what is checked
 # Kernel 10's launches (csrc/rff_attention.cu): the state walk over chunks
@@ -1799,12 +1810,31 @@ def decode_tile_agrees(args, kw) -> bool:
     return same
 
 
+def flash_f32_bitwise(q, k, v, got, causal) -> None:
+    """Fail unless the f32 flash route's second call gives ``got``'s bits
+    and a call on the last and the first head gives those heads' bits."""
+    from repro_torch.kernels import ops
+
+    shape = tuple(q.shape) + (v.shape[-1],)
+    check(torch.equal(got, ops.flash_attention(q, k, v, mode="cuda",
+                                               causal=causal)),
+          f"flash f32 {shape} causal={causal}: two calls differ")
+    heads = [q.shape[0] - 1, 0] if q.shape[0] > 1 else [0]
+    sub = ops.flash_attention(*(t[heads].contiguous() for t in (q, k, v)),
+                              mode="cuda", causal=causal)
+    check(torch.equal(sub, got[heads]), f"flash f32 {shape} causal={causal}: "
+          "a head's bits depend on the call's other heads")
+
+
 def phase_lm_kernels(rng, device) -> dict:
     """Kernels 9-11 against their plain versions at qwen2-0.5b's shapes,
     llama3-8b's head width and padded shapes; at every decode head a block
     of T equals T one-token launches bit for bit; the first dv tile of
     both RFF kernels equals a call on its columns alone, and two
-    linear-attention launches give the same bits."""
+    linear-attention launches give the same bits. The f32 flash route's
+    bits: at every FLASH_SHAPES entry two calls agree, and a call on a
+    subset of heads (the last and the first) equals those heads of the
+    full call."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunking import (
         LINEAR_TILE_COLS,
@@ -1818,7 +1848,7 @@ def phase_lm_kernels(rng, device) -> dict:
                             "tolerance_of_max_plain": tol}
                     for route, tol in (("tensor_core", ATTN_BF16_TOL),
                                        ("cuda_core", ATTN_TOL))}
-    bitwise, tiles = {}, {}
+    bitwise, tiles, flash_bits = {}, {}, {}
 
     def note(name, err):
         if err[0] >= errs[name]:
@@ -1906,6 +1936,9 @@ def phase_lm_kernels(rng, device) -> dict:
                 route["err_of_max_plain"] = max(route["err_of_max_plain"], e[2])
                 if dtype == torch.float32:
                     note("flash_attention", e)
+                    flash_f32_bitwise(q, k, v, got, causal)
+                    flash_bits[f"{bh}_{slen}_{dh}_{dv}_{causal}"] = True
+                del got
             del q, k, v
     torch.cuda.synchronize()
     emit({"phase": "lm_kernels_vs_plain", "decode_shapes": DECODE_SHAPES,
@@ -1915,6 +1948,7 @@ def phase_lm_kernels(rng, device) -> dict:
           "tolerance_of_max_plain": {"f32": ATTN_TOL, "bf16": ATTN_BF16_TOL},
           "flash_routes": flash_routes,
           "bitwise_block_eq_one_token_launches": bitwise,
+          "bitwise_flash_f32_reruns_and_head_subsets": flash_bits,
           "bitwise_dv_tiles_and_reruns": tiles})
     return errs, tols, rels, flash_routes
 
@@ -2127,6 +2161,75 @@ def rff_prefill_profile(layers: int, names: dict) -> bool:
             and not any("tril" in key for key in names))
 
 
+# The f32 flash route beside qwen2-0.5b's prefill: deepseek-v2-lite's MLA
+# head at B = 4 (16 heads of (192, 128)) and the launcher's reduced qwen2
+# (launch.train's --batch 8 --seq 64: 4 heads of 16).
+FLASH_F32_MLA = (LM_B * 16, LM_S, 192, 128)
+FLASH_F32_LAUNCHER = (32, 64, 16, 16)
+FLASH_F32_LAUNCHER_B = 8
+
+
+def sdpa_yardstick(q4, k4, v4) -> dict:
+    """SDPA (``is_causal=True``) on these (B, H, S, d) inputs: its time,
+    the backend torch picks and the kernels it launched (torch.profiler),
+    the yardstick's own record."""
+    import torch.nn.functional as F
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    prof = device_busy(sdpa, top=3)
+    return {"library_ms": time_ms(sdpa), "library_backend": sdpa_backend(
+                q4, k4, v4),
+            "library_kernels": [name for name, _, _ in prof["top"]]}
+
+
+def flash_f32_shapes(rng, device) -> dict:
+    """The f32 flash route at FLASH_F32_MLA against its plain version, its
+    bound (2 (dh + dv) + 3 operations a kept pair at the f32 rate; q, k, v
+    and the output once) and SDPA; at FLASH_F32_LAUNCHER against the same
+    bound and SDPA, each by its call's time and its device time per call
+    over DECODE_CALLS calls (torch.profiler: the calls are host-bound)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    bh, slen, dh, dv = FLASH_F32_MLA
+    q, k = (f32_tensor(rng, bh, slen, dh, device=device) for _ in range(2))
+    v = f32_tensor(rng, bh, slen, dv, device=device)
+    pairs = bh * slen * (slen + 1) // 2
+    mla = timed_case(lambda m: ops.flash_attention(q, k, v, mode=m),
+                     4 * bh * slen * (2 * dh + 2 * dv),
+                     pairs * (2 * dh + 2 * dv + 3), plain_reps=5)
+    mla.update(sdpa_yardstick(*(x.view(LM_B, bh // LM_B, slen, x.shape[-1])
+                                for x in (q, k, v))),
+               shape=list(FLASH_F32_MLA))
+    del q, k, v
+    bh, slen, dh, dv = FLASH_F32_LAUNCHER
+    q, k, v = (f32_tensor(rng, bh, slen, w, device=device)
+               for w in (dh, dh, dv))
+    q4, k4, v4 = (x.view(FLASH_F32_LAUNCHER_B, bh // FLASH_F32_LAUNCHER_B,
+                         slen, x.shape[-1]) for x in (q, k, v))
+
+    def call():
+        return ops.flash_attention(q, k, v, mode="cuda")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    kern = device_busy(lambda: [call() for _ in range(DECODE_CALLS)])
+    lib = device_busy(lambda: [sdpa() for _ in range(DECODE_CALLS)])
+    pairs = bh * slen * (slen + 1) // 2
+    bound, bound_by = bound_ms(4 * bh * slen * (2 * dh + 2 * dv),
+                               pairs * (2 * dh + 2 * dv + 3))
+    return {"mla": mla, "launcher": {
+        "ms": time_ms(call), "device_ms": kern["device_ms"] / DECODE_CALLS,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": time_ms(sdpa),
+        "library_device_ms": lib["device_ms"] / DECODE_CALLS,
+        "library_backend": sdpa_backend(q4, k4, v4),
+        "shape": list(FLASH_F32_LAUNCHER)}}
+
+
 def phase_lm_times(rng, device) -> dict:
     """Kernels 9-11 at the LM path's shapes: the kernel, its plain version,
     its bound and (flash) SDPA; prefill and decode tokens per second for
@@ -2142,7 +2245,8 @@ def phase_lm_times(rng, device) -> dict:
     bytes: phi_q, phi_k, v in and the output. Flash: 4 dh per kept
     (query, key) pair (Q K^T and P V) and 3 more (subtract, exp, add), at
     the bf16 tensor-core rate for bf16 inputs; bytes: q, k, v and the
-    output.
+    output. The f32 route also at deepseek's MLA head and the launcher's
+    shape (:func:`flash_f32_shapes`), SDPA's backend and kernels named.
     """
     import torch.nn.functional as F
 
@@ -2204,18 +2308,24 @@ def phase_lm_times(rng, device) -> dict:
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
     out["flash_attention"] = case
     # The f32 route (CUDA cores, IEEE f32) on the same shape, its bound at
-    # the f32 rate, and SDPA on f32 inputs.
+    # the f32 rate, and SDPA on f32 inputs (its backend and kernels named);
+    # then deepseek's MLA head and the launcher's shape on this route.
     q, k, v = (x.float() for x in (q, k, v))
     f32 = timed_case(lambda m: ops.flash_attention(q, k, v, mode=m),
                      4 * 4 * bh * slen * dh, pairs * (4 * dh + 3), plain_reps=5)
     q4, k4, v4 = (x.view(LM_B, bh // LM_B, slen, dh) for x in (q, k, v))
-    f32["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True))
+    t_f32 = time.perf_counter()
+    f32.update(sdpa_yardstick(q4, k4, v4))
+    del q, k, v, q4, k4, v4
+    f32.update(flash_f32_shapes(rng, device))
+    # The f32 yardstick's profile and the MLA and launcher shapes, timed
+    # apart (the phase's share of the run's time limit).
+    f32_extra_s = time.perf_counter() - t_f32
     case["routes"] = {"tensor_core": {k_: case[k_] for k_ in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}, "cuda_core": {
         k_: f32[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")}}
-    del q, k, v, q4, k4, v4
+                               "library_ms", "library_backend",
+                               "library_kernels", "mla", "launcher")}}
 
     def wall_ms(fn, reps=3) -> float:
         fn()
@@ -2291,9 +2401,13 @@ def phase_lm_times(rng, device) -> dict:
     emit({"phase": "lm_times", "arch": LM_ARCH, "B": LM_B,
           "kernels": out, "end_to_end": e2e, "decode_state_bytes": state_bytes,
           "shapes": {"decode": DECODE_SHAPES[0], "linear": LINEAR_SHAPES[0],
-                     "flash_bf16": FLASH_SHAPES[0]},
+                     "flash_bf16": FLASH_SHAPES[0],
+                     "flash_f32": FLASH_SHAPES[0],
+                     "flash_f32_mla": FLASH_F32_MLA,
+                     "flash_f32_launcher": FLASH_F32_LAUNCHER},
           "library_ms": "flash: F.scaled_dot_product_attention(is_causal=True) "
-                        "on (B, H, S, dh) bf16; none for kernels 9-10"})
+                        "on (B, H, S, dh) bf16 and f32; none for kernels 9-10",
+          "flash_f32_extra_seconds": f32_extra_s})
     return out
 
 

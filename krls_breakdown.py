@@ -10,7 +10,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100 and
 SRC`` only times the replay ops (``ops.rff_features`` and
 ``ops.rff_krls_chunk_elements`` at the shapes below) of the ``repro_torch``
 package under ``SRC`` (for example an unpacked parent commit's ``src``),
-so that two trees can be compared in one call.
+so that two trees can be compared in one call; ``--flash SRC`` likewise
+times only ``ops.flash_attention`` on f32 inputs (the CUDA-core route) at
+``FLASH_F32_SHAPES`` (qwen2-0.5b's prefill, deepseek's MLA head, the
+launcher's reduced qwen2) for inputs from seeds 0-2.
+``python3 krls_breakdown.py --flash-variants`` times the f32 flash kernel
+(``csrc/flash_attention.cu``) through its C entry at every thread tile
+it takes at those shapes and llama3-8b's head, then its
+``FLASH_VARIANTS`` (without ``expf``, without Q K^T, without P V, other
+unrolls) at the tile ``flash_plan`` picks, and the same call through the
+wrapper and the op (the host's share).
 
 It compiles timing-only variants of ``src/repro_torch/csrc/krls_bank.cu``
 into ``build/repro_torch/breakdown/``, each with one part of the resident
@@ -661,6 +670,129 @@ def ops_times(dev) -> dict:
     return out
 
 
+# The f32 flash route (csrc/flash_attention.cu), causal, at chip_smoke's
+# shapes (BH, S, dh, dv): qwen2-0.5b's prefill at B = 4, deepseek's MLA
+# head at B = 4, the launcher's reduced qwen2 (batch 8, 4 heads of 16 at
+# S = 64); llama3-8b's head width for the tiles alone.
+FLASH_F32_SHAPES = {"qwen2": (56, 2048, 64, 64), "mla": (64, 2048, 192, 128),
+                    "launcher": (32, 64, 16, 16),
+                    "llama3": (32, 1024, 128, 128)}
+FLASH_SEEDS = (0, 1, 2)
+FLASH_QK = "    for (int d = 0; d < dh; d += 4) {"
+FLASH_PV = "    for (int s0 = 0; s0 < kKeys; s0 += 4) {"
+FLASH_VARIANTS = {  # name: [(text, replacement, times)]
+    "full": [],
+    "no_exp": [("const float p = expf(__fsub_rn(s[i][j], m_new));",
+                "const float p = __fsub_rn(s[i][j], m_new);", 1)],
+    "no_qk": [(FLASH_QK, FLASH_QK.replace("d < dh", "d < 0"), 1)],
+    "no_pv": [(FLASH_PV, FLASH_PV.replace("s0 < kKeys", "s0 < 0"), 1)],
+    "qk_unroll_2": [(f"#pragma unroll(TM == 8 ? 1 : 2)\n{FLASH_QK}",
+                     f"#pragma unroll 2\n{FLASH_QK}", 1)],
+    "qk_unroll_4": [(f"#pragma unroll(TM == 8 ? 1 : 2)\n{FLASH_QK}",
+                     f"#pragma unroll 4\n{FLASH_QK}", 1)],
+    "pv_unroll_1": [(f"#pragma unroll 2\n{FLASH_PV}",
+                     f"#pragma unroll 1\n{FLASH_PV}", 1)],
+    "pv_unroll_4": [(f"#pragma unroll 2\n{FLASH_PV}",
+                     f"#pragma unroll 4\n{FLASH_PV}", 1)],
+    "skip_unit_corr": [(
+        "      for (int c = 0; c < TD4; ++c) {\n"
+        "        acc[i][c].x = __fmul_rn(acc[i][c].x, corr);",
+        "      for (int c = 0; c < TD4; ++c) {\n"
+        "        if (corr == 1.f) break;\n"
+        "        acc[i][c].x = __fmul_rn(acc[i][c].x, corr);", 1)],
+}
+
+
+def flash_inputs(rng, shape, dev):
+    bh, slen, dh, dv = shape
+    return (f32_tensor(rng, bh, slen, dh, device=dev),
+            f32_tensor(rng, bh, slen, dh, device=dev),
+            f32_tensor(rng, bh, slen, dv, device=dev))
+
+
+def flash_times(dev) -> dict:
+    """``ops.flash_attention`` on f32 inputs (the CUDA-core route, causal)
+    of the imported package, whichever tree is on the path, at each
+    FLASH_F32_SHAPES entry but llama3's, inputs from each of FLASH_SEEDS:
+    a median of 20 calls each (CUDA events around the call, its Python
+    wrapper included) and, at the launcher's shape, whose call is
+    host-bound, the kernel's device time per call over DECODE_CALLS calls
+    (torch.profiler)."""
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name, shape in FLASH_F32_SHAPES.items():
+        if name == "llama3":
+            continue
+        out[name] = []
+        for seed in FLASH_SEEDS:
+            q, k, v = flash_inputs(np.random.default_rng(seed), shape, dev)
+            out[name].append(time_ms(
+                lambda: ops.flash_attention(q, k, v, mode="cuda")))
+            if name == "launcher":
+                prof = device_busy(lambda: [
+                    ops.flash_attention(q, k, v, mode="cuda")
+                    for _ in range(DECODE_CALLS)])
+                out.setdefault("launcher_device", []).append(
+                    prof["device_ms"] / DECODE_CALLS)
+            del q, k, v
+    return out
+
+
+def flash_breakdown(build, dev) -> dict:
+    """The f32 flash kernel's tiles and FLASH_VARIANTS through its C entry
+    (seed 0 inputs, causal): at every FLASH_F32_SHAPES entry, the source
+    as it is at every (query rows, rows a thread) the kernel takes there,
+    then each variant at the tile flash_plan picks, and the source
+    again at that tile."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import SMEM_BUDGET
+    from repro_torch.kernels.flash_attention import (CUDA_CORE_KEYS,
+                                                     CUDA_CORE_TILES,
+                                                     _smem_bytes,
+                                                     flash_attention_cuda,
+                                                     flash_plan)
+
+    libs = build_tiles(build, build.CSRC, build.BUILD_DIR / "breakdown",
+                       {f"flash_{name}": ("flash_attention", edits)
+                        for name, edits in FLASH_VARIANTS.items()})
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms, picked = {}, {}
+    for label, shape in FLASH_F32_SHAPES.items():
+        bh, slen, dh, dv = shape
+        q, k, v = flash_inputs(np.random.default_rng(0), shape, dev)
+        out = torch.empty_like(v)
+        plan = flash_plan(q, k, v)
+        picked[label] = (plan.query_tile, plan.thread_rows)
+
+        def run(name, tile):
+            fn = libs[f"flash_{name}"].flash_attention
+            fn.argtypes = [P] * 4 + [I] * 5 + [F, I, I, P]
+            if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  bh, slen, dh, dv, 1, dh ** -0.5, *tile, stream):
+                raise SystemExit(f"flash {name} {tile}: launch failed")
+
+        tiles = [tile for tile, cap in CUDA_CORE_TILES.items()
+                 if dv <= cap and _smem_bytes("cuda_core", dh, dv,
+                                              CUDA_CORE_KEYS, tile[0])
+                 <= SMEM_BUDGET]
+        runs = ([("full", t) for t in tiles]
+                + [(n, picked[label]) for n in FLASH_VARIANTS if n != "full"]
+                + [("full", picked[label])])
+        for name, tile in runs:
+            key = f"{label}/{name}/{'x'.join(map(str, tile))}"
+            ms.setdefault(key, []).append(time_ms(lambda: run(name, tile), 10))
+        # The same tile through the wrapper and through the op: the
+        # host's share of a call.
+        ms[f"{label}/wrapper"] = [time_ms(lambda: flash_attention_cuda(
+            q, k, v)) for _ in range(2)]
+        ms[f"{label}/op"] = [time_ms(lambda: ops.flash_attention(
+            q, k, v, mode="cuda")) for _ in range(2)]
+        del q, k, v, out
+    return {"shapes": FLASH_F32_SHAPES, "picked": picked, "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
@@ -669,6 +801,19 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash":
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        print(smi)
+        print(json.dumps({"flash_times": flash_times(dev),
+                          "src": sys.argv[2]}))
+        return 0
+    if sys.argv[1:] == ["--flash-variants"]:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.kernels import _build
+
+        print(smi)
+        print(json.dumps({"flash": flash_breakdown(_build, dev)}))
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ops":
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
         print(smi)

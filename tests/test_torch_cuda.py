@@ -1137,6 +1137,125 @@ def test_flash_routes_count_their_launches(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,slen,dh,dv", [
+    (2, 127, 64, 64), (2, 128, 64, 64), (2, 129, 64, 64),  # a 128-row tile
+    (1, 2049, 64, 64),   # one row past the last full tile
+    (32, 64, 16, 16),    # the launcher's reduced qwen2: one 64-row tile
+    (2, 70, 6, 10),      # widths padded to 4
+])
+def test_flash_f32_tile_edges(cuda_device, causal, bh, slen, dh, dv):
+    """The f32 route at the edges of its query and key tiles, at F32_TOL
+    of max|plain|."""
+    rng = np.random.default_rng(slen + dh)
+    q, k = (convert.tensor(rng.normal(size=(bh, slen, dh)),
+                           device=cuda_device, dtype=torch.float32)
+            for _ in range(2))
+    v = convert.tensor(rng.normal(size=(bh, slen, dv)), device=cuda_device,
+                       dtype=torch.float32)
+    got = ops.flash_attention(q, k, v, mode="cuda", causal=causal)
+    want = ops.flash_attention(q, k, v, mode="ref", causal=causal)
+    assert got.shape == (bh, slen, dv)
+    _hold_rel(got, want, F32_TOL, f"flash f32 {bh, slen, dh, dv} "
+              f"causal={causal}")
+
+
+def _flash_f32_at_tile(q, k, v, causal, tile):
+    """The f32 flash kernel's C entry at a (query rows, rows a thread)
+    tile, widths multiples of 4: its return code and its output."""
+    from repro_torch.kernels.flash_attention import _lib
+
+    bh, slen, dh = q.shape
+    out = torch.empty_like(v)
+    code = _lib("cuda_core").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, slen,
+        dh, v.shape[-1], int(causal), dh ** -0.5, *tile,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return code, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,slen,dh,dv", [(6, 300, 64, 64),
+                                          (4, 200, 192, 128),
+                                          (3, 130, 256, 256)])
+def test_flash_f32_bitwise_contracts(cuda_device, causal, bh, slen, dh, dv):
+    """The f32 route's bits: two calls agree; a head's output does not
+    depend on BH (a call on a subset of heads equals those heads of the
+    full call); nor on the query tile (every tile that fits gives the same
+    bits: each score sums over d in order, each output over keys in order,
+    and the key tile's lanes do not change)."""
+    from repro_torch.kernels.flash_attention import (
+        CUDA_CORE_KEYS,
+        CUDA_CORE_TILES,
+        _smem_bytes,
+        flash_attention_cuda,
+        flash_plan,
+    )
+    from repro_torch.kernels.chunking import SMEM_BUDGET
+
+    rng = np.random.default_rng(bh + dh)
+    q, k = (convert.tensor(rng.normal(size=(bh, slen, dh)),
+                           device=cuda_device, dtype=torch.float32)
+            for _ in range(2))
+    v = convert.tensor(rng.normal(size=(bh, slen, dv)), device=cuda_device,
+                       dtype=torch.float32)
+    full = flash_attention_cuda(q, k, v, causal=causal)
+    assert torch.equal(full, flash_attention_cuda(q, k, v, causal=causal))
+    heads = [bh - 1, 0] if bh > 1 else [0]
+    sub = flash_attention_cuda(*(t[heads].contiguous() for t in (q, k, v)),
+                               causal=causal)
+    assert torch.equal(sub, full[heads])
+    plan = flash_plan(q, k, v)
+    tiles = [tile for tile, cap in CUDA_CORE_TILES.items()
+             if dv <= cap and _smem_bytes("cuda_core", plan.width,
+                                          plan.v_width, CUDA_CORE_KEYS,
+                                          tile[0]) <= SMEM_BUDGET]
+    assert (plan.query_tile, plan.thread_rows) in tiles
+    assert len(tiles) >= (1 if dv > 128 else 2)
+    for tile in tiles:
+        code, out = _flash_f32_at_tile(q, k, v, causal, tile)
+        assert code == 0 and torch.equal(full, out), tile
+
+
+@pytest.mark.cuda
+def test_flash_f32_smem_matches_c_layout_and_refusals(cuda_device,
+                                                      monkeypatch):
+    """_smem_bytes mirrors the CUDA-core kernel's own layout byte for byte
+    at every tile; a tile the kernel cannot take raises through the
+    wrapper, with no launch counted and no fallback, and its C entry
+    returns an error for a tile over the budget or of no such shape."""
+    from repro_torch.kernels.flash_attention import (
+        CUDA_CORE_KEYS,
+        _smem_bytes,
+        cuda_core_smem_bytes,
+        flash_attention_cuda,
+    )
+
+    # The module (the package's attribute flash_attention is the op).
+    module = sys.modules["repro_torch.kernels.flash_attention"]
+    for width, v_width in ((64, 64), (192, 128), (256, 256), (16, 16),
+                           (20, 24), (96, 64)):
+        for rows in (64, 128, 256):
+            assert cuda_core_smem_bytes(rows, width, v_width) == \
+                _smem_bytes("cuda_core", width, v_width, CUDA_CORE_KEYS, rows)
+    x = torch.randn(2, 300, 128, device=cuda_device)
+    n = flash_attention_cuda.launches
+    with monkeypatch.context() as m:
+        m.setattr(module, "_cuda_core_tile", lambda *_: (128, 8))
+        with pytest.raises(RuntimeError, match="cudaError"):
+            flash_attention_cuda(x, x, x)  # dv 128 > the tile's 64
+    assert flash_attention_cuda.launches == n
+    assert _flash_f32_at_tile(x, x, x, True, (256, 8))[0] != 0  # no such
+    wide = torch.randn(2, 300, 256, device=cuda_device)
+    assert _flash_f32_at_tile(wide, wide, x, True, (128, 4))[0] != 0  # budget
+    # The refusals leave no error behind: the route still runs.
+    _hold_rel(flash_attention_cuda(x, x, x),
+              ops.flash_attention(x, x, x, mode="ref"), F32_TOL,
+              "flash f32 after the refusals")
+
+
+@pytest.mark.cuda
 def test_attention_kernels_smem_and_refusals(cuda_device):
     from repro_torch.kernels import chunking
     from repro_torch.kernels.rff_attention import smem_bytes

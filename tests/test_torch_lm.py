@@ -737,18 +737,39 @@ def test_model_init_helpers_default_to_cuda(helper):
 def test_flash_route_rule(dtype, dh, route, source, entry, width):
     """bf16 goes to the tensor-core kernel, its head padded to a multiple
     of 8 columns (TMA's 16-byte rows); f32 to the CUDA-core kernel as it
-    is."""
+    is. The tensor-core kernel always runs 128 query rows; the CUDA-core
+    kernel 64 rows at a short S (one 64-key tile: 128 rows would be half
+    padding) and 128 at a long one: 8 rows a thread up to dv = 64 where
+    two blocks fit an SM, else 4 rows a thread."""
     from repro_torch.kernels.flash_attention import flash_plan
 
     x = torch.zeros(2, 5, dh, dtype=dtype)
     assert flash_plan(x, x, x)[:4] == (route, source, entry, width)
+    tiles = []
+    for slen in (5, 64, 65, 2048):
+        y = torch.zeros(1, slen, dh, dtype=dtype)
+        plan = flash_plan(y, y, y)
+        tiles.append((plan.query_tile, plan.thread_rows))
+        assert plan.smem_bytes <= chunking.SMEM_BUDGET
+    assert tiles == (F32_TILES[dh] if route == "cuda_core"
+                     else [(128, 0)] * 4)
+
+
+# (query rows, rows a thread) of the CUDA-core kernel at S = 5, 64, 65 and
+# 2048.
+F32_TILES = {20: [(64, 2)] * 2 + [(128, 8)] * 2,
+             128: [(64, 2)] * 2 + [(128, 4)] * 2}
 
 
 @pytest.mark.parametrize("dh,dv", CONFIG_HEADS)
 def test_flash_plan_takes_config_heads(dh, dv):
     """Both routes take the config heads: q/k and v padded apart, the bf16
     ring in 64-key tiles above a padded dh of 192 and one launch for each
-    128 columns of V, every block within the shared-memory budget."""
+    128 columns of V, every block within the shared-memory budget. The f32
+    route runs 64-key tiles, and its query tile follows (dh, dv, S): 64
+    rows at a short S, 128 at a long one where dv <= 128 (4 rows a thread
+    for these heads: minicpm3's (96, 64) does not fit two blocks an SM at
+    8 rows a thread)."""
     from repro_torch.kernels.flash_attention import flash_plan
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -758,12 +779,101 @@ def test_flash_plan_takes_config_heads(dh, dv):
         assert plan.smem_bytes <= chunking.SMEM_BUDGET
         assert sum(cols for _, cols in plan.passes) == dv
         if dtype == torch.float32:
+            long_q = torch.zeros(1, 2048, dh, dtype=dtype)
+            long_plan = flash_plan(long_q, long_q,
+                                   torch.zeros(1, 2048, dv, dtype=dtype))
             assert plan.passes == ((0, dv),) and plan.key_tile == 64
+            assert long_plan.key_tile == 64
+            assert tuple((p.query_tile, p.thread_rows)
+                         for p in (plan, long_plan)) == \
+                CONFIG_HEAD_TILES[dh, dv]
+            assert long_plan.smem_bytes <= chunking.SMEM_BUDGET
         else:
             assert plan.key_tile == (64 if dh > 192 else 128)
             assert all(cols <= 128 for _, cols in plan.passes)
     bf = flash_plan(*(torch.zeros(1, 3, 256, dtype=torch.bfloat16),) * 3)
     assert bf.passes == ((0, 128), (128, 128))
+
+
+# The f32 route's (query rows, rows a thread) at S = 5 and S = 2048 for
+# each CONFIG_HEADS entry.
+CONFIG_HEAD_TILES = {(192, 128): ((64, 2), (128, 4)),
+                     (96, 64): ((64, 2), (128, 4)),
+                     (256, 256): ((64, 2), (64, 2))}
+
+
+def _config_heads():
+    """(dh, dv) of every attention head in the configs, as published and
+    reduced."""
+    heads = set()
+    for arch in ARCH_IDS:
+        for cfg in (get_config(arch), get_config(arch).reduced()):
+            if cfg.mla is not None:
+                m = cfg.mla
+                heads.add((m.qk_nope_head_dim + m.qk_rope_head_dim,
+                           m.v_head_dim))
+            else:
+                heads.add((cfg.resolved_head_dim,) * 2)
+    return sorted(heads)
+
+
+def test_flash_cuda_core_tiles_fit_the_budget():
+    """Every tile the f32 route can pick, at every config head and at a
+    sweep of widths and lengths, fits chunking.SMEM_BUDGET, and the plan's
+    shared memory is _smem_bytes of its tile."""
+    from repro_torch.kernels.flash_attention import (
+        CUDA_CORE_KEYS,
+        CUDA_CORE_TILES,
+        SM_SHARED,
+        _cuda_core_tile,
+        _smem_bytes,
+        flash_plan,
+    )
+
+    heads = _config_heads()
+    assert (64, 64) in heads and (192, 128) in heads and (16, 16) in heads
+    picked = set()
+    for dh, dv in heads:
+        for slen in (1, 63, 64, 65, 128, 2048):
+            q = torch.zeros(1, slen, dh)
+            plan = flash_plan(q, q, torch.zeros(1, slen, dv))
+            tile = (plan.query_tile, plan.thread_rows)
+            assert plan.smem_bytes == _smem_bytes(
+                "cuda_core", plan.width, plan.v_width, CUDA_CORE_KEYS,
+                plan.query_tile)
+            assert plan.smem_bytes <= chunking.SMEM_BUDGET
+            assert dv <= CUDA_CORE_TILES[tile]
+            picked.add(tile)
+    assert picked == {(64, 2), (128, 4), (128, 8)}
+    for width in range(4, 257, 4):
+        for v_width in range(4, 257, 4):
+            for slen in (64, 65):
+                rows, thread_rows = _cuda_core_tile(width, v_width, slen)
+                assert v_width <= CUDA_CORE_TILES[rows, thread_rows]
+                smem = _smem_bytes("cuda_core", width, v_width,
+                                   CUDA_CORE_KEYS, rows)
+                two_blocks = 2 * (smem + 1024) <= SM_SHARED
+                assert (thread_rows == 8) == (rows == 128 and v_width <= 64
+                                              and two_blocks)
+                assert (rows == 128) == (slen > 64 and v_width <= 128
+                                         and _smem_bytes(
+                                             "cuda_core", width, v_width,
+                                             CUDA_CORE_KEYS, 128)
+                                         <= chunking.SMEM_BUDGET)
+                assert smem <= chunking.SMEM_BUDGET
+
+
+def test_flash_cuda_core_pads_to_four():
+    """The f32 route pads q/k and v heads to multiples of 4 (the kernel's
+    16-byte copies) and says the padded widths; its row stride keeps the
+    width where width / 4 is odd and adds 4 where it is even."""
+    from repro_torch.kernels.flash_attention import _qk_ld, flash_plan
+
+    q = torch.zeros(2, 70, 6)
+    plan = flash_plan(q, q, torch.zeros(2, 70, 10))
+    assert (plan.width, plan.v_width, plan.passes) == (8, 12, ((0, 12),))
+    assert [_qk_ld(w) for w in (4, 8, 16, 20, 64, 96, 192, 256)] == \
+        [4, 12, 20, 20, 68, 100, 196, 260]
 
 
 def test_flash_route_refusals():
