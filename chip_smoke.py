@@ -19,20 +19,26 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    ``mode="ref"`` on the card, and each kernel's launch count must rise;
 4. holds both KRLS kernels (chunk, step) against their plain versions at
    the serving shape (B=1024, d=5, D=300, T=16) and at ragged ones (D up
-   to 1024, and a P that is not symmetric), each on both of its routes
-   (P's triangle resident in shared memory up to D = 335 at d = 5, where
-   a step is the resident chunk kernel at T = 1; P streamed each tick at
-   D = 400 and 1024), with the bitwise contracts on each route (a chunk of
-   T equals T steps, T = 1 a step, the streaming step the routed step, P'
-   exactly symmetric, masked ticks a no-op);
+   to 1031, and a P that is not symmetric), each on every route (P's
+   triangle resident in shared memory up to D = 335 at d = 5, where a step
+   is the resident chunk kernel at T = 1; the compact route beyond, at D =
+   400, 1024 and 1031, also against its own plain version; P streamed each
+   tick, forced at D = 400), with the contracts of each route (T = 1 a
+   step, P' exactly symmetric, masked ticks a no-op, bit for bit; a chunk
+   of T equals T steps bit for bit on the resident and streaming routes,
+   where the streaming step equals the routed step, and within F32_TOL and
+   P_TOL on the compact route, where two calls, a tenant alone and calls
+   of Tc ticks in order agree bit for bit);
 5. drives the KRLS main path: ``make_server("krls")`` at the paper's §6
    settings (d=5, D=300, sigma=5, lam=1e-4, beta=0.9995) with B=1024 and
    chunk=16, its reads and a ``make_tick("krls")`` tier, against the same
    server with ``mode="ref"`` and within the f32 error budget that a
    float64 run of the same stream measures;
 6. times each kernel, its plain version and its bound at the serving
-   shapes, the KRLS kernels' streaming routes where they are picked (the
-   serving bank at D = 400), and the read kernel on its bf16 route, at
+   shapes, the KRLS kernels' compact routes where they are picked (the
+   serving bank at D = 400) in turns with the streaming route forced on
+   the same inputs, the compact route forced at D = 300 in turns with the
+   resident one (recorded only), and the read kernel on its bf16 route, at
    the KRLS read shape (d = 5, D = 300) and at one tenant (B = 1, the
    policy tier's and the quarantine's reads);
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
@@ -248,12 +254,27 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
     deepseek-v2-lite-16b (each of the four shapes, 16 x 16 fake ranks) on
     the host's CPU while step 22 runs, each cell's per-rank bytes against
     the card's memory and its dominant roofline term (``roofline.HW()``,
-    the H100's rates). The phase's target is 30 s. The last phase line
-    gives the whole run's seconds.
+    the H100's rates). The phase's target is 30 s;
+24. serves KRLS at D = 1024 on the compact route (``krls_wide_server``,
+    last): ``make_server("krls", bank=1024, chunk=16)`` at the paper's
+    section 6 settings (d = 5, sigma = 5, lam = 1e-4, beta = 0.9995) with a
+    random-feature map of D = 1024, the width repro's TPU kernel budgets a
+    tenant's P for (4 GiB the bank), takes step 5's kind of ragged stream
+    over six rounds, flushes and drains, serves (1024, 64) block reads and
+    single-tenant reads through kernel 3 and ticks a ``make_tick("krls")``
+    tier; every flush and tick must take the compact route. It is held
+    against the same server with ``mode="ref"`` and within the float64
+    budget of a float64 run of the first 64 tenants (rows are
+    independent); then the flush's shape is timed on the compact route in
+    turns with the streaming route forced, and its plain version. The
+    phase's target is 60 s. The last phase line gives the whole run's
+    seconds.
 
 The line before the last is ``{"kernels": [...]}`` (flash_attention,
 krls_bank_chunk and krls_bank_step with a record per route under
-"routes", flash_attention with an "mla" record of phase 21's MLA shape
+"routes", the KRLS chunk's compact record with the forced D = 300 and
+the D = 1024 flush's times, flash_attention with an "mla" record of
+phase 21's MLA shape
 and its f32 route with "mla" and "launcher" records of step 14's,
 bank_predict with "bf16", "krls_read" and "one_tenant" records beside
 its f32 serving one, rff_features with a "read_block" record,
@@ -296,12 +317,14 @@ RAGGED = [(7, 5, 300), (1, 1, 17), (33, 128, 129)]  # (B, d, D)
 # benchmarks/paper.py:145) over the same bank, chunk and read block.
 K_D_IN, K_D_FEAT, K_SIGMA, K_LAM, K_BETA = 5, 300, 5.0, 1e-4, 0.9995
 K_RAGGED = [(3, 4, 17, 5), (5, 128, 129, 3), (2, 5, 1024, 4)]  # (B, d, D, T)
-# The chunk kernel's two routes: P resident in shared memory (D <= 335 at
-# d = 5, the serving shape among them) or streamed each tick (wider D, as
-# at D = 400 here and D = 1024 above).
-KRLS_ROUTES = ("resident", "streaming")
-K_STREAMING = [(8, 5, 400, 6)]  # (B, d, D, T)
-K_D_WIDE = 400  # the streaming route's timing width (serving B, T and d)
+# The chunk kernel's routes: P resident in shared memory (D <= 335 at d =
+# 5, the serving shape among them) or the compact route (wider D, as at D =
+# 400 here and D = 1024 above: blocks of Tc ticks, P moved once a block);
+# P streamed each tick only where a call forces it (_route="streaming").
+KRLS_ROUTES = ("resident", "compact", "streaming")
+K_COMPACT = [(8, 5, 400, 6), (3, 5, 1031, 20)]  # (B, d, D, T)
+K_FORCED_STREAMING = (8, 5, 400, 6)  # (B, d, D, T)
+K_D_WIDE = 400  # the compact route's timing width (serving B, T and d)
 # P is compared normwise, as a share of each tenant's max |P|: its entries
 # span 1/lam = 1e4 down to O(1) remainders of cancellation.
 P_TOL = 1e-4
@@ -662,19 +685,26 @@ def krls_inputs(rng, bank, tlen, d, dfeat, device, pmat="spd"):
     return a
 
 
-def krls_contracts(a, route) -> None:
+def krls_contracts(a, route, forced=False) -> None:
     """The bitwise contracts of the chunk route that a's shape picks
-    (``route``, checked on every launch): a chunk of T equals T step
-    launches (the step on the same route) and T = 1 one step, a chain of
-    streaming step launches equals the routed steps at every tick, P' of a
-    symmetric P is exactly symmetric, masked ticks leave theta and P bit for bit in fresh tensors and emit
-    the prior prediction."""
+    (``route``, checked on every launch) or that ``forced`` forces: T = 1
+    equals one step on the same route, P' of a symmetric P is exactly
+    symmetric, masked ticks leave theta and P bit for bit in fresh tensors
+    and emit the prior prediction. A chunk of T equals T step launches bit
+    for bit on the resident and streaming routes, where a chain of
+    streaming step launches also equals the routed steps at every tick; on
+    the compact route within F32_TOL and P_TOL (hold_krls: its blocks
+    reassociate the recursion), and there two calls agree, a tenant alone
+    equals its row of the bank and calls of Tc ticks in order equal one
+    call, bit for bit."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import KRLS_COMPACT_TC
     from repro_torch.kernels.rff_krls_step import (
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
     )
 
+    kw = {"_route": route} if forced else {}
     common = (a["w"], a["b"], a["beta"])
     tlen = a["xs"].shape[1]
     tag = f"krls {route} {tuple(a['pmat'].shape)}"
@@ -682,39 +712,75 @@ def krls_contracts(a, route) -> None:
 
     def chunk_of(*args):
         before = counts[route]
-        out = rff_krls_bank_chunk_cuda(*args)
+        out = rff_krls_bank_chunk_cuda(*args, **kw)
         check(counts[route] == before + 1, f"{tag}: launched another route")
         return out
 
-    chunk = chunk_of(a["theta"], a["pmat"], a["xs"], a["ys"], *common, None,
-                     a["s"])
+    def step_of(*args):
+        if forced:
+            return rff_krls_bank_step_cuda(*args, **kw)
+        return ops.rff_krls_bank_step(*args, mode="cuda")
+
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], *common, None, a["s"])
+    chunk = chunk_of(*args)
     check(torch.equal(chunk[1], chunk[1].transpose(1, 2)),
           f"{tag}: P' of a symmetric P is not exactly symmetric")
+    bitwise = route != "compact"
     theta, pmat = a["theta"], a["pmat"]
     stheta, spmat = theta, pmat
+    preds, errs = [], []
     for t in range(tlen):
         x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
-        theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, x_t, y_t, *common, a["s"], mode="cuda")
-        check(torch.equal(pred, chunk[2][:, t]) and torch.equal(err, chunk[3][:, t]),
-              f"{tag}: chunk of {tlen} vs steps: tick {t} outputs differ")
-        # The step's routes: a chain of the streaming step kernel, which
-        # the wider D take, equals the routed steps bit for bit.
-        streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t, *common,
-                                           a["s"], _route="streaming")
-        check(all(torch.equal(u, v) for u, v in
-                  zip(streamed, (theta, pmat, pred, err))),
-              f"{tag}: the streaming step vs the routed step: tick {t} differs")
-        stheta, spmat = streamed[0], streamed[1]
-        del streamed
+        theta, pmat, pred, err = step_of(theta, pmat, x_t, y_t, *common,
+                                         a["s"])
+        preds.append(pred)
+        errs.append(err)
+        if bitwise:
+            check(torch.equal(pred, chunk[2][:, t])
+                  and torch.equal(err, chunk[3][:, t]),
+                  f"{tag}: chunk of {tlen} vs steps: tick {t} outputs differ")
+            # A chain of the streaming step kernel equals the routed steps.
+            streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t,
+                                               *common, a["s"],
+                                               _route="streaming")
+            check(all(torch.equal(u, v) for u, v in
+                      zip(streamed, (theta, pmat, pred, err))),
+                  f"{tag}: the streaming step vs the routed step: tick {t} "
+                  "differs")
+            stheta, spmat = streamed[0], streamed[1]
+            del streamed
         if t == 0:
             one = chunk_of(a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
                            a["ys"][:, :1].contiguous(), *common, None, a["s"])
             check(all(torch.equal(u, v) for u, v in
                       zip(one, (theta, pmat, pred[:, None], err[:, None]))),
                   f"{tag}: chunk at T=1 vs step differ")
-    check(torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1]),
-          f"{tag}: chunk of {tlen} vs steps: theta or P differs")
+    if bitwise:
+        check(torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1]),
+              f"{tag}: chunk of {tlen} vs steps: theta or P differs")
+    else:
+        hold_krls(f"{tag}: chunk of {tlen} vs steps", chunk,
+                  (theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1)))
+        again = chunk_of(*args)
+        check(all(torch.equal(u, v) for u, v in zip(again, chunk)),
+              f"{tag}: two calls differ")
+        row = a["theta"].shape[0] - 1
+        alone = chunk_of(*(t[row:row + 1].contiguous() for t in args[:4]),
+                         a["w"], a["b"], a["beta"][row:row + 1].contiguous(),
+                         None, a["s"])
+        check(all(torch.equal(u[0], v[row]) for u, v in zip(alone, chunk)),
+              f"{tag}: a tenant alone differs from its row of the bank")
+        stheta, spmat, parts = a["theta"], a["pmat"], []
+        for t0 in range(0, tlen, KRLS_COMPACT_TC):
+            t1 = min(tlen, t0 + KRLS_COMPACT_TC)
+            stheta, spmat, p, e = chunk_of(
+                stheta, spmat, a["xs"][:, t0:t1].contiguous(),
+                a["ys"][:, t0:t1].contiguous(), *common, None, a["s"])
+            parts.append((p, e))
+        check(torch.equal(stheta, chunk[0]) and torch.equal(spmat, chunk[1])
+              and torch.equal(torch.cat([p for p, _ in parts], 1), chunk[2]),
+              f"{tag}: calls of Tc ticks in order differ from one call")
+        del again, alone, parts
     del chunk, theta, pmat, one, stheta, spmat
     masked = chunk_of(a["theta"], a["pmat"], a["xs"], a["ys"], *common,
                       torch.zeros_like(a["ys"]), a["s"])
@@ -730,13 +796,19 @@ def krls_contracts(a, route) -> None:
 
 
 def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
-    """Both KRLS kernels against their plain versions, each on both of its
-    routes (P resident in shared memory up to D = 335 at d = 5: the chunk
-    kernel, at T = 1 for a step; P streamed beyond: the chunk and step
-    kernels of the streaming design), and the bitwise contracts of both
-    routes."""
+    """Both KRLS kernels against their plain versions, each on every route:
+    P resident in shared memory up to D = 335 at d = 5 (the chunk kernel,
+    at T = 1 for a step); the compact route beyond (blocks of Tc ticks, at
+    T = 1 for a step), held also against its own plain version
+    (krls_chunk_compact_ref); the streaming design forced at D = 400. Then
+    the contracts of each route."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.rff_krls_step import krls_chunk_route
+    from repro_torch.kernels.ref import krls_chunk_compact_ref
+    from repro_torch.kernels.rff_krls_step import (
+        krls_chunk_route,
+        rff_krls_bank_chunk_cuda,
+        rff_krls_bank_step_cuda,
+    )
 
     names = ("krls_bank_chunk", "krls_bank_step")
     errs, shares, rels = (dict.fromkeys(names, 0.0) for _ in range(3))
@@ -745,19 +817,27 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
     cases = [(BANK, K_D_IN, K_D_FEAT, CHUNK, "eye"),
              (BANK, K_D_IN, K_D_FEAT, CHUNK, "spd")]
     cases += [(*shape, "spd") for shape in K_RAGGED] + [(4, 5, 70, 6, "asym")]
-    cases += [(*shape, kind) for shape in K_STREAMING for kind in ("spd", "asym")]
-    for bank, d, dfeat, tlen, kind in cases:
+    cases += [(*shape, kind) for shape in K_COMPACT for kind in ("spd", "asym")]
+    cases += [(*K_FORCED_STREAMING, kind, "streaming") for kind in ("spd", "asym")]
+    vs_compact_ref = {"max_abs_err": 0.0, "p_rel_err": 0.0}
+    for bank, d, dfeat, tlen, kind, *forced in cases:
         a = krls_inputs(rng, bank, tlen, d, dfeat, device, kind)
         args = (a["theta"], a["pmat"], a["xs"], a["ys"], a["w"], a["b"],
                 a["beta"], a["mask"], a["s"])
         sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
                  a["ys"][:, 0].contiguous(), a["w"], a["b"], a["beta"], a["s"])
-        route = krls_chunk_route(dfeat, d)
-        for name, op, xargs in (("krls_bank_chunk", ops.rff_krls_bank_chunk, args),
-                                ("krls_bank_step", ops.rff_krls_bank_step, sargs)):
-            e, f, r = hold_krls(f"{name} {bank, d, dfeat, tlen} P={kind}",
-                                op(*xargs, mode="cuda"),
-                                op(*xargs, mode="ref"))
+        route = forced[0] if forced else krls_chunk_route(dfeat, d)
+        if forced:
+            kern = (rff_krls_bank_chunk_cuda(*args, _route=route),
+                    rff_krls_bank_step_cuda(*sargs, _route=route))
+        else:
+            kern = (ops.rff_krls_bank_chunk(*args, mode="cuda"),
+                    ops.rff_krls_bank_step(*sargs, mode="cuda"))
+        plain = (ops.rff_krls_bank_chunk(*args, mode="ref"),
+                 ops.rff_krls_bank_step(*sargs, mode="ref"))
+        for name, got, want in zip(names, kern, plain):
+            e, f, r = hold_krls(f"{name} {bank, d, dfeat, tlen} P={kind} "
+                                f"{route}", got, want)
             errs[name] = max(errs[name], e)
             shares[name] = max(shares[name], f)
             rels[name] = max(rels[name], r)
@@ -765,24 +845,36 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
             rec["max_abs_err"] = max(rec["max_abs_err"], e)
             rec["p_rel_err"] = max(rec["p_rel_err"], r)
             rec["cases"].append([bank, d, dfeat, tlen, kind])
-        del a, args, sargs
+        if route == "compact":
+            e, _, r = hold_krls(f"krls_bank_chunk {bank, d, dfeat, tlen} "
+                                f"P={kind} vs its compact plain version",
+                                kern[0], krls_chunk_compact_ref(*args))
+            vs_compact_ref["max_abs_err"] = max(vs_compact_ref["max_abs_err"], e)
+            vs_compact_ref["p_rel_err"] = max(vs_compact_ref["p_rel_err"], r)
+        del a, args, sargs, kern, plain
 
     krls_contracts(krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device,
                                "spd"), "resident")
-    for bank, d, dfeat, tlen in K_STREAMING:
+    for bank, d, dfeat, tlen in K_COMPACT:
         krls_contracts(krls_inputs(rng, bank, tlen, d, dfeat, device, "spd"),
-                       "streaming")
+                       "compact")
+    bank, d, dfeat, tlen = K_FORCED_STREAMING
+    krls_contracts(krls_inputs(rng, bank, tlen, d, dfeat, device, "spd"),
+                   "streaming", forced=True)
     torch.cuda.synchronize()
     emit({"phase": "krls_kernels_vs_plain",
           "cases": [list(c) for c in cases], "max_abs_err": errs,
           "max_share_of_tolerance": shares, "p_rel_err": rels,
-          "routes": by_route,
+          "routes": by_route, "compact_vs_its_plain_version": vs_compact_ref,
           "tolerance": {"theta_pred_err": F32_TOL, "p_of_max_abs_p": P_TOL},
-          "bitwise_on_each_route": {"chunk_eq_steps": True,
-                                    "chunk1_eq_step": True,
-                                    "streaming_step_eq_routed_step": True,
+          "bitwise_on_each_route": {"chunk1_eq_step": True,
                                     "masked_tick_noop_fresh_outputs": True,
-                                    "p_out_exactly_symmetric": True}})
+                                    "p_out_exactly_symmetric": True},
+          "bitwise_resident_and_streaming": {
+              "chunk_eq_steps": True, "streaming_step_eq_routed_step": True},
+          "compact": {"chunk_vs_steps": "F32_TOL, P_TOL",
+                      "bitwise": ["two_calls", "tenant_alone_eq_its_row",
+                                  "calls_of_tc_eq_one_call"]}})
     return errs, rels, by_route
 
 
@@ -932,6 +1024,15 @@ def timed_case(fn, nbytes, nops, plain_reps: int = 20) -> dict:
                 plain_ms_runs=plain)
 
 
+def turns(run, routes, reps: int = 20) -> dict:
+    """``run(route)`` timed for each of two routes in turns within one call
+    (r0, r1, r1, r0): each route's better median and both readings."""
+    runs = {r: [] for r in routes}
+    for r in (*routes, *routes[::-1]):
+        runs[r].append(time_ms(lambda: run(r), reps))
+    return {r: {"ms": min(v), "ms_runs": v} for r, v in runs.items()}
+
+
 def krls_cost(dfeat: int, rows: int) -> tuple[int, int]:
     """Bytes and operations of ``rows`` live KRLS ticks a tenant over the
     serving bank at width ``dfeat`` (d = K_D_IN): theta and P in and out,
@@ -968,8 +1069,10 @@ def phase_times(rng, device) -> dict:
     for z . pz, the gain and the theta update (every tick of the timed
     chunk is live). Bytes count each input read once and each output
     written once: for KRLS, P in and P' out dominate. Both KRLS kernels
-    are timed on their resident route at D = 300 and their streaming route
-    at D = K_D_WIDE.
+    are timed on their resident route at D = 300 and their compact route
+    at D = K_D_WIDE, where each is picked; the streaming route forced at D =
+    K_D_WIDE in turns with the compact one, and the compact route forced at
+    D = 300 in turns with the resident one, are recorded beside them.
     """
     from repro_torch.kernels import ops
 
@@ -1021,30 +1124,70 @@ def phase_times(rng, device) -> dict:
     out = {name: timed_case(*case) for name, case in cases.items()}
     for name, c in counts.items():
         check(c["resident"] > before[name]["resident"]
+              and c["compact"] == before[name]["compact"]
               and c["streaming"] == before[name]["streaming"],
               f"{name} at D = {K_D_FEAT} was timed off its resident route")
-    # Both KRLS kernels' streaming routes where they are picked: the
-    # serving bank at D = K_D_WIDE, past the resident triangle's shared
-    # memory.
+    # The forced compact route at D = 300 beside the resident route there,
+    # in turns within this call (recorded only: D = 300 stays resident).
+    runs = {"krls_bank_chunk": lambda r: rff_krls_bank_chunk_cuda(
+                k["theta"], k["pmat"], k["xs"], k["ys"], k["w"], k["b"],
+                k["beta"], None, k["s"], _route=r),
+            "krls_bank_step": lambda r: rff_krls_bank_step_cuda(
+                k["theta"], k["pmat"], kx0, ky0, k["w"], k["b"], k["beta"],
+                k["s"], _route=r)}
+    at300 = {name: turns(run, ("resident", "compact"))
+             for name, run in runs.items()}
+    del runs
+    # Both KRLS kernels' compact routes where they are picked: the serving
+    # bank at D = K_D_WIDE, past the resident triangle's shared memory;
+    # then the streaming design forced on the same inputs, in turns with
+    # the compact route.
     kw = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_WIDE, device, "eye")
     kw0, kwy0 = kw["xs"][:, 0].contiguous(), kw["ys"][:, 0].contiguous()
+    before = {name: dict(c) for name, c in counts.items()}
     wide = {"krls_bank_chunk": timed_case(*krls_chunk_case(kw), plain_reps=5),
             "krls_bank_step": timed_case(
                 lambda m: ops.rff_krls_bank_step(
                     kw["theta"], kw["pmat"], kw0, kwy0, kw["w"], kw["b"],
                     kw["beta"], kw["s"], mode=m),
                 *krls_cost(K_D_WIDE, 1), plain_reps=5)}
-    del kw, kw0, kwy0
-    keys = ("ms", "ms_runs", "plain_ms", "bound_ms", "bound_by")
     for name, c in counts.items():
-        check(c["streaming"] > before[name]["streaming"],
-              f"{name} at D = {K_D_WIDE} was timed off its streaming route")
+        check(c["compact"] > before[name]["compact"]
+              and c["streaming"] == before[name]["streaming"],
+              f"{name} at D = {K_D_WIDE} was timed off its compact route")
+    runs = {"krls_bank_chunk": lambda r: rff_krls_bank_chunk_cuda(
+                kw["theta"], kw["pmat"], kw["xs"], kw["ys"], kw["w"],
+                kw["b"], kw["beta"], None, kw["s"], _route=r),
+            "krls_bank_step": lambda r: rff_krls_bank_step_cuda(
+                kw["theta"], kw["pmat"], kw0, kwy0, kw["w"], kw["b"],
+                kw["beta"], kw["s"], _route=r)}
+    forced = {name: turns(run, ("compact", "streaming"), reps=10)
+              for name, run in runs.items()}
+    del kw, kw0, kwy0, runs
+    keys = ("ms", "ms_runs", "plain_ms", "bound_ms", "bound_by")
+    for name in counts:
         row, tlen = out[name], CHUNK if name == "krls_bank_chunk" else 1
+        streaming, compact300 = forced[name]["streaming"], at300[name]["compact"]
         row["routes"] = {
             "resident": {**{k_: row[k_] for k_ in keys}, "library_ms": None,
                          "shape": [BANK, tlen, K_D_IN, K_D_FEAT]},
-            "streaming": {**{k_: wide[name][k_] for k_ in keys},
-                          "library_ms": None,
+            "compact": {**{k_: wide[name][k_] for k_ in keys},
+                        "library_ms": None,
+                        "shape": [BANK, tlen, K_D_IN, K_D_WIDE],
+                        "turns_with_streaming_ms": forced[name]["compact"],
+                        "forced_at_d300": {
+                            "ms": compact300["ms"],
+                            "ms_runs": compact300["ms_runs"],
+                            "resident_ms": at300[name]["resident"]["ms"],
+                            "resident_ms_runs": at300[name]["resident"]["ms_runs"],
+                            "bound_ms": row["bound_ms"],
+                            "shape": [BANK, tlen, K_D_IN, K_D_FEAT]}},
+            "streaming": {"ms": streaming["ms"],
+                          "ms_runs": streaming["ms_runs"],
+                          "plain_ms": wide[name]["plain_ms"],
+                          "bound_ms": wide[name]["bound_ms"],
+                          "bound_by": wide[name]["bound_by"],
+                          "library_ms": None, "forced": True,
                           "shape": [BANK, tlen, K_D_IN, K_D_WIDE]}}
     keys = ("ms", "ms_runs", "plain_ms", "plain_ms_runs", "bound_ms",
             "bound_by")
@@ -1714,16 +1857,18 @@ LM_SOURCES = {
     "rff_linear_attention": "src/repro_torch/csrc/rff_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention_sm90.cu",
 }
-# Each route of the kernels that have two, and its source (the KRLS step's
-# resident route is the resident chunk kernel at T = 1).
+# Each route of the kernels that have more than one, and its source (the
+# KRLS step's resident and compact routes are those chunk kernels at T = 1;
+# its streaming route, forced only, the streaming step kernel).
+KRLS_ROUTE_SOURCES = {"resident": "src/repro_torch/csrc/krls_bank.cu",
+                      "compact": "src/repro_torch/csrc/krls_compact.cu",
+                      "streaming": "src/repro_torch/csrc/krls_bank.cu"}
 ROUTE_SOURCES = {
     "flash_attention": {
         "tensor_core": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
-    "krls_bank_chunk": {"resident": "src/repro_torch/csrc/krls_bank.cu",
-                        "streaming": "src/repro_torch/csrc/krls_bank.cu"},
-    "krls_bank_step": {"resident": "src/repro_torch/csrc/krls_bank.cu",
-                       "streaming": "src/repro_torch/csrc/krls_bank.cu"},
+    "krls_bank_chunk": KRLS_ROUTE_SOURCES,
+    "krls_bank_step": KRLS_ROUTE_SOURCES,
 }
 # (BH, dh, D, dv): qwen2-0.5b's decode at B = 4, llama3-8b's head width,
 # padded shapes.
@@ -5405,6 +5550,150 @@ def phase_launch(procs) -> dict:
             + LAUNCH["prefill"]["launches"]}
 
 
+# Phase 24: KRLS served at D = 1024 on the compact route: the paper's
+# section 6 settings at the width repro's TPU kernel budgets one tenant's P
+# for (src/repro/kernels/rff_krls_step.py:23-25; 4 MiB a tenant, 4 GiB the
+# bank). The float64 run takes the first K_WIDE_F64_TENANTS tenants (rows
+# are independent); the phase's target is K_WIDE_SECONDS.
+K_WIDE_D_FEAT, K_WIDE_F64_TENANTS = 1024, 64
+K_WIDE_ROUNDS, K_WIDE_SECONDS = 6, 60.0
+
+
+def phase_krls_wide_server(seed, device, kernels) -> tuple[dict, dict]:
+    """make_server("krls", bank=1024, chunk=16) at D = 1024 (d = 5, sigma
+    = 5, lam = 1e-4, beta = 0.9995): a ragged stream of K_WIDE_ROUNDS
+    rounds (flush and drain in turns), (1024, 64) block reads and
+    single-tenant reads through kernel 3, a make_tick("krls") tier (the
+    compact step),
+    against the same server with mode="ref" on the card and within the f32
+    budget of a float64 run of the first K_WIDE_F64_TENANTS tenants. Every
+    flush and tick must take the compact route. Then the flush's shape
+    (1024, 16, 5, 1024) is timed on the compact route, in turns with the
+    streaming route forced on the same inputs, and its plain version.
+    Returns (launches, the flush's timings)."""
+    from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+    from repro_torch.serve import make_server, make_tick
+
+    nsub = K_WIDE_F64_TENANTS
+    fm = family_map("rff", seed, K_D_IN, K_WIDE_D_FEAT, K_SIGMA, device)
+    fm64 = f64_map(fm)
+    hp = dict(chunk=CHUNK, lam=K_LAM, beta=K_BETA, device=device)
+    servers = (make_server("krls", feature_map=fm, bank=BANK, **hp),
+               make_server("krls", feature_map=fm, bank=BANK, mode="ref", **hp),
+               make_server("krls", feature_map=fm64, bank=nsub, mode="ref",
+                           **hp))
+    ticks = [make_tick("krls", f, beta=K_BETA, mode=m)
+             for f, m in ((fm, "auto"), (fm, "ref"), (fm64, "ref"))]
+    rng = np.random.default_rng(seed + 24)
+    xq = rng.normal(size=(BANK, Q, K_D_IN)).astype(np.float32)
+    tick_x = rng.normal(size=(4, BANK, K_D_IN)).astype(np.float32)
+    tick_y = np.sin(tick_x[..., 0]).astype(np.float32)
+
+    reset_launches(kernels)
+    t0 = t_phase = time.perf_counter()
+    errs, mse, submits = [[] for _ in servers], [], 0
+    for rnd, (tenants, xs, ys) in enumerate(ragged_stream(rng, K_WIDE_ROUNDS,
+                                                          K_D_IN)):
+        for i, srv in enumerate(servers):
+            for t, x, y in zip(tenants.tolist(), xs, ys.tolist()):
+                if i < 2 or t < nsub:
+                    srv.submit(t, x, y)
+        submits += len(tenants)
+        res = [srv.drain() if rnd % 2 else srv.flush() for srv in servers]
+        check(sorted(res[0]) == sorted(res[1])
+              and sorted(res[2]) == [t for t in sorted(res[0]) if t < nsub],
+              "wide krls servers served different tenants")
+        for out, r in zip(errs, res):
+            out.append(np.array([e for t in sorted(r) if t < nsub
+                                 for _, e in r[t]]))
+        mse.append(float(np.mean([e ** 2 for r in res[:1] for t in r
+                                  for _, e in r[t]])))
+    blocks = [srv.predict_block(xq[:srv.queue.num_tenants])
+              for srv in servers]
+    singles = [torch.stack([srv.predict(t, xq[t]) for t in (0, 1, nsub - 1)])
+               for srv in servers]
+    states = [srv.queue.state for srv in servers]
+    for t in range(tick_x.shape[0]):
+        for i, (tick, st) in enumerate(zip(ticks, states)):
+            dt, n = st.theta.dtype, st.theta.shape[0]
+            states[i], _ = tick(st, torch.from_numpy(tick_x[t, :n]).to(device, dt),
+                                torch.from_numpy(tick_y[t, :n]).to(device, dt))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = path_launches(
+        kernels, ("krls_bank_chunk", "krls_bank_step", "bank_predict"))
+    routes = dict(kernels["krls_bank_chunk"].route_launches)
+    step_routes = dict(kernels["krls_bank_step"].route_launches)
+    check(routes["compact"] == launches["krls_bank_chunk"],
+          f"krls flushes at D = {K_WIDE_D_FEAT} did not all take the compact "
+          f"route: {routes}")
+    check(step_routes["compact"] == launches["krls_bank_step"],
+          f"krls ticks at D = {K_WIDE_D_FEAT} did not all take the compact "
+          f"route: {step_routes}")
+    srv = servers[0]
+    flushes = srv.queue.flushes
+    check(flushes >= 4, f"only {flushes} wide krls flushes")
+    check(mse[-1] < mse[0], f"wide krls prior MSE did not fall: {mse}")
+    check(all(torch.equal(s.snapshot.state.step[:nsub],
+                          srv.snapshot.state.step[:nsub]) for s in servers),
+          "wide krls tick counts differ")
+    snaps = [s.snapshot.state for s in servers]
+    sub = slice(0, nsub)
+    prior = [torch.from_numpy(np.concatenate(e))[None] for e in errs]
+    budget = {
+        "prior_errors": within_budget("wide prior errors", *prior, normwise),
+        "theta": within_budget("wide theta",
+                               *[s.theta[sub] for s in snaps], normwise),
+        "P": within_budget("wide P", *[s.pmat[sub] for s in snaps], p_rel),
+        "predict_block": within_budget("wide predict_block",
+                                       *[b[sub] for b in blocks], normwise),
+        "predict": within_budget("wide predict", *singles, normwise),
+        "tick_theta": within_budget("wide make_tick theta",
+                                    *[s.theta[sub] for s in states], normwise),
+        "tick_P": within_budget("wide make_tick P",
+                                *[s.pmat[sub] for s in states], p_rel),
+    }
+    for got in (snaps[0].theta, snaps[0].pmat, blocks[0], states[0].pmat):
+        check(bool(torch.isfinite(got).all()),
+              "wide krls server output not finite")
+    check(blocks[0].shape == (BANK, Q) and snaps[0].pmat.shape
+          == (BANK, K_WIDE_D_FEAT, K_WIDE_D_FEAT), "wide krls shapes")
+    ticked = [int(n) for n in srv.snapshot.state.step.tolist()]
+    pmat_bytes = snaps[0].pmat.numel() * snaps[0].pmat.element_size()
+    del servers, srv, snaps, states, blocks, singles, prior
+    torch.cuda.empty_cache()
+
+    # The flush's shape on the compact route, in turns with the streaming
+    # route forced on the same inputs, and the plain version.
+    k = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_WIDE_D_FEAT, device, "eye")
+    case = timed_case(*krls_chunk_case(k), plain_reps=2)
+    forced = turns(lambda r: rff_krls_bank_chunk_cuda(
+        k["theta"], k["pmat"], k["xs"], k["ys"], k["w"], k["b"], k["beta"],
+        None, k["s"], _route=r), ("compact", "streaming"), reps=5)
+    del k
+    torch.cuda.empty_cache()
+    flush = {**{k_: case[k_] for k_ in ("ms", "ms_runs", "plain_ms",
+                                         "plain_ms_runs", "bound_ms",
+                                         "bound_by")},
+             "library_ms": None,
+             "turns_with_streaming_ms": forced["compact"],
+             "streaming_forced_ms": forced["streaming"],
+             "shape": [BANK, CHUNK, K_D_IN, K_WIDE_D_FEAT]}
+    emit({"phase": "krls_wide_server", "bank": BANK, "d": K_D_IN,
+          "D": K_WIDE_D_FEAT, "sigma": K_SIGMA, "lam": K_LAM, "beta": K_BETA,
+          "chunk": CHUNK, "Q": Q, "submits": submits, "flushes": flushes,
+          "ticks_per_tenant": {"min": min(ticked), "median":
+                               float(np.median(ticked)), "max": max(ticked)},
+          "prior_mse_per_round": mse, "launches": launches,
+          "chunk_route_launches": routes, "step_route_launches": step_routes,
+          "f64_tenants": nsub, "p_device_bytes": pmat_bytes,
+          "budget": {"factor": BUDGET, "floor": BUDGET_FLOOR, **budget},
+          "flush_times": flush, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase,
+          "target_seconds": K_WIDE_SECONDS, "card": SMI})
+    return launches, flush
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5529,6 +5818,12 @@ def main() -> int:
     # The distribution tier and the deprecated serve names, after phase 19.
     torch.cuda.empty_cache()
     add_launches(launches, phase_distribution(args.seed, device, kernels))
+    # KRLS served at D = 1024 on the compact route (phase 24), last.
+    torch.cuda.empty_cache()
+    wide_launches, wide_flush = phase_krls_wide_server(args.seed, device,
+                                                        kernels)
+    add_launches(launches, wide_launches)
+    times["krls_bank_chunk"]["routes"]["compact"]["d1024"] = wide_flush
     torch.cuda.synchronize()
     replaces, sources = {**REPLACES, **LM_REPLACES}, {**SOURCES, **LM_SOURCES}
     tolerance = {**TOLERANCE, **lm_tols}

@@ -14,6 +14,12 @@ so that two trees can be compared in one call; ``--flash SRC`` likewise
 times only ``ops.flash_attention`` on f32 inputs (the CUDA-core route) at
 ``FLASH_F32_SHAPES`` (qwen2-0.5b's prefill, deepseek's MLA head, the
 launcher's reduced qwen2) for inputs from seeds 0-2.
+``python3 krls_breakdown.py --compact`` times the compact KRLS route
+(``csrc/krls_compact.cu``) by phase at (B, T, d, D) = (1024, 16 and 1, 5,
+400 and 1024), through variants that stop the call after a phase, beside
+the streaming route's C entry, then runs the Tc study (``tc_study``: the
+compact form's plain version in f32 for Tc = 16 to 128 against a float64
+tick run at lam = 1e-4, beside the tick form's own f32 distance).
 ``python3 krls_breakdown.py --flash-variants`` times the f32 flash kernel
 (``csrc/flash_attention.cu``) through its C entry at every thread tile
 it takes at those shapes and llama3-8b's head, then its
@@ -793,6 +799,168 @@ def flash_breakdown(build, dev) -> dict:
     return {"shapes": FLASH_F32_SHAPES, "picked": picked, "ms": ms}
 
 
+# The compact KRLS route's launches (csrc/krls_compact.cu run): the
+# features, P_0 Z^T, the recursion, the rank-L update, then the fix-up's
+# three launches. Each variant stops the call after a phase (its later
+# launches prefixed ``if (0)``), so no launch reads what an earlier one
+# skipped.
+_FIX_LAUNCHES = [
+    ("      compact_product_fix_kernel<<<",
+     "      if (0) compact_product_fix_kernel<<<", 1),
+    ("      compact_recursion_kernel<<<Bs, kRecThreads, 0, st>>>(\n"
+     "          theta, theta_out,",
+     "      if (0) compact_recursion_kernel<<<Bs, kRecThreads, 0, st>>>(\n"
+     "          theta, theta_out,", 1),
+    ("      compact_update_fix_kernel<<<",
+     "      if (0) compact_update_fix_kernel<<<", 1)]
+_UPDATE = [("      compact_update_kernel<<<",
+            "      if (0) compact_update_kernel<<<", 1)]
+_RECURSION = [("      compact_recursion_kernel<<<Bs, kRecThreads, 0, st>>>(\n"
+               "          th, theta_out,",
+               "      if (0) compact_recursion_kernel<<<Bs, kRecThreads, 0, "
+               "st>>>(\n          th, theta_out,", 1)]
+_PRODUCT = [("      compact_product_kernel<<<",
+             "      if (0) compact_product_kernel<<<", 1)]
+COMPACT_VARIANTS = {
+    "compact_full": ("krls_compact", []),
+    "compact_no_fixup": ("krls_compact", _FIX_LAUNCHES),
+    "compact_upto_recursion": ("krls_compact", _FIX_LAUNCHES + _UPDATE),
+    "compact_upto_product": ("krls_compact",
+                             _FIX_LAUNCHES + _UPDATE + _RECURSION),
+    "compact_features_only": ("krls_compact", _FIX_LAUNCHES + _UPDATE
+                              + _RECURSION + _PRODUCT),
+}
+COMPACT_SHAPES = [(BANK, CHUNK, K_D_IN, 400), (BANK, 1, K_D_IN, 400),
+                  (BANK, CHUNK, K_D_IN, 1024), (BANK, 1, K_D_IN, 1024)]
+# The Tc study: lockstep calls of TC_STUDY_T ticks at the paper's section 6
+# settings, six calls a tenant, TC_STUDY_B tenants at D = 400.
+TC_STUDY = (16, 32, 64, 128)
+TC_STUDY_B, TC_STUDY_T, TC_STUDY_CALLS = 64, 128, 6
+
+
+def compact_breakdown(build, dev) -> dict:
+    """``krls_bank_chunk_compact`` by phase at COMPACT_SHAPES (P = I / lam,
+    every tick live): each variant of COMPACT_VARIANTS through the C entry
+    with the wrapper's workspace, ``compact_full`` first and last, and the
+    streaming route's C entry on the same inputs."""
+    from repro_torch.kernels import rff_krls_step
+    from repro_torch.kernels.chunking import (KRLS_COMPACT_TC,
+                                              krls_compact_slab,
+                                              krls_compact_workspace_bytes)
+
+    libs = build_tiles(build, build.CSRC, build.BUILD_DIR / "breakdown",
+                       COMPACT_VARIANTS)
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for lib in libs.values():
+        lib.krls_bank_chunk_compact.argtypes = (
+            [P] * 13 + [I] * 4 + [P] + [P, L, I])
+    streaming = rff_krls_step._lib().krls_bank_chunk
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for bank, tlen, d, dfeat in COMPACT_SHAPES:
+        a = krls_inputs(np.random.default_rng(0), bank, tlen, d, dfeat, dev,
+                        "eye")
+        outs = [torch.empty_like(a["theta"]), torch.empty_like(a["pmat"]),
+                torch.empty_like(a["ys"]), torch.empty_like(a["ys"])]
+        slab = krls_compact_slab(bank, tlen, d, dfeat)
+        nbytes = krls_compact_workspace_bytes(slab, min(KRLS_COMPACT_TC, tlen),
+                                              d, dfeat)
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        args = (*(a[k].data_ptr() for k in ("theta", "pmat", "xs", "ys")),
+                None, *(a[k].data_ptr() for k in ("beta", "w", "b", "s")),
+                *(o.data_ptr() for o in outs), bank, tlen, d, dfeat, stream)
+
+        def launch(name):
+            if name == "streaming":
+                code = streaming(*args)
+            else:
+                code = libs[name].krls_bank_chunk_compact(
+                    *args, ws.data_ptr(), nbytes, slab)
+            if code:
+                raise SystemExit(f"{name} failed: cudaError {code}")
+
+        ms = {name: [] for name in (*COMPACT_VARIANTS, "streaming")}
+        for name in (*COMPACT_VARIANTS, "streaming", "compact_full"):
+            ms[name].append(time_ms(lambda: launch(name),
+                                    3 if name == "streaming" else 10))
+        best = {name: min(v) for name, v in ms.items()}
+        out[f"{bank}x{tlen}x{d}x{dfeat}"] = {
+            "ms": ms, "slab": slab,
+            "phase_ms": {
+                "features": best["compact_features_only"],
+                "product": best["compact_upto_product"]
+                - best["compact_features_only"],
+                "recursion": best["compact_upto_recursion"]
+                - best["compact_upto_product"],
+                "update": best["compact_no_fixup"]
+                - best["compact_upto_recursion"],
+                "fixup_no_op": best["compact_full"] - best["compact_no_fixup"]}}
+        del a, outs, ws
+        torch.cuda.empty_cache()
+    return out
+
+
+def tc_study(dev) -> dict:
+    """How far the compact form's f32 results lie from a float64 tick run
+    at lam = 1e-4 for each Tc in TC_STUDY (its plain version; on the card
+    also the kernel), against the tick form's own f32
+    distance (the budget rule of chip_smoke.within_budget: the kernel is
+    allowed twice that, plus 1e-5): theta and every prior error normwise, P
+    as a share of each tenant's max |P|, over TC_STUDY_CALLS calls of
+    TC_STUDY_T ticks (masks random, 70% live) at D = 400."""
+    from chip_smoke import K_SIGMA, normwise, p_rel
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    bank, tlen, dfeat = TC_STUDY_B, TC_STUDY_T, 400
+    w = rng.normal(size=(K_D_IN, dfeat)) / K_SIGMA
+    b = rng.uniform(0, 2 * np.pi, size=dfeat)
+    dirs = rng.normal(size=(bank, K_D_IN)) / np.sqrt(K_D_IN)
+    calls = []
+    for _ in range(TC_STUDY_CALLS):
+        xs = rng.normal(size=(bank, tlen, K_D_IN))
+        ys = 1.0 + 0.5 * np.sin(np.einsum("btd,bd->bt", xs, dirs))
+        calls.append((xs, ys, rng.random((bank, tlen)) < 0.7))
+
+    def serve(fn, dtype, **kw):
+        def t(v):
+            return torch.from_numpy(np.asarray(v, np.float32)).to(dev, dtype)
+        theta = torch.zeros(bank, dfeat, dtype=dtype, device=dev)
+        pmat = (torch.eye(dfeat, dtype=dtype, device=dev) / K_LAM).expand(
+            bank, dfeat, dfeat).contiguous()
+        s = ref.default_scale(dfeat, dtype, dev)
+        errs = []
+        for xs, ys, mask in calls:
+            theta, pmat, _, err = fn(theta, pmat, t(xs), t(ys), t(w), t(b),
+                                     K_BETA, t(mask), s, **kw)
+            errs.append(err[torch.from_numpy(mask).to(dev)])
+        return theta, pmat, torch.cat(errs)[None]
+
+    exact = serve(ref.rff_krls_bank_chunk_ref, torch.float64)
+    plain = serve(ref.rff_krls_bank_chunk_ref, torch.float32)
+    dists = (normwise, p_rel, normwise)
+    names = ("theta", "P", "prior_errors")
+    out = {"tick_f32": {n: f(g, x) for n, f, g, x in
+                        zip(names, dists, plain, exact)}}
+    runs = {f"compact_tc{tc}": (ref.krls_chunk_compact_ref, {"tc": tc})
+            for tc in TC_STUDY}
+    if dev.type == "cuda":  # the kernel itself, Tc = KRLS_COMPACT_TC
+        from repro_torch.kernels.rff_krls_step import rff_krls_bank_chunk_cuda
+
+        runs["compact_kernel"] = (rff_krls_bank_chunk_cuda,
+                                  {"_route": "compact"})
+    for label, (fn, kw) in runs.items():
+        got = serve(fn, torch.float32, **kw)
+        out[label] = {
+            n: {"vs_f64": f(g, x), "ratio_to_tick": f(g, x)
+                / out["tick_f32"][n]}
+            for n, f, g, x in zip(names, dists, got, exact)}
+    out["setting"] = {"B": bank, "T": tlen, "calls": TC_STUDY_CALLS,
+                      "d": K_D_IN, "D": dfeat, "lam": K_LAM, "beta": K_BETA,
+                      "sigma": K_SIGMA, "live": 0.7}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("krls_breakdown: needs a CUDA device", file=sys.stderr)
@@ -813,6 +981,14 @@ def main() -> int:
 
         print(smi)
         print(json.dumps({"flash": flash_breakdown(_build, dev)}))
+        return 0
+    if sys.argv[1:] == ["--compact"]:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.kernels import _build
+
+        print(smi)
+        print(json.dumps({"compact": compact_breakdown(_build, dev)}))
+        print(json.dumps({"compact_tc": tc_study(dev)}))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ops":
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))

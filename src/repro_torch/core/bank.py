@@ -403,7 +403,10 @@ def krls_bank_run(rff: FeatureLike, xs, ys,
 
     Without ``chunk`` every tick is one step launch; ``chunk=T`` runs
     ceil(n/T) chunk launches with a zero-masked remainder. The two
-    schedules agree bit for bit (the kernels share one tick).
+    schedules agree bit for bit on the plain path and on the resident
+    route (the kernels share one tick); on the compact route (D past the
+    resident triangle) within f32 rounding, its blocks reassociating the
+    recursion.
     """
     if state is None:
         state = krls_bank_init(rff, xs.shape[0], lam)

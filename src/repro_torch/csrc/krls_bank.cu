@@ -13,13 +13,17 @@
 // 8 B D^2 bytes; the arithmetic is about 7 D^2 operations per tick, so the
 // work is bound by bytes.
 //
-// Two chunk kernels, picked by the wrapper (kernels/rff_krls_step.py):
+// Two chunk kernels (kernels/rff_krls_step.py):
 //  * krls_bank_chunk_resident keeps P's upper triangle in shared
 //    memory for the whole launch, when it fits a block (D <= 335 at d = 5;
 //    chunking.krls_resident_fits): P crosses device memory once in and
-//    once out, 8 B D^2 a launch (see "Resident" below);
-//  * krls_bank_chunk streams P every tick, for any D (below).
-// krls_bank_step is one tick of the streaming design.
+//    once out, 8 B D^2 a launch (see "Resident" below). The wrapper picks
+//    it wherever it fits; wider D go to the compact route
+//    (csrc/krls_compact.cu: P moved once a block of Tc ticks);
+//  * krls_bank_chunk streams P every tick, for any D (below). No caller
+//    picks it: tests and timings force it (_route="streaming") to hold the
+//    other routes against it.
+// krls_bank_step is one tick of the streaming design, forced the same way.
 //
 // Streaming design (simple and right for every D):
 //  * One block owns one tenant for the whole launch. The TPU kernel carries

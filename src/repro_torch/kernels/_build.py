@@ -25,8 +25,8 @@ __all__ = ["CSRC", "BUILD_DIR", "KERNEL_SOURCES", "build", "load"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = (
-    "klms_bank", "bank_predict", "krls_bank", "rff_features", "rff_scan",
-    "rff_attention", "flash_attention", "flash_attention_sm90",
+    "klms_bank", "bank_predict", "krls_bank", "krls_compact", "rff_features",
+    "rff_scan", "rff_attention", "flash_attention", "flash_attention_sm90",
 )
 
 # No -use_fast_math: |x W + b| runs far outside [-pi, pi], where the fast

@@ -32,6 +32,10 @@ __all__ = [
     "krls_fits",
     "krls_resident_smem_bytes",
     "krls_resident_fits",
+    "KRLS_COMPACT_TC",
+    "KRLS_COMPACT_WORKSPACE_BUDGET",
+    "krls_compact_workspace_bytes",
+    "krls_compact_slab",
     "default_chunk_t",
     "ATTENTION_THREADS",
     "DECODE_TILE_COLS",
@@ -180,9 +184,62 @@ def krls_resident_smem_bytes(dfeat: int, input_dim: int) -> int:
 
 def krls_resident_fits(dfeat: int, input_dim: int) -> bool:
     """Whether the resident KRLS chunk kernel's triangle and rows fit
-    :data:`SMEM_BUDGET` (D up to 335 at d = 5). Wider D streams P through
-    device memory every tick (``krls_bank_chunk``)."""
+    :data:`SMEM_BUDGET` (D up to 335 at d = 5). Wider D take the compact
+    route (``krls_bank_chunk_compact``, blocks of :data:`KRLS_COMPACT_TC`
+    ticks)."""
     return krls_resident_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
+
+
+# The KRLS compact route (csrc/krls_compact.cu, kTc there): ticks of one
+# block, and the largest workspace one call allocates (256 MiB, as the KLMS
+# kernels' KLMS_WORKSPACE_BUDGET). The rule for Tc: the largest power of
+# two at which the route meets every KRLS bound (F32_TOL and P_TOL against
+# the tick plain version, the float64 budget at lam = 1e-4, repro's 1e-5);
+# Tc = 1 is the tick recursion, so one always does. With the recursion in
+# float64 none failed up to 128 (krls_breakdown.py --compact's Tc study:
+# within 0.11-0.45 of the tick form's own f32 distance from float64), so
+# the cost sets it: a serving flush is 16 ticks, the (Tc, Tc) recursion and
+# the rank-Tc update grow with Tc, and at 16 P's bytes still bound a block.
+KRLS_COMPACT_TC = 16
+KRLS_COMPACT_WORKSPACE_BUDGET = 256 << 20
+
+
+def krls_compact_workspace_bytes(tenants: int, ticks: int, input_dim: int,
+                                 dfeat: int) -> int:
+    """Bytes of the compact route's workspace for a slab of ``tenants`` and
+    a block of ``ticks`` (the layout ``Work`` in csrc/krls_compact.cu, each
+    part from a 256-byte boundary): per tenant and tick, the features z
+    (f32), P_0 z and P_0^T z (f64), c pz and pz for the rank-L update (f32);
+    per tenant L, beta^L and a flag; the feature tile's packed operands.
+    28 B Tc D a tenant: 458,752 bytes at Tc = 16, D = 1024."""
+    def aligned(nbytes):
+        return _round_up(nbytes, 256)
+
+    n = tenants * ticks * dfeat
+    return (aligned(4 * n) + 3 * aligned(8 * n) + 3 * aligned(4 * tenants)
+            + aligned(4 * feature_tile_pack_floats(tenants * ticks, input_dim,
+                                                   dfeat)))
+
+
+def krls_compact_slab(bank: int, tlen: int, input_dim: int,
+                      dfeat: int) -> int:
+    """Tenants one slab of a compact call takes: all B while the workspace
+    of a block of min(Tc, T) ticks fits
+    :data:`KRLS_COMPACT_WORKSPACE_BUDGET`, else the most that do (at least
+    one; 583 of the serving bank's 1024 at D = 1024). The bits do not
+    depend on it."""
+    ticks = min(KRLS_COMPACT_TC, tlen)
+    budget = KRLS_COMPACT_WORKSPACE_BUDGET
+    if krls_compact_workspace_bytes(bank, ticks, input_dim, dfeat) <= budget:
+        return bank
+    lo, hi = 1, bank
+    while lo < hi:  # the largest slab whose workspace fits
+        mid = (lo + hi + 1) // 2
+        if krls_compact_workspace_bytes(mid, ticks, input_dim, dfeat) <= budget:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def default_chunk_t(bank: int, dfeat: int, input_dim: int = 128,

@@ -35,6 +35,7 @@ __all__ = [
     "rff_bank_predict_ref",
     "rff_krls_bank_step_ref",
     "rff_krls_bank_chunk_ref",
+    "krls_chunk_compact_ref",
     "klms_chunk_elements_ref",
     "klms_chunk_elements_wy_ref",
     "krls_chunk_elements_ref",
@@ -230,6 +231,96 @@ def rff_krls_bank_chunk_ref(theta, pmat, xs, ys, w, b, beta, mask=None,
     if not preds:
         empty = ys.new_zeros((bsz, 0))
         return theta, pmat, empty, empty
+    return theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1)
+
+
+def krls_chunk_compact_ref(theta, pmat, xs, ys, w, b, beta, mask=None,
+                           s=None, *, tc=None):
+    """T masked EW-RLS ticks in the compact (blocked) form of the KRLS
+    compact route (``csrc/krls_compact.cu``): the same arguments and
+    outputs as :func:`rff_krls_bank_chunk_ref`, whose recursion it equals
+    in exact arithmetic. The ticks go in blocks of ``tc`` (None =
+    ``chunking.KRLS_COMPACT_TC``), each from the state the one before left.
+
+    In a block, with P_0 its first P, S_0 = (P_0 + P_0^T) / 2, n_k the live
+    ticks before tick k and L the block's live ticks:
+    ``P_k = (S_0 - sum_{live j<k} c_j pz_j pz_j^T) / beta^n_k`` with
+    ``c_j = beta^n_j / delta_j``; so ``pz_k = (S_0 z_k - sum c_j pz_j
+    (pz_j . z_k)) / beta^n_k``, except at the block's first live tick,
+    which reads P_0's rows (``pz = P_0 z``) as the tick does, and
+    ``P_out = (S_0 - sum_live c_j pz_j pz_j^T) / beta^L``, upper triangle
+    mirrored (bitwise symmetric), or P_0 itself when L = 0. S_0 z_k is P_0
+    z_k for a symmetric P_0. Masked ticks emit the prior prediction and
+    change nothing. The plain version of the compact kernel, for the tests
+    and chip_smoke.py; no serving path runs it."""
+    if tc is None:
+        from repro_torch.kernels.chunking import KRLS_COMPACT_TC as tc
+    bsz, tlen = ys.shape
+    if mask is None:
+        mask = torch.ones_like(ys)
+    live = mask.to(theta.dtype) > 0
+    beta_b = beta_column(beta, theta, bsz)
+    preds, errs = [], []
+    for t0 in range(0, tlen, tc):
+        z = rff_features_ref(xs[:, t0:t0 + tc], w, b, s)
+        theta, pmat, pred, err = _krls_compact_block(
+            theta, pmat, z, ys[:, t0:t0 + tc], live[:, t0:t0 + tc], beta_b)
+        preds.append(pred)
+        errs.append(err)
+    if not preds:
+        empty = ys.new_zeros((bsz, 0))
+        return theta, pmat, empty, empty
+    return theta, pmat, torch.cat(preds, 1), torch.cat(errs, 1)
+
+
+def _krls_compact_block(theta, p0, z, y, live, beta_b):
+    """One compact block: z (B, K, D), y and live (B, K). P_0 z_k and the
+    recursion run in float64 (the kernel sums P_0 z_k 16 columns at a time
+    in f32, then in float64), the rank-L update of P in P's dtype. Each pz_k is kept as its coefficients over the block's
+    vectors v_j (P_0 z_j at the first live tick, S_0 z_j after it), so the
+    ticks need only the (K, K) products v_j . z_q and theta_0 . z_q."""
+    dt, f64 = theta.dtype, torch.float64
+    kk = z.shape[1]
+    zd, pd = z.to(f64), p0.to(f64)
+    a = torch.einsum("bij,bkj->bki", pd, zd)  # P_0 z_k, rows of P_0
+    sym = (p0 == p0.transpose(1, 2)).flatten(1).all(1)
+    first = live & (live.cumsum(1) == 1)
+    v = torch.where((first | sym[:, None])[..., None], a,
+                    0.5 * (a + torch.einsum("bji,bkj->bki", pd, zd)))
+    gram = torch.einsum("bji,bqi->bjq", v, zd)  # v_j . z_q
+    h = torch.einsum("bi,bqi->bq", theta.to(f64), zd)  # theta_0 . z_q
+    beta = beta_b.to(f64)
+    zero = torch.zeros_like(h)
+    coef = torch.zeros_like(gram)  # pz_s = sum_j coef[:, s, j] v_j
+    m = torch.zeros_like(gram)  # m[:, s, q] = pz_s . z_q
+    c, q = zero.clone(), zero.clone()  # beta^n_s / delta_s, e_s / delta_s
+    scale = torch.ones_like(beta)  # beta^n_k
+    eye = torch.eye(kk, dtype=f64, device=z.device)
+    preds, errs = [], []
+    for k in range(kk):
+        pred = (h[:, k] + torch.sum(q * m[:, :, k], dim=1)).to(dt)
+        err = y[:, k] - pred
+        lk = live[:, k]
+        rk = (eye[k] - torch.einsum("bs,bsj->bj", c * m[:, :, k], coef)) \
+            / scale[:, None]
+        mk = torch.einsum("bj,bjq->bq", rk, gram)
+        delta = beta + mk[:, k]
+        coef[:, k] = torch.where(lk[:, None], rk, zero)
+        m[:, k] = torch.where(lk[:, None], mk, zero)
+        c[:, k] = torch.where(lk, scale / delta, zero[:, 0])
+        q[:, k] = torch.where(lk, err.to(f64) / delta, zero[:, 0])
+        scale = torch.where(lk, scale * beta, scale)
+        preds.append(pred)
+        errs.append(err)
+    pz = torch.einsum("bsj,bji->bsi", coef, v)
+    moved = live.any(1)
+    theta = torch.where(moved[:, None], (theta.to(f64) + torch.einsum(
+        "bs,bsi->bi", q, pz)).to(dt), theta)
+    corr = torch.einsum("bsi,bsj->bij", (c[..., None] * pz).to(dt), pz.to(dt))
+    upd = (0.5 * (p0 + p0.transpose(1, 2)) - corr) \
+        / scale.to(dt)[:, None, None]
+    upd = torch.triu(upd) + torch.triu(upd, 1).transpose(1, 2)
+    pmat = torch.where(moved[:, None, None], upd, p0)
     return theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1)
 
 

@@ -38,9 +38,15 @@ decode block and of linear attention agree bit for bit with a call on
 those columns alone. Of the two-route kernels, flash
 attention runs bf16 on the tensor cores and f32 on the CUDA cores, and the
 KRLS chunk keeps P resident in shared memory up to D = 335 at d = 5 and
-streams it beyond, both routes equal to T step launches bit for bit; the
-KRLS step takes the same route (the resident chunk kernel at T = 1, or
-the streaming step), and both step routes agree bit for bit. The
+takes the compact route beyond (blocks of Tc ticks, P moved once a block),
+or streams P each tick when forced; the resident and streaming routes
+equal T step launches bit for bit, the compact route within F32_TOL and
+P_TOL (its blocks reassociate the recursion), and it is held against its
+own plain version (``krls_chunk_compact_ref``) and the tick plain version
+at those bounds, with its bitwise contracts (T = 1 a step, P' symmetric,
+masked ticks a no-op, two calls, a tenant alone, calls of Tc in order,
+tenant slabs); the KRLS step takes the chunk's route at T = 1, and the
+step routes that share a tick agree bit for bit. The
 distribution tier runs four gloo ranks on the card (``tests/
 torch_dist_ranks.py``; NCCL refuses two ranks on one card): sharded KRLS
 within 1e-5 of the dense plain run per tick and 5e-5 in blocks (the
@@ -374,74 +380,213 @@ def test_krls_bitwise_contracts(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dfeat,route", [(200, "resident"), (31, "resident"),
-                                         (400, "streaming")])
-def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route):
-    """Either chunk route: a chunk of T equals T step launches and T=1 one
-    step, bit for bit, from a non-symmetric P; P' is exactly symmetric; a
-    chunk with masked ticks matches the plain version; the launch counts
-    its route. The step takes the chunk's route (the resident chunk kernel
-    at T = 1 up to D = 335 at d = 5, the streaming step beyond), and the
-    routed step, the chunk at T = 1 and the step forced onto each route it
-    can take agree bit for bit; over the T ticks, a chain of streaming
-    steps equals the routed chain at every tick."""
+@pytest.mark.parametrize("dfeat,route,forced", [
+    (200, "resident", False), (31, "resident", False), (400, "compact", False),
+    (400, "streaming", True)])
+def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route,
+                                              forced):
+    """Each chunk route, picked (resident up to D = 335 at d = 5, compact
+    beyond) or forced (streaming): the launch counts its route; from a
+    non-symmetric P, T = 1 equals one step bit for bit, P' is exactly
+    symmetric and a chunk with masked ticks matches the plain version. A
+    chunk of T equals T step launches on its route bit for bit on the
+    resident and streaming routes (one tick's code), within F32_TOL and
+    P_TOL on the compact route (its blocks reassociate the recursion); on
+    the first two a chain of streaming steps also equals the routed chain
+    at every tick. The step takes the chunk's route: the routed step, the
+    chunk at T = 1 and the step forced onto each route that shares its tick
+    agree bit for bit."""
+    kw = {"_route": route} if forced else {}
+    bitwise = route != "compact"
     a = _krls_inputs(cuda_device, 3, 5, 5, dfeat, seed=7, symmetric=False)
     common = (a["w"], a["b"], a["beta"])
     before = dict(rff_krls_bank_chunk_cuda.route_launches)
-    chunk = ops.rff_krls_bank_chunk(a["theta"], a["pmat"], a["xs"], a["ys"],
-                                    *common, None, a["s"], mode="cuda")
+    chunk = rff_krls_bank_chunk_cuda(a["theta"], a["pmat"], a["xs"],
+                                     a["ys"], *common, None, a["s"], **kw)
     after = rff_krls_bank_chunk_cuda.route_launches
     assert after[route] == before[route] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     theta, pmat = a["theta"], a["pmat"]
     stheta, spmat = theta, pmat
+    preds, errs = [], []
     for t in range(5):
         x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
-        theta, pmat, pred, err = ops.rff_krls_bank_step(
-            theta, pmat, x_t, y_t, *common, a["s"], mode="cuda")
-        assert torch.equal(pred, chunk[2][:, t])
-        assert torch.equal(err, chunk[3][:, t])
-        streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t, *common,
-                                           a["s"], _route="streaming")
-        assert all(torch.equal(u, w) for u, w in
-                   zip(streamed, (theta, pmat, pred, err)))
-        stheta, spmat = streamed[0], streamed[1]
+        theta, pmat, pred, err = rff_krls_bank_step_cuda(
+            theta, pmat, x_t, y_t, *common, a["s"], **kw)
+        preds.append(pred)
+        errs.append(err)
+        if bitwise:
+            assert torch.equal(pred, chunk[2][:, t])
+            assert torch.equal(err, chunk[3][:, t])
+            streamed = rff_krls_bank_step_cuda(stheta, spmat, x_t, y_t,
+                                               *common, a["s"],
+                                               _route="streaming")
+            assert all(torch.equal(u, w) for u, w in
+                       zip(streamed, (theta, pmat, pred, err)))
+            stheta, spmat = streamed[0], streamed[1]
         if t == 0:
-            one = ops.rff_krls_bank_chunk(
+            one = rff_krls_bank_chunk_cuda(
                 a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
-                a["ys"][:, :1].contiguous(), *common, None, a["s"],
-                mode="cuda")
+                a["ys"][:, :1].contiguous(), *common, None, a["s"], **kw)
             assert torch.equal(one[0], theta) and torch.equal(one[1], pmat)
-    assert torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1])
+    steps = (theta, pmat, torch.stack(preds, 1), torch.stack(errs, 1))
+    if bitwise:
+        assert torch.equal(theta, chunk[0]) and torch.equal(pmat, chunk[1])
+    else:
+        _hold_krls(chunk, steps)
     assert torch.equal(chunk[1], chunk[1].transpose(1, 2))
     args = (a["theta"], a["pmat"], a["xs"], a["ys"], *common, a["mask"],
             a["s"])
-    _hold_krls(ops.rff_krls_bank_chunk(*args, mode="cuda"),
+    _hold_krls(rff_krls_bank_chunk_cuda(*args, **kw),
                ops.rff_krls_bank_chunk(*args, mode="ref"))
     # The step: routed as the chunk is; the routed step, the chunk at T = 1
-    # and the step forced onto each route it can take agree bit for bit.
+    # and the step forced onto each route that shares its tick agree.
     sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
              a["ys"][:, 0].contiguous(), *common, a["s"])
     before = dict(rff_krls_bank_step_cuda.route_launches)
-    routed = rff_krls_bank_step_cuda(*sargs)
+    routed = rff_krls_bank_step_cuda(*sargs, **kw)
     after = rff_krls_bank_step_cuda.route_launches
     assert after[route] == before[route] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     one = rff_krls_bank_chunk_cuda(
         a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
-        a["ys"][:, :1].contiguous(), *common, None, a["s"])
-    takes = ("resident", "streaming") if route == "resident" else ("streaming",)
+        a["ys"][:, :1].contiguous(), *common, None, a["s"], **kw)
+    takes = {"resident": ("resident", "streaming"), "compact": ("compact",),
+             "streaming": ("streaming",)}[route]
     others = [tuple(t.reshape(u.shape) for t, u in zip(one, routed))]
     others += [rff_krls_bank_step_cuda(*sargs, _route=r) for r in takes]
     for other in others:
         assert all(torch.equal(u, w) for u, w in zip(routed, other))
 
 
+# The compact route's cases (B, T, d, D, P): the streaming width, the
+# serving width of phase 24, ragged widths on either side of a tile and of
+# 16-byte rows, the KLMS input width; T past one block of Tc ticks.
+COMPACT_CASES = [(8, 20, 5, 400, True), (8, 20, 5, 400, False),
+                 (3, 16, 5, 1024, True), (3, 5, 5, 337, False),
+                 (2, 6, 5, 1031, True), (4, 16, 128, 400, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bank,tlen,d,dfeat,symmetric", COMPACT_CASES)
+def test_compact_kernel_matches_plain(cuda_device, bank, tlen, d, dfeat,
+                                      symmetric):
+    """The compact route against its own plain version
+    (``krls_chunk_compact_ref``) and against the tick plain version, each at
+    the KRLS bounds (F32_TOL for theta, predictions and errors; P_TOL of
+    each tenant's max |P|), with masks and per-tenant beta."""
+    from repro_torch.kernels.ref import (
+        krls_chunk_compact_ref,
+        rff_krls_bank_chunk_ref,
+    )
+
+    a = _krls_inputs(cuda_device, bank, tlen, d, dfeat, seed=9,
+                     symmetric=symmetric)
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], a["w"], a["b"],
+            a["beta"], a["mask"], a["s"])
+    before = rff_krls_bank_chunk_cuda.route_launches["compact"]
+    got = ops.rff_krls_bank_chunk(*args, mode="cuda")
+    assert rff_krls_bank_chunk_cuda.route_launches["compact"] == before + 1
+    _hold_krls(got, krls_chunk_compact_ref(*args))
+    _hold_krls(got, rff_krls_bank_chunk_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dfeat", [400, 1031])
+def test_compact_bitwise_contracts(cuda_device, dfeat):
+    """On the compact route, bit for bit: a chunk at T = 1 equals a step;
+    P' is exactly symmetric (from a non-symmetric P too); masked ticks
+    leave theta and P in fresh tensors; two calls agree; a tenant's row does
+    not depend on B or on its neighbours; a call of 2 Tc + 3 ticks equals
+    calls of Tc, Tc and 3 in order."""
+    from repro_torch.kernels.chunking import KRLS_COMPACT_TC as tc
+
+    tlen = 2 * tc + 3
+    a = _krls_inputs(cuda_device, 5, tlen, 5, dfeat, seed=10,
+                     symmetric=False)
+    common = (a["w"], a["b"], a["beta"])
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], *common, a["mask"],
+            a["s"])
+    full = rff_krls_bank_chunk_cuda(*args)
+    again = rff_krls_bank_chunk_cuda(*args)
+    assert all(torch.equal(u, v) for u, v in zip(full, again))
+    assert torch.equal(full[1], full[1].transpose(1, 2))
+    theta, pmat, parts = a["theta"], a["pmat"], []
+    for t0, t1 in ((0, tc), (tc, 2 * tc), (2 * tc, tlen)):
+        theta, pmat, pred, err = rff_krls_bank_chunk_cuda(
+            theta, pmat, a["xs"][:, t0:t1].contiguous(),
+            a["ys"][:, t0:t1].contiguous(), *common,
+            a["mask"][:, t0:t1].contiguous(), a["s"])
+        parts.append((pred, err))
+    assert torch.equal(theta, full[0]) and torch.equal(pmat, full[1])
+    assert torch.equal(torch.cat([p for p, _ in parts], 1), full[2])
+    assert torch.equal(torch.cat([e for _, e in parts], 1), full[3])
+    for row in (0, 3):  # alone, and among other neighbours
+        alone = rff_krls_bank_chunk_cuda(
+            *(t[row:row + 1].contiguous() for t in args[:4]), a["w"], a["b"],
+            a["beta"][row:row + 1].contiguous(),
+            a["mask"][row:row + 1].contiguous(), a["s"])
+        assert all(torch.equal(u[0], v[row]) for u, v in zip(alone, full))
+    flip = [t.flip(0).contiguous() for t in args[:4]]
+    flipped = rff_krls_bank_chunk_cuda(
+        *flip, a["w"], a["b"], a["beta"].flip(0).contiguous(),
+        a["mask"].flip(0).contiguous(), a["s"])
+    assert all(torch.equal(u.flip(0), v) for u, v in zip(flipped, full))
+    masked = rff_krls_bank_chunk_cuda(*args[:7], torch.zeros_like(a["ys"]),
+                                      a["s"])
+    assert torch.equal(masked[0], a["theta"])
+    assert torch.equal(masked[1], a["pmat"])
+    assert masked[0].data_ptr() != a["theta"].data_ptr()
+    assert masked[1].data_ptr() != a["pmat"].data_ptr()
+    one = rff_krls_bank_chunk_cuda(a["theta"], a["pmat"],
+                                   a["xs"][:, :1].contiguous(),
+                                   a["ys"][:, :1].contiguous(), *common, None,
+                                   a["s"])
+    step = rff_krls_bank_step_cuda(a["theta"], a["pmat"],
+                                   a["xs"][:, 0].contiguous(),
+                                   a["ys"][:, 0].contiguous(), *common,
+                                   a["s"])
+    assert all(torch.equal(u.reshape(v.shape), v) for u, v in zip(one, step))
+
+
+@pytest.mark.cuda
+def test_compact_workspace_matches_c_layout(cuda_device, monkeypatch):
+    """The C entry's workspace bytes and Tc are those chunking.py mirrors;
+    a workspace a byte short is refused (cudaErrorInvalidValue); tenants
+    taken in slabs of two give the same bits as one slab."""
+    from repro_torch.kernels import chunking, rff_krls_step
+
+    lib = rff_krls_step._compact_lib()
+    assert lib.krls_compact_tc() == chunking.KRLS_COMPACT_TC
+    for shape in ((1, 16, 5, 400), (583, 16, 5, 1024), (7, 3, 128, 1031)):
+        assert lib.krls_compact_workspace_bytes(*shape) == \
+            chunking.krls_compact_workspace_bytes(*shape)
+    a = _krls_inputs(cuda_device, 5, 19, 5, 337, seed=11, symmetric=False)
+    args = (a["theta"], a["pmat"], a["xs"], a["ys"], a["w"], a["b"],
+            a["beta"], a["mask"], a["s"])
+    want = rff_krls_step.rff_krls_bank_chunk_cuda(*args)
+    outs = [torch.empty_like(t) for t in want]
+    nbytes = chunking.krls_compact_workspace_bytes(5, 16, 5, 337)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=cuda_device)
+    code = lib.krls_bank_chunk_compact(
+        *(t.data_ptr() for t in (a["theta"], a["pmat"], a["xs"], a["ys"],
+                                 a["mask"], a["beta"], a["w"], a["b"],
+                                 a["s"], *outs)),
+        5, 19, 5, 337, torch.cuda.current_stream().cuda_stream,
+        ws.data_ptr(), nbytes - 1, 5)
+    torch.cuda.synchronize()
+    assert code == 1  # cudaErrorInvalidValue
+    monkeypatch.setattr(rff_krls_step, "krls_compact_slab",
+                        lambda *shape: 2)
+    slabs = rff_krls_step.rff_krls_bank_chunk_cuda(*args)
+    assert all(torch.equal(u, v) for u, v in zip(slabs, want))
+
+
 @pytest.mark.cuda
 def test_krls_resident_smem_matches_c_layout(cuda_device):
     """The resident C entry carves the layout chunking.krls_resident_fits
     mirrors: at d = 5 it launches at D = 335 and refuses D = 336 with
-    cudaErrorInvalidValue, where the wrapper streams."""
+    cudaErrorInvalidValue, where the wrapper takes the compact route."""
     from repro_torch.kernels.rff_krls_step import _lib
 
     codes = {}

@@ -229,10 +229,11 @@ def test_gram_exact_contracts():
 
 
 @pytest.mark.parametrize("dfeat,d", [(300, 5), (335, 5), (336, 5), (400, 5),
-                                     (17, 4), (129, 128), (1, 1)])
+                                     (17, 4), (129, 128), (1, 1), (1024, 5),
+                                     (1031, 5)])
 def test_krls_step_route(dfeat, d):
     """One KRLS step goes to the resident chunk kernel at T = 1 where P's
-    triangle fits a block, else to the streaming step kernel."""
+    triangle fits a block, else to the compact chunk kernel at T = 1."""
     fits = chunking.krls_resident_fits(dfeat, d)
-    assert krls_step_route(dfeat, d) == ("resident" if fits else "streaming")
+    assert krls_step_route(dfeat, d) == ("resident" if fits else "compact")
     assert krls_step_route(dfeat, d) == krls_chunk_route(dfeat, d)

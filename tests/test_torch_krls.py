@@ -401,13 +401,13 @@ def test_krls_resident_size_rule(dfeat, d, nbytes, fits):
     """The resident chunk kernel keeps P's triangle in a block's shared
     memory: it fits at the paper's D = 300 and to D = 335, not at D = 336
     or 400 (d = 5); the bytes are those csrc/krls_bank.cu carves; the chunk
-    wrapper picks its route by them."""
+    wrapper picks its route by them (the compact route past them)."""
     from repro_torch.kernels.rff_krls_step import krls_chunk_route
 
     assert chunking.krls_resident_smem_bytes(dfeat, d) == nbytes
     assert (nbytes <= chunking.SMEM_BUDGET) is fits
     assert chunking.krls_resident_fits(dfeat, d) is fits
-    assert krls_chunk_route(dfeat, d) == ("resident" if fits else "streaming")
+    assert krls_chunk_route(dfeat, d) == ("resident" if fits else "compact")
     assert chunking.krls_fits(dfeat, d)  # the streaming kernel takes any
 
 
