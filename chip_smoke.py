@@ -10,7 +10,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    and at ragged ones, and checks the bitwise contracts (a chunk of 16
    equals 16 steps, a chunk at T=1 equals a step, a masked tick leaves
    theta unchanged, a tenant's chunk at B=1 equals its row of the B=1024
-   launch);
+   launch); the read kernel's few-row route (z by (row tile, column
+   tile) blocks, then a reduce launch in the bank route's order) against
+   its plain version at FEW_SHAPES, both precisions, and bit for bit: each
+   of the serving bank's 1024 tenants read alone (the few-row route)
+   against its row of the bank's read, and both routes forced on the same
+   inputs;
 3. drives the KLMS main path: a ``make_server("klms")`` bank of 1024
    tenants with a d=128, D=2048 random-feature map and chunk=16 takes a
    ragged stream, flushes, drains and serves single-tenant and (1024, 64)
@@ -40,7 +45,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    the same inputs, the compact route forced at D = 300 in turns with the
    resident one (recorded only), and the read kernel on its bf16 route, at
    the KRLS read shape (d = 5, D = 300) and at one tenant (B = 1, the
-   policy tier's and the quarantine's reads);
+   policy tier's and the quarantine's reads: the few-row route through the
+   op in turns with the bank route forced and the plain version, f32 and
+   bf16, and at the sharded KRLS predict's partial, (1, 64, 5, 8192));
 7. holds the replay kernels (feature map, KLMS and KRLS chunk elements)
    against their plain versions at the replay shape (T=256, d=128,
    D=2048), the read-block shape of the feature map (65536 rows), the
@@ -277,7 +284,8 @@ the D = 1024 flush's times, flash_attention with an "mla" record of
 phase 21's MLA shape
 and its f32 route with "mla" and "launcher" records of step 14's,
 bank_predict with "bf16", "krls_read" and "one_tenant" records beside
-its f32 serving one, rff_features with a "read_block" record,
+its f32 serving one and a record per route ("bank", "few") under
+"routes", rff_features with a "read_block" record,
 krls_chunk_elements with a "d2048" one); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
@@ -313,6 +321,16 @@ F32_TOL = 1e-4  # FMA contraction, summation order and cosf vs torch.cos
 BF16_TOL = 1e-3  # plus one-ulp bf16 flips of z at rounding boundaries
 SERVER_TOL = 1e-4  # the recursion carries per-tick f32 differences
 RAGGED = [(7, 5, 300), (1, 1, 17), (33, 128, 129)]  # (B, d, D)
+# The read kernel's few-row route (csrc/bank_predict.cu bank_predict_few),
+# held at (B, Q, d, D): one tenant at the KLMS serving widths, the KRLS
+# read's and a compact width's, the sharded KRLS predict's partial (B = 1,
+# D / n = 8192 at D = 32768 on four ranks) and ragged rows.
+FEW_SHAPES = [(1, Q, D_IN, D_FEAT), (1, 1, D_IN, D_FEAT), (2, Q, D_IN, D_FEAT),
+              (1, Q, 5, 300), (1, 13, 5, 400), (1, Q, 5, 8192),
+              (7, 1, 5, 300), (129, 1, 7, 2049)]
+SHARD_PARTIAL = (1, Q, 5, 8192)  # (B, Q, d, D)
+PREDICT_ROUTE_SOURCES = {"bank": "src/repro_torch/csrc/bank_predict.cu",
+                         "few": "src/repro_torch/csrc/bank_predict.cu"}
 # KRLS serving: the paper's section 6 settings (src/repro/core/krls.py:122,
 # benchmarks/paper.py:145) over the same bank, chunk and read block.
 K_D_IN, K_D_FEAT, K_SIGMA, K_LAM, K_BETA = 5, 300, 5.0, 1e-4, 0.9995
@@ -420,11 +438,59 @@ def inputs(rng, bank, tlen, d, dfeat, device, mask_p=0.3):
     )
 
 
-def phase_kernels(rng, device) -> dict:
-    """Every kernel against its plain version, and the bitwise contracts."""
+def predict_contracts(rng, device, route_errs: dict) -> dict:
+    """The read kernel's few-row route against its plain version at
+    FEW_SHAPES, f32 and bf16, equal bit for bit to the bank route forced on
+    the same inputs and to a second call; then each tenant of the serving
+    bank read alone (the few-row route) against its row of the bank's read
+    (the bank route), bit for bit. ``route_errs`` takes each route's
+    largest error."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import predict_route
+    from repro_torch.kernels.rff_predict import rff_bank_predict_cuda as cuda
+
+    for bank, qlen, d, dfeat in FEW_SHAPES:
+        shape = (bank, qlen, d, dfeat)
+        check(predict_route(bank * qlen, dfeat) == "few",
+              f"read {shape} is not on the few-row route")
+        a = inputs(rng, bank, qlen, d, dfeat, device)
+        pargs = (a["theta"], a["xs"], a["w"], a["b"], a["s"])
+        for precision, tol in ((None, F32_TOL), ("bf16", BF16_TOL)):
+            few = cuda(*pargs, precision=precision, _route="few")
+            e = hold(f"bank_predict few {precision} {shape}", [few],
+                     [ops.rff_bank_predict(*pargs, mode="ref",
+                                           precision=precision)], tol)
+            route_errs["few"] = max(route_errs["few"], e)
+            check(torch.equal(few, cuda(*pargs, precision=precision,
+                                        _route="bank")),
+                  f"read {precision} {shape}: the routes' bits differ")
+            check(torch.equal(few, cuda(*pargs, precision=precision,
+                                        _route="few")),
+                  f"read {precision} {shape}: two calls differ")
+    check(predict_route(BANK * Q, D_FEAT) == "bank",
+          "the serving read is off the bank route")
+    a = inputs(rng, BANK, Q, D_IN, D_FEAT, device)
+    for precision in (None, "bf16"):
+        full = cuda(a["theta"], a["xs"], a["w"], a["b"], a["s"],
+                    precision=precision)
+        for t in range(BANK):
+            one = cuda(a["theta"][t:t + 1], a["xs"][t:t + 1], a["w"],
+                       a["b"], a["s"], precision=precision)
+            check(torch.equal(one[0], full[t]),
+                  f"read {precision}: tenant {t} alone differs from its "
+                  f"row of the B = {BANK} read")
+    return {"few_shapes": FEW_SHAPES, "few_eq_bank_forced": True,
+            "two_calls": True, f"b1_eq_row_of_b{BANK}_read": BANK}
+
+
+def phase_kernels(rng, device) -> tuple[dict, dict]:
+    """Every kernel against its plain version, and the bitwise contracts.
+    Returns the errors and the read kernel's per-route errors."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import predict_route
 
     errs = {"klms_bank_chunk": 0.0, "klms_bank_step": 0.0, "bank_predict": 0.0}
+    route_errs = {"bank": 0.0, "few": 0.0}
     shapes = [(BANK, D_IN, D_FEAT)] + RAGGED
     for bank, d, dfeat in shapes:
         a = inputs(rng, bank, CHUNK if bank == BANK else 5, d, dfeat, device)
@@ -451,6 +517,8 @@ def phase_kernels(rng, device) -> dict:
                      [ops.rff_bank_predict(*pargs, mode="ref",
                                            precision=precision)], tol)
             errs["bank_predict"] = max(errs["bank_predict"], e)
+            route = predict_route(bank * qlen, dfeat)
+            route_errs[route] = max(route_errs[route], e)
 
     # Bitwise contracts at the serving shape.
     a = inputs(rng, BANK, CHUNK, D_IN, D_FEAT, device)
@@ -493,13 +561,15 @@ def phase_kernels(rng, device) -> dict:
         check(all(torch.equal(g[0], w[row]) for g, w in zip(one, full)),
               f"tenant {row}: a chunk at B = 1 differs from its row of the "
               f"B = {BANK} launch")
+    reads = predict_contracts(rng, device, route_errs)
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "shapes": shapes, "max_abs_err": errs,
           "tolerance": {"f32": F32_TOL, "bf16_predict": BF16_TOL},
           "bitwise": {"chunk16_eq_16_steps": True, "chunk1_eq_step": True,
                       "masked_tick_noop": True,
-                      f"b1_eq_row_of_b{BANK}": list(rows)}})
-    return errs
+                      f"b1_eq_row_of_b{BANK}": list(rows)},
+          "predict_routes": {"max_abs_err": route_errs, **reads}})
+    return errs, {r: {"max_abs_err": e} for r, e in route_errs.items()}
 
 
 def ragged_stream(rng, rounds: int, d: int):
@@ -1033,6 +1103,52 @@ def turns(run, routes, reps: int = 20) -> dict:
     return {r: {"ms": min(v), "ms_runs": v} for r, v in runs.items()}
 
 
+def read_bound(bank: int, qlen: int, d: int, dfeat: int,
+               bf16: bool) -> tuple[float, str]:
+    """The read's bound at (B, Q, d, D): bytes W, b, s, theta, the queries
+    and the output; operations 2 d D a row for the products (on the bf16
+    route at the tensor cores' rate) and 5 D (bias, cos, scale, the theta
+    . z multiply-add) at the f32 rate."""
+    rows = bank * qlen
+    nbytes = 4 * (d * dfeat + 2 * dfeat + bank * dfeat + rows * (d + 1))
+    if not bf16:
+        return bound_ms(nbytes, rows * (2 * d * dfeat + 5 * dfeat))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (rows * 2 * d * dfeat / BF16_OPS_PER_S
+             + rows * 5 * dfeat / F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def read_routes(theta, xq, w, b, s, precision=None) -> dict:
+    """A read timed on both routes and its plain version in turns within
+    one call (the bank route forced, the op on its own route, the plain
+    version, then back), with its bound; the op's route must be "few"."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rff_predict import rff_bank_predict_cuda as cuda
+
+    runs = {
+        "bank": lambda: cuda(theta, xq, w, b, s, precision=precision,
+                             _route="bank"),
+        "few": lambda: ops.rff_bank_predict(theta, xq, w, b, s, mode="cuda",
+                                            precision=precision),
+        "plain": lambda: ops.rff_bank_predict(theta, xq, w, b, s, mode="ref",
+                                              precision=precision),
+    }
+    before = cuda.route_launches["few"]
+    t = turns(lambda r: runs[r](), tuple(runs))
+    check(cuda.route_launches["few"] > before,
+          f"read {tuple(xq.shape)} {precision} was timed off the few-row route")
+    bank, qlen, d = xq.shape
+    bound, bound_by = read_bound(bank, qlen, d, theta.shape[-1],
+                                 precision == "bf16")
+    return {"ms": t["few"]["ms"], "ms_runs": t["few"]["ms_runs"],
+            "plain_ms": t["plain"]["ms"], "plain_ms_runs": t["plain"]["ms_runs"],
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+            "bank_ms": t["bank"]["ms"], "bank_ms_runs": t["bank"]["ms_runs"],
+            "shape": [bank, qlen, d, theta.shape[-1]]}
+
+
 def krls_cost(dfeat: int, rows: int) -> tuple[int, int]:
     """Bytes and operations of ``rows`` live KRLS ticks a tenant over the
     serving bank at width ``dfeat`` (d = K_D_IN): theta and P in and out,
@@ -1195,11 +1311,8 @@ def phase_times(rng, device) -> dict:
     bf16 = timed_case(lambda m: ops.rff_bank_predict(
         a["theta"], xq, a["w"], a["b"], a["s"], mode=m, precision="bf16"),
         shared + 4 * (BANK * D_FEAT + BANK * Q * (D_IN + 1)), 0.0)
-    t_bytes = bf16["bytes"] / HBM_BYTES_PER_S
-    t_ops = (rows_pred * 2 * D_IN * D_FEAT / BF16_OPS_PER_S
-             + rows_pred * 5 * D_FEAT / F32_OPS_PER_S)
-    bf16.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    bf16["bound_ms"], bf16["bound_by"] = read_bound(BANK, Q, D_IN, D_FEAT,
+                                                    True)
     pred["bf16"] = {**{k_: bf16[k_] for k_ in keys}, "library_ms": None,
                     "shape": [BANK, Q, D_IN, D_FEAT]}
     kq = torch.from_numpy(
@@ -1214,14 +1327,23 @@ def phase_times(rng, device) -> dict:
                          "library_ms": None,
                          "shape": [BANK, Q, K_D_IN, K_D_FEAT]}
     # The read's most launched shape: one tenant (the policy tier's reads,
-    # the quarantine's predict_row) at the KLMS serving widths.
-    one = timed_case(
-        lambda m: ops.rff_bank_predict(a["theta"][:1], xq[:1], a["w"],
-                                       a["b"], a["s"], mode=m),
-        shared + 4 * (D_FEAT + Q * (D_IN + 1)),
-        Q * (2 * D_IN * D_FEAT + 5 * D_FEAT))
-    pred["one_tenant"] = {**{k_: one[k_] for k_ in keys}, "library_ms": None,
-                          "shape": [1, Q, D_IN, D_FEAT]}
+    # the quarantine's predict_row) at the KLMS serving widths, on the
+    # few-row route through the op in turns with the bank route forced, f32
+    # and bf16; and the sharded KRLS predict's partial.
+    one = [a["theta"][:1], xq[:1], a["w"], a["b"], a["s"]]
+    pred["one_tenant"] = read_routes(*one)
+    pred["one_tenant"]["bf16"] = read_routes(*one, precision="bf16")
+    bank, qlen, d, dfeat = SHARD_PARTIAL
+    sp = inputs(rng, bank, qlen, d, dfeat, device)
+    pred["one_tenant"]["shard_partial"] = read_routes(
+        sp["theta"], sp["xs"], sp["w"], sp["b"], sp["s"])
+    del one, sp
+    pred["routes"] = {
+        "bank": {**{k_: pred[k_] for k_ in keys}, "library_ms": None,
+                 "shape": [BANK, Q, D_IN, D_FEAT],
+                 "one_tenant_forced_ms": pred["one_tenant"]["bank_ms"]},
+        "few": {k_: v for k_, v in pred["one_tenant"].items()
+                if k_ not in ("bf16", "shard_partial")}}
     emit({"phase": "times", "shapes": {"B": BANK, "T": CHUNK, "d": D_IN,
                                        "D": D_FEAT, "Q": Q},
           "krls_shapes": {"B": BANK, "T": CHUNK, "d": K_D_IN, "D": K_D_FEAT},
@@ -1864,6 +1986,7 @@ KRLS_ROUTE_SOURCES = {"resident": "src/repro_torch/csrc/krls_bank.cu",
                       "compact": "src/repro_torch/csrc/krls_compact.cu",
                       "streaming": "src/repro_torch/csrc/krls_bank.cu"}
 ROUTE_SOURCES = {
+    "bank_predict": PREDICT_ROUTE_SOURCES,
     "flash_attention": {
         "tensor_core": "src/repro_torch/csrc/flash_attention_sm90.cu",
         "cuda_core": "src/repro_torch/csrc/flash_attention.cu"},
@@ -5761,7 +5884,7 @@ def main() -> int:
     kernels.update(rff_decode_block=rff_attention_decode_block_cuda,
                    rff_linear_attention=rff_attention_cuda,
                    flash_attention=flash_attention_cuda)
-    errs = phase_kernels(rng, device)
+    errs, predict_routes = phase_kernels(rng, device)
     launches = phase_server(args.seed, device, kernels)
     krls_errs, p_rels, krls_routes = phase_krls_kernels(rng, device)
     errs.update(krls_errs)
@@ -5834,7 +5957,8 @@ def main() -> int:
         fl["max_abs_err"], fl["err_of_max_plain"])
     tolerance["flash_attention"] = None
     timed = {name: times[name]["routes"] for name in ROUTE_SOURCES}
-    measured = {"flash_attention": flash_routes, **krls_routes}
+    measured = {"bank_predict": predict_routes,
+                "flash_attention": flash_routes, **krls_routes}
     routes = {name: {route: {
         "source": src, "launches": ROUTE_LAUNCHES.get(name, {}).get(route, 0),
         **{k: v for k, v in measured[name][route].items() if k != "cases"},

@@ -27,6 +27,22 @@ it takes at those shapes and llama3-8b's head, then its
 unrolls) at the tile ``flash_plan`` picks, and the same call through the
 wrapper and the op (the host's share).
 
+``python3 krls_breakdown.py --predict-few`` times the read kernel's
+few-row route (``csrc/bank_predict.cu`` ``bank_predict_few``) by part
+through its C entry (the packing, the z tiles, the reduce: variants that
+launch one part, the last two on the workspace a full call leaves) beside
+the bank route's entry, the wrapper, the op and the plain version, in
+turns, with the device time a call (torch.profiler), at one tenant (1, 64,
+128 -> 2048),
+the KRLS read's width (1, 64, 5, 300) and the sharded KRLS predict's
+partial (1, 64, 5, 8192), f32 and bf16; then both routes' entries at B =
+1 .. 512 tenants of 64 queries (the route rule's threshold study); then
+kernel 1 (``klms_bank_chunk``) at diffusion's B = 1 shapes (``KLMS_B1``).
+``python3 krls_breakdown.py --policy SRC`` serves phase 18's KLMS policy
+stream (``chip_smoke.phase_policy``'s kernel servers alone, each policy)
+with the ``repro_torch`` under ``SRC`` and prints each policy's read and
+write µs p50/p99, for a parent tree in the same call.
+
 It compiles timing-only variants of ``src/repro_torch/csrc/krls_bank.cu``
 into ``build/repro_torch/breakdown/``, each with one part of the resident
 tick removed or changed (so their results are wrong and are not checked),
@@ -97,6 +113,7 @@ T = 512 by CUDA events):
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -619,12 +636,215 @@ def readmit_breakdown(dev) -> dict:
                       "lam": K_LAM, "beta": K_BETA}, "ms": ms}
 
 
+# The few-row read route by part: variants of csrc/bank_predict.cu whose
+# other launches are prefixed ``if (0)``.
+_FEW_PACK = [("  cudaError_t rc = ft::pack(",
+              "  cudaError_t rc = cudaSuccess;\n  if (0) rc = ft::pack(", 1),
+             ("  pack_bf16_kernel<<<", "  if (0) pack_bf16_kernel<<<", 1)]
+_FEW_Z = [("  if (rc == cudaSuccess) rc = few_z_f32(",
+           "  if (0) rc = few_z_f32(", 1),
+          ("  if (rc == cudaSuccess)\n    rc = few_z_bf16(",
+           "  if (0)\n    rc = few_z_bf16(", 1)]
+_FEW_REDUCE = [("  if (rc == cudaSuccess) rc = few_reduce(",
+                "  if (0) rc = few_reduce(", 2)]
+FEW_VARIANTS = {
+    "few_full": ("bank_predict", []),
+    "few_pack": ("bank_predict", _FEW_Z + _FEW_REDUCE),
+    "few_z": ("bank_predict", _FEW_PACK + _FEW_REDUCE),
+    "few_reduce": ("bank_predict", _FEW_PACK + _FEW_Z),
+}
+# (B, Q, d, D): one tenant at the KLMS serving widths, at the KRLS read's,
+# and the sharded KRLS predict's partial (D = 32768 on four ranks).
+FEW_PARTS_SHAPES = [(1, Q, D_IN, D_FEAT), (1, Q, K_D_IN, K_D_FEAT),
+                    (1, Q, K_D_IN, 8192)]
+FEW_STUDY_BANKS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 384, 512)
+FEW_STUDY_WIDTHS = ((D_IN, D_FEAT), (K_D_IN, K_D_FEAT))  # (d, D)
+# Kernel 1 at phase 20's diffusion nodes (B = 1): the reference run's
+# (T, d, D) = (1, 5, 100), a combine every tick, and example 1's (50, 5,
+# 1000), a combine every 50 ticks.
+KLMS_B1 = ((1, 5, 100), (50, 5, 1000))
+PROFILED_CALLS = 20
+
+
+def predict_few_breakdown(build, dev) -> dict:
+    """The few-row route by part through the C entry, beside the bank
+    route's entry, the wrapper, the op and the plain version (in turns:
+    each case forward, then backward), with the C entries' device time a
+    call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.chunking import predict_workspace_bytes
+    from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
+
+    libs = build_tiles(build, build.CSRC, build.BUILD_DIR / "breakdown_few",
+                       FEW_VARIANTS)
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for lib in libs.values():
+        for entry in ("bank_predict", "bank_predict_few"):
+            getattr(lib, entry).argtypes = [P] * 7 + [L] + [I] * 5 + [P]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(0)
+    out = {}
+    for bank, qlen, d, dfeat in FEW_PARTS_SHAPES:
+        a = inputs(rng, bank, qlen, d, dfeat, dev)
+        res = torch.empty(bank, qlen, device=dev)
+        for prec in (None, "bf16"):
+            bf = int(prec == "bf16")
+            ws = torch.empty(predict_workspace_bytes(bank * qlen, d, dfeat,
+                                                     bool(bf), "few"),
+                             dtype=torch.uint8, device=dev)
+
+            def entry(name, fn_name):
+                def run():
+                    code = getattr(libs[name], fn_name)(
+                        a["theta"].data_ptr(), a["xs"].data_ptr(),
+                        a["w"].data_ptr(), a["b"].data_ptr(),
+                        a["s"].data_ptr(), res.data_ptr(), ws.data_ptr(),
+                        ws.numel(), bank, qlen, d, dfeat, bf, stream)
+                    if code:
+                        raise SystemExit(f"{name} {fn_name}: cudaError {code}")
+                return run
+
+            cases = {name: entry(name, "bank_predict_few")
+                     for name in FEW_VARIANTS}
+            cases["bank_entry"] = entry("few_full", "bank_predict")
+            cases["wrapper"] = lambda: rff_bank_predict_cuda(
+                a["theta"], a["xs"], a["w"], a["b"], a["s"], precision=prec)
+            cases["op"] = lambda: ops.rff_bank_predict(
+                a["theta"], a["xs"], a["w"], a["b"], a["s"], mode="cuda",
+                precision=prec)
+            cases["plain"] = lambda: ops.rff_bank_predict(
+                a["theta"], a["xs"], a["w"], a["b"], a["s"], mode="ref",
+                precision=prec)
+            ms = {name: [] for name in cases}
+            for name in [*cases, *reversed(cases)]:
+                ms[name].append(time_ms(cases[name], 20))
+            device = {}
+            for name in ("few_full", "few_pack", "few_z", "few_reduce",
+                         "bank_entry"):
+                prof = device_busy(
+                    lambda: [cases[name]() for _ in range(PROFILED_CALLS)],
+                    named="few")
+                device[name] = {
+                    "ms": prof["device_ms"] / PROFILED_CALLS,
+                    "launches": prof["kernel_launches"] / PROFILED_CALLS}
+            out[f"{bank}x{qlen}x{d}->{dfeat} {prec or 'f32'}"] = {
+                "ms": ms, "device_ms_a_call": device}
+    return out
+
+
+def predict_route_study(dev) -> dict:
+    """Both routes' C entries at B = 1 .. 512 tenants of Q queries at the
+    KLMS and KRLS serving widths, f32 and bf16, in turns (bank, few, few,
+    bank)."""
+    from repro_torch.kernels import rff_predict
+    from repro_torch.kernels.chunking import (predict_route,
+                                              predict_workspace_bytes)
+
+    lib = rff_predict._lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(1)
+    out = {}
+    for d, dfeat in FEW_STUDY_WIDTHS:
+        a = inputs(rng, max(FEW_STUDY_BANKS), Q, d, dfeat, dev)
+        for bank in FEW_STUDY_BANKS:
+            res = torch.empty(bank, Q, device=dev)
+            for prec in ("f32", "bf16"):
+                bf = int(prec == "bf16")
+                ws = torch.empty(predict_workspace_bytes(bank * Q, d, dfeat,
+                                                         bool(bf), "few"),
+                                 dtype=torch.uint8, device=dev)
+
+                def run(route):
+                    fn = (lib.bank_predict_few if route == "few"
+                          else lib.bank_predict)
+                    code = fn(a["theta"].data_ptr(), a["xs"].data_ptr(),
+                              a["w"].data_ptr(), a["b"].data_ptr(),
+                              a["s"].data_ptr(), res.data_ptr(),
+                              ws.data_ptr(), ws.numel(), bank, Q, d, dfeat,
+                              bf, stream)
+                    if code:
+                        raise SystemExit(f"{route} at B = {bank}: "
+                                         f"cudaError {code}")
+
+                ms = {"bank": [], "few": []}
+                for route in ("bank", "few", "few", "bank"):
+                    ms[route].append(time_ms(lambda: run(route), 10))
+                out[f"d{d} D{dfeat} B{bank} {prec}"] = {
+                    "ms": ms, "rule": predict_route(bank * Q, dfeat),
+                    "bank_blocks": -(-bank * Q // 128)}
+            del res, ws
+        del a
+    return out
+
+
+def klms_b1_times(dev) -> dict:
+    """Kernel 1 through the op at diffusion's B = 1 shapes, its plain
+    version in turns, the device time a call and the bound (chip_smoke's
+    count for kernel 1: W, b, s, theta in and out, each tick's x, y, mask
+    and outputs, mu; 2 d D + 7 D operations a tick)."""
+    from chip_smoke import bound_ms
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(2)
+    out = {}
+    for tlen, d, dfeat in KLMS_B1:
+        a = inputs(rng, 1, tlen, d, dfeat, dev)
+
+        def run(m):
+            return ops.rff_klms_bank_chunk(a["theta"], a["xs"], a["ys"],
+                                           a["w"], a["b"], a["mu"], a["mask"],
+                                           a["s"], mode=m)
+
+        ms = {"cuda": [], "ref": []}
+        for m in ("ref", "cuda", "cuda", "ref"):
+            ms[m].append(time_ms(lambda: run(m), 20))
+        prof = device_busy(lambda: [run("cuda") for _ in range(PROFILED_CALLS)],
+                           named="klms")
+        nbytes = 4 * (d * dfeat + 2 * dfeat + 2 * dfeat + tlen * (d + 4) + 1)
+        bound, bound_by = bound_ms(nbytes, tlen * (2 * d * dfeat + 7 * dfeat))
+        out[f"1x{tlen}x{d}->{dfeat}"] = {
+            "ms": ms, "device_ms_a_call": prof["device_ms"] / PROFILED_CALLS,
+            "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def policy_reads(dev) -> dict:
+    """Phase 18's KLMS policy servers (the kernel server alone, each
+    policy, installs timed as chip_smoke times them) over its request
+    stream: read and write µs p50/p99 from the server's registry."""
+    import chip_smoke as cs
+    from repro_torch.serve import make_server
+
+    seed = 0
+    fm = cs.family_map("rff", seed, D_IN, D_FEAT, SIGMA, dev)
+    kw = dict(feature_map=fm, bank=BANK, chunk=CHUNK, mu=MU,
+              log_capacity=LOG_CAP, size_watermark=CHUNK, device=dev)
+    requests = cs.policy_requests(np.random.default_rng(seed + 5),
+                                  cs.POLICY_WRITES, D_IN)
+    out = {}
+    for policy in cs.POLICIES:
+        srv = make_server("klms", policy=policy, rebuild_mode="blocked", **kw)
+        cs.time_installs(srv)
+        t0 = time.perf_counter()
+        cs.serve_requests(srv, requests)
+        torch.cuda.synchronize()
+        hist = srv.metrics.snapshot()["histograms"]
+        out[policy] = {
+            kind: {k: hist[f"latency.{kind}"][k]
+                   for k in ("p50", "p99", "mean", "count")}
+            for kind in ("read_us", "write_us")}
+        out[policy]["seconds"] = time.perf_counter() - t0
+        del srv
+    return out
+
+
 def ops_times(dev) -> dict:
     """The replay ops of the imported package (whichever tree is on the
     path), each timed three times (medians of 30 calls; the small calls
     are host-bound, and the host's speed wanders): the KRLS element at
     both shapes, the KLMS element at the replay shape, the feature map at
-    256 and 65536 rows, f32 and bf16, and the read at one tenant."""
+    256 and 65536 rows, f32 and bf16, the read at one tenant (f32, bf16)
+    and at the sharded KRLS predict's partial; and the reads' bits."""
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(0)
@@ -651,10 +871,29 @@ def ops_times(dev) -> dict:
             a["x"], ys, a["w"], a["b"], 0.5, a["s"], mode="cuda"), 30)
         for _ in range(3)]
     theta = f32_tensor(rng, 1, D_FEAT, device=dev)
-    out["bank_predict one tenant"] = [time_ms(
-        lambda: ops.rff_bank_predict(theta, a["x"][None, :Q], a["w"], a["b"],
-                                     a["s"], mode="cuda"), 30)
+    for prec in (None, "bf16"):
+        out[f"bank_predict one tenant {prec or 'f32'}"] = [time_ms(
+            lambda: ops.rff_bank_predict(theta, a["x"][None, :Q], a["w"],
+                                         a["b"], a["s"], mode="cuda",
+                                         precision=prec), 30)
+            for _ in range(3)]
+    sp = inputs(np.random.default_rng(3), 1, Q, K_D_IN, 8192, dev)
+    out["bank_predict shard partial"] = [time_ms(
+        lambda: ops.rff_bank_predict(sp["theta"], sp["xs"], sp["w"],
+                                     sp["b"], sp["s"], mode="cuda"), 30)
         for _ in range(3)]
+    # The reads' bits (sha256 of the outputs) on inputs from a fixed seed:
+    # the serving bank's read and one tenant's, f32 and bf16, for a
+    # comparison of two trees.
+    r = inputs(np.random.default_rng(4), BANK, Q, D_IN, D_FEAT, dev)
+    out["read_sha256"] = {}
+    for prec in (None, "bf16"):
+        for label, sl in (("bank", slice(None)), ("tenant_5", slice(5, 6))):
+            got = ops.rff_bank_predict(r["theta"][sl], r["xs"][sl], r["w"],
+                                       r["b"], r["s"], mode="cuda",
+                                       precision=prec)
+            out["read_sha256"][f"{label} {prec or 'f32'}"] = hashlib.sha256(
+                got.cpu().numpy().tobytes()).hexdigest()
     if hasattr(ops, "_dispatch"):
         # Host µs of one dispatch record and its (untraced) span, as the
         # read op makes it.
@@ -989,6 +1228,21 @@ def main() -> int:
         print(smi)
         print(json.dumps({"compact": compact_breakdown(_build, dev)}))
         print(json.dumps({"compact_tc": tc_study(dev)}))
+        return 0
+    if sys.argv[1:] == ["--predict-few"]:
+        sys.path.insert(0, str(SRC))
+        from repro_torch.kernels import _build
+
+        print(smi)
+        print(json.dumps({"predict_few": predict_few_breakdown(_build, dev)}))
+        print(json.dumps({"predict_route_study": predict_route_study(dev)}))
+        print(json.dumps({"klms_b1": klms_b1_times(dev)}))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--policy":
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+        print(smi)
+        print(json.dumps({"policy_reads": policy_reads(dev),
+                          "src": sys.argv[2]}))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ops":
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))

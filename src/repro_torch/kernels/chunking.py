@@ -25,6 +25,10 @@ __all__ = [
     "feature_tile_grid",
     "feature_tile_pack_floats",
     "predict_workspace_bytes",
+    "PREDICT_ROUTES",
+    "PREDICT_FEW_BLOCKS",
+    "PREDICT_FEW_Z_BUDGET",
+    "predict_route",
     "klms_tick_plan",
     "klms_fits",
     "KRLS_THREADS",
@@ -103,16 +107,51 @@ def feature_tile_pack_floats(rows: int, input_dim: int, dfeat: int) -> int:
 
 
 def predict_workspace_bytes(rows: int, input_dim: int, dfeat: int,
-                            bf16: bool = False) -> int:
-    """Bytes of the read kernel's packed operands (csrc/bank_predict.cu):
-    f32 as :func:`feature_tile_pack_floats`; bf16 the bias and scale
-    ``(2, Dp)`` in f32, then ``W^T (Dp, dp)`` and ``x (Rp, dp)`` in bf16,
-    with dp a multiple of 32."""
-    if not bf16:
-        return 4 * feature_tile_pack_floats(rows, input_dim, dfeat)
-    dp = _round_up(input_dim, TILE_K_BF16)
+                            bf16: bool = False, route: str = "bank") -> int:
+    """Bytes of the read kernel's workspace (csrc/bank_predict.cu): the
+    packed operands, f32 as :func:`feature_tile_pack_floats`, bf16 the bias
+    and scale ``(2, Dp)`` in f32, then ``W^T (Dp, dp)`` and ``x (Rp, dp)``
+    in bf16, with dp a multiple of 32; on the "few" route then z ``(R,
+    Dp)`` in f32 (512 KiB at one tenant's 64 queries, D = 2048)."""
     dp_cols = _round_up(dfeat, TILE_COLS)
-    return 8 * dp_cols + 2 * dp * (_round_up(rows, TILE_ROWS) + dp_cols)
+    if not bf16:
+        packed = 4 * feature_tile_pack_floats(rows, input_dim, dfeat)
+    else:
+        dp = _round_up(input_dim, TILE_K_BF16)
+        packed = 8 * dp_cols + 2 * dp * (_round_up(rows, TILE_ROWS) + dp_cols)
+    return packed + (4 * rows * dp_cols if route == "few" else 0)
+
+
+# The read kernel's routes (csrc/bank_predict.cu): "bank", a block a 128
+# rows walking all of D, and "few", (row tile x column tile) blocks that
+# form z in an (R, Dp) workspace and a reduce launch that runs the bank
+# route's chain for each row, so no bit depends on the route. A read takes
+# "few" where the bank route gives fewer than PREDICT_FEW_BLOCKS blocks
+# (a wave of the H100's 132 SMs) and z fits PREDICT_FEW_Z_BUDGET (256
+# MiB, the KLMS kernels' workspace budget). The threshold is the card's
+# (krls_breakdown.py --predict-few, both C entries at B tenants of 64
+# queries; NVIDIA H100 80GB HBM3, 700 W): at d = 128, D = 2048 the few-row
+# route was faster up to B = 256, 128 bank blocks (f32 0.344 ms against
+# 0.385, bf16 0.198 against 0.219), split at B = 384 (f32 0.49 against
+# 0.59, bf16 0.27 against 0.26) and slower at B = 512 (f32 0.637 against
+# 0.587); at d = 5, D = 300 faster up to B = 128, within 0.005 ms at 256,
+# slower from 384.
+PREDICT_ROUTES = ("bank", "few")
+PREDICT_FEW_BLOCKS = 132
+PREDICT_FEW_Z_BUDGET = 256 << 20
+
+
+def predict_route(rows: int, dfeat: int) -> str:
+    """The read kernel's route for ``rows`` (B Q) rows of width D =
+    ``dfeat``: "few" where the bank route's blocks of 128 rows number
+    fewer than :data:`PREDICT_FEW_BLOCKS` and the ``(R, Dp)`` f32 z fits
+    :data:`PREDICT_FEW_Z_BUDGET` (and its column tiles the grid's 65535),
+    else "bank"."""
+    cols = -(-dfeat // TILE_COLS)
+    if (-(-rows // TILE_ROWS) < PREDICT_FEW_BLOCKS and cols <= _MAX_GRID_Y
+            and 4 * rows * cols * TILE_COLS <= PREDICT_FEW_Z_BUDGET):
+        return "few"
+    return "bank"
 
 
 def klms_tick_plan(dfeat: int) -> tuple[int, int]:

@@ -17,7 +17,11 @@ bound would measure. The contracts between the two kernels of a family
 are bitwise. The feature kernel is held relative to max|s| (z is at most
 s in size): 1e-5 at f32, 2e-2 for bf16 features (the read contract). The
 replay elements A, v, g, Phi and r are held at 1e-4 (abs + rel); a fully
-masked chunk gives the identity element bit for bit. The KLMS element is
+masked chunk gives the identity element bit for bit. The read kernel's
+two routes (a block walking all of D for 128 rows; for few rows, z by
+(row tile, column tile) blocks and a reduce launch in the bank route's
+order) give the same bits: a tenant read alone equals its row of the
+bank's read, and both routes forced on the same inputs agree. The KLMS element is
 formed in closed form (compact WY), not by the fold: at the replay shape
 its A and v are each within twice the f32 fold's own distance from a
 float64 fold, and two calls, or a chunk alone and among others, agree bit
@@ -67,12 +71,14 @@ from repro_torch import convert
 from repro_torch.features import rff_map
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import default_scale
+from repro_torch.kernels.chunking import predict_route
 from repro_torch.kernels.rff_features import rff_features_cuda
 from repro_torch.kernels.rff_klms_step import rff_klms_bank_chunk_cuda
 from repro_torch.kernels.rff_krls_step import (
     rff_krls_bank_chunk_cuda,
     rff_krls_bank_step_cuda,
 )
+from repro_torch.kernels.rff_predict import rff_bank_predict_cuda
 from repro_torch.kernels.rff_scan import (
     rff_klms_chunk_elements_cuda,
     rff_krls_chunk_elements_cuda,
@@ -265,6 +271,78 @@ def test_predict_kernel_matches_plain_at_read_shapes(cuda_device, precision,
         atol=tol, rtol=tol)
     assert torch.equal(got, ops.rff_bank_predict(*pargs, mode="cuda",
                                                  precision=precision))
+
+
+# The read kernel's few-row route, (B, Q, d, D): one tenant at the KLMS
+# serving widths, one query, two tenants, the KRLS read's and a compact
+# width, the sharded KRLS predict's partial (D / n = 8192), and ragged B Q
+# in {1, 7, 129} at D in {300, 2049}.
+FEW_READS = [(1, 64, 128, 2048), (1, 1, 128, 2048), (2, 64, 128, 2048),
+             (1, 64, 5, 300), (1, 13, 5, 400), (1, 64, 5, 8192),
+             *((bq, 1, 5, dfeat) for bq in (1, 7, 129)
+               for dfeat in (300, 2049))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("bank,qlen,d,dfeat", FEW_READS)
+def test_predict_few_route_matches_plain(cuda_device, precision, bank, qlen,
+                                         d, dfeat):
+    """The few-row route, picked by the route rule, against mode="ref";
+    bit for bit the bank route forced on the same inputs, and two calls."""
+    assert predict_route(bank * qlen, dfeat) == "few"
+    a = _inputs(cuda_device, bank, qlen, d, dfeat, seed=10)
+    pargs = (a["theta"], a["xs"], a["w"], a["b"], a["s"])
+    tol = BF16_TOL if precision else F32_TOL
+    before = dict(rff_bank_predict_cuda.route_launches)
+    got = ops.rff_bank_predict(*pargs, mode="cuda", precision=precision)
+    assert rff_bank_predict_cuda.route_launches == {
+        "bank": before["bank"], "few": before["few"] + 1}
+    torch.testing.assert_close(
+        got, ops.rff_bank_predict(*pargs, mode="ref", precision=precision),
+        atol=tol, rtol=tol)
+    assert torch.equal(got, rff_bank_predict_cuda(*pargs, precision=precision,
+                                                  _route="bank"))
+    assert torch.equal(got, ops.rff_bank_predict(*pargs, mode="cuda",
+                                                 precision=precision))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_predict_few_route_takes_unaligned_theta(cuda_device, precision):
+    """A theta whose rows start off 16 bytes (a view one float into its
+    storage) takes the reduce's scalar loads: the same bits as an aligned
+    copy, on both routes."""
+    a = _inputs(cuda_device, 2, 64, 128, 2048, seed=13)
+    store = torch.empty(2 * 2048 + 1, device=cuda_device)
+    theta = store[1:].view(2, 2048)
+    theta.copy_(a["theta"])
+    assert theta.data_ptr() % 16 != 0 and theta.is_contiguous()
+    rest = (a["xs"], a["w"], a["b"], a["s"])
+    want = rff_bank_predict_cuda(a["theta"], *rest, precision=precision)
+    for route in ("few", "bank"):
+        assert torch.equal(want, rff_bank_predict_cuda(
+            theta, *rest, precision=precision, _route=route)), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", [None, "bf16"])
+@pytest.mark.parametrize("bank,d,dfeat", [(1024, 128, 2048), (64, 5, 300)])
+def test_predict_tenant_alone_equals_its_row(cuda_device, precision, bank, d,
+                                             dfeat):
+    """Every tenant's read of 64 queries alone (the few-row route) equals
+    its row of the whole bank's read on the bank route, bit for bit; the
+    whole read forced onto the few-row route equals it too."""
+    a = _inputs(cuda_device, bank, 64, d, dfeat, seed=12)
+    pargs = (a["theta"], a["xs"], a["w"], a["b"], a["s"])
+    full = rff_bank_predict_cuda(*pargs, precision=precision, _route="bank")
+    assert torch.equal(full, rff_bank_predict_cuda(
+        *pargs, precision=precision, _route="few"))
+    for t in range(bank):
+        one = ops.rff_bank_predict(a["theta"][t:t + 1], a["xs"][t:t + 1],
+                                   a["w"], a["b"], a["s"], mode="cuda",
+                                   precision=precision)
+        assert torch.equal(one[0], full[t]), f"tenant {t}"
 
 
 @pytest.mark.cuda
