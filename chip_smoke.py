@@ -2397,8 +2397,11 @@ def device_busy(fn, top: int = 6, named: str = "flash", expect=None) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        # The program's spans are profiler ranges too: their device-side
+        # copies (user annotations) are no kernels.
         kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
         names = {e.key: e.count for e in kern}
         if kern and (expect is None or expect(names)):
             break

@@ -118,19 +118,20 @@ def bank_predict_block(state, xq: torch.Tensor, rff: FeatureLike,
     kernel (one launch); a map without the trig form featurizes the block
     and reduces in f32. ``precision="bf16"`` follows the contract in
     ``kernels/ref.py``."""
-    precision = ref.canon_precision(precision)
-    tf = as_trig_or_none(rff)
-    if tf is None:
-        z = featurize(rff, xq)  # (B, Q, D)
-        if precision == "bf16":
-            z = z.to(torch.bfloat16)
-        theta = state.theta
-        pred = torch.sum(theta[:, None, :].float() * z.float(), dim=-1)
-        return pred.to(theta.dtype)
-    return ops.rff_bank_predict(
-        state.theta, xq, tf.omega, tf.bias, tf.scale, mode=mode,
-        precision=precision,
-    )
+    with _trace.span("lockstep.read", B=xq.shape[0], Q=xq.shape[1]):
+        precision = ref.canon_precision(precision)
+        tf = as_trig_or_none(rff)
+        if tf is None:
+            z = featurize(rff, xq)  # (B, Q, D)
+            if precision == "bf16":
+                z = z.to(torch.bfloat16)
+            theta = state.theta
+            pred = torch.sum(theta[:, None, :].float() * z.float(), dim=-1)
+            return pred.to(theta.dtype)
+        return ops.rff_bank_predict(
+            state.theta, xq, tf.omega, tf.bias, tf.scale, mode=mode,
+            precision=precision,
+        )
 
 
 # ---------------------------------------------------------------------------

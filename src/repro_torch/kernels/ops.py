@@ -39,6 +39,9 @@ order.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Callable
+
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.placement_types import _StridedShard
@@ -124,14 +127,26 @@ def use_kernel(mode: str, lead: torch.Tensor) -> bool:
                      f"or {tuple(MODE_ALIASES)}")
 
 
+_SPAN_NAMES: dict[str, str] = {}
+_NO_SPAN = contextlib.nullcontext()
+
+
 def _dispatch(op: str, *, launches: int = 1, remainder: int = 0,
-              bytes_moved=None, **attrs):
+              bytes_moved=None, attrs: Callable[[], dict]):
     """Record one call of ``op`` (``launches`` launches, ``remainder`` of
-    them a short last block) and open its ``kernel.<op>`` span (the shared
-    null context when no tracer is active)."""
+    them a short last block) and open its ``kernel.<op>`` span (a shared
+    null context when nothing records). ``attrs`` returns the span's
+    attributes; it is called only when a tracer records them."""
     _telemetry.record_dispatch(op, launches=launches, remainder=remainder,
                                bytes_moved=bytes_moved)
-    return _trace.span(f"kernel.{op}", launches=launches, **attrs)
+    if not _trace.recording():
+        return _NO_SPAN
+    name = _SPAN_NAMES.get(op)
+    if name is None:
+        name = _SPAN_NAMES[op] = f"kernel.{op}"
+    if _trace.current_tracer() is None:
+        return _trace.span(name)  # a profiler range: it takes no attributes
+    return _trace.span(name, launches=launches, **attrs())
 
 
 def _tracks_grad(*tensors) -> bool:
@@ -314,8 +329,10 @@ def rff_bank_predict(theta, xq, w, b, s=None, *, mode: str = "auto",
     bank, q, d = xq.shape
     bm = _telemetry.predict_read_bytes(bank, d, w.shape[-1], q)
     with _dispatch("bank_predict", bytes_moved=bm["fused_bytes"],
-                   shape=[bank, q, d], dfeat=w.shape[-1],
-                   dtype=str(theta.dtype), mode=mode, precision=precision):
+                   attrs=lambda: dict(
+                       shape=[bank, q, d], dfeat=w.shape[-1],
+                       dtype=str(theta.dtype), mode=mode,
+                       precision=precision)):
         if use_kernel(mode, theta):
             return rff_bank_predict_cuda(theta, xq, w, b, s,
                                          precision=precision)
@@ -332,8 +349,9 @@ def rff_klms_bank_step(theta, x, y, w, b, mu, s=None, *, mode: str = "auto",
     bank, d = x.shape
     bm = _telemetry.klms_chunk_bytes(bank, d, theta.shape[-1], 1)
     with _dispatch("klms_step", bytes_moved=bm["bytes_per_tick_model"],
-                   shape=[bank, d], dfeat=theta.shape[-1],
-                   dtype=str(theta.dtype), mode=mode):
+                   attrs=lambda: dict(
+                       shape=[bank, d], dfeat=theta.shape[-1],
+                       dtype=str(theta.dtype), mode=mode)):
         if use_kernel(mode, theta):
             return rff_klms_bank_step_cuda(theta, x, y, w, b, mu, s)
         return ref.rff_klms_bank_step_ref(theta, x, y, w, b, mu, s)
@@ -365,8 +383,9 @@ def rff_klms_bank_chunk(theta, xs, ys, w, b, mu, mask=None, s=None, *,
     with _dispatch("klms_chunk", launches=launches, remainder=remainder,
                    bytes_moved=bm["launch_bytes"] * launches
                    + bm["stream_bytes_per_tick"] * tlen,
-                   shape=[bank, tlen, d], dfeat=dfeat,
-                   dtype=str(theta.dtype), mode=mode, chunk=chunk):
+                   attrs=lambda: dict(
+                       shape=[bank, tlen, d], dfeat=dfeat,
+                       dtype=str(theta.dtype), mode=mode, chunk=chunk)):
         return _time_blocked(
             lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, mu, mc,
                                              s),
@@ -411,8 +430,9 @@ def rff_krls_bank_step(theta, pmat, x, y, w, b, beta, s=None, *,
     bank, d = x.shape
     bm = _telemetry.krls_chunk_bytes(bank, d, theta.shape[-1], 1)
     with _dispatch("krls_step", bytes_moved=bm["bytes_per_tick_model"],
-                   shape=[bank, d], dfeat=theta.shape[-1],
-                   dtype=str(theta.dtype), mode=mode):
+                   attrs=lambda: dict(
+                       shape=[bank, d], dfeat=theta.shape[-1],
+                       dtype=str(theta.dtype), mode=mode)):
         if use_kernel(mode, theta):
             return rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s)
         return ref.rff_krls_bank_step_ref(theta, pmat, x, y, w, b, beta, s)
@@ -440,8 +460,9 @@ def rff_krls_bank_chunk(theta, pmat, xs, ys, w, b, beta, mask=None, s=None,
     with _dispatch("krls_chunk", launches=launches, remainder=remainder,
                    bytes_moved=bm["launch_bytes"] * launches
                    + bm["stream_bytes_per_tick"] * tlen,
-                   shape=[bank, tlen, d], dfeat=dfeat,
-                   dtype=str(theta.dtype), mode=mode, chunk=chunk):
+                   attrs=lambda: dict(
+                       shape=[bank, tlen, d], dfeat=dfeat,
+                       dtype=str(theta.dtype), mode=mode, chunk=chunk)):
         return _time_blocked(
             lambda state, xc, yc, mc: launch(*state, xc, yc, w, b, beta, mc,
                                              s),
@@ -481,9 +502,11 @@ def rff_klms_chunk_elements(xs, ys, w, b, mu, s=None, *, mode: str = "auto",
     theta + v`` element. Returns ``(a (nc, D, D), v (nc, D))``.
     """
     xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
-    with _dispatch("klms_elements", shape=list(xs.shape), dfeat=w.shape[-1],
-                   chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
-                   chunk=xs_c.shape[1]):
+    with _dispatch("klms_elements",
+                   attrs=lambda: dict(
+                       shape=list(xs.shape), dfeat=w.shape[-1],
+                       chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
+                       chunk=xs_c.shape[1])):
         if use_kernel(mode, xs):
             return rff_klms_chunk_elements_cuda(
                 xs_c, ys_c, w, b, mu, mask_c, s, normalized=normalized,
@@ -500,9 +523,11 @@ def rff_krls_chunk_elements(xs, ys, w, b, beta, s=None, *,
     factor; masked remainder ticks compose ``(1, 0, 0)``. Returns ``(g
     (nc,), phi (nc, D, D), r (nc, D))``."""
     xs_c, ys_c, mask_c = _element_blocks(xs, ys, w.shape[-1], chunk)
-    with _dispatch("krls_elements", shape=list(xs.shape), dfeat=w.shape[-1],
-                   chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
-                   chunk=xs_c.shape[1]):
+    with _dispatch("krls_elements",
+                   attrs=lambda: dict(
+                       shape=list(xs.shape), dfeat=w.shape[-1],
+                       chunks=xs_c.shape[0], dtype=str(xs.dtype), mode=mode,
+                       chunk=xs_c.shape[1])):
         if use_kernel(mode, xs):
             return rff_krls_chunk_elements_cuda(xs_c, ys_c, w, b, beta,
                                                 mask_c, s)
@@ -582,9 +607,10 @@ def rff_attention_decode_block(s_state, z_state, q, k, v, w, b, s=None, *,
     s_state, z_state = s_state.float(), z_state.float()
     launches, remainder = _blocks(tlen, block_t)
     with _dispatch("decode_block", launches=launches, remainder=remainder,
-                   shape=[bh, tlen, dh], dfeat=dfeat, dtype=str(q.dtype),
-                   mode=mode, block_t=block_t, feature_kind=feature_kind,
-                   precision=precision):
+                   attrs=lambda: dict(
+                       shape=[bh, tlen, dh], dfeat=dfeat, dtype=str(q.dtype),
+                       mode=mode, block_t=block_t, feature_kind=feature_kind,
+                       precision=precision)):
         if tlen <= block_t:
             return run(s_state, z_state, 0, tlen)
         outs = []

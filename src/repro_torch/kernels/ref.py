@@ -15,9 +15,14 @@ the CUDA kernels):
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+
+from repro_torch.obs import trace as _trace
+
+_NO_WAIT = contextlib.nullcontext()
 
 __all__ = [
     "canon_precision",
@@ -28,6 +33,8 @@ __all__ = [
     "rff_features_ref",
     "klms_tick_math",
     "krls_tick_math",
+    "blocking",
+    "to_device",
     "mu_column",
     "beta_column",
     "rff_klms_bank_step_ref",
@@ -144,20 +151,43 @@ def krls_tick_math(theta, pmat, z, y, beta_b):
     return theta_new, pmat_new, pred, err
 
 
+def blocking(device, site: str):
+    """``obs.trace.host_wait(site)`` around an op that takes a value from
+    the host to ``device`` (a blocking copy there), a null context on the
+    host."""
+    if device.type == "cpu":
+        return _NO_WAIT
+    return _trace.host_wait(site)
+
+
+def to_device(value, dtype, device, site: str):
+    """``torch.as_tensor(value, dtype=dtype, device=device)``. A Python
+    number or a host tensor bound for a device is a blocking copy: it runs
+    inside :func:`blocking`."""
+    if isinstance(value, torch.Tensor) and value.device == device:
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    with blocking(device, site):
+        return torch.as_tensor(value, dtype=dtype, device=device)
+
+
+def _column(value, like, n, site):
+    if (isinstance(value, torch.Tensor) and value.shape == (n,)
+            and value.dtype == like.dtype and value.device == like.device):
+        return value
+    return to_device(value, like.dtype, like.device, site).expand(n)
+
+
 def mu_column(mu, like, n):
     """Step size ``mu`` (scalar or ``(B,)``) broadcast to ``(n,)`` in the
     dtype and on the device of ``like``. A ``(n,)`` tensor of that dtype
     and device is returned as it is."""
-    if (isinstance(mu, torch.Tensor) and mu.shape == (n,)
-            and mu.dtype == like.dtype and mu.device == like.device):
-        return mu
-    return torch.as_tensor(mu, dtype=like.dtype, device=like.device).expand(n)
+    return _column(mu, like, n, "mu_column")
 
 
 def beta_column(beta, like, n):
     """Forgetting factor ``beta`` (scalar or ``(B,)``) as a ``(n,)``
     column, like :func:`mu_column`."""
-    return mu_column(beta, like, n)
+    return _column(beta, like, n, "beta_column")
 
 
 def rff_klms_bank_step_ref(theta, x, y, w, b, mu, s=None):

@@ -11,6 +11,8 @@ the dispatch layer (``kernels/ops.py``) and the serve tier report into.
   counts an op reached inside its jitted flush there, once per shape);
 * ``kernel.bytes_moved{op=...}`` — gauge: the bytes-moved model of the most
   recent dispatch, from the closed forms below;
+* ``host.device_waits{site=...}`` — places where the host blocked on the
+  device (``obs.trace.host_wait``, which also opens a ``host.wait`` span);
 * ``dispatch.launches{site=queue.flush}``, ``queue.stale_flush``,
   ``wal.appends`` / ``wal.replayed`` and ``checkpoint.saves`` /
   ``checkpoint.restores`` / ``checkpoint.bytes`` from the serve tier.
@@ -29,6 +31,7 @@ __all__ = [
     "reset",
     "snapshot",
     "record_dispatch",
+    "record_device_wait",
     "record_wal_append",
     "record_checkpoint",
     "klms_chunk_bytes",
@@ -81,6 +84,17 @@ def record_dispatch(op: str, *, launches: int = 1, remainder: int = 0,
         reg.counter(keys[1]).inc(remainder)
     if bytes_moved is not None:
         reg.set_gauge(keys[2], float(bytes_moved))
+
+
+_WAIT_KEYS: dict[str, str] = {}
+
+
+def record_device_wait(site: str) -> None:
+    """Count one blocking wait of the host on the device at ``site``."""
+    key = _WAIT_KEYS.get(site)
+    if key is None:
+        key = _WAIT_KEYS[site] = f"host.device_waits{{site={site}}}"
+    registry().counter(key).inc()
 
 
 def record_wal_append(*, replayed: bool = False) -> None:

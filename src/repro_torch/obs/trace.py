@@ -15,10 +15,17 @@ contains ``queue.flush`` contains ``kernel.klms_chunk`` and
   ``chrome://tracing`` or https://ui.perfetto.dev).
 * Instant events (:meth:`Tracer.instant`) for the probe tier's degradation
   events — zero-duration marks on the same timeline.
-* ``jax_annotations=True`` (``repro``'s keyword, kept for its callers)
-  also enters ``torch.profiler.record_function`` and, where CUDA is
-  available, ``torch.cuda.nvtx.range`` for every span, so host spans line
-  up with the device timeline of a ``torch.profiler`` trace.
+* The profiler bridge: while ``torch.profiler`` records, every span also
+  enters ``torch.profiler.record_function(name)``, so the program's spans
+  land in the profiler's trace as ``user_annotation`` ranges on the clock
+  of the device's operations. Without a tracer the ambient :func:`span`
+  enters that range alone: an operator who runs ``torch.profiler`` sees
+  the program's layers without building a :class:`Tracer`.
+  ``jax_annotations=`` is ``repro``'s keyword, accepted and ignored.
+  Each such range also adds its host time to :func:`profiled_spans`,
+  keyed by its nesting path (the names of the profiled spans open around
+  it, outermost first), so whoever ran a profiled window reads the
+  program's layers on its own clock without parsing the trace.
 
 Spans read the host clock and never synchronize the device: a span around
 a kernel launch measures the enqueue, not the kernel.
@@ -26,9 +33,15 @@ a kernel launch measures the enqueue, not the kernel.
 The **active-tracer stack** lets instrumentation deep in the stack emit
 spans without a tracer in every signature: the facade activates its
 tracer around each request (``with activate(tracer):``) and the
-module-level :func:`span` / :func:`instant` helpers do nothing (one list
-check) when no tracer is active. Like the queue, the stack is
+module-level :func:`span` / :func:`instant` helpers do nothing (a list
+check and the profiler's flag) when no tracer is active and the profiler
+is off; :func:`recording` says whether a span would be recorded, so a
+caller builds its attributes only then. Like the queue, the stack is
 single-threaded state.
+
+:func:`host_wait` marks a place where the host blocks on the device (a
+``host.wait`` span, attribute ``site``) and counts it under
+``host.device_waits{site=...}`` in ``obs.telemetry``.
 """
 from __future__ import annotations
 
@@ -38,14 +51,74 @@ import time
 from collections import deque
 from typing import Any, Callable, Iterator, Optional
 
+import torch
+
+from repro_torch.obs import telemetry as _telemetry
+
 __all__ = [
     "Span",
     "Tracer",
     "activate",
+    "clear_profiled_spans",
     "current_tracer",
+    "host_wait",
     "instant",
+    "profiled_spans",
+    "recording",
     "span",
 ]
+
+# Whether torch.profiler is recording on this thread (~0.2 us a call).
+_profiling = torch._C._autograd._profiler_enabled
+
+# The profiled spans open now (names, outermost first) and, by nesting
+# path, the count and host seconds of those that closed.
+_OPEN: list[str] = []
+_TOTALS: dict[tuple, list] = {}
+
+
+class _Profiled:
+    """A ``record_function`` range that adds its host time to
+    :func:`profiled_spans` under its nesting path."""
+
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        _OPEN.append(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        try:
+            self._rf.__exit__(*exc)
+        finally:
+            path = tuple(_OPEN)
+            _OPEN.pop()
+            agg = _TOTALS.get(path)
+            if agg is None:
+                agg = _TOTALS[path] = [0, 0.0]
+            agg[0] += 1
+            agg[1] += dt
+        return False
+
+
+def profiled_spans() -> dict:
+    """``{nesting path: (count, host seconds)}`` of the spans that closed
+    while the profiler recorded, since the process began or
+    :func:`clear_profiled_spans`; a path is the tuple of the span's name
+    and the names of the profiled spans around it, outermost first."""
+    return {path: tuple(agg) for path, agg in _TOTALS.items()}
+
+
+def clear_profiled_spans() -> None:
+    """Forget the totals of :func:`profiled_spans`."""
+    _TOTALS.clear()
 
 
 class Span:
@@ -84,24 +157,6 @@ class Span:
         }
 
 
-def _profiler_ctx():
-    """``record_function`` plus, with CUDA, an NVTX range per span."""
-    import torch
-
-    nvtx = torch.cuda.is_available()
-
-    @contextlib.contextmanager
-    def ctx(name: str):
-        with torch.profiler.record_function(name):
-            if nvtx:
-                with torch.cuda.nvtx.range(name):
-                    yield
-            else:
-                yield
-
-    return ctx
-
-
 class Tracer:
     """Span recorder with a bounded ring buffer and stable exports.
 
@@ -109,9 +164,9 @@ class Tracer:
       capacity: completed spans/events kept; older ones are dropped (and
         counted in :attr:`dropped` / the exports' ``truncated`` flag).
       clock: injectable monotonic clock in seconds (tests pass a fake).
-      jax_annotations: ``repro``'s name for the profiler bridge: every span
-        also enters ``torch.profiler.record_function`` (and an NVTX range
-        on a CUDA machine).
+      jax_annotations: ``repro``'s keyword, accepted for its callers; the
+        profiler bridge follows the profiler (every span enters
+        ``torch.profiler.record_function`` while it records).
     """
 
     def __init__(self, capacity: int = 4096,
@@ -126,7 +181,7 @@ class Tracer:
         self._stack: list[Span] = []
         self._next_id = 0
         self.dropped = 0
-        self._profiler_ctx = _profiler_ctx() if jax_annotations else None
+        del jax_annotations
 
     # -- recording ---------------------------------------------------------
 
@@ -154,8 +209,8 @@ class Tracer:
         sp = self._open(name, attrs)
         self._stack.append(sp)
         try:
-            if self._profiler_ctx is not None:
-                with self._profiler_ctx(name):
+            if _profiling():
+                with _Profiled(name):
                     yield sp
             else:
                 yield sp
@@ -297,13 +352,27 @@ def activate(tracer: Optional[Tracer]) -> Iterator[None]:
         _ACTIVE.pop()
 
 
+def recording() -> bool:
+    """Whether :func:`span` records anything: a tracer is active or the
+    profiler records."""
+    return bool(_ACTIVE) or _profiling()
+
+
 def span(name: str, **attrs: Any):
-    """Span on the ambient tracer — a reusable null context (one list
-    check) when no tracer is active."""
-    t = current_tracer()
-    if t is None:
-        return _NULL
-    return t.span(name, **attrs)
+    """Span on the ambient tracer; without one, a ``record_function`` range
+    while the profiler records, else a reusable null context."""
+    if _ACTIVE:
+        return _ACTIVE[-1].span(name, **attrs)
+    if _profiling():
+        return _Profiled(name)
+    return _NULL
+
+
+def host_wait(site: str):
+    """Count one blocking wait of the host on the device at ``site``
+    (``host.device_waits{site=...}``) and return its ``host.wait`` span."""
+    _telemetry.record_device_wait(site)
+    return span("host.wait", site=site)
 
 
 def instant(name: str, **attrs: Any) -> Optional[Span]:

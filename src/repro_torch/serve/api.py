@@ -76,6 +76,7 @@ from repro_torch.core.learner import (
 )
 from repro_torch.features.base import FeatureLike, as_trig_or_none, map_to
 from repro_torch.features.base import input_dim as fm_input_dim
+from repro_torch.kernels.ref import blocking, to_device
 from repro_torch.obs import probes as _probes
 from repro_torch.obs import telemetry as _telemetry
 from repro_torch.obs import trace as _obtrace
@@ -282,7 +283,9 @@ def make_chunk_step(learner: str, feature_map: FeatureLike = None, *,
         rate = h["beta"] if learner == "krls" else h["mu"]
 
         def step(state, xs, ys, mask):
-            return chunk_step(state, xs, ys, fm, rate, mask, mode=mode)
+            with _obtrace.span("lockstep.write", learner=learner,
+                               B=xs.shape[0], T=xs.shape[1]):
+                return chunk_step(state, xs, ys, fm, rate, mask, mode=mode)
 
         return step
     return _generic_chunk_server(
@@ -319,10 +322,23 @@ def reset_slots(state, slots, *, learner: Optional[str] = None,
     re-seed ``P_0 = I / lam``, dictionary rows zero every buffer."""
     if learner is None:
         learner = "krls" if isinstance(state, RLSState) else "klms"
-    idx = torch.as_tensor(slots, dtype=torch.long, device=state[0].device)
+    if not _obtrace.recording():
+        return _reset_rows(state, slots, learner, lam)
+    with _obtrace.span("lockstep.reset", learner=learner,
+                       rows=torch.as_tensor(slots).numel(),
+                       bytes_cloned=sum(a.numel() * a.element_size()
+                                        for a in state)):
+        return _reset_rows(state, slots, learner, lam)
+
+
+def _reset_rows(state, slots, learner, lam):
+    idx = to_device(slots, torch.long, state[0].device,
+                    "reset_slots.index")
     leaves = [a.clone() for a in state]
     for a in leaves:
-        a[idx] = 0
+        # The 0 is a host scalar: index_put_ copies it to the device.
+        with blocking(a.device, "reset_slots.fill"):
+            a[idx] = 0
     if learner == "krls":
         dfeat = state.pmat.shape[-1]
         leaves[1][idx] = torch.eye(dfeat, dtype=state.pmat.dtype,

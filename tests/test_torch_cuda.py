@@ -56,7 +56,9 @@ torch_dist_ranks.py``; NCCL refuses two ranks on one card): sharded KRLS
 within 1e-5 of the dense plain run per tick and 5e-5 in blocks (the
 reference tests' bounds), at D = 32768 and lam = 1e-4 within twice the
 dense f32 run's own distance from a float64 run, and diffusion within
-1e-4 of a plain single-process run.
+1e-4 of a plain single-process run. Every synchronizing call that
+``torch.cuda``'s sync-debug mode sees in the lockstep tier's write, read
+and reset sits in a ``host.wait`` span (one ``host.device_waits`` each).
 """
 import os
 import subprocess
@@ -1743,6 +1745,55 @@ def test_traced_probed_server_is_bitwise_untraced_on_card(cuda_device,
     assert obs.probe.healthy() and not obs.recovery.history
     assert obs.check_read_contract(xq) <= 2e-2
     obs.wal.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_every_lockstep_sync_is_a_spanned_wait_on_card(cuda_device, learner):
+    """Over rounds of the lockstep tier's write, read and reset (slots on
+    the card, and as a host list), every synchronizing call that
+    ``torch.cuda``'s sync-debug mode sees sits in a ``host.wait``: its
+    warnings count the rise of ``host.device_waits``."""
+    import warnings
+
+    from repro_torch.core.bank import (bank_predict_block, klms_bank_init,
+                                       krls_bank_init)
+    from repro_torch.obs import telemetry
+    from repro_torch.serve import make_chunk_step, reset_slots
+
+    d, dfeat = (16, 256) if learner == "klms" else (5, 300)
+    fm = rff_map(torch.Generator().manual_seed(0), d, dfeat, float(np.sqrt(d)),
+                 device=cuda_device)
+    hp = dict(mu=0.5) if learner == "klms" else dict(lam=1e-4, beta=0.9995)
+    step = make_chunk_step(learner, fm, **hp)
+    state = (klms_bank_init(fm, 64) if learner == "klms"
+             else krls_bank_init(fm, 64, 1e-4))
+    a = _inputs(cuda_device, 64, 16, d, dfeat, seed=5)
+    xq = a["xs"][:, :8].contiguous()
+    on_card = torch.arange(0, 64, 8, device=cuda_device)
+
+    def waits():
+        return sum(v for k, v in telemetry.snapshot()["counters"].items()
+                   if k.startswith("host.device_waits"))
+
+    state, _ = step(state, a["xs"], a["ys"], a["mask"])  # builds the kernels
+    torch.cuda.synchronize()
+    before = waits()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for r in range(4):
+                state, out = step(state, a["xs"], a["ys"], a["mask"])
+                bank_predict_block(state, xq, fm)
+                state = reset_slots(state, on_card if r % 2 else [r, r + 9],
+                                    learner=learner, lam=1e-4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    print(learner, len(syncs), waits() - before, sorted(set(syncs)))
+    assert len(syncs) == waits() - before >= 2
 
 
 @pytest.mark.cuda

@@ -12,6 +12,14 @@ server) held against ``repro`` on the CPU.
 * Dispatch counters under the port's semantics: every op call is a live
   launch (``kernel.launches`` = the time blocks, ``kernel.traces`` never
   counts), with ``repro``'s bytes closed forms.
+* The lockstep tier's spans: with nothing recording every span is the
+  shared null context, and the outputs are the same bits untraced, under
+  a tracer and under torch.profiler alone, whose trace nests
+  ``lockstep.write`` > ``kernel.<op>_chunk`` and ``lockstep.read`` >
+  ``kernel.bank_predict`` and shows ``lockstep.reset``, and whose spans
+  the program totals by nesting path (``profiled_spans``); a host value bound
+  for a device (meta stands for the card) is one ``host.wait`` span and
+  one ``host.device_waits{site=...}``, a CPU one neither.
 * The server: traced and probed equals untraced bit for bit (klms, krls);
   the ``observability()`` export has ``repro``'s keys; the read contract
   holds at 0.05.
@@ -275,6 +283,187 @@ def test_dispatch_counts_every_call_as_a_live_launch():
     assert spans[0].attrs == {"launches": 3, "shape": [2, 10, D_IN],
                               "dfeat": D_FEAT, "dtype": "torch.float32",
                               "mode": "auto", "chunk": 4}
+
+
+# -- the lockstep tier's spans and the host's waits ---------------------------
+
+_LOCKSTEP_HP = {"klms": dict(mu=0.3), "krls": dict(lam=0.1, beta=0.999)}
+
+
+def _lockstep_round(learner):
+    """One write, read and reset of the lockstep tier (``mode="ref"``) on a
+    fixed bank; returns every tensor it produced."""
+    from repro_torch.core.bank import (bank_predict_block, klms_bank_init,
+                                       krls_bank_init)
+
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.normal(size=(4, 6, D_IN)).astype(np.float32))
+    ys = torch.from_numpy(rng.normal(size=(4, 6)).astype(np.float32))
+    mask = torch.from_numpy((rng.random((4, 6)) > 0.3).astype(np.float32))
+    xq = torch.from_numpy(rng.normal(size=(4, 5, D_IN)).astype(np.float32))
+    state = (klms_bank_init(_TTF, 4) if learner == "klms"
+             else krls_bank_init(_TTF, 4, 0.1))
+    step = api.make_chunk_step(learner, _TTF, mode="ref",
+                               **_LOCKSTEP_HP[learner])
+    state, out = step(state, xs, ys, mask)
+    read = bank_predict_block(state, xq, _TTF, mode="ref")
+    state = api.reset_slots(state, torch.tensor([1, 3]), learner=learner,
+                            lam=0.1)
+    return [*state, out.prediction, out.error, read]
+
+
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_lockstep_spans_cost_nothing_and_change_no_bit(learner):
+    """With no tracer and no profiler every span is the shared null
+    context; the lockstep tier's outputs are the same bits untraced, under
+    a tracer and under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert not ttrace.recording()
+    assert ttrace.span("lockstep.write") is ttrace.span("kernel.klms_chunk")
+    assert ttrace.host_wait("mu_column") is ttrace.span("host.wait")
+    plain = _lockstep_round(learner)
+    tr = ttrace.Tracer(clock=FakeClock())
+    with ttrace.activate(tr):
+        traced = _lockstep_round(learner)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiled = _lockstep_round(learner)
+    for got in (traced, profiled):
+        assert all(torch.equal(a, b) for a, b in zip(plain, got))
+    names = {s.name for s in tr.spans()}
+    assert {"lockstep.write", "lockstep.read", "lockstep.reset"} <= names
+
+
+def _ranges(path):
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+
+
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_profiler_records_the_lockstep_spans_without_a_tracer(learner,
+                                                              tmp_path):
+    """Under torch.profiler alone the program's spans are profiler ranges:
+    ``lockstep.write`` holds ``kernel.<learner>_chunk``, ``lockstep.read``
+    holds ``kernel.bank_predict``, and ``lockstep.reset`` is there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert ttrace.current_tracer() is None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert ttrace.recording()
+        _lockstep_round(learner)
+    assert not ttrace.recording()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    ranges = _ranges(path)
+
+    def inside(inner, outer):
+        ins = [r for r in ranges if r[0] == inner]
+        outs = [r for r in ranges if r[0] == outer]
+        return len(ins) == 1 and len(outs) == 1 and (
+            outs[0][1] <= ins[0][1] and ins[0][2] <= outs[0][2])
+
+    assert inside(f"kernel.{learner}_chunk", "lockstep.write")
+    assert inside("kernel.bank_predict", "lockstep.read")
+    assert [r[0] for r in ranges].count("lockstep.reset") == 1
+
+
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_profiled_spans_total_by_nesting_path(learner):
+    """While the profiler records, every span adds its count and host time
+    under its nesting path, with or without a tracer; with the profiler off
+    nothing is added."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ref
+
+    ttrace.clear_profiled_spans()
+    _lockstep_round(learner)
+    with ttrace.activate(ttrace.Tracer(clock=FakeClock())):
+        _lockstep_round(learner)
+    assert ttrace.profiled_spans() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        _lockstep_round(learner)
+        with ttrace.activate(ttrace.Tracer(clock=FakeClock())):
+            _lockstep_round(learner)
+        with ttrace.span("lockstep.write"):
+            ref.mu_column(0.5, torch.empty(4, device="meta"), 4)
+    totals = ttrace.profiled_spans()
+    write, chunk = ("lockstep.write",), ("lockstep.write",
+                                         f"kernel.{learner}_chunk")
+    assert totals[write][0] == 3 and totals[chunk][0] == 2
+    assert totals[("lockstep.read", "kernel.bank_predict")][0] == 2
+    assert totals[("lockstep.reset",)][0] == 2
+    assert totals[("lockstep.write", "host.wait")][0] == 1
+    assert all(n > 0 and s > 0 for n, s in totals.values())
+    assert totals[write][1] > totals[chunk][1]
+    ttrace.clear_profiled_spans()
+    assert ttrace.profiled_spans() == {}
+
+
+def _waits(site):
+    return telemetry.registry().count("host.device_waits", site=site)
+
+
+@pytest.mark.parametrize("column,site", [("mu", "mu_column"),
+                                         ("beta", "beta_column")])
+def test_a_host_value_bound_for_a_device_is_one_spanned_wait(column, site):
+    """A Python step size (or forgetting factor) made into a column on a
+    device (the meta device stands for the card) is one ``host.wait`` span
+    and one ``host.device_waits{site=...}``; a CPU column, or a value
+    already on the column's device, is neither."""
+    from repro_torch.kernels import ref
+
+    fn = ref.mu_column if column == "mu" else ref.beta_column
+    meta = torch.empty(4, device="meta")
+    tr = ttrace.Tracer(clock=FakeClock())
+    before = _waits(site)
+    with ttrace.activate(tr):
+        got = fn(0.5, meta, 4)
+    assert got.device.type == "meta" and got.shape == (4,)
+    assert _waits(site) == before + 1
+    waits = [s for s in tr.spans() if s.name == "host.wait"]
+    assert len(waits) == 1 and waits[0].attrs == {"site": site}
+    tr = ttrace.Tracer(clock=FakeClock())
+    with ttrace.activate(tr):
+        fn(0.5, torch.empty(4), 4)
+        fn(torch.full((4,), 0.5, device="meta"), meta, 4)
+        fn(torch.tensor(0.5, device="meta"), meta, 4)
+    assert _waits(site) == before + 1
+    assert not [s for s in tr.spans() if s.name == "host.wait"]
+
+
+@pytest.mark.parametrize("learner", ["klms", "krls"])
+def test_reset_slots_spans_its_host_values(learner):
+    """``reset_slots`` on a device (meta stands for the card) waits once a
+    leaf for the 0 it writes and once for slots given from the host; on
+    the CPU it waits for nothing. Its ``lockstep.reset`` span gives the
+    rows and the bytes cloned."""
+    from repro_torch.core.bank import klms_bank_init, krls_bank_init
+
+    state = (klms_bank_init(_TTF, 4) if learner == "klms"
+             else krls_bank_init(_TTF, 4, 0.1))
+    meta = type(state)(*(a.to("meta") for a in state))
+
+    def counts():
+        return (_waits("reset_slots.index"), _waits("reset_slots.fill"))
+
+    index0, fill0 = counts()
+    tr = ttrace.Tracer(clock=FakeClock())
+    with ttrace.activate(tr):
+        api.reset_slots(meta, [1, 2], lam=0.1)
+        api.reset_slots(meta, torch.tensor([0], device="meta"), lam=0.1)
+        api.reset_slots(state, [1, 2], lam=0.1)
+    assert counts() == (index0 + 1, fill0 + 2 * len(state))
+    resets = [s.attrs for s in tr.spans() if s.name == "lockstep.reset"]
+    nbytes = sum(a.numel() * a.element_size() for a in state)
+    assert resets == [{"learner": learner, "rows": 2, "bytes_cloned": nbytes},
+                      {"learner": learner, "rows": 1, "bytes_cloned": nbytes},
+                      {"learner": learner, "rows": 2, "bytes_cloned": nbytes}]
+    waits = [s.attrs["site"] for s in tr.spans() if s.name == "host.wait"]
+    assert waits == (["reset_slots.index"] + ["reset_slots.fill"]
+                     * (2 * len(state)))
 
 
 def test_bytes_closed_forms_equal_repro():
