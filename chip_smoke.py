@@ -24,16 +24,19 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
    ``mode="ref"`` on the card, and each kernel's launch count must rise;
 4. holds both KRLS kernels (chunk, step) against their plain versions at
    the serving shape (B=1024, d=5, D=300, T=16) and at ragged ones (D up
-   to 1031, and a P that is not symmetric), each on every route (P's
-   triangle resident in shared memory up to D = 335 at d = 5, where a step
-   is the resident chunk kernel at T = 1; the compact route beyond, at D =
-   400, 1024 and 1031, also against its own plain version; P streamed each
-   tick, forced at D = 400), with the contracts of each route (T = 1 a
-   step, P' exactly symmetric, masked ticks a no-op, bit for bit; a chunk
-   of T equals T steps bit for bit on the resident and streaming routes,
-   where the streaming step equals the routed step, and within F32_TOL and
-   P_TOL on the compact route, where two calls, a tenant alone and calls
-   of Tc ticks in order agree bit for bit);
+   to 1031, and a P that is not symmetric), each on the route
+   ``krls_chunk_route`` picks (P's triangle resident in shared memory up
+   to D = 335 at d = 5 for the short calls, where a step is the resident
+   chunk kernel at T = 1; the compact route for the serving flush and
+   beyond, at D = 400, 1024 and 1031, also against its own plain version;
+   P streamed each tick, forced at D = 400), with the contracts of each
+   route (T = 1 a step, P' exactly symmetric, masked ticks a no-op, bit for
+   bit; a chunk of T equals T steps bit for bit on the resident and
+   streaming routes, where the streaming step equals the routed step, and
+   within F32_TOL and P_TOL on the compact route, where two calls, a
+   tenant alone and calls of Tc ticks in order agree bit for bit; the
+   serving shape on the resident route forced and on the compact route
+   picked);
 5. drives the KRLS main path: ``make_server("krls")`` at the paper's §6
    settings (d=5, D=300, sigma=5, lam=1e-4, beta=0.9995) with B=1024 and
    chunk=16, its reads and a ``make_tick("krls")`` tier, against the same
@@ -42,8 +45,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc`` and:
 6. times each kernel, its plain version and its bound at the serving
    shapes, the KRLS kernels' compact routes where they are picked (the
    serving bank at D = 400) in turns with the streaming route forced on
-   the same inputs, the compact route forced at D = 300 in turns with the
-   resident one (recorded only), and the read kernel on its bf16 route, at
+   the same inputs, both routes forced at D = 300 in turns (the chunk
+   picks the compact one there, the step the resident one), and the read
+   kernel on its bf16 route, at
    the KRLS read shape (d = 5, D = 300) and at one tenant (B = 1, the
    policy tier's and the quarantine's reads: the few-row route through the
    op in turns with the bank route forced and the plain version, f32 and
@@ -336,9 +340,10 @@ PREDICT_ROUTE_SOURCES = {"bank": "src/repro_torch/csrc/bank_predict.cu",
 K_D_IN, K_D_FEAT, K_SIGMA, K_LAM, K_BETA = 5, 300, 5.0, 1e-4, 0.9995
 K_RAGGED = [(3, 4, 17, 5), (5, 128, 129, 3), (2, 5, 1024, 4)]  # (B, d, D, T)
 # The chunk kernel's routes: P resident in shared memory (D <= 335 at d =
-# 5, the serving shape among them) or the compact route (wider D, as at D =
-# 400 here and D = 1024 above: blocks of Tc ticks, P moved once a block);
-# P streamed each tick only where a call forces it (_route="streaming").
+# 5, for a step and the calls too short for the compact route to pay) or
+# the compact route (blocks of Tc ticks, P moved once a block: the serving
+# flush, and wider D, as at D = 400 here and D = 1024 above); P streamed
+# each tick only where a call forces it (_route="streaming").
 KRLS_ROUTES = ("resident", "compact", "streaming")
 K_COMPACT = [(8, 5, 400, 6), (3, 5, 1031, 20)]  # (B, d, D, T)
 K_FORCED_STREAMING = (8, 5, 400, 6)  # (B, d, D, T)
@@ -758,7 +763,7 @@ def krls_inputs(rng, bank, tlen, d, dfeat, device, pmat="spd"):
 def krls_contracts(a, route, forced=False) -> None:
     """The bitwise contracts of the chunk route that a's shape picks
     (``route``, checked on every launch) or that ``forced`` forces: T = 1
-    equals one step on the same route, P' of a symmetric P is exactly
+    equals one step on the step's route (the chunk's at T = 1), P' of a symmetric P is exactly
     symmetric, masked ticks leave theta and P bit for bit in fresh tensors
     and emit the prior prediction. A chunk of T equals T step launches bit
     for bit on the resident and streaming routes, where a chain of
@@ -770,20 +775,23 @@ def krls_contracts(a, route, forced=False) -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.chunking import KRLS_COMPACT_TC
     from repro_torch.kernels.rff_krls_step import (
+        krls_step_route,
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
     )
 
     kw = {"_route": route} if forced else {}
     common = (a["w"], a["b"], a["beta"])
-    tlen = a["xs"].shape[1]
+    bank, tlen, d = a["xs"].shape
+    step_route = route if forced else krls_step_route(
+        bank, a["theta"].shape[1], d)
     tag = f"krls {route} {tuple(a['pmat'].shape)}"
     counts = rff_krls_bank_chunk_cuda.route_launches
 
-    def chunk_of(*args):
-        before = counts[route]
+    def chunk_of(*args, expect=route):
+        before = counts[expect]
         out = rff_krls_bank_chunk_cuda(*args, **kw)
-        check(counts[route] == before + 1, f"{tag}: launched another route")
+        check(counts[expect] == before + 1, f"{tag}: launched another route")
         return out
 
     def step_of(*args):
@@ -821,7 +829,8 @@ def krls_contracts(a, route, forced=False) -> None:
             del streamed
         if t == 0:
             one = chunk_of(a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
-                           a["ys"][:, :1].contiguous(), *common, None, a["s"])
+                           a["ys"][:, :1].contiguous(), *common, None, a["s"],
+                           expect=step_route)
             check(all(torch.equal(u, v) for u, v in
                       zip(one, (theta, pmat, pred[:, None], err[:, None]))),
                   f"{tag}: chunk at T=1 vs step differ")
@@ -866,16 +875,19 @@ def krls_contracts(a, route, forced=False) -> None:
 
 
 def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
-    """Both KRLS kernels against their plain versions, each on every route:
-    P resident in shared memory up to D = 335 at d = 5 (the chunk kernel,
-    at T = 1 for a step); the compact route beyond (blocks of Tc ticks, at
-    T = 1 for a step), held also against its own plain version
-    (krls_chunk_compact_ref); the streaming design forced at D = 400. Then
-    the contracts of each route."""
+    """Both KRLS kernels against their plain versions, each on the route
+    krls_chunk_route picks: P resident in shared memory up to D = 335 at d
+    = 5 for a step and the short calls (the chunk kernel, at T = 1 for a
+    step); the compact route for the serving flush and beyond (blocks of Tc
+    ticks, at T = 1 for a step past D = 335), held also against its own
+    plain version (krls_chunk_compact_ref); the streaming design forced at
+    D = 400. Then the contracts of each route, the serving shape's on the
+    resident route forced and on the compact route picked."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import krls_chunk_compact_ref
     from repro_torch.kernels.rff_krls_step import (
         krls_chunk_route,
+        krls_step_route,
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
     )
@@ -896,7 +908,8 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
                 a["beta"], a["mask"], a["s"])
         sargs = (a["theta"], a["pmat"], a["xs"][:, 0].contiguous(),
                  a["ys"][:, 0].contiguous(), a["w"], a["b"], a["beta"], a["s"])
-        route = forced[0] if forced else krls_chunk_route(dfeat, d)
+        route = forced[0] if forced else krls_chunk_route(bank, tlen, dfeat, d)
+        step_route = forced[0] if forced else krls_step_route(bank, dfeat, d)
         if forced:
             kern = (rff_krls_bank_chunk_cuda(*args, _route=route),
                     rff_krls_bank_step_cuda(*sargs, _route=route))
@@ -911,7 +924,7 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
             errs[name] = max(errs[name], e)
             shares[name] = max(shares[name], f)
             rels[name] = max(rels[name], r)
-            rec = by_route[name][route]  # the step routes as the chunk
+            rec = by_route[name][route if name == names[0] else step_route]
             rec["max_abs_err"] = max(rec["max_abs_err"], e)
             rec["p_rel_err"] = max(rec["p_rel_err"], r)
             rec["cases"].append([bank, d, dfeat, tlen, kind])
@@ -923,8 +936,10 @@ def phase_krls_kernels(rng, device) -> tuple[dict, dict, dict]:
             vs_compact_ref["p_rel_err"] = max(vs_compact_ref["p_rel_err"], r)
         del a, args, sargs, kern, plain
 
-    krls_contracts(krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device,
-                               "spd"), "resident")
+    serving = krls_inputs(rng, BANK, CHUNK, K_D_IN, K_D_FEAT, device, "spd")
+    krls_contracts(serving, "resident", forced=True)
+    krls_contracts(serving, krls_chunk_route(BANK, CHUNK, K_D_FEAT, K_D_IN))
+    del serving
     for bank, d, dfeat, tlen in K_COMPACT:
         krls_contracts(krls_inputs(rng, bank, tlen, d, dfeat, device, "spd"),
                        "compact")
@@ -1018,8 +1033,11 @@ def phase_krls_server(seed, device, kernels, family="rff") -> dict:
     launches = path_launches(
         kernels, ("krls_bank_chunk", "krls_bank_step", "bank_predict"))
     routes = dict(kernels["krls_bank_chunk"].route_launches)
-    check(routes["resident"] == launches["krls_bank_chunk"],
-          f"krls flushes at D = {K_D_FEAT} did not all keep P resident: {routes}")
+    check(routes["compact"] > 0 and routes["streaming"] == 0
+          and routes["resident"] + routes["compact"]
+          == launches["krls_bank_chunk"],
+          f"krls flushes at D = {K_D_FEAT} did not take the compact route: "
+          f"{routes}")
     step_routes = dict(kernels["krls_bank_step"].route_launches)
     check(step_routes["resident"] == launches["krls_bank_step"],
           f"krls ticks at D = {K_D_FEAT} did not all keep P resident: "
@@ -1185,10 +1203,11 @@ def phase_times(rng, device) -> dict:
     for z . pz, the gain and the theta update (every tick of the timed
     chunk is live). Bytes count each input read once and each output
     written once: for KRLS, P in and P' out dominate. Both KRLS kernels
-    are timed on their resident route at D = 300 and their compact route
-    at D = K_D_WIDE, where each is picked; the streaming route forced at D =
-    K_D_WIDE in turns with the compact one, and the compact route forced at
-    D = 300 in turns with the resident one, are recorded beside them.
+    are timed at D = 300 on the route each picks there (the chunk's compact
+    route, the step's resident one) and on their compact route at D =
+    K_D_WIDE; the streaming route forced at D = K_D_WIDE in turns with the
+    compact one, and both routes forced at D = 300 in turns, are recorded
+    beside them.
     """
     from repro_torch.kernels import ops
 
@@ -1229,6 +1248,8 @@ def phase_times(rng, device) -> dict:
         *krls_cost(K_D_FEAT, 1),
     )
     from repro_torch.kernels.rff_krls_step import (
+        krls_chunk_route,
+        krls_step_route,
         rff_krls_bank_chunk_cuda,
         rff_krls_bank_step_cuda,
     )
@@ -1236,15 +1257,18 @@ def phase_times(rng, device) -> dict:
     counts = {name: k_.route_launches for name, k_ in (
         ("krls_bank_chunk", rff_krls_bank_chunk_cuda),
         ("krls_bank_step", rff_krls_bank_step_cuda))}
+    picked = {"krls_bank_chunk": krls_chunk_route(BANK, CHUNK, K_D_FEAT,
+                                                  K_D_IN),
+              "krls_bank_step": krls_step_route(BANK, K_D_FEAT, K_D_IN)}
     before = {name: dict(c) for name, c in counts.items()}
     out = {name: timed_case(*case) for name, case in cases.items()}
     for name, c in counts.items():
-        check(c["resident"] > before[name]["resident"]
-              and c["compact"] == before[name]["compact"]
-              and c["streaming"] == before[name]["streaming"],
-              f"{name} at D = {K_D_FEAT} was timed off its resident route")
-    # The forced compact route at D = 300 beside the resident route there,
-    # in turns within this call (recorded only: D = 300 stays resident).
+        check(all((c[r] > before[name][r]) is (r == picked[name])
+                  for r in KRLS_ROUTES),
+              f"{name} at D = {K_D_FEAT} was timed off its {picked[name]} "
+              "route")
+    # Both routes forced at D = 300, in turns within this call: the table
+    # behind the pick there (chunking.krls_compact_pays).
     runs = {"krls_bank_chunk": lambda r: rff_krls_bank_chunk_cuda(
                 k["theta"], k["pmat"], k["xs"], k["ys"], k["w"], k["b"],
                 k["beta"], None, k["s"], _route=r),
@@ -1283,19 +1307,22 @@ def phase_times(rng, device) -> dict:
     keys = ("ms", "ms_runs", "plain_ms", "bound_ms", "bound_by")
     for name in counts:
         row, tlen = out[name], CHUNK if name == "krls_bank_chunk" else 1
-        streaming, compact300 = forced[name]["streaming"], at300[name]["compact"]
+        streaming, res300 = forced[name]["streaming"], at300[name]["resident"]
+        compact300 = at300[name]["compact"]
         row["routes"] = {
-            "resident": {**{k_: row[k_] for k_ in keys}, "library_ms": None,
+            "resident": {"ms": res300["ms"], "ms_runs": res300["ms_runs"],
+                         **{k_: row[k_] for k_ in keys[2:]},
+                         "library_ms": None,
+                         "picked": picked[name] == "resident",
                          "shape": [BANK, tlen, K_D_IN, K_D_FEAT]},
             "compact": {**{k_: wide[name][k_] for k_ in keys},
                         "library_ms": None,
                         "shape": [BANK, tlen, K_D_IN, K_D_WIDE],
                         "turns_with_streaming_ms": forced[name]["compact"],
-                        "forced_at_d300": {
+                        "at_d300": {
                             "ms": compact300["ms"],
                             "ms_runs": compact300["ms_runs"],
-                            "resident_ms": at300[name]["resident"]["ms"],
-                            "resident_ms_runs": at300[name]["resident"]["ms_runs"],
+                            "picked": picked[name] == "compact",
                             "bound_ms": row["bound_ms"],
                             "shape": [BANK, tlen, K_D_IN, K_D_FEAT]}},
             "streaming": {"ms": streaming["ms"],

@@ -20,6 +20,13 @@ launcher's reduced qwen2) for inputs from seeds 0-2.
 the streaming route's C entry, then runs the Tc study (``tc_study``: the
 compact form's plain version in f32 for Tc = 16 to 128 against a float64
 tick run at lam = 1e-4, beside the tick form's own f32 distance).
+``python3 krls_breakdown.py --route-crossover`` times kernel 4's two
+hand-written routes where both take the shape (P's triangle fits a block:
+D <= 335 at d = 5), each forced through the wrapper in turns (resident,
+compact, compact, resident) over ``CROSSOVER_BANKS`` x ``CROSSOVER_TICKS``
+at each of ``CROSSOVER_WIDTHS``, every tick live from P = I / lam, and at T
+= 1 the step wrapper too, beside the route ``krls_chunk_route`` picks: the
+table behind that rule (``chunking.krls_compact_pays``).
 ``python3 krls_breakdown.py --flash-variants`` times the f32 flash kernel
 (``csrc/flash_attention.cu``) through its C entry at every thread tile
 it takes at those shapes and llama3-8b's head, then its
@@ -1077,6 +1084,60 @@ TC_STUDY = (16, 32, 64, 128)
 TC_STUDY_B, TC_STUDY_T, TC_STUDY_CALLS = 64, 128, 6
 
 
+# The route crossover study: tenants, ticks a call and (d, D) widths at
+# which both chunk routes of kernel 4 take the shape.
+CROSSOVER_BANKS = (1, 8, 64, 132, 256, 1024)
+CROSSOVER_TICKS = (1, 2, 4, 8, 16, 64, 512)
+CROSSOVER_WIDTHS = ((5, 31), (5, 100), (5, 200), (5, 300), (5, 335),
+                    (128, 256))
+
+
+def route_crossover(dev) -> dict:
+    """Both chunk routes at D <= 335 forced through the wrapper, in turns
+    (resident, compact, compact, resident), with the step wrapper's two at
+    T = 1: each shape's medians, the faster route, the route
+    krls_chunk_route picks and the picked route's time over the faster's."""
+    from repro_torch.kernels.rff_krls_step import (
+        krls_chunk_route,
+        rff_krls_bank_chunk_cuda,
+        rff_krls_bank_step_cuda,
+    )
+
+    rng = np.random.default_rng(3)
+    routes = ("resident", "compact")
+    out = {}
+    for d, dfeat in CROSSOVER_WIDTHS:
+        big = krls_inputs(rng, max(CROSSOVER_BANKS), max(CROSSOVER_TICKS), d,
+                          dfeat, dev, "eye")
+        for bank in CROSSOVER_BANKS:
+            for tlen in CROSSOVER_TICKS:
+                theta, pmat, beta = (big[k][:bank] for k in
+                                     ("theta", "pmat", "beta"))
+                xs = big["xs"][:bank, :tlen].contiguous()
+                ys = big["ys"][:bank, :tlen].contiguous()
+                common = (big["w"], big["b"], beta)
+                calls = {"chunk": lambda r: rff_krls_bank_chunk_cuda(
+                    theta, pmat, xs, ys, *common, None, big["s"], _route=r)}
+                if tlen == 1:
+                    x, y = xs[:, 0].contiguous(), ys[:, 0].contiguous()
+                    calls["step"] = lambda r: rff_krls_bank_step_cuda(
+                        theta, pmat, x, y, *common, big["s"], _route=r)
+                reps = 10 if bank * tlen <= 16384 else 3
+                picked = krls_chunk_route(bank, tlen, dfeat, d)
+                for kind, call in calls.items():
+                    ms = {r: [] for r in routes}
+                    for r in (*routes, *routes[::-1]):
+                        ms[r].append(time_ms(lambda: call(r), reps))
+                    best = {r: min(v) for r, v in ms.items()}
+                    faster = min(best, key=best.get)
+                    out[f"{kind} B{bank} T{tlen} d{d} D{dfeat}"] = {
+                        "ms": ms, "faster": faster, "picked": picked,
+                        "picked_over_faster": best[picked] / best[faster]}
+        del big
+        torch.cuda.empty_cache()
+    return out
+
+
 def compact_breakdown(build, dev) -> dict:
     """``krls_bank_chunk_compact`` by phase at COMPACT_SHAPES (P = I / lam,
     every tick live): each variant of COMPACT_VARIANTS through the C entry
@@ -1228,6 +1289,11 @@ def main() -> int:
         print(smi)
         print(json.dumps({"compact": compact_breakdown(_build, dev)}))
         print(json.dumps({"compact_tc": tc_study(dev)}))
+        return 0
+    if sys.argv[1:] == ["--route-crossover"]:
+        sys.path.insert(0, str(SRC))
+        print(smi)
+        print(json.dumps({"route_crossover": route_crossover(dev)}))
         return 0
     if sys.argv[1:] == ["--predict-few"]:
         sys.path.insert(0, str(SRC))

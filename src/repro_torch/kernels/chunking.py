@@ -36,6 +36,7 @@ __all__ = [
     "krls_fits",
     "krls_resident_smem_bytes",
     "krls_resident_fits",
+    "krls_compact_pays",
     "KRLS_COMPACT_TC",
     "KRLS_COMPACT_WORKSPACE_BUDGET",
     "krls_compact_workspace_bytes",
@@ -225,8 +226,80 @@ def krls_resident_fits(dfeat: int, input_dim: int) -> bool:
     """Whether the resident KRLS chunk kernel's triangle and rows fit
     :data:`SMEM_BUDGET` (D up to 335 at d = 5). Wider D take the compact
     route (``krls_bank_chunk_compact``, blocks of :data:`KRLS_COMPACT_TC`
-    ticks)."""
+    ticks); where it fits, :func:`krls_compact_pays` picks between the
+    two."""
     return krls_resident_smem_bytes(dfeat, input_dim) <= SMEM_BUDGET
+
+
+# Kernel 4's two routes where P's triangle fits a block, as costs in µs
+# fitted to the route crossover table (krls_compact_pays). The resident
+# route runs a block a tenant, one an SM, for every tick: a tick costs
+# KRLS_RESIDENT_TICK_US (the tick's barriers and features) plus
+# KRLS_RESIDENT_TICK_US_D2 D^2 (the triangle's downdate) for each wave of
+# KRLS_RESIDENT_WAVE tenants (the H100's SMs). The compact route pays per
+# block of KRLS_COMPACT_TC ticks, whatever their number:
+# KRLS_COMPACT_BLOCK_US (its launches and host work) plus
+# KRLS_COMPACT_BLOCK_US_BD2 B Dp^2 (P's reads and writes beyond the
+# resident route's one pass, Dp = D rounded up to its 64-wide tiles).
+KRLS_RESIDENT_WAVE = 132
+KRLS_RESIDENT_TICK_US = 3.0
+KRLS_RESIDENT_TICK_US_D2 = 1.4e-4
+KRLS_COMPACT_BLOCK_US = 60.0
+KRLS_COMPACT_BLOCK_US_BD2 = 2e-6
+
+
+def krls_compact_pays(bank: int, tlen: int, dfeat: int) -> bool:
+    """Whether a KRLS chunk of B = ``bank`` tenants and T = ``tlen`` ticks
+    at a width D = ``dfeat`` that both chunk routes take (D <= 335 at d =
+    5, :func:`krls_resident_fits`) goes to the compact route: T >= 2 and
+    ceil(T / Tc) compact blocks cost less than T resident ticks, by the
+    costs above. A step (T = 1) stays resident.
+
+    The table behind it (``krls_breakdown.py --route-crossover``: both
+    routes forced through the wrapper in turns, every tick live; NVIDIA
+    H100 80GB HBM3, 700 W): per width and B, the route that measured
+    faster at T = 1, 2, 4, 8, 16, 64, 512, then the route this rule picks
+    (R resident, C compact).
+
+    ====== ======= ======= ======= ======= ======= =======
+    d, D   B = 1   8       64      132     256     1024
+    ====== ======= ======= ======= ======= ======= =======
+    5, 31  RRRRRRR RRRRRRR RRRRRRR RRRRRRR RRRRCCC RRRCCCC
+    rule   RRRRRRR RRRRRRR RRRRRRR RRRRRRR RRRRCCC RRCCCCC
+    5, 100 RRRRCCC RRRRCCC RRRRRCC RRRRCCC RRRCCCC RRCCCCC
+    rule   RRRRCCC RRRRCCC RRRRCCC RRRRCCC RRRCCCC RRCCCCC
+    5, 200 RRRCCCC RRRCCCC RRRCCCC RRRRCCC RRRCCCC RRCCCCC
+    rule   RRRCCCC RRRCCCC RRRCCCC RRRRCCC RRRCCCC RRCCCCC
+    5, 300 RRCCCCC RCCCCCC RRRCCCC RRRCCCC RRRCCCC RRCCCCC
+    rule   RRCCCCC RRCCCCC RRRCCCC RRRCCCC RRCCCCC RRCCCCC
+    5, 335 RRCCCCC RRCCCCC RRRCCCC RRRCCCC RRRCCCC RRCCCCC
+    rule   RRCCCCC RRCCCCC RRRCCCC RRRCCCC RRCCCCC RRCCCCC
+    128,   RRCCCCC RRRCCCC RRRCCCC RRRCCCC RRCCCCC RCCCCCC
+    256    RRRCCCC RRRCCCC RRRCCCC RRRCCCC RRCCCCC RCCCCCC
+    ====== ======= ======= ======= ======= ======= =======
+
+    The rule picks the slower route at 6 of these 252 shapes, and at 7 of
+    252 in a second run on another card: each a call under 0.43 ms, near
+    the crossover, within 36% (the compact route where the resident was
+    up to 1.15x faster, except (1024, 4, 5, 31) at 1.35x in the first run
+    alone, whose resident readings spread 39%). Constants that avoid those
+    picks miss compact-faster shapes by up to 1.40x. At the serving flush
+    (1024, 16, 5, 300) the resident route took 2.44-2.55 ms and the compact
+    0.79-0.84. A T threshold with B and D classes (compact from T = 16, 8
+    or 4 by three classes of each) missed 7 shapes of the first run by more
+    than 10%, one of them picking the compact route where the resident was
+    faster.
+    """
+    if tlen < 2:
+        return False
+    waves = -(-bank // KRLS_RESIDENT_WAVE)
+    resident = tlen * waves * (KRLS_RESIDENT_TICK_US
+                               + KRLS_RESIDENT_TICK_US_D2 * dfeat * dfeat)
+    dpad = _round_up(dfeat, 64)
+    blocks = -(-tlen // KRLS_COMPACT_TC)
+    compact = blocks * (KRLS_COMPACT_BLOCK_US
+                        + KRLS_COMPACT_BLOCK_US_BD2 * bank * dpad * dpad)
+    return compact < resident
 
 
 # The KRLS compact route (csrc/krls_compact.cu, kTc there): ticks of one

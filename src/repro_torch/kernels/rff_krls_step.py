@@ -7,9 +7,13 @@ tenant in one call, replacing
 
 * ``"resident"`` (``krls_bank_chunk_resident``) keeps P's packed upper
   triangle in shared memory for the whole launch; it takes D up to 335 at
-  d = 5 (``chunking.krls_resident_fits``);
-* ``"compact"`` (``krls_bank_chunk_compact``) takes every wider D: per
-  block of ``chunking.KRLS_COMPACT_TC`` ticks it reads P once for P_0 Z^T,
+  d = 5 (``chunking.krls_resident_fits``), and is picked there for a step
+  and for the calls too short or too narrow for the compact route to pay
+  (``chunking.krls_compact_pays``);
+* ``"compact"`` (``krls_bank_chunk_compact``) takes every wider D, and at
+  D <= 335 the calls where its blocks cost less than the resident route's
+  ticks (the serving flush of 16 ticks at B = 1024, D = 300 among them):
+  per block of ``chunking.KRLS_COMPACT_TC`` ticks it reads P once for P_0 Z^T,
   runs the recursion on (Tc, Tc) products in float64 and applies the
   block's rank-L update to P in one more pass (12 B D^2 bytes a block). It
   equals the tick recursion in exact arithmetic, not bit for bit: a chunk
@@ -48,6 +52,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.chunking import (
     KRLS_COMPACT_TC,
+    krls_compact_pays,
     krls_compact_slab,
     krls_compact_workspace_bytes,
     krls_fits,
@@ -101,21 +106,26 @@ def _compact_lib():
     return lib
 
 
-def krls_chunk_route(dfeat: int, input_dim: int) -> str:
-    """The chunk kernel a bank of width D = ``dfeat`` goes to: "resident"
-    when P's triangle fits a block's shared memory, else "compact"."""
-    return "resident" if krls_resident_fits(dfeat, input_dim) else "compact"
+def krls_chunk_route(bank: int, tlen: int, dfeat: int, input_dim: int) -> str:
+    """The chunk kernel a call of B = ``bank`` tenants and T = ``tlen``
+    ticks at width D = ``dfeat`` goes to: "compact" when P's triangle does
+    not fit a block's shared memory or when the compact route is the faster
+    for the shape (``chunking.krls_compact_pays``: the serving flush, not a
+    step), else "resident"."""
+    if (not krls_resident_fits(dfeat, input_dim)
+            or krls_compact_pays(bank, tlen, dfeat)):
+        return "compact"
+    return "resident"
 
 
-def krls_step_route(dfeat: int, input_dim: int) -> str:
-    """The kernel one step of width D = ``dfeat`` goes to: the chunk's route
-    at T = 1 ("resident" where P's triangle fits a block's shared memory,
-    else "compact")."""
-    return krls_chunk_route(dfeat, input_dim)
+def krls_step_route(bank: int, dfeat: int, input_dim: int) -> str:
+    """The kernel one step of B = ``bank`` tenants at width D = ``dfeat``
+    goes to: the chunk's route at T = 1."""
+    return krls_chunk_route(bank, 1, dfeat, input_dim)
 
 
-def _route_of(route, dfeat: int, input_dim: int) -> str:
-    route = route or krls_chunk_route(dfeat, input_dim)
+def _route_of(route, bank: int, tlen: int, dfeat: int, input_dim: int) -> str:
+    route = route or krls_chunk_route(bank, tlen, dfeat, input_dim)
     if route not in KRLS_ROUTES:
         raise ValueError(f"unknown KRLS route {route!r}; use one of "
                          f"{KRLS_ROUTES}")
@@ -193,7 +203,7 @@ def rff_krls_bank_chunk_cuda(theta, pmat, xs, ys, w, b, beta, mask=None,
     rows = [("xs", xs, (bsz, tlen, d)), ("ys", ys, (bsz, tlen))]
     if mask is not None:
         rows.append(("mask", mask, (bsz, tlen)))
-    route = _route_of(_route, theta.shape[-1], d)
+    route = _route_of(_route, bsz, tlen, theta.shape[-1], d)
     device, beta, s = _prepare(theta, pmat, rows, w, b, beta, s)
     outs = _outputs(theta, pmat, (tlen,))
     if bsz == 0 or tlen == 0:
@@ -216,7 +226,7 @@ def rff_krls_bank_step_cuda(theta, pmat, x, y, w, b, beta, s=None, *,
     at T = 1, or with ``_route="streaming"`` the streaming step kernel."""
     bsz, d = x.shape
     rows = [("x", x, (bsz, d)), ("y", y, (bsz,))]
-    route = _route_of(_route, theta.shape[-1], d)
+    route = _route_of(_route, bsz, 1, theta.shape[-1], d)
     device, beta, s = _prepare(theta, pmat, rows, w, b, beta, s)
     outs = _outputs(theta, pmat, ())
     if bsz == 0:

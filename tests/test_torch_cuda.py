@@ -459,26 +459,81 @@ def test_krls_bitwise_contracts(cuda_device):
     assert masked[1].data_ptr() != a["pmat"].data_ptr()
 
 
+def _krls_session(rff, xs, ys, route=None, dtype=torch.float32):
+    """A session of example 2's ticks from theta = 0, P = I / lam at the
+    paper's lam = 1e-4, beta = 0.9995, in calls of 16 ticks: on the route
+    the chunk wrapper picks (``route`` forces one), or with ``dtype``
+    float64 through the plain version. Returns (theta, P, prior errors)."""
+    from repro_torch.kernels.ref import rff_krls_bank_chunk_ref
+
+    bank, dfeat = xs.shape[0], rff.omega.shape[1]
+    w, b = rff.omega.to(dtype), rff.bias.to(dtype)
+    s = default_scale(dfeat, dtype, xs.device)
+    theta = torch.zeros(bank, dfeat, dtype=dtype, device=xs.device)
+    pmat = (torch.eye(dfeat, dtype=dtype, device=xs.device) / 1e-4).expand(
+        bank, dfeat, dfeat).contiguous()
+    kw = {"_route": route} if route else {}
+    errs = []
+    for t0 in range(0, xs.shape[1], 16):
+        x = xs[:, t0:t0 + 16].to(dtype).contiguous()
+        y = ys[:, t0:t0 + 16].to(dtype).contiguous()
+        if dtype == torch.float64:
+            theta, pmat, _, err = rff_krls_bank_chunk_ref(
+                theta, pmat, x, y, w, b, 0.9995, None, s)
+        else:
+            theta, pmat, _, err = rff_krls_bank_chunk_cuda(
+                theta, pmat, x, y, w, b, 0.9995, None, s, **kw)
+        errs.append(err)
+    return theta, pmat, torch.cat(errs, 1)
+
+
+def _krls_session_distances(got, exact):
+    """(theta, P, prior errors) of a session against the float64 one: theta
+    and the errors as max |got - want| / (1 + max |want|), P as max |got -
+    want| / max |want|, each per tenant, then the largest."""
+    out = []
+    for k, (g, w) in enumerate(zip(got, exact)):
+        g, w = g.flatten(1).double(), w.flatten(1)
+        scale = w.abs().amax(1) + (0.0 if k == 1 else 1.0)
+        out.append(float(((g - w).abs().amax(1) / scale).max()))
+    return out
+
+
+def _route_case(dfeat, route, forced, bank=3, tlen=5, session=False,
+                case=None):
+    return pytest.param(dfeat, route, forced, bank, tlen, session,
+                        id=case or f"{dfeat}-{route}-{forced}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dfeat,route,forced", [
-    (200, "resident", False), (31, "resident", False), (400, "compact", False),
-    (400, "streaming", True)])
+@pytest.mark.parametrize("dfeat,route,forced,bank,tlen,session", [
+    _route_case(200, "resident", False), _route_case(31, "resident", False),
+    _route_case(400, "compact", False), _route_case(400, "streaming", True),
+    _route_case(300, "compact", False, 1024, 16, True, "serving-flush")])
 def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route,
-                                              forced):
-    """Each chunk route, picked (resident up to D = 335 at d = 5, compact
-    beyond) or forced (streaming): the launch counts its route; from a
-    non-symmetric P, T = 1 equals one step bit for bit, P' is exactly
-    symmetric and a chunk with masked ticks matches the plain version. A
-    chunk of T equals T step launches on its route bit for bit on the
-    resident and streaming routes (one tick's code), within F32_TOL and
-    P_TOL on the compact route (its blocks reassociate the recursion); on
-    the first two a chain of streaming steps also equals the routed chain
-    at every tick. The step takes the chunk's route: the routed step, the
-    chunk at T = 1 and the step forced onto each route that shares its tick
-    agree bit for bit."""
+                                              forced, bank, tlen, session):
+    """Each chunk route, picked (``krls_chunk_route``: resident for the
+    short calls at B = 3, compact past D = 335 at d = 5 and for the serving
+    flush, B = 1024, T = 16 at D = 300) or forced (streaming): the launch
+    counts its route; from a non-symmetric P, T = 1 equals one step bit for
+    bit, P' is exactly symmetric and a chunk with masked ticks matches the
+    plain version. A chunk of T equals T step launches on its route bit for
+    bit on the resident and streaming routes (one tick's code), within
+    F32_TOL and P_TOL on the compact route (its blocks reassociate the
+    recursion; the serving flush's steps take the resident route); on the
+    first two a chain of streaming steps also equals the routed chain at
+    every tick. The step takes the chunk's route at T = 1: the routed step,
+    the chunk at T = 1 and the step forced onto each route that shares its
+    tick agree bit for bit. At the serving flush a 2048-tick session on the
+    picked route lies within twice the resident route's distance from a
+    float64 run (theta, P and every prior error)."""
+    from repro_torch.kernels.rff_krls_step import krls_step_route
+
     kw = {"_route": route} if forced else {}
     bitwise = route != "compact"
-    a = _krls_inputs(cuda_device, 3, 5, 5, dfeat, seed=7, symmetric=False)
+    step_route = route if forced else krls_step_route(bank, dfeat, 5)
+    a = _krls_inputs(cuda_device, bank, tlen, 5, dfeat, seed=7,
+                     symmetric=False)
     common = (a["w"], a["b"], a["beta"])
     before = dict(rff_krls_bank_chunk_cuda.route_launches)
     chunk = rff_krls_bank_chunk_cuda(a["theta"], a["pmat"], a["xs"],
@@ -489,7 +544,7 @@ def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route,
     theta, pmat = a["theta"], a["pmat"]
     stheta, spmat = theta, pmat
     preds, errs = [], []
-    for t in range(5):
+    for t in range(tlen):
         x_t, y_t = a["xs"][:, t].contiguous(), a["ys"][:, t].contiguous()
         theta, pmat, pred, err = rff_krls_bank_step_cuda(
             theta, pmat, x_t, y_t, *common, a["s"], **kw)
@@ -526,17 +581,34 @@ def test_krls_chunk_routes_keep_the_contracts(cuda_device, dfeat, route,
     before = dict(rff_krls_bank_step_cuda.route_launches)
     routed = rff_krls_bank_step_cuda(*sargs, **kw)
     after = rff_krls_bank_step_cuda.route_launches
-    assert after[route] == before[route] + 1
+    assert after[step_route] == before[step_route] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     one = rff_krls_bank_chunk_cuda(
         a["theta"], a["pmat"], a["xs"][:, :1].contiguous(),
         a["ys"][:, :1].contiguous(), *common, None, a["s"], **kw)
     takes = {"resident": ("resident", "streaming"), "compact": ("compact",),
-             "streaming": ("streaming",)}[route]
+             "streaming": ("streaming",)}[step_route]
     others = [tuple(t.reshape(u.shape) for t, u in zip(one, routed))]
     others += [rff_krls_bank_step_cuda(*sargs, _route=r) for r in takes]
     for other in others:
         assert all(torch.equal(u, w) for u, w in zip(routed, other))
+    if session:
+        from repro_torch.core.rff import sample_rff
+        from repro_torch.data.synthetic import gen_nonlinear_wiener
+
+        del a, chunk, steps, args, sargs, routed, one, others
+        rff = sample_rff(torch.Generator().manual_seed(0), 5, dfeat, 5.0,
+                         device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        xs, ys = gen_nonlinear_wiener(gen, num_samples=2048, runs=bank)
+        before = rff_krls_bank_chunk_cuda.route_launches[route]
+        picked = _krls_session(rff, xs, ys)
+        assert rff_krls_bank_chunk_cuda.route_launches[route] == before + 128
+        resident = _krls_session(rff, xs, ys, route="resident")
+        exact = _krls_session(rff, xs, ys, dtype=torch.float64)
+        for got, eps in zip(_krls_session_distances(picked, exact),
+                            _krls_session_distances(resident, exact)):
+            assert got <= 2.0 * eps + 1e-5, (got, eps)
 
 
 # The compact route's cases (B, T, d, D, P): the streaming width, the

@@ -228,12 +228,34 @@ def test_gram_exact_contracts():
     torch.testing.assert_close(alone[2][0], r[2], atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("dfeat,d", [(300, 5), (335, 5), (336, 5), (400, 5),
-                                     (17, 4), (129, 128), (1, 1), (1024, 5),
-                                     (1031, 5)])
-def test_krls_step_route(dfeat, d):
+def _step_case(dfeat, d, bank=1024, tlen=1, chunk=None):
+    ids = f"{dfeat}-{d}" if chunk is None else f"B{bank}-T{tlen}-{dfeat}-{d}"
+    return pytest.param(dfeat, d, bank, tlen, chunk, id=ids)
+
+
+@pytest.mark.parametrize("dfeat,d,bank,tlen,chunk", [
+    *(_step_case(dfeat, d) for dfeat, d in (
+        (300, 5), (335, 5), (336, 5), (400, 5), (17, 4), (129, 128), (1, 1),
+        (1024, 5), (1031, 5))),
+    # The serving flush goes compact; its step, at any B, stays resident.
+    _step_case(300, 5, 1024, 16, "compact"),
+    _step_case(300, 5, 1, 16, "compact"),
+    _step_case(31, 5, 1024, 512, "compact"),
+    # Either side of a measured crossover, and past the triangle.
+    _step_case(300, 5, 1024, 2, "resident"),
+    _step_case(300, 5, 1024, 4, "compact"),
+    _step_case(31, 5, 132, 512, "resident"),
+    _step_case(336, 5, 1, 2, "compact"),
+])
+def test_krls_step_route(dfeat, d, bank, tlen, chunk):
     """One KRLS step goes to the resident chunk kernel at T = 1 where P's
-    triangle fits a block, else to the compact chunk kernel at T = 1."""
+    triangle fits a block, at any B, else to the compact chunk kernel at T
+    = 1: the chunk's route at T = 1. A chunk of T ticks may take the other
+    route (``chunking.krls_compact_pays``: the serving flush)."""
     fits = chunking.krls_resident_fits(dfeat, d)
-    assert krls_step_route(dfeat, d) == ("resident" if fits else "compact")
-    assert krls_step_route(dfeat, d) == krls_chunk_route(dfeat, d)
+    assert krls_step_route(bank, dfeat, d) == (
+        "resident" if fits else "compact")
+    assert krls_step_route(bank, dfeat, d) == krls_chunk_route(bank, 1, dfeat,
+                                                               d)
+    if chunk is not None:
+        assert krls_chunk_route(bank, tlen, dfeat, d) == chunk

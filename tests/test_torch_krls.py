@@ -392,22 +392,62 @@ def test_krls_sizing_and_dispatch():
                                0.99, mode="cuda")
 
 
-@pytest.mark.parametrize("dfeat,d,nbytes,fits", [
-    (300, 5, 186_120, True), (335, 5, 230_600, True),
-    (336, 5, 232_632, False), (400, 5, 328_120, False), (17, 4, 996, True),
-    (129, 128, 36_708, True), (1, 1, 108, True), (2, 5, 168, True),
+def _size_case(dfeat, d, nbytes, fits, bank=1024, tlen=1, route=None):
+    """A case of the size rule: at a step (T = 1) the triangle alone picks
+    the route; at (B, T) the cost rule picks it where the triangle fits."""
+    if route is None:
+        return pytest.param(dfeat, d, nbytes, fits, bank, tlen,
+                            "resident" if fits else "compact",
+                            id=f"{dfeat}-{d}-{nbytes}-{fits}")
+    return pytest.param(dfeat, d, nbytes, fits, bank, tlen, route,
+                        id=f"B{bank}-T{tlen}-{dfeat}-{d}-{route}")
+
+
+@pytest.mark.parametrize("dfeat,d,nbytes,fits,bank,tlen,route", [
+    _size_case(300, 5, 186_120, True), _size_case(335, 5, 230_600, True),
+    _size_case(336, 5, 232_632, False), _size_case(400, 5, 328_120, False),
+    _size_case(17, 4, 996, True), _size_case(129, 128, 36_708, True),
+    _size_case(1, 1, 108, True), _size_case(2, 5, 168, True),
+    # The serving flush, and its widths' step (the first case).
+    _size_case(300, 5, 186_120, True, 1024, 16, "compact"),
+    # Past the triangle every T takes the compact route.
+    *(_size_case(336, 5, 232_632, False, bank, tlen, "compact")
+      for bank, tlen in ((1, 1), (1, 2), (1024, 16), (8, 512))),
+    _size_case(400, 5, 328_120, False, 1024, 512, "compact"),
+    # Either side of a measured crossover (krls_breakdown.py
+    # --route-crossover; the table beside chunking.krls_compact_pays).
+    _size_case(300, 5, 186_120, True, 1024, 2, "resident"),
+    _size_case(300, 5, 186_120, True, 1024, 4, "compact"),
+    _size_case(300, 5, 186_120, True, 132, 4, "resident"),
+    _size_case(300, 5, 186_120, True, 132, 8, "compact"),
+    _size_case(335, 5, 230_600, True, 1, 2, "resident"),
+    _size_case(335, 5, 230_600, True, 1, 4, "compact"),
+    _size_case(200, 5, 84_120, True, 132, 8, "resident"),
+    _size_case(200, 5, 84_120, True, 132, 16, "compact"),
+    _size_case(100, 5, 22_120, True, 132, 8, "resident"),
+    _size_case(100, 5, 22_120, True, 132, 16, "compact"),
+    _size_case(31, 5, 2_600, True, 256, 8, "resident"),
+    _size_case(31, 5, 2_600, True, 256, 16, "compact"),
+    _size_case(31, 5, 2_600, True, 132, 512, "resident"),
+    _size_case(256, 128, 137_296, True, 1024, 1, "resident"),
+    _size_case(256, 128, 137_296, True, 1024, 2, "compact"),
 ])
-def test_krls_resident_size_rule(dfeat, d, nbytes, fits):
+def test_krls_resident_size_rule(dfeat, d, nbytes, fits, bank, tlen, route):
     """The resident chunk kernel keeps P's triangle in a block's shared
     memory: it fits at the paper's D = 300 and to D = 335, not at D = 336
     or 400 (d = 5); the bytes are those csrc/krls_bank.cu carves; the chunk
-    wrapper picks its route by them (the compact route past them)."""
+    wrapper takes the compact route past them at every T, and where they
+    fit picks by the call's B and T (``chunking.krls_compact_pays``): the
+    resident route for a step, the compact one for the serving flush."""
     from repro_torch.kernels.rff_krls_step import krls_chunk_route
 
     assert chunking.krls_resident_smem_bytes(dfeat, d) == nbytes
     assert (nbytes <= chunking.SMEM_BUDGET) is fits
     assert chunking.krls_resident_fits(dfeat, d) is fits
-    assert krls_chunk_route(dfeat, d) == ("resident" if fits else "compact")
+    assert krls_chunk_route(bank, tlen, dfeat, d) == route
+    if fits:
+        assert chunking.krls_compact_pays(bank, tlen, dfeat) is (
+            route == "compact")
     assert chunking.krls_fits(dfeat, d)  # the streaming kernel takes any
 
 
