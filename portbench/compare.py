@@ -10,7 +10,8 @@ what the timed path produced:
   prior prediction, or prior error, over every live tick of every current
   session, over the RMS of those ticks' targets y;
 - ``read_gap``: the same over every read prediction made during a current
-  session (cells with queries);
+  session (cells with queries), of the slots read where a round reads only
+  some;
 - ``theta_gap`` (and ``pmat_gap`` for KRLS): the worst slot's distance
   between the program's and the reference's state after the last round,
   over the larger of that slot's reference norm and the median slot's;
@@ -40,8 +41,9 @@ def _gap(prog: torch.Tensor, ref: torch.Tensor) -> float:
 
 def replay(cell, pool, w, b, results, g_end: int, leaves: dict) -> dict:
     """The numbers compared. ``results(g)`` gives round g's program outputs
-    ``(predictions (B, T), errors (B, T), reads (B, Q) or None)``;
-    ``leaves`` the program's state after round ``g_end - 1``."""
+    ``(predictions (B, T), errors (B, T), reads (B, Q) or None, slots read
+    (B,) bool or None for every slot)``; ``leaves`` the program's state
+    after round ``g_end - 1``."""
     sched = pool.schedule
     dev = pool.xs.device
     g0 = max(0, g_end - sched.stream_rounds)
@@ -57,7 +59,7 @@ def replay(cell, pool, w, b, results, g_end: int, leaves: dict) -> dict:
             ref.reset(resets[grp])
         k = g % pool.blocks
         pred, err = ref.write(pool.xs[k], pool.ys[k], pool.mask[k])
-        ppred, perr, pread = results(g)
+        ppred, perr, pread, read = results(g)
         on = (start <= g)[:, None]
         live = on & (pool.mask[k] > 0)
         for a, r in ((ppred, pred), (perr, err)):
@@ -68,7 +70,8 @@ def replay(cell, pool, w, b, results, g_end: int, leaves: dict) -> dict:
         if pool.read_blocks:
             rq = ref.read(pool.xq[g % pool.read_blocks])
             d = (pread.to(dev, f64) - rq).abs()
-            rgap = torch.maximum(rgap, torch.where(on, d, zero).max())
+            made = on if read is None else on & read.to(dev)[:, None]
+            rgap = torch.maximum(rgap, torch.where(made, d, zero).max())
     yrms = float(torch.sqrt(ysq / torch.clamp(nlive, min=1)))
     out = {"write_gap": float(wgap) / yrms if yrms > 0 else math.inf}
     if pool.read_blocks:

@@ -1,22 +1,21 @@
 """One run of one cell: set-up, warm-up, the measured window, the readers
 and the comparison.
 
-The window is a closed loop of rounds for one client that keeps
-``inflight`` rounds outstanding. Round g: the reset of the slots whose
-sessions start at g (one ``reset_slots`` call every ``reset_every``
-rounds), one write block through the chunk step on the state the last
-round left, then, where the mix has queries, one read block on the state
-this write returned. Each result (the write's prior predictions and
-errors, the read's predictions) is copied into pinned host memory without
-blocking and an event is recorded after the copy; the client collects the
-oldest round by its events, so collecting one request never waits for
-work queued after it. A request's latency runs from the host clock before
-its call to the host clock once its event has completed. Inputs come from
-the pool made in set-up: nothing crosses from the host in the window.
+The window is a closed loop of rounds for one client: the cell's driver
+(``drivers/<driver>.py``, named by its traffic mix) builds the system,
+issues and collects the rounds and fills the :class:`Run`; everything
+else, the map, the pool, the window's clock, the trace and the judgment,
+is the same for every driver. A driver module has ``FIELDS`` (the mix's
+fields beyond the generator's) and ``Client(cell, system, w, b, pool,
+seed, device)`` with ``g`` (rounds issued), ``cuda``, ``run`` (the window's
+:class:`Run`, None outside it), ``step()``, ``drain()``, ``rounds(n)``,
+``results(g) -> (predictions (B, T), errors (B, T), reads (B, Q) or None,
+slots read (B,) or None for all)``, ``leaves()``, ``release()`` and
+``costs(run, first, last)``. ``system`` replaces the program with a class
+of the driver's calls (the control, a planted fault), or is None.
 """
 from __future__ import annotations
 
-import collections
 import json
 import math
 import os
@@ -29,9 +28,9 @@ from pathlib import Path
 import torch
 
 from portbench import compare, generator, spec, tracing
-from portbench.system import ProgramSystem
 
-__all__ = ["FORBIDDEN", "forbidden_modules", "run_cell", "Run"]
+__all__ = ["FORBIDDEN", "Event", "Run", "add_write_costs", "bound_s",
+           "forbidden_modules", "run_cell"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 _MASK64 = (1 << 63) - 1
@@ -56,7 +55,7 @@ def make_map(cfg: dict, seed: int, device) -> tuple:
     return w.contiguous(), b.contiguous()
 
 
-class _Event:
+class Event:
     """A CUDA event, or nothing on the CPU (where every call is done when
     it returns)."""
 
@@ -70,6 +69,9 @@ class _Event:
     def synchronize(self):
         if self.ev is not None:
             self.ev.synchronize()
+
+    def query(self) -> bool:
+        return self.ev is None or self.ev.query()
 
 
 @dataclass
@@ -94,113 +96,22 @@ class Run:
     trace: tracing.TraceSummary = None
 
 
-class Loop:
-    """The client: issues rounds and collects them in order."""
-
-    def __init__(self, cell, system, pool, device):
-        cfg, traffic = cell.cfg, cell.traffic
-        self.system, self.pool, self.traffic = system, pool, traffic
-        self.cuda = torch.device(device).type == "cuda"
-        bank, chunk, q = cfg["bank"], cfg["chunk"], traffic.queries
-        sched = pool.schedule
-        self.resets = [sched.slots(j).to(device) for j in range(sched.groups)]
-        # Results of the last stream_rounds rounds stay for the comparison.
-        self.ring = sched.stream_rounds + traffic.inflight + 1
-        pin = dict(pin_memory=self.cuda)
-        self.wbuf = torch.empty(self.ring, 2, bank, chunk, **pin)
-        self.rbuf = torch.empty(self.ring, bank, q, **pin) if q else None
-        self.wev = [_Event(self.cuda) for _ in range(self.ring)]
-        self.rev = [_Event(self.cuda) for _ in range(self.ring)]
-        self.state = system.init()
-        self.pending = collections.deque()
-        self.g = 0
-        self.run = None  # set for the measured window
-
-    def issue(self):
-        g, pool, sysm = self.g, self.pool, self.system
-        slot, k = g % self.ring, g % pool.blocks
-        grp = pool.schedule.reset_group(g)
-        if grp is not None:
-            with torch.profiler.record_function("portbench.reset"):
-                self.state = sysm.reset(self.state, self.resets[grp])
-        t_w = time.perf_counter()
-        with torch.profiler.record_function("portbench.write"):
-            self.state, pred, err = sysm.write(
-                self.state, pool.xs[k], pool.ys[k], pool.mask[k])
-        t_wd = time.perf_counter()
-        self.wbuf[slot, 0].copy_(pred, non_blocking=True)
-        self.wbuf[slot, 1].copy_(err, non_blocking=True)
-        self.wev[slot].record()
-        t_r = t_rd = None
-        if self.rbuf is not None:
-            xq = pool.xq[g % pool.read_blocks]
-            t_r = time.perf_counter()
-            with torch.profiler.record_function("portbench.read"):
-                out = sysm.read(self.state, xq)
-            t_rd = time.perf_counter()
-            self.rbuf[slot].copy_(out, non_blocking=True)
-            self.rev[slot].record()
-        self.pending.append((g, t_w, t_wd, t_r, t_rd))
-        self.g += 1
-
-    def collect(self):
-        g, t_w, t_wd, t_r, t_rd = self.pending.popleft()
-        slot = g % self.ring
-        with torch.profiler.record_function("portbench.collect"):
-            self.wev[slot].synchronize()
-            done_w = time.perf_counter()
-            if t_r is not None:
-                self.rev[slot].synchronize()
-                done_r = time.perf_counter()
-        run = self.run
-        if run is None:
-            return
-        k = g % self.pool.blocks
-        run.writes += 1
-        run.obs += self.pool.live[k]
-        run.write_latency_s.append(done_w - t_w)
-        run.write_dispatch_s.append(t_wd - t_w)
-        if t_r is not None:
-            run.reads += 1
-            run.read_latency_s.append(done_r - t_r)
-            run.read_dispatch_s.append(t_rd - t_r)
-
-    def rounds(self, n: int):
-        for _ in range(n):
-            self.step()
-        self.drain()
-
-    def step(self):
-        self.issue()
-        if len(self.pending) >= self.traffic.inflight:
-            self.collect()
-
-    def drain(self):
-        while self.pending:
-            self.collect()
-
-    def results(self, g: int):
-        slot = g % self.ring
-        reads = self.rbuf[slot] if self.rbuf is not None else None
-        return self.wbuf[slot, 0], self.wbuf[slot, 1], reads
+def bound_s(run: Run, ops: float, nbytes: float) -> float:
+    """The least time the chip takes for ``ops`` operations and ``nbytes``
+    bytes: the larger of the two over their peaks."""
+    return max(ops / run.peaks["f32_ops_per_s"],
+               nbytes / run.peaks["hbm_bytes_per_s"])
 
 
-def _costs(cell, pool, run: Run, first: int, last: int):
-    """Operations and bounds of rounds ``first..last-1`` into ``run``."""
-    peak_ops, peak_bw = run.peaks["f32_ops_per_s"], run.peaks["hbm_bytes_per_s"]
-    cfg, counts = cell.cfg, cell.counts
-    per_block = [counts.write(cfg, pool.live[k], pool.active[k])
+def add_write_costs(run: Run, cell, pool, first: int, last: int):
+    """Operations and bound of rounds ``first..last-1`` into ``run``, where
+    round g writes pool block g mod P (the family's counts)."""
+    per_block = [cell.counts.write(cell.cfg, pool.live[k], pool.active[k])
                  for k in range(pool.blocks)]
     for g in range(first, last):
         ops, nbytes = per_block[g % pool.blocks]
         run.write_ops += ops
-        run.write_bound_s += max(ops / peak_ops, nbytes / peak_bw)
-    if run.reads:
-        rows = cfg["bank"] * cell.traffic.queries
-        ops, nbytes = counts.read(cfg, rows)
-        run.read_rows = rows * run.reads
-        run.read_ops = ops * run.reads
-        run.read_bound_s = max(ops / peak_ops, nbytes / peak_bw) * run.reads
+        run.write_bound_s += bound_s(run, ops, nbytes)
 
 
 def _read_metrics(readers: dict, run: Run) -> dict:
@@ -244,8 +155,8 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", *, t_start: float = None, system=None,
              rounds: int = None, log=sys.stderr) -> dict:
     """Run ``workload`` once; returns the result line's object. ``system``
-    replaces the program (a class taking ``(cell, w, b)``), ``rounds``
-    the ``seconds`` of the window."""
+    replaces the program (a class taking ``(cell, w, b)`` with the calls
+    the cell's driver makes), ``rounds`` the ``seconds`` of the window."""
     t_start = time.perf_counter() if t_start is None else t_start
     parts = {"start": time.perf_counter() - t_start}
     mem = {}  # device bytes (allocated, peak so far) after a set-up part
@@ -265,7 +176,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     if cuda:
         mem["pool"] = [torch.cuda.memory_allocated(dev),
                        torch.cuda.max_memory_allocated(dev)]
-    loop = Loop(cell, (system or ProgramSystem)(cell, w, b), pool, dev)
+    loop = cell.driver.Client(cell, system, w, b, pool, seed, dev)
     parts["system"] = time.perf_counter() - t_start
     loop.rounds(traffic.warmup_rounds)
     if cuda:
@@ -275,7 +186,7 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         mem["warmup"] = [torch.cuda.memory_allocated(dev),
                          torch.cuda.max_memory_allocated(dev)]
     mem["state"] = sum(v.numel() * v.element_size() for v in
-                       loop.system.leaves(loop.state).values())
+                       loop.leaves().values())
     peaks = json.loads((spec.HERE / "peaks.json").read_text())
     run = Run(peaks=peaks, setup_s=time.perf_counter() - t_start)
     loop.run = run
@@ -285,12 +196,11 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     else:
         run.window_s = _window(loop, seconds, rounds)
     loop.run = None
-    _costs(cell, pool, run, first, loop.g)
+    loop.costs(run, first, loop.g)
     memory_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     metrics = _read_metrics(cell.per_layer if trace else cell.metrics, run)
-    leaves = {k: v.detach().clone() for k, v in
-              loop.system.leaves(loop.state).items()}
-    loop.state = None
+    leaves = {k: v.detach().clone() for k, v in loop.leaves().items()}
+    loop.release()
     if cuda:
         torch.cuda.empty_cache()
     numbers = compare.replay(cell, pool, w, b, loop.results, loop.g, leaves)

@@ -3,10 +3,12 @@
 A configuration is ``configs/<config>.json`` (its ``file``), a traffic mix
 ``traffic/<traffic>.json``, a cell's limits ``limits/<workload>.json``, a
 metric ``metrics/<metric>.py`` (a ``read(run)`` that returns a number or
-None), and a learner family's program side, plain reference and counts
+None), a learner family's program side, plain reference and counts
 ``families/<family>.py``, ``reference/<family>.py`` and
-``counts/<counts>.py``. Adding any of them is adding a file and an entry:
-no file here names them."""
+``counts/<counts>.py``, and the client that drives the program
+``drivers/<driver>.py``, where the mix's ``driver`` names it
+(``lockstep`` where it names none). Adding any of them is adding a file
+and an entry: no file here names them."""
 from __future__ import annotations
 
 import importlib.util
@@ -58,6 +60,8 @@ class Cell:
     counts: ModuleType
     metrics: dict        # metric name -> (entry, reader module)
     per_layer: dict      # the same for the per-layer metrics
+    driver: ModuleType   # drivers/<driver>.py: the client of the window
+    mix: dict            # the traffic file as written (the driver's fields)
 
 
 def _applies(metric: dict, workload: str) -> bool:
@@ -78,8 +82,14 @@ def load_cell(root: Path, workload: str) -> Cell:
     if len(confs) != 1:
         raise KeyError(f"no config {entry['config']!r} in BENCHMARK.json")
     cfg = json.loads((root / confs[0]["file"]).read_text())
-    traffic = Traffic.from_dict(json.loads(
-        (folder / "traffic" / f"{_name(entry['traffic'])}.json").read_text()))
+    mix = json.loads(
+        (folder / "traffic" / f"{_name(entry['traffic'])}.json").read_text())
+    driver = load_module(folder, "drivers", mix.get("driver", "lockstep"))
+    unknown = (set(mix) - set(Traffic.__dataclass_fields__)
+               - {"driver", *driver.FIELDS})
+    if unknown:
+        raise ValueError(f"traffic {entry['traffic']!r}: fields "
+                         f"{sorted(unknown)} are not its driver's")
     limits = json.loads(
         (folder / "limits" / f"{_name(workload)}.json").read_text())
     fam = _name(cfg["family"])
@@ -89,9 +99,11 @@ def load_cell(root: Path, workload: str) -> Cell:
                 for m in bench[kind] if _applies(m, workload)}
 
     return Cell(
-        name=workload, entry=entry, cfg=cfg, traffic=traffic, limits=limits,
+        name=workload, entry=entry, cfg=cfg, traffic=Traffic.from_dict(mix),
+        limits=limits,
         family=load_module(folder, "families", fam),
         reference=load_module(folder, "reference", fam),
         counts=load_module(folder, "counts", cfg["counts"]),
         metrics=readers("end_to_end"), per_layer=readers("per_layer"),
+        driver=driver, mix=mix,
     )

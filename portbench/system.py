@@ -1,5 +1,5 @@
-"""What the window drives: the program's lockstep tier (the system under
-test), or a stand-in in its place.
+"""What the lockstep driver's window drives: the program's lockstep tier
+(the system under test), or a stand-in in its place.
 
 A system has ``init() -> state``, ``write(state, xs, ys, mask) -> (state,
 predictions, errors)``, ``read(state, xq) -> predictions``, ``reset(state,
@@ -15,21 +15,26 @@ import math
 
 import torch
 
-__all__ = ["ProgramSystem", "ControlSystem"]
+__all__ = ["ProgramSystem", "ControlSystem", "feature_map"]
+
+
+def feature_map(cfg: dict, w: torch.Tensor, b: torch.Tensor):
+    """The program's RFF map on the benchmark's W and b, scale sqrt(2 / D)."""
+    from repro_torch.features.base import TrigFeatures, trig_map
+
+    dfeat = cfg["num_features"]
+    scale = torch.full((dfeat,), math.sqrt(2.0 / dfeat),
+                       dtype=torch.float32, device=w.device)
+    return trig_map("rff", TrigFeatures(w, b, scale), deterministic=False)
 
 
 class ProgramSystem:
     def __init__(self, cell, w: torch.Tensor, b: torch.Tensor):
         from repro_torch.core.bank import bank_predict_block
-        from repro_torch.features.base import TrigFeatures, trig_map
         from repro_torch.serve import make_chunk_step, reset_slots
 
         cfg, fam = cell.cfg, cell.family
-        dfeat = cfg["num_features"]
-        scale = torch.full((dfeat,), math.sqrt(2.0 / dfeat),
-                           dtype=torch.float32, device=w.device)
-        self.fm = trig_map("rff", TrigFeatures(w, b, scale),
-                           deterministic=False)
+        self.fm = feature_map(cfg, w, b)
         self.cfg, self.fam = cfg, fam
         self._step = make_chunk_step(cfg["family"], self.fm, **fam.hp(cfg))
         self._predict = bank_predict_block

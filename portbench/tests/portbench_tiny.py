@@ -34,5 +34,7 @@ def tiny_bench(tmp: Path) -> Path:
         t.update(TINY_TRAFFIC)
         if t["queries"]:
             t.update(queries=8, pool_read_blocks=4)
+        if "reads_per_round" in t:
+            t.update(reads_per_round=6)
         path.write_text(json.dumps(t))
     return root

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 __all__ = ["SPANS", "TraceSummary", "summarize", "read_chrome_trace"]
 
 SPANS = ("portbench.write", "portbench.read", "portbench.reset",
-         "portbench.collect")
+         "portbench.collect", "portbench.submit")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 TOP = 10
