@@ -40,7 +40,8 @@ import time
 import numpy as np
 import torch
 
-from portbench.harness import Event, add_write_costs, bound_s
+from portbench.bank import add_write_costs
+from portbench.harness import Event, bound_s
 from portbench.reference.common import features
 from portbench.system import feature_map
 
@@ -202,7 +203,8 @@ def _read_blocks(pool, reads: int, alpha: float, gen) -> list:
 class Client:
     """The client: one round at a time, each call a request."""
 
-    def __init__(self, cell, system, w, b, pool, seed, device):
+    def __init__(self, cell, system, inputs, seed, device):
+        w, b, pool = inputs.w, inputs.b, inputs.pool
         cfg, traffic = cell.cfg, cell.traffic
         self.reads = int(cell.mix["reads_per_round"])
         if traffic.inflight != 1 or not traffic.queries or not (

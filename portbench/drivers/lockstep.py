@@ -23,19 +23,21 @@ import time
 
 import torch
 
-from portbench.harness import Event, add_write_costs, bound_s
+from portbench.bank import add_write_costs
+from portbench.harness import Event, bound_s
 from portbench.system import ProgramSystem
 
 __all__ = ["FIELDS", "Client"]
 
-FIELDS = ()  # the generator's fields alone
+FIELDS = ()  # the family's fields alone
 
 
 class Client:
     """The client: issues rounds and collects them in order."""
 
-    def __init__(self, cell, system, w, b, pool, seed, device):
+    def __init__(self, cell, system, inputs, seed, device):
         del seed  # every input is the pool's
+        w, b, pool = inputs.w, inputs.b, inputs.pool
         system = (system or ProgramSystem)(cell, w, b)
         cfg, traffic = cell.cfg, cell.traffic
         self.cell = cell

@@ -1,5 +1,9 @@
-"""RFF-KRLS through ``repro_torch``'s lockstep tier."""
+"""RFF-KRLS through ``repro_torch``'s lockstep tier; its inputs, mix and
+comparison are the tenant bank's (``portbench/bank.py``)."""
 from __future__ import annotations
+
+from portbench.bank import (  # noqa: F401  the family's seam
+    FIELDS, PREFIXES, compare, describe, make_inputs, traffic)
 
 
 def init_state(cfg: dict, fm):

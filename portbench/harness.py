@@ -3,21 +3,23 @@ and the comparison.
 
 The window is a closed loop of rounds for one client: the cell's driver
 (``drivers/<driver>.py``, named by its traffic mix) builds the system,
-issues and collects the rounds and fills the :class:`Run`; everything
-else, the map, the pool, the window's clock, the trace and the judgment,
-is the same for every driver. A driver module has ``FIELDS`` (the mix's
-fields beyond the generator's) and ``Client(cell, system, w, b, pool,
-seed, device)`` with ``g`` (rounds issued), ``cuda``, ``run`` (the window's
-:class:`Run`, None outside it), ``step()``, ``drain()``, ``rounds(n)``,
-``results(g) -> (predictions (B, T), errors (B, T), reads (B, Q) or None,
-slots read (B,) or None for all)``, ``leaves()``, ``release()`` and
-``costs(run, first, last)``. ``system`` replaces the program with a class
-of the driver's calls (the control, a planted fault), or is None.
+issues and collects the rounds and fills the :class:`Run`; the cell's
+family (``families/<family>.py``) makes the inputs from the seed and
+gives the numbers compared; the window's clock, the trace, the readers
+and the judgment are the same for every cell. A driver module has
+``FIELDS`` (the mix's fields beyond the family's), optionally ``SPANS``
+(the ``record_function`` ranges its client opens; ``tracing.SPANS`` where
+it names none) and ``Client(cell, system, inputs, seed, device)`` with
+``g`` (rounds issued), ``cuda``, ``run`` (the window's :class:`Run`, None
+outside it), ``step()``, ``drain()``, ``rounds(n)``, ``results`` (what
+the family's ``compare`` reads of the rounds), ``leaves()``,
+``release()`` and ``costs(run, first, last)``. ``system`` replaces the
+program with a class of the driver's calls (the control, a planted
+fault), or is None.
 """
 from __future__ import annotations
 
 import json
-import math
 import os
 import sys
 import tempfile
@@ -27,13 +29,12 @@ from pathlib import Path
 
 import torch
 
-from portbench import compare, generator, spec, tracing
+from portbench import compare, program_trace, spec, tracing
 
-__all__ = ["FORBIDDEN", "Event", "Run", "add_write_costs", "bound_s",
-           "forbidden_modules", "run_cell"]
+__all__ = ["FORBIDDEN", "Event", "Run", "bound_s", "forbidden_modules",
+           "run_cell"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-_MASK64 = (1 << 63) - 1
 
 
 def forbidden_modules(modules=None) -> list:
@@ -42,17 +43,6 @@ def forbidden_modules(modules=None) -> list:
     names = {m.split(".")[0] for m in (sys.modules if modules is None
                                        else modules)}
     return sorted(names & set(FORBIDDEN))
-
-
-def make_map(cfg: dict, seed: int, device) -> tuple:
-    """The feature map's W ``(d, D) ~ N(0, I / sigma^2)`` and b ``(D,) ~
-    U(0, 2 pi)``, made by the benchmark from the seed, on the device."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed & _MASK64)
-    d, dfeat = cfg["input_dim"], cfg["num_features"]
-    w = torch.randn(d, dfeat, generator=gen, device=device) / cfg["sigma"]
-    b = torch.rand(dfeat, generator=gen, device=device) * (2.0 * math.pi)
-    return w.contiguous(), b.contiguous()
 
 
 class Event:
@@ -93,7 +83,8 @@ class Run:
     read_latency_s: list = field(default_factory=list)
     write_dispatch_s: list = field(default_factory=list)
     read_dispatch_s: list = field(default_factory=list)
-    trace: tracing.TraceSummary = None
+    trace: tracing.TraceSummary = None        # by the driver's ranges
+    program: program_trace.ProgramTrace = None  # by every span kept
 
 
 def bound_s(run: Run, ops: float, nbytes: float) -> float:
@@ -101,17 +92,6 @@ def bound_s(run: Run, ops: float, nbytes: float) -> float:
     bytes: the larger of the two over their peaks."""
     return max(ops / run.peaks["f32_ops_per_s"],
                nbytes / run.peaks["hbm_bytes_per_s"])
-
-
-def add_write_costs(run: Run, cell, pool, first: int, last: int):
-    """Operations and bound of rounds ``first..last-1`` into ``run``, where
-    round g writes pool block g mod P (the family's counts)."""
-    per_block = [cell.counts.write(cell.cfg, pool.live[k], pool.active[k])
-                 for k in range(pool.blocks)]
-    for g in range(first, last):
-        ops, nbytes = per_block[g % pool.blocks]
-        run.write_ops += ops
-        run.write_bound_s += bound_s(run, ops, nbytes)
 
 
 def _read_metrics(readers: dict, run: Run) -> dict:
@@ -123,7 +103,7 @@ def _read_metrics(readers: dict, run: Run) -> dict:
     return out
 
 
-def _profile_window(loop, seconds, rounds):
+def _profile_window(loop, seconds, rounds, spans, prefixes):
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -135,7 +115,8 @@ def _profile_window(loop, seconds, rounds):
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         events = tracing.read_chrome_trace(path)
-    return window_s, tracing.summarize(events)
+    return (window_s, tracing.summarize(events, spans),
+            program_trace.summarize(events, spans, prefixes))
 
 
 def _window(loop, seconds, rounds) -> float:
@@ -155,8 +136,9 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
              device="cuda", *, t_start: float = None, system=None,
              rounds: int = None, log=sys.stderr) -> dict:
     """Run ``workload`` once; returns the result line's object. ``system``
-    replaces the program (a class taking ``(cell, w, b)`` with the calls
-    the cell's driver makes), ``rounds`` the ``seconds`` of the window."""
+    replaces the program (a class with the calls the cell's driver makes,
+    built as the driver builds the program's), ``rounds`` the ``seconds``
+    of the window."""
     t_start = time.perf_counter() if t_start is None else t_start
     parts = {"start": time.perf_counter() - t_start}
     mem = {}  # device bytes (allocated, peak so far) after a set-up part
@@ -166,17 +148,14 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     cuda = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    w, b = make_map(cfg, seed, dev)
-    pool = generator.make_pool(traffic, cfg["bank"], cfg["chunk"],
-                               cfg["input_dim"], (seed ^ 0x5EED) & _MASK64,
-                               dev)
+    inputs = cell.family.make_inputs(cfg, traffic, seed, dev)
     if cuda:
         torch.cuda.synchronize(dev)
     parts["pool"] = time.perf_counter() - t_start
     if cuda:
         mem["pool"] = [torch.cuda.memory_allocated(dev),
                        torch.cuda.max_memory_allocated(dev)]
-    loop = cell.driver.Client(cell, system, w, b, pool, seed, dev)
+    loop = cell.driver.Client(cell, system, inputs, seed, dev)
     parts["system"] = time.perf_counter() - t_start
     loop.rounds(traffic.warmup_rounds)
     if cuda:
@@ -192,18 +171,23 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     loop.run = run
     first = loop.g
     if trace:
-        run.window_s, run.trace = _profile_window(loop, seconds, rounds)
+        run.window_s, run.trace, run.program = _profile_window(
+            loop, seconds, rounds, getattr(cell.driver, "SPANS",
+                                           tracing.SPANS),
+            cell.family.PREFIXES)
     else:
         run.window_s = _window(loop, seconds, rounds)
     loop.run = None
     loop.costs(run, first, loop.g)
     memory_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     metrics = _read_metrics(cell.per_layer if trace else cell.metrics, run)
+    described = cell.family.describe(inputs)
     leaves = {k: v.detach().clone() for k, v in loop.leaves().items()}
     loop.release()
     if cuda:
         torch.cuda.empty_cache()
-    numbers = compare.replay(cell, pool, w, b, loop.results, loop.g, leaves)
+    numbers = cell.family.compare(cell, inputs, loop.results, loop.g, leaves,
+                                  seed, dev)
     correct = compare.judge(numbers, cell.limits)
     device_info = {
         "platform": "gpu" if cuda else "cpu",
@@ -221,11 +205,14 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
     result["checks"] = compare.format_checks(numbers, cell.limits)
     summary = {"rounds": loop.g - first, "warmup_rounds": first,
                "setup_parts_s": parts, "setup_device_bytes": mem,
-               "pool": generator.describe(pool)}
+               "pool": described}
     if run.trace is not None:
         summary["trace"] = {"span_device_s": run.trace.span_device_s,
                             "span_ops": run.trace.span_ops,
                             "device_events": run.trace.device_events}
+        summary["program"] = {
+            name: {k: s[k] for k in ("count", "device_s", "idle_s")}
+            for name, s in run.program.spans.items()}
     print(f"portbench: {workload} seed {seed}: {json.dumps(summary)}",
           file=log)
     return result

@@ -1,9 +1,10 @@
 """The traced run's reading of the program's own spans.
 
-While torch.profiler records, ``repro_torch``'s spans (``PREFIXES``: the
-lockstep tier's calls, the kernel ops, the host's waits on the device)
-enter ``record_function`` ranges, so they stand in the same chrome trace
-as the harness's ranges (``tracing.SPANS``) and the device's operations,
+While torch.profiler records, ``repro_torch``'s spans (those whose names
+begin with the family's prefixes; the bank's ``PREFIXES``: the lockstep
+tier's calls, the kernel ops, the host's waits on the device) enter
+``record_function`` ranges, so they stand in the same chrome trace as the
+driver's ranges (``tracing.SPANS`` by default) and the device's operations,
 on one clock. This reader nests all of those ranges (one host thread
 issues them) and gives, for each range name: how many there were, their
 time, their self time (less the ranges nested directly in them), the time
@@ -11,8 +12,8 @@ of each range name nested anywhere inside them, the device time of the
 operations launched inside them (by correlation id) and the device's idle
 time in gaps that begin inside them. Each idle gap is also put down to
 the innermost range open at its start (``host.other`` outside any). The
-harness does not hand its events here yet: ``harness._profile_window``
-would pass the events it reads to :func:`summarize`.
+harness hands a traced window's events here with its driver's ranges and
+its family's prefixes, and keeps the result on ``Run.program``.
 
 The program also keeps, while the profiler records, the count and host
 time of its spans by nesting path (``repro_torch.obs.trace.
@@ -49,11 +50,11 @@ class ProgramTrace:
         return seconds / n * 1e3 if n else None
 
 
-def _ranges(events, spans):
+def _ranges(events, spans, prefixes):
     keep = [e for e in events
             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
             and (e.get("name") in spans
-                 or e.get("name", "").startswith(PREFIXES))]
+                 or e.get("name", "").startswith(tuple(prefixes)))]
     keep.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
     starts = [e["ts"] for e in keep]
     ends = [e["ts"] + e.get("dur", 0) for e in keep]
@@ -67,9 +68,12 @@ def _ranges(events, spans):
     return starts, ends, names, parent
 
 
-def summarize(events: list, spans=tracing.SPANS) -> ProgramTrace:
-    """Reduce a chrome trace's events (times in microseconds)."""
-    starts, ends, names, parent = _ranges(events, spans)
+def summarize(events: list, spans=tracing.SPANS,
+              prefixes=PREFIXES) -> ProgramTrace:
+    """Reduce a chrome trace's events (times in microseconds): the ranges
+    named in ``spans`` and those whose names begin with one of
+    ``prefixes``."""
+    starts, ends, names, parent = _ranges(events, spans, prefixes)
 
     def innermost(t):
         i = bisect.bisect_right(starts, t) - 1

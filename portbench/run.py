@@ -3,10 +3,11 @@
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the root of a checkout. It makes the feature map and the input pool
-on the card from the seed, warms up (the program builds the kernels the
-cell's calls use into the checkout's ``build/`` on their first call, so
-only a checkout's first run compiles), measures for ``--seconds``, checks
+from the root of a checkout. It makes the cell's inputs (for the tenant
+bank: the feature map and the input pool) on the card from the seed, warms
+up (the program builds the kernels the cell's calls use into the
+checkout's ``build/`` on their first call, so only a checkout's first run
+compiles), measures for ``--seconds``, checks
 what the timed path produced against the plain reference, and prints one
 JSON line last on standard output: the cell's end-to-end metrics with
 ``--trace 0``, its per-layer metrics with ``--trace 1``. The numbers

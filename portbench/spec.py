@@ -3,22 +3,23 @@
 A configuration is ``configs/<config>.json`` (its ``file``), a traffic mix
 ``traffic/<traffic>.json``, a cell's limits ``limits/<workload>.json``, a
 metric ``metrics/<metric>.py`` (a ``read(run)`` that returns a number or
-None), a learner family's program side, plain reference and counts
+None), a family's seam and program side, plain reference and counts
 ``families/<family>.py``, ``reference/<family>.py`` and
 ``counts/<counts>.py``, and the client that drives the program
 ``drivers/<driver>.py``, where the mix's ``driver`` names it
-(``lockstep`` where it names none). Adding any of them is adding a file
-and an entry: no file here names them."""
+(``lockstep`` where it names none). A mix holds the family's fields and
+its driver's. Adding any of them is adding a file and an entry: no file
+here names them."""
 from __future__ import annotations
 
 import importlib.util
 import json
 import re
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-
-from portbench.generator import Traffic
+from typing import Any
 
 __all__ = ["Cell", "load_bench", "load_cell", "load_module", "HERE"]
 
@@ -37,13 +38,16 @@ def load_bench(root: Path) -> dict:
 
 
 def load_module(folder: Path, kind: str, name: str) -> ModuleType:
-    """``<folder>/<kind>/<name>.py`` as a module of its own."""
+    """``<folder>/<kind>/<name>.py`` as a module of its own, entered in
+    ``sys.modules`` while it runs (a dataclass in it looks its module up
+    there)."""
     path = Path(folder) / kind / f"{_name(name)}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no {kind} file {path}")
     mod_name = f"portbench_{kind}_" + re.sub(r"\W", "_", name)
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
     spec.loader.exec_module(mod)
     return mod
 
@@ -53,7 +57,7 @@ class Cell:
     name: str
     entry: dict          # the workload's entry in BENCHMARK.json
     cfg: dict            # the configuration as run
-    traffic: Traffic
+    traffic: Any         # the mix as the family reads it
     limits: dict         # number compared -> its limit
     family: ModuleType
     reference: ModuleType
@@ -84,24 +88,24 @@ def load_cell(root: Path, workload: str) -> Cell:
     cfg = json.loads((root / confs[0]["file"]).read_text())
     mix = json.loads(
         (folder / "traffic" / f"{_name(entry['traffic'])}.json").read_text())
+    fam = _name(cfg["family"])
+    family = load_module(folder, "families", fam)
     driver = load_module(folder, "drivers", mix.get("driver", "lockstep"))
-    unknown = (set(mix) - set(Traffic.__dataclass_fields__)
-               - {"driver", *driver.FIELDS})
+    unknown = set(mix) - set(family.FIELDS) - {"driver", *driver.FIELDS}
     if unknown:
         raise ValueError(f"traffic {entry['traffic']!r}: fields "
-                         f"{sorted(unknown)} are not its driver's")
+                         f"{sorted(unknown)} are not its family's or its "
+                         "driver's")
     limits = json.loads(
         (folder / "limits" / f"{_name(workload)}.json").read_text())
-    fam = _name(cfg["family"])
 
     def readers(kind):
         return {m["name"]: (m, load_module(folder, "metrics", m["name"]))
                 for m in bench[kind] if _applies(m, workload)}
 
     return Cell(
-        name=workload, entry=entry, cfg=cfg, traffic=Traffic.from_dict(mix),
-        limits=limits,
-        family=load_module(folder, "families", fam),
+        name=workload, entry=entry, cfg=cfg, traffic=family.traffic(mix),
+        limits=limits, family=family,
         reference=load_module(folder, "reference", fam),
         counts=load_module(folder, "counts", cfg["counts"]),
         metrics=readers("end_to_end"), per_layer=readers("per_layer"),

@@ -1,11 +1,12 @@
 """The traced run's reading of torch.profiler's device trace.
 
-The harness wraps its own calls in ``record_function`` ranges (``SPANS``).
-Each device operation (a kernel, a copy or a fill) is given to the range
-in which the host launched it, found through the launch's correlation id,
-so a metric follows the harness's calls and not a kernel's name. The
-device is busy where any operation runs; a gap between operations is put
-down to the range the host was in when it began."""
+The driver wraps its own calls in ``record_function`` ranges (its
+``SPANS``, these where it names none). Each device operation (a kernel, a
+copy or a fill) is given to the range in which the host launched it,
+found through the launch's correlation id, so a metric follows the
+driver's calls and not a kernel's name. The device is busy where any
+operation runs; a gap between operations is put down to the range the
+host was in when it began."""
 from __future__ import annotations
 
 import bisect
